@@ -1,0 +1,667 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port of SCOPE (``src/repro_torch``) on one NVIDIA GPU.
+
+Run from the repository root:  python3 chip_smoke.py
+
+Phases, each of which must pass (any failure exits non-zero with no result):
+
+  1. device      — the card's name and power limit, torch and CUDA versions
+  2. build       — compile the three CUDA kernels from ``src/repro_torch/csrc``
+                   (one nvcc per source, in parallel)
+  3. kernels     — each kernel against its plain PyTorch version on the card,
+                   at the main path's shapes and at edge shapes
+  4. timing      — each kernel, its plain version and one PyTorch library
+                   call computing the same function (device time: CUDA
+                   graph replays between CUDA events), beside the least time
+                   the card could take (its bound)
+  5. tiny        — ``ScopeEngine.serve`` on scope-tiny with seeded weights,
+                   once on the card (kernels) and once on the CPU (plain
+                   versions): equal token streams and decisions
+  6. full        — ``ScopeEngine.serve`` on scope-qwen3-4b at full width
+                   (36 layers, d 2560, random seeded weights, bf16): 8 test
+                   queries x 7 models, launch counts of every kernel read
+                   around the run
+
+It prints a ``kernels`` JSON line, the card's name and power limit, and as
+its last line ``{"ok": true, "device": {...}}``.  Details go to
+``build/chip_smoke.json``.  Needs one CUDA card; without one it exits with
+code 1.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+OUT_DIR = ROOT / "build"
+
+# H100 SXM peaks (NVIDIA data sheet, dense): device memory bandwidth and the
+# arithmetic rate for each operand type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+F32_TOL, BF16_TOL, TOPK_TOL = 2e-5, 3e-2, 1e-5
+N_QUERIES, K_ANCHORS, N_ANCHORS, NEW_TOKENS = 8, 5, 250, 12
+
+TPU_KERNELS = {
+    "topk_retrieval": "src/repro/kernels/topk_retrieval.py:68",
+    "flash_attention": "src/repro/kernels/flash_attention.py:76",
+    "decode_attention": "src/repro/kernels/decode_attention.py:88",
+}
+TO_PORT = [
+    {"name": "paged_decode_attention",
+     "replaces": "src/repro/kernels/decode_attention.py:185",
+     "path": "paged KV on the streaming refill runtime (not on this path)"},
+    {"name": "ssd_scan", "replaces": "src/repro/kernels/ssd_scan.py:80",
+     "path": "Mamba2 pool backbones (not on this path)"},
+]
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def phase(name: str):
+    print(f"== {name}", flush=True)
+    return time.perf_counter()
+
+
+def done(t0: float) -> None:
+    print(f"   ({time.perf_counter() - t0:.2f} s)", flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# timing and bounds
+# ---------------------------------------------------------------------------
+def eager_ms(torch, fn, iters: int, warmup: int = 3) -> float:
+    """Mean time per eager call of ``fn`` over ``iters`` back-to-back calls,
+    CUDA events around the run: what the eager main path pays per call,
+    host launch overhead included whenever it exceeds the device work."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int, replays: int = 5) -> float:
+    """Device time per call of ``fn``: ``iters`` calls captured in one CUDA
+    graph, replayed ``replays`` times between CUDA events, so no host
+    overhead sits between the launches.  Inputs stay warm in L2, as on the
+    main path, where the projections just wrote them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):           # warm-up off the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * iters)
+    del graph
+    return ms
+
+
+def times(torch, kernel, plain, library, iters: int):
+    """Device ms of the kernel, its plain version and the library call, and
+    the eager per-call ms of the kernel's wrapper."""
+    return dict(ms=device_ms(torch, kernel, iters),
+                plain_ms=device_ms(torch, plain, max(iters // 10, 5)),
+                library_ms=device_ms(torch, library, iters),
+                eager_ms=eager_ms(torch, kernel, iters))
+
+
+def bound(nbytes: float, flops: float, dtype: str):
+    """(ms, what bounds it): the larger of bytes over the memory rate and
+    operations over the peak rate for their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 3/4: kernels against plain versions, and their times
+# ---------------------------------------------------------------------------
+def kernel_checks(torch, L: int):
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import topk_retrieval as TK
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(*shape, dt=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dt)
+
+    errs = {}
+
+    def compare(name, got, want, tol, main=None):
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        finite = bool(torch.isfinite(got.float()).all())
+        print(f"   {name}: max_abs_err {err:.3g} (tol {tol})")
+        check(finite and err <= tol, f"{name}: err {err} > {tol} or non-finite")
+        if main:
+            errs[main] = err
+
+    S = L + NEW_TOKENS
+    # main-path shapes: 56 prompts of L tokens, 32/8 heads of 128, bf16
+    bf = torch.bfloat16
+    flash_cases = [
+        ("flash main", (56, 32, 8, L, L, 128, 128), {}, bf, "flash_attention"),
+        ("flash f32 tiny", (2, 4, 2, 17, 17, 32, 32), {}, torch.float32, None),
+        ("flash window+softcap", (2, 4, 1, 70, 70, 64, 64),
+         dict(window=16, softcap=30.0), torch.float32, None),
+        ("flash dv!=d hkv=4", (1, 8, 4, 40, 40, 64, 32), {}, torch.float32,
+         None),
+        ("flash sk!=sq non-causal", (2, 2, 2, 33, 50, 32, 32),
+         dict(causal=False), torch.float32, None),
+        ("flash fully masked rows", (1, 4, 2, 20, 20, 32, 32),
+         dict(q_offset=-5), torch.float32, None),
+        ("flash d=256 bf16 softcap", (1, 4, 1, 33, 33, 256, 256),
+         dict(softcap=50.0), bf, None),
+    ]
+    for name, (b, hq, hkv, sq, sk, d, dv), kw, dt, main in flash_cases:
+        q, k, v = rnd(b, hq, sq, d, dt=dt), rnd(b, hkv, sk, d, dt=dt), \
+            rnd(b, hkv, sk, dv, dt=dt)
+        got = FA.flash_attention_cuda(q, k, v, **kw)
+        compare(name, got, FA.flash_attention_plain(q, k, v, **kw),
+                F32_TOL if dt == torch.float32 else BF16_TOL, main)
+        if "masked" in name:
+            check(bool((got[:, :, :5] == 0).all()), "masked rows not 0")
+    x = rnd(3, 21, 4, 32)
+    kt, vt = rnd(3, 21, 2, 32).transpose(1, 2), rnd(3, 21, 2, 32).transpose(1, 2)
+    compare("flash strided views", FA.flash_attention_cuda(x.transpose(1, 2),
+                                                           kt, vt),
+            FA.flash_attention_plain(x.transpose(1, 2), kt, vt), F32_TOL)
+
+    decode_cases = [
+        ("decode main", (56, 32, 8, S, 128, 128), None, {}, bf,
+         "decode_attention"),
+        ("decode ragged f32", (3, 4, 2, 70, 32, 32), [10, 70, 33], {},
+         torch.float32, None),
+        ("decode window+softcap", (2, 8, 4, 96, 64, 64), [40, 96],
+         dict(window=16, softcap=50.0), torch.float32, None),
+        ("decode empty row g=16", (2, 16, 1, 40, 64, 32), [0, 40], {},
+         torch.float32, None),
+        ("decode d=256 bf16", (1, 4, 4, 300, 256, 256), [123], {}, bf, None),
+    ]
+    for name, (b, hq, hkv, S_, d, dv), lens, kw, dt, main in decode_cases:
+        q = rnd(b, hq, 1, d, dt=dt)
+        kc, vc = rnd(b, hkv, S_, d, dt=dt), rnd(b, hkv, S_, dv, dt=dt)
+        if lens is None:
+            lens_t = torch.randint(L + 1, S_ + 1, (b,), generator=gen,
+                                   device=dev, dtype=torch.int32)
+        else:
+            lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        compare(name, DA.decode_attention_cuda(q, kc, vc, lens_t, **kw),
+                DA.decode_attention_plain(q, kc, vc, lens_t, **kw),
+                F32_TOL if dt == torch.float32 else BF16_TOL, main)
+
+    for name, (nq, na, d, k), main in [
+            ("topk main", (N_QUERIES, N_ANCHORS, 32, K_ANCHORS),
+             "topk_retrieval"),
+            ("topk multi-chunk k=64", (37, 3001, 24, 64), None),
+            ("topk k=n", (1, 64, 32, 64), None)]:
+        qq, aa = rnd(nq, d), rnd(na, d)
+        s1, i1 = TK.topk_retrieval_cuda(qq, aa, k)
+        s2, i2 = TK.topk_retrieval_plain(qq, aa, k)
+        compare(name, s1, s2, TOPK_TOL, main)
+        check(torch.equal(i1, i2), f"{name}: indices differ")
+    # exact ties: one-hot rows give exactly equal similarities
+    aa = torch.zeros(300, 32, device=dev)
+    aa[torch.arange(300), torch.arange(300) % 32] = 1.0
+    qq = torch.zeros(7, 32, device=dev)
+    qq[torch.arange(7), torch.arange(7) * 3] = 1.0
+    qq[0, 5] = 1.0
+    s1, i1 = TK.topk_retrieval_cuda(qq, aa, 12, anchors_prenormalized=True)
+    s2, i2 = TK.topk_retrieval_plain(qq, aa, 12, anchors_prenormalized=True)
+    compare("topk exact ties", s1, s2, TOPK_TOL)
+    check(torch.equal(i1, i2), "topk ties: indices differ")
+    return errs
+
+
+def kernel_timings(torch, L: int, retriever, query_embs):
+    """Each kernel at its main-path shape: kernel, plain version, library."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import topk_retrieval as TK
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(1)
+    bf = torch.bfloat16
+    out = {}
+
+    # flash: the prefill of 56 prompts (b = 56, hq 32, hkv 8, s = L, d 128)
+    b, hq, hkv, s, d = 56, 32, 8, L, 128
+    q = torch.randn(b, hq, s, d, generator=gen, device=dev).to(bf)
+    k = torch.randn(b, hkv, s, d, generator=gen, device=dev).to(bf)
+    v = torch.randn(b, hkv, s, d, generator=gen, device=dev).to(bf)
+    pairs = s * (s + 1) // 2                         # causal (q, k) pairs
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())   # q, k, v, out
+    out["flash_attention"] = dict(
+        times(torch, lambda: FA.flash_attention_cuda(q, k, v),
+              lambda: FA.flash_attention_plain(q, k, v),
+              lambda: F.scaled_dot_product_attention(
+                  q, k, v, is_causal=True, enable_gqa=True), 50),
+        shape=f"q ({b},{hq},{s},{d}) kv ({b},{hkv},{s},{d}) bf16 causal")
+    out["flash_attention"]["bound_ms"], out["flash_attention"]["bound_by"] = \
+        bound(nbytes, 2 * 2 * d * pairs * b * hq, "bfloat16")
+
+    # decode: the last decode step (cache_len = L + 12 on every row)
+    S = L + NEW_TOKENS
+    qd = torch.randn(b, hq, 1, d, generator=gen, device=dev).to(bf)
+    kc = torch.randn(b, hkv, S, d, generator=gen, device=dev).to(bf)
+    vc = torch.randn(b, hkv, S, d, generator=gen, device=dev).to(bf)
+    lens = torch.full((b,), S, dtype=torch.int32, device=dev)
+    mask = (torch.arange(S, device=dev)[None] < lens[:, None])[:, None, None]
+    valid = int(lens.sum())
+    nbytes = 2 * (2 * qd.numel() + 2 * valid * hkv * d) + 4 * b
+    out["decode_attention"] = dict(
+        times(torch, lambda: DA.decode_attention_cuda(qd, kc, vc, lens),
+              lambda: DA.decode_attention_plain(qd, kc, vc, lens),
+              lambda: F.scaled_dot_product_attention(
+                  qd, kc, vc, attn_mask=mask, enable_gqa=True), 200),
+        shape=f"q ({b},{hq},1,{d}) cache ({b},{hkv},{S},{d}) bf16 "
+              f"cache_len {S}")
+    out["decode_attention"]["bound_ms"], out["decode_attention"]["bound_by"] = \
+        bound(nbytes, 2 * 2 * d * valid * hq, "bfloat16")
+
+    # top-k: the request's 8 query embeddings against the 250 SCOPE anchors
+    qe = torch.as_tensor(query_embs, device=dev)
+    an = retriever._anchors_norm
+    qn = qe / (torch.linalg.norm(qe, dim=-1, keepdim=True) + 1e-8)
+    nq, n, dd = qe.shape[0], an.shape[0], an.shape[1]
+    nbytes = 4 * (qe.numel() + an.numel()) + 8 * nq * K_ANCHORS
+    out["topk_retrieval"] = dict(
+        times(torch, lambda: TK.topk_retrieval_cuda(
+                  qe, an, K_ANCHORS, anchors_prenormalized=True),
+              lambda: TK.topk_retrieval_plain(
+                  qe, an, K_ANCHORS, anchors_prenormalized=True),
+              lambda: torch.topk(qn @ an.T, K_ANCHORS), 200),
+        shape=f"queries ({nq},{dd}) anchors ({n},{dd}) f32 k {K_ANCHORS}")
+    out["topk_retrieval"]["bound_ms"], out["topk_retrieval"]["bound_by"] = \
+        bound(nbytes, 2 * nq * n * dd, "float32")
+    for name, t in out.items():
+        print(f"   {name} [{t['shape']}]: kernel_ms {t['ms']:.5f} "
+              f"plain_ms {t['plain_ms']:.5f} library_ms {t['library_ms']:.5f}"
+              f" bound_ms {t['bound_ms']:.6f} ({t['bound_by']}); eager "
+              f"wrapper call {t['eager_ms']:.5f} ms")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 5/6: the main path through ScopeEngine.serve
+# ---------------------------------------------------------------------------
+def build_world():
+    from repro_torch.core.fingerprint import (FingerprintLibrary,
+                                              build_anchor_set)
+    from repro_torch.data.datasets import build_scope_data, stratified_anchors
+    from repro_torch.data.worldsim import World
+    world = World(seed=0)
+    data = build_scope_data(world, n_queries=600, seed=0)
+    anchors = build_anchor_set(
+        world, stratified_anchors(world, n=N_ANCHORS, seed=7))
+    lib = FingerprintLibrary(anchors)
+    for m in world.pool:
+        if m.seen:
+            lib.onboard(world, m.name, seed=3)
+    return world, data, anchors, lib
+
+
+def make_engine(cfg, params, anchors, lib, world, data, device):
+    from repro_torch.api import EngineConfig, ScopeEngine
+    from repro_torch.core.estimator import ReasoningEstimator
+    from repro_torch.core.retrieval import AnchorRetriever
+    return ScopeEngine.build(EngineConfig(
+        estimator=ReasoningEstimator(cfg, params,
+                                     max_new_tokens=NEW_TOKENS),
+        retriever=AnchorRetriever(anchors, device=device), library=lib,
+        models_meta={m: world.models[m] for m in data.models}))
+
+
+def tiny_card_vs_cpu(torch, world, data, anchors, lib, qids):
+    import numpy as np
+    from repro_torch.api import FixedAlphaPolicy, RouteRequest, SetBudgetPolicy
+    from repro_torch.configs.scope_estimator import TINY
+    from repro_torch.models.model import init_params
+
+    cpu_params = init_params(TINY, seed=0, device="cpu")
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return tuple(to(v, dev) for v in tree)
+        return tree.to(dev)
+
+    engines = {dev: make_engine(TINY, to(cpu_params, dev), anchors, lib,
+                                world, data, dev) for dev in ("cpu", "cuda")}
+    # token streams of the estimator on both devices, same prompts
+    st = engines["cpu"]._prepare(RouteRequest([data.queries[q]
+                                               for q in qids]), False)
+    streams = {}
+    for dev, eng in engines.items():
+        h = eng.estimator.dispatch_batch(st.prompts)
+        (g, d), = [tuple(x.cpu().numpy() for x in c) for c in h.chunks]
+        streams[dev] = (g, d)
+    g_cpu, d_cpu = streams["cpu"]
+    g_gpu, d_gpu = streams["cuda"]
+    if not np.array_equal(g_cpu, g_gpu):
+        bad = np.argwhere(g_cpu != g_gpu)[0]
+        raise SmokeFailure(f"tiny: token streams differ first at (row, step) "
+                           f"{tuple(bad)}: cpu {g_cpu[tuple(bad)]} "
+                           f"cuda {g_gpu[tuple(bad)]}")
+    dec_err = float(np.abs(d_cpu - d_gpu).max())
+    check(dec_err <= F32_TOL, f"tiny: decision logits differ by {dec_err}")
+    pool = engines["cpu"].predict(RouteRequest([data.queries[q]
+                                                for q in qids]),
+                                  use_cache=False)
+    budget = float(pool.cost_hat.min(axis=1).sum() * 1.5)
+    result = {"tokens_compared": int(g_cpu.size), "dec_max_abs_err": dec_err}
+    for policy in (FixedAlphaPolicy(0.7), SetBudgetPolicy(budget)):
+        reps = {dev: eng.serve(data, qids, policy)
+                for dev, eng in engines.items()}
+        a, b = reps["cpu"], reps["cuda"]
+        check([x.model for x in a.decisions] == [x.model for x in b.decisions],
+              f"tiny {policy.name}: decisions differ")
+        p_err = max(abs(x.p_hat - y.p_hat)
+                    for x, y in zip(a.decisions, b.decisions, strict=True))
+        check(p_err <= F32_TOL, f"tiny {policy.name}: p_hat differs {p_err}")
+        check((a.cache_hits, a.cache_misses) == (b.cache_hits, b.cache_misses),
+              f"tiny {policy.name}: cache accounting differs")
+        result[policy.name] = {"p_hat_max_abs_err": p_err,
+                               "models": [x.model for x in b.decisions]}
+        print(f"   {policy.name}: {len(b.decisions)} decisions equal, "
+              f"p_hat max_abs_err {p_err:.3g}")
+    print(f"   {g_cpu.size} tokens equal, decision logits max_abs_err "
+          f"{dec_err:.3g}")
+    return result
+
+
+def full_width(torch, world, data, anchors, lib, qids):
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.api import FixedAlphaPolicy, RouteRequest, SetBudgetPolicy
+    from repro_torch.configs.scope_estimator import CONFIG
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import sampler
+
+    t0 = time.perf_counter()
+    params = init_params(CONFIG, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"   init {n_params / 1e9:.3f} B params in "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(n_params > 3.9e9, f"scope-qwen3-4b has {n_params} params")
+
+    # warm-up on a throwaway engine (cuBLAS handles, library loads)
+    warm = make_engine(CONFIG, params, anchors, lib, world, data, "cuda")
+    warm.serve(data, qids[:1], FixedAlphaPolicy(0.7))
+    del warm
+
+    engine = make_engine(CONFIG, params, anchors, lib, world, data, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep_a = engine.serve(data, qids, FixedAlphaPolicy(0.7))     # cold cache
+    torch.cuda.synchronize()
+    t_cold = time.perf_counter() - t0
+    pool = engine.predict(RouteRequest([data.queries[q] for q in qids]))
+    budget = float(pool.cost_hat.min(axis=1).sum() * 1.5)
+    t0 = time.perf_counter()
+    rep_b = engine.serve(data, qids, SetBudgetPolicy(budget))   # warm cache
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    pairs = len(qids) * len(data.models)
+    L = CONFIG.num_layers
+    print(f"   launches {counts}")
+    # three retrievals: two serves and the budget probe; one prefill and
+    # 12 decode steps of all 36 layers, for the one cold serve
+    want = {"topk_retrieval": 3, "flash_attention": L,
+            "decode_attention": L * NEW_TOKENS}
+    check(counts == want, f"launch counts {counts} != {want}")
+    check(rep_a.cache_misses == pairs and rep_b.cache_hits == pairs,
+          f"cache accounting {rep_a.cache_misses}/{rep_b.cache_hits}")
+    for rep in (rep_a, rep_b):
+        check(len(rep.decisions) == len(qids), "one decision per query")
+        check(all(np.isfinite([d.p_hat, d.cost_hat]).all()
+                  and 0.0 <= d.p_hat <= 1.0 for d in rep.decisions),
+              "non-finite or out-of-range estimates")
+    check(np.isfinite(pool.p_hat).all() and pool.p_hat.shape == (
+        len(qids), len(data.models)), "pool predictions malformed")
+    check(rep_a.overhead_tokens > 0, "the cold serve decoded no tokens")
+
+    # prefill / decode split of the estimator on the same 56 prompts
+    st = engine._prepare(RouteRequest([data.queries[q] for q in qids]),
+                         False)
+    prompts = np.asarray(st.prompts, np.int32)
+    times = {"prefill_s": [], "decode_s": []}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = sampler.prefill_state(params, CONFIG, prompts,
+                                      max_new_tokens=NEW_TOKENS)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, gen, dec = sampler.decode_segment(params, CONFIG, state,
+                                             NEW_TOKENS)
+        g, d = sampler.to_host(gen, dec)
+        t2 = time.perf_counter()
+        times["prefill_s"].append(t1 - t0)
+        times["decode_s"].append(t2 - t1)
+    check(g.shape == (pairs, NEW_TOKENS) and np.isfinite(d).all(),
+          "generation output malformed")
+    busy = device_busy(torch, params, CONFIG, prompts)
+    prefill_s, decode_s = min(times["prefill_s"]), min(times["decode_s"])
+    step_ms = decode_s / NEW_TOKENS * 1e3
+    result = {
+        "config": CONFIG.name, "params": n_params, "pairs": pairs,
+        "prompt_len": int(prompts.shape[1]), "new_tokens": NEW_TOKENS,
+        "serve_cold_s": t_cold, "serve_warm_s": t_warm,
+        "prefill_s": prefill_s, "decode_s": decode_s,
+        "decode_step_ms": step_ms, "device_busy": busy,
+        "prefill_idle_share": (None if busy is None else
+                               1 - busy["prefill_ms"] / (prefill_s * 1e3)),
+        "decode_idle_share": (None if busy is None else
+                              1 - busy["decode_step_ms"] / step_ms),
+        "peak_mem_gib": peak_gib, "launches": counts,
+        "well_formed_frac": float(pool.well_formed.mean()),
+    }
+    if busy is not None:
+        print(f"   device busy: prefill {busy['prefill_ms']:.2f} ms (idle "
+              f"share {result['prefill_idle_share']:.3f}), decode step "
+              f"{busy['decode_step_ms']:.2f} ms (idle share "
+              f"{result['decode_idle_share']:.3f}); top ops {busy['top']}")
+    print(f"   serve cold {t_cold:.3f} s, warm {t_warm:.4f} s; prefill "
+          f"{result['prefill_s']:.4f} s, decode {result['decode_s']:.4f} s "
+          f"({result['decode_step_ms']:.2f} ms/step); peak "
+          f"{peak_gib:.2f} GiB")
+    return result
+
+
+def device_busy(torch, params, cfg, prompts, steps: int = 4):
+    """Device time of one prefill and of a decode step, summed over every
+    kernel the profiler saw (``torch.profiler``, CUDA activity), and the
+    top operators by device time.  Compared with the unprofiled wall time
+    it gives the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import sampler
+
+    def dev_us(events):
+        return sum(e.self_device_time_total for e in events)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state = sampler.prefill_state(params, cfg, prompts,
+                                      max_new_tokens=steps)
+        torch.cuda.synchronize()
+    prefill_us = dev_us(prof.key_averages())
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sampler.decode_segment(params, cfg, state, steps)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    total = dev_us(events)
+    if prefill_us <= 0 or total <= 0:       # no CUPTI device activity
+        print("   profiler recorded no device time: idle share not measured")
+        return None
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    return {"prefill_ms": prefill_us / 1e3,
+            "decode_step_ms": total / steps / 1e3,
+            "top": [(e.key[:48], round(e.self_device_time_total / total, 3))
+                    for e in top]}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, tuple):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {__file__}",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import build
+
+    report = {}
+    t = phase("device")
+    smi = nvidia_smi()
+    resolve_device()                          # cuda:0, TF32 off
+    print(f"   {smi}")
+    print(f"   torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    report["device"] = {"nvidia_smi": smi, "torch": torch.__version__,
+                        "cuda": torch.version.cuda}
+    done(t)
+
+    t = phase("build")
+    paths = build.build()
+    report["build_s"] = time.perf_counter() - t
+    for name, p in paths.items():
+        regs = [line.split("Used ")[1].split(",")[0]
+                for line in p.with_suffix(".log").read_text().splitlines()
+                if "Used " in line]
+        spills = [line.strip() for line in
+                  p.with_suffix(".log").read_text().splitlines()
+                  if "spill" in line and " 0 bytes spill" not in line]
+        print(f"   {name}: {len(regs)} instantiations, registers "
+              f"{sorted(set(regs))}, spills {spills or 'none'}")
+    done(t)
+
+    t = phase("world")
+    world, data, anchors, lib = build_world()
+    qids = [int(q) for q in data.test_qids[:N_QUERIES]]
+    from repro_torch.core.retrieval import AnchorRetriever
+    import numpy as np
+    from repro_torch.api import RouteRequest
+    from repro_torch.configs.scope_estimator import TINY
+    from repro_torch.models.model import init_params
+    probe = make_engine(TINY, init_params(TINY, seed=0, device="cpu"),
+                        anchors, lib, world, data, "cpu")
+    st = probe._prepare(RouteRequest([data.queries[q] for q in qids]), False)
+    L = len(st.prompts[0])
+    check(all(len(p) == L for p in st.prompts), "prompts are not constant")
+    print(f"   {len(qids)} queries x {len(data.models)} models, "
+          f"{N_ANCHORS} anchors, prompt length {L}")
+    done(t)
+
+    t = phase("kernels")
+    errs = kernel_checks(torch, L)
+    done(t)
+
+    t = phase("timing")
+    embs = np.stack([data.queries[q].embedding for q in qids]).astype(
+        np.float32)
+    timing = kernel_timings(torch, L, AnchorRetriever(anchors), embs)
+    done(t)
+
+    t = phase("tiny: card vs cpu")
+    report["tiny"] = tiny_card_vs_cpu(torch, world, data, anchors, lib, qids)
+    done(t)
+
+    t = phase("full width: scope-qwen3-4b")
+    report["full"] = full_width(torch, world, data, anchors, lib, qids)
+    done(t)
+
+    kernel_rows = []
+    for name in ("topk_retrieval", "flash_attention", "decode_attention"):
+        tm = timing[name]
+        kernel_rows.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": TPU_KERNELS[name],
+            "launches": report["full"]["launches"][name],
+            "max_abs_err": errs[name], "ms": tm["ms"],
+            "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
+            "bound_by": tm["bound_by"], "library_ms": tm["library_ms"]})
+    report["kernels"] = kernel_rows
+    report["timing"] = timing
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+
+    print(json.dumps({"kernels": kernel_rows, "to_port": TO_PORT}))
+    print(nvidia_smi())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

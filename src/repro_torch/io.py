@@ -1,0 +1,100 @@
+"""Weight bridge: JAX parameter pytrees and checkpoints -> port params.
+
+Two ways in, both numpy-only (no JAX import):
+
+  params_from_numpy(tree, cfg, device) — the JAX param pytree as numpy
+      arrays (``jax.tree.map(np.asarray, params)``: nested dicts, the
+      ``segments`` tuple, per-segment layer stacks on axis 0);
+  load_checkpoint(npz_path, cfg, device) — the flat ``k:<name>|i:<idx>``
+      archive written by ``repro.training.checkpoint.save``.
+
+The port keeps the JAX layout leaf for leaf (weights stored (in, out) and
+applied as ``x @ W``), so the bridge is a copy with dtypes preserved.
+bfloat16 leaves arrive as ml_dtypes arrays (or, from an ``.npz``, as raw
+2-byte records) and are reinterpreted bit for bit.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.common import dtype_of
+
+_SEP = "|"
+
+
+def _to_tensor(arr: np.ndarray, device) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16" or (arr.dtype.kind == "V"
+                                        and arr.dtype.itemsize == 2):
+        bits = torch.tensor(np.ascontiguousarray(arr).view(np.uint16))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.tensor(arr, device=device)
+
+
+def _check(params: Dict, cfg: ModelConfig) -> None:
+    """The bridged tree must describe ``cfg``'s dense tied network."""
+    if "lm_head" in params or not cfg.tie_embeddings:
+        raise NotImplementedError("untied LM heads are not ported yet")
+    want = (cfg.vocab_size, cfg.d_model)
+    if tuple(params["embed"].shape) != want:
+        raise ValueError(f"embed {tuple(params['embed'].shape)} != {want} "
+                         f"for {cfg.name}")
+    dt = dtype_of(cfg.dtype)
+    if params["embed"].dtype != dt:
+        raise ValueError(f"embed dtype {params['embed'].dtype} != {dt}")
+
+
+def params_from_numpy(tree: Any, cfg: ModelConfig,
+                      device: DeviceLike = None) -> Dict:
+    """Convert a numpy-leaf JAX param pytree to the port's params dict."""
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (tuple, list)):
+            return tuple(conv(v) for v in node)
+        return _to_tensor(node, dev)
+
+    params = conv(tree)
+    _check(params, cfg)
+    return params
+
+
+def _unflatten(flat: Dict[str, np.ndarray]) -> Dict:
+    """``k:a|i:0|k:b`` keyed leaves -> nested dicts (``i:`` levels become
+    tuples), the inverse of the JAX checkpoint's key-path flattening."""
+    root: Dict = {}
+    for key, arr in flat.items():
+        node = root
+        parts = key.split(_SEP)
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = arr
+
+    def build(node):
+        if not isinstance(node, dict):
+            return node
+        if all(k.startswith("i:") for k in node):
+            return tuple(build(node[k])
+                         for k in sorted(node, key=lambda s: int(s[2:])))
+        if not all(k.startswith("k:") for k in node):
+            raise ValueError(f"unexpected checkpoint keys {sorted(node)}")
+        return {k[2:]: build(v) for k, v in node.items()}
+
+    return build(root)
+
+
+def load_checkpoint(npz_path: str, cfg: ModelConfig,
+                    device: DeviceLike = None) -> Dict:
+    """Read a ``training/checkpoint.save`` archive into port params."""
+    if not npz_path.endswith(".npz"):
+        npz_path = npz_path + ".npz"
+    with np.load(npz_path, allow_pickle=False) as data:
+        flat = {k: data[k] for k in data.files}
+    return params_from_numpy(_unflatten(flat), cfg, device)

@@ -1,0 +1,139 @@
+"""Decode attention: the CUDA kernel ``csrc/decode_attention.cu`` and its
+plain PyTorch version.
+
+Replaces ``repro/kernels/decode_attention.py::decode_attention`` (Pallas
+TPU).  One token per row attends a dense (b, hkv, S, d) cache up to the row's
+valid length.  On the H100 this is bound by reading the valid K/V once; as
+on the TPU, one block per (row, kv-head) serves all grouped q-heads so each
+head's K/V stream once, and it stops at the row's length.  See the source
+for the design.
+
+``decode_attention`` dispatches on the tensor's device: a CPU tensor goes to
+``decode_attention_plain``, a CUDA tensor launches the kernel (or raises).
+``launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Union
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+HEAD_DIMS = (32, 64, 128, 256)
+MAX_GROUP = 16              # grouped q-heads one block serves
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+launches = 0
+
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+             + [ctypes.c_longlong] * 8
+             + [ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+
+CacheLen = Union[int, torch.Tensor]
+
+
+def _lengths(cache_len: CacheLen, b: int, device) -> torch.Tensor:
+    """Scalar or (b,) valid lengths -> (b,) int32 on ``device``."""
+    lens = torch.as_tensor(cache_len, dtype=torch.int32, device=device)
+    return lens.reshape(-1).expand(b) if lens.numel() == 1 else lens
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len: CacheLen, *,
+                     window: int = 0, softcap: float = 0.0,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """q: (b, hq, 1, d); caches: (b, hkv, S, d[v]); cache_len: scalar or
+    (b,) — valid entries INCLUDING the current token.  -> (b, hq, 1, dv)."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, cache_len,
+                                      window=window, softcap=softcap,
+                                      scale=scale)
+    return decode_attention_cuda(q, k_cache, v_cache, cache_len,
+                                 window=window, softcap=softcap, scale=scale)
+
+
+def decode_attention_plain(q, k_cache, v_cache, cache_len: CacheLen, *,
+                           window: int = 0, softcap: float = 0.0,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """The XLA decode body of ``repro/kernels/ops.py::decode_attention``,
+    except that a row with no valid key (cache_len 0) gives 0, as the TPU
+    kernel does, where the XLA body averages v."""
+    b, hq, _, d = q.shape
+    hkv, S = k_cache.shape[1], k_cache.shape[2]
+    dv = v_cache.shape[-1]
+    g = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    lens = _lengths(cache_len, b, q.device)
+
+    qf = q.float().reshape(b, hkv, g, d) * scale
+    s = torch.einsum("bhgd,bhkd->bhgk", qf, k_cache.float())
+    if softcap > 0.0:
+        s = ref.softcap_fn(s, softcap)
+    kpos = torch.arange(S, device=q.device)[None]          # (1, S)
+    mask = kpos < lens[:, None]
+    if window > 0:
+        mask &= kpos >= (lens[:, None] - window)
+    s = torch.where(mask[:, None, None], s, ref.NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float())
+    out = out.masked_fill(~mask.any(dim=-1)[:, None, None, None], 0.0)
+    return out.reshape(b, hq, 1, dv).to(q.dtype)
+
+
+def check_args(q, k_cache, v_cache, lens: torch.Tensor) -> None:
+    """Raise ``ValueError`` on any input the kernel does not take."""
+    if q.dim() != 4 or k_cache.dim() != 4 or v_cache.dim() != 4:
+        raise ValueError("q and caches must be 4-D (b, h, s, d)")
+    b, hq, one, d = q.shape
+    _, hkv, S, _ = k_cache.shape
+    if one != 1:
+        raise ValueError(f"decode takes one query token, got {one}")
+    if q.dtype not in DTYPES or k_cache.dtype != q.dtype \
+            or v_cache.dtype != q.dtype:
+        raise ValueError(f"dtypes {q.dtype}/{k_cache.dtype}/{v_cache.dtype}:"
+                         " the kernel takes float32 or bfloat16, all the same")
+    if k_cache.shape[0] != b or tuple(v_cache.shape[:3]) != (b, hkv, S) \
+            or k_cache.shape[3] != d:
+        raise ValueError(f"shape mismatch q {tuple(q.shape)} k "
+                         f"{tuple(k_cache.shape)} v {tuple(v_cache.shape)}")
+    if hkv == 0 or hq % hkv or hq // hkv > MAX_GROUP:
+        raise ValueError(f"hq {hq} / hkv {hkv}: need a group of 1..{MAX_GROUP}")
+    if d not in HEAD_DIMS or v_cache.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"head dims d={d}, dv={v_cache.shape[3]}: the "
+                         f"kernel takes {HEAD_DIMS}")
+    if b == 0 or S == 0:
+        raise ValueError("empty batch or cache")
+    if lens.shape != (b,) or lens.dtype != torch.int32:
+        raise ValueError(f"cache_len must be a scalar or ({b},) int32")
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.stride(3) != 1:
+            raise ValueError(f"{name} must be contiguous in its last dim")
+
+
+def decode_attention_cuda(q, k_cache, v_cache, cache_len: CacheLen, *,
+                          window: int = 0, softcap: float = 0.0,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    global launches
+    dev = q.device
+    if dev.type != "cuda" or k_cache.device != dev or v_cache.device != dev:
+        raise ValueError(f"decode_attention kernel needs CUDA tensors on one "
+                         f"device, got {dev}/{k_cache.device}/{v_cache.device}")
+    b, hq, _, d = q.shape
+    lens = _lengths(cache_len, b, dev).contiguous()
+    check_args(q, k_cache, v_cache, lens)
+    hkv, S, dv = k_cache.shape[1], k_cache.shape[2], v_cache.shape[3]
+    scale = scale if scale is not None else d ** -0.5
+    out = torch.empty((b, hq, 1, dv), dtype=q.dtype, device=dev)
+    fn = build.load("decode_attention", "repro_decode_attention", _ARGTYPES)
+    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+             lens.data_ptr(), out.data_ptr(), DTYPES[q.dtype], b, hq, hkv, S,
+             d, dv, q.stride(0), q.stride(1),
+             k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
+             v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
+             int(window), float(softcap), float(scale),
+             torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "decode_attention")
+    launches += 1
+    return out

@@ -1,0 +1,109 @@
+"""Flash attention: the CUDA kernel ``csrc/flash_attention.cu`` and its plain
+PyTorch version.
+
+Replaces ``repro/kernels/flash_attention.py::flash_attention`` (Pallas TPU).
+On the H100 the prefill shape is bound by moving q/k/v/o once; the kernel
+streams each KV head's tiles through shared memory with an online softmax in
+registers and reads strided q/k/v views directly, so the model passes its
+transposed projections without a copy.  See the source for the design.
+
+``flash_attention`` dispatches on the tensor's device: a CPU tensor goes to
+``flash_attention_plain``, a CUDA tensor launches the kernel (or raises on
+what the kernel does not take).  ``launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+HEAD_DIMS = (32, 64, 128, 256)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+launches = 0
+
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+             + [ctypes.c_longlong] * 9
+             + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                ctypes.c_int, ctypes.c_void_p])
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, scale: Optional[float] = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """q: (b, hq, sq, d); k: (b, hkv, sk, d); v: (b, hkv, sk, dv)
+    -> (b, hq, sq, dv) in q's dtype, math in f32."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     softcap=softcap, scale=scale,
+                                     q_offset=q_offset)
+    return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                softcap=softcap, scale=scale,
+                                q_offset=q_offset)
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                          softcap: float = 0.0, scale: Optional[float] = None,
+                          q_offset: int = 0) -> torch.Tensor:
+    """``ref.attention``, except that a query row with no valid key gives 0
+    (the TPU kernel's ``l == 0`` guard) where the oracle averages v."""
+    out = ref.attention(q, k, v, causal=causal, window=window,
+                        softcap=softcap, scale=scale, q_offset=q_offset)
+    mask = ref.attention_mask(q.shape[2], k.shape[2], causal=causal,
+                              window=window, q_offset=q_offset,
+                              device=q.device)
+    return out.masked_fill(~mask.any(dim=-1)[:, None], 0.0)
+
+
+def check_args(q, k, v) -> None:
+    """Raise ``ValueError`` on any input the kernel does not take."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be 4-D (b, h, s, d)")
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: the kernel "
+                         "takes float32 or bfloat16, all the same")
+    if k.shape[0] != b or v.shape[0] != b or v.shape[1] != hkv \
+            or v.shape[2] != sk or k.shape[3] != d:
+        raise ValueError(f"shape mismatch q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)}")
+    if hkv == 0 or hq % hkv:
+        raise ValueError(f"hq {hq} is not a multiple of hkv {hkv}")
+    if d not in HEAD_DIMS or v.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"head dims d={d}, dv={v.shape[3]}: the kernel "
+                         f"takes {HEAD_DIMS}")
+    if b == 0 or sq == 0 or sk == 0:
+        raise ValueError("empty batch or sequence")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1:
+            raise ValueError(f"{name} must be contiguous in its last dim")
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
+                         softcap: float = 0.0, scale: Optional[float] = None,
+                         q_offset: int = 0) -> torch.Tensor:
+    global launches
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"flash_attention kernel needs CUDA tensors on one "
+                         f"device, got {q.device}/{k.device}/{v.device}")
+    check_args(q, k, v)
+    b, hq, sq, d = q.shape
+    hkv, sk, dv = k.shape[1], k.shape[2], v.shape[3]
+    scale = scale if scale is not None else d ** -0.5
+    out = torch.empty((b, hq, sq, dv), dtype=q.dtype, device=q.device)
+    fn = build.load("flash_attention", "repro_flash_attention", _ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             DTYPES[q.dtype], b, hq, hkv, sq, sk, d, dv,
+             q.stride(0), q.stride(1), q.stride(2),
+             k.stride(0), k.stride(1), k.stride(2),
+             v.stride(0), v.stride(1), v.stride(2),
+             int(causal), int(window), float(softcap), float(scale),
+             int(q_offset), torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "flash_attention")
+    launches += 1
+    return out

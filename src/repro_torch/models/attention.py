@@ -1,0 +1,77 @@
+"""GQA attention block (RoPE, qk-norm, full causal window).
+
+Activations are (batch, seq, d_model); heads are split internally.  The
+full-sequence path (prefill) returns the layer's K/V; the single-token
+decode path writes the new K/V into the cache at each row's own slot.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models import rope as rope_mod
+from repro_torch.models.common import dense_init, init_rmsnorm, rmsnorm
+
+
+def init_gqa(generator: torch.Generator, cfg: ModelConfig, *, device,
+             dtype) -> Dict:
+    d, hq, hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.resolved_head_dim
+    p = {name: dense_init(shape, generator, device=device, dtype=dtype)
+         for name, shape in (("wq", (d, hq * hd)), ("wk", (d, hkv * hd)),
+                             ("wv", (d, hkv * hd)), ("wo", (hq * hd, d)))}
+    if cfg.qk_norm:
+        p["q_norm"] = init_rmsnorm(hd, device=device, dtype=dtype)
+        p["k_norm"] = init_rmsnorm(hd, device=device, dtype=dtype)
+    return p
+
+
+def _gqa_qkv(p, cfg: ModelConfig, x, cos, sin):
+    b, s, _ = x.shape
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = (x @ p["wq"]).reshape(b, s, hq, hd)
+    k = (x @ p["wk"]).reshape(b, s, hkv, hd)
+    v = (x @ p["wv"]).reshape(b, s, hkv, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.rmsnorm_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.rmsnorm_eps)
+    q = rope_mod.apply_rope(q, cos, sin)
+    k = rope_mod.apply_rope(k, cos, sin)
+    return q, k, v
+
+
+def gqa_full(p, cfg: ModelConfig, x, cos, sin
+             ) -> Tuple[torch.Tensor, Dict]:
+    """Full-sequence causal GQA.  Returns (y, {"k", "v"}) with the cache
+    slice as (b, hkv, s, hd) views (head-major, not copied)."""
+    b, s, _ = x.shape
+    q, k, v = _gqa_qkv(p, cfg, x, cos, sin)
+    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    out = ops.flash_attention(qh, kh, vh, causal=True)
+    y = out.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.resolved_head_dim)
+    return y @ p["wo"], {"k": kh, "v": vh}
+
+
+def gqa_decode(p, cfg: ModelConfig, x, cos, sin, cache: Dict,
+               pos: torch.Tensor) -> torch.Tensor:
+    """Single-token GQA decode.
+
+    x: (b, 1, d); cache["k"/"v"]: (b, hkv, S, hd); pos: (b,) — per-row count
+    of tokens already cached, so row i's new K/V land at slot ``pos[i]`` and
+    it attends ``pos[i] + 1`` entries.
+
+    The cache is updated IN PLACE (the JAX package builds a new array with
+    ``.at[rows, :, slot].set``); callers that need the old cache copy it.
+    """
+    b = x.shape[0]
+    q, k, v = _gqa_qkv(p, cfg, x, cos, sin)
+    rows = torch.arange(b, device=x.device)
+    cache["k"][rows, :, pos] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][rows, :, pos] = v[:, 0].to(cache["v"].dtype)
+    out = ops.decode_attention(q.transpose(1, 2), cache["k"], cache["v"],
+                               pos + 1)
+    y = out.transpose(1, 2).reshape(b, 1, cfg.num_heads * cfg.resolved_head_dim)
+    return y @ p["wo"]

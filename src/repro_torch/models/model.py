@@ -1,0 +1,105 @@
+"""Top-level model API of the dense estimator backbone.
+
+  init_params(cfg, *, seed, device)          -> params dict
+  prefill(params, cfg, batch)                -> (logits (b, s, V), caches)
+  decode_step(params, cfg, token, caches, pos) -> (logits (b, 1, V), caches)
+  init_cache(cfg, batch_size, max_len, device) -> zeroed caches
+
+The params dict has the JAX pytree's layout: ``embed`` (V, d),
+``final_norm.scale`` (d,), and ``segments``, a tuple with one dict per
+segment of (L, ...) stacked layer leaves.  Caches are a tuple with one dict
+per segment, ``{"<j>": {"k", "v"}}`` of shape (L, b, hkv, S, hd).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import rope as rope_mod
+from repro_torch.models import transformer as tf
+from repro_torch.models.common import (
+    dtype_of, embed_init, init_rmsnorm, rmsnorm)
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0,
+                device: DeviceLike = None) -> Dict:
+    """Random weights from a seeded ``torch.Generator`` on ``device``, with
+    the JAX initializers' distributions and dtypes: every leaf of rank >= 2
+    (embedding, projections, stacked norm scales) in ``cfg.dtype``, the
+    final norm scale in float32.  Untied heads are not supported."""
+    if not cfg.tie_embeddings:
+        raise NotImplementedError("untied LM heads are not ported yet")
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = dtype_of(cfg.dtype)
+    segments = tuple(
+        {str(j): tf.stack_trees([tf.init_block(gen, cfg, device=dev, dtype=dt)
+                                 for _ in range(count)])
+         for j, _ in enumerate(unit)}
+        for unit, count in tf.build_plan(cfg))
+    return {"embed": embed_init((cfg.vocab_size, cfg.d_model), gen,
+                                device=dev, dtype=dt),
+            "final_norm": init_rmsnorm(cfg.d_model, device=dev),
+            "segments": segments}
+
+
+def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embed"][tokens]
+
+
+def _logits(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    """Tied head: rmsnorm(h) @ embed.T, in the model dtype."""
+    h = rmsnorm(params["final_norm"], h, cfg.rmsnorm_eps)
+    return h @ params["embed"].T
+
+
+def prefill(params, cfg: ModelConfig, batch: Dict):
+    """Full causal forward over ``batch["tokens"]`` (b, s); returns the
+    logits and per-layer caches sized to the prompt (seq axis = s)."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    h = _embed(params, cfg, tokens)
+    pos = torch.arange(s, device=tokens.device).expand(b, s)
+    cos, sin = rope_mod.rope_cos_sin(pos, cfg.resolved_head_dim,
+                                     cfg.rope_theta)
+    caches = []
+    for seg, (unit, count) in zip(params["segments"], tf.build_plan(cfg),
+                                  strict=True):
+        h, cache = tf.segment_full(seg, cfg, unit, count, h, cos, sin)
+        caches.append(cache)
+    return _logits(params, cfg, h), tuple(caches)
+
+
+def decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches,
+                pos: torch.Tensor):
+    """token: (b, 1) int; pos: (b,) int — per-row count of tokens already
+    cached (row i's new token lands at absolute position pos[i]).
+
+    Returns (logits (b, 1, V), caches).  The caches are written in place
+    and returned as the same objects (JAX returns new arrays)."""
+    b = token.shape[0]
+    pos = pos.reshape(-1).expand(b)
+    h = params["embed"][token]
+    cos, sin = rope_mod.rope_cos_sin(pos[:, None], cfg.resolved_head_dim,
+                                     cfg.rope_theta)
+    for seg, cache, (unit, count) in zip(params["segments"], caches,
+                                         tf.build_plan(cfg), strict=True):
+        h = tf.segment_decode(seg, cfg, unit, count, h, cos, sin, cache, pos)
+    return _logits(params, cfg, h), caches
+
+
+def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
+               device: DeviceLike = None):
+    """Zeroed caches shaped for ``decode_step``."""
+    dev = resolve_device(device)
+    dt = dtype_of(cfg.dtype)
+    hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    return tuple(
+        {str(j): {name: torch.zeros((count, batch_size, hkv, max_len, hd),
+                                    dtype=dt, device=dev)
+                  for name in ("k", "v")}
+         for j, _ in enumerate(unit)}
+        for unit, count in tf.build_plan(cfg))

@@ -1,0 +1,97 @@
+"""Decoder stack: the ``attn`` block kinds and a loop over stacked layers.
+
+As in the JAX package, layers are grouped into homogeneous segments whose
+parameters are stacked on a leading layer axis; where JAX scans the layer
+body, the port runs a Python loop over the stack (layer ``i`` reads the
+views ``leaf[i]``).
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models.common import init_rmsnorm, rmsnorm
+
+
+def build_plan(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
+    """[(unit_kinds, count), ...]: consecutive identical kinds grouped."""
+    kinds = cfg.layer_kinds()
+    plan = []
+    i = 0
+    while i < len(kinds):
+        j = i
+        while j < len(kinds) and kinds[j] == kinds[i]:
+            j += 1
+        plan.append(((kinds[i],), j - i))
+        i = j
+    return plan
+
+
+def init_block(generator: torch.Generator, cfg: ModelConfig, *, device,
+               dtype) -> Dict:
+    d = cfg.d_model
+    return {"attn_norm": init_rmsnorm(d, device=device, dtype=dtype),
+            "mlp_norm": init_rmsnorm(d, device=device, dtype=dtype),
+            "attn": attn_mod.init_gqa(generator, cfg, device=device,
+                                      dtype=dtype),
+            "mlp": mlp_mod.init_mlp(generator, cfg, device=device,
+                                    dtype=dtype)}
+
+
+def stack_trees(trees: List[Dict]) -> Dict:
+    """Per-layer dicts -> one dict of (L, ...) stacked leaves."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: stack_trees([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def layer_view(tree: Dict, i: int) -> Dict:
+    """Layer ``i`` of a stacked dict, as views (no copy)."""
+    if isinstance(tree, dict):
+        return {k: layer_view(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def block_full(p: Dict, cfg: ModelConfig, h: torch.Tensor, cos, sin
+               ) -> Tuple[torch.Tensor, Dict]:
+    x = rmsnorm(p["attn_norm"], h, cfg.rmsnorm_eps)
+    y, kv = attn_mod.gqa_full(p["attn"], cfg, x, cos, sin)
+    h = h + y
+    x2 = rmsnorm(p["mlp_norm"], h, cfg.rmsnorm_eps)
+    return h + mlp_mod.mlp_forward(p["mlp"], cfg, x2), kv
+
+
+def block_decode(p: Dict, cfg: ModelConfig, h: torch.Tensor, cos, sin,
+                 cache: Dict, pos: torch.Tensor) -> torch.Tensor:
+    """Writes the new K/V into ``cache`` in place."""
+    x = rmsnorm(p["attn_norm"], h, cfg.rmsnorm_eps)
+    h = h + attn_mod.gqa_decode(p["attn"], cfg, x, cos, sin, cache, pos)
+    x2 = rmsnorm(p["mlp_norm"], h, cfg.rmsnorm_eps)
+    return h + mlp_mod.mlp_forward(p["mlp"], cfg, x2)
+
+
+def segment_full(seg: Dict, cfg: ModelConfig, unit: Tuple[str, ...],
+                 count: int, h: torch.Tensor, cos, sin):
+    """Run ``count`` stacked units.  Returns (h, {"<j>": {"k", "v"}}) with
+    each cache leaf stacked to (count, b, hkv, s, hd)."""
+    per_layer = {str(j): [] for j in range(len(unit))}
+    for i in range(count):
+        for j in range(len(unit)):
+            h, kv = block_full(layer_view(seg[str(j)], i), cfg, h, cos, sin)
+            per_layer[str(j)].append(kv)
+    return h, {j: stack_trees(kvs) for j, kvs in per_layer.items()}
+
+
+def segment_decode(seg: Dict, cfg: ModelConfig, unit: Tuple[str, ...],
+                   count: int, h: torch.Tensor, cos, sin, caches: Dict,
+                   pos: torch.Tensor) -> torch.Tensor:
+    for i in range(count):
+        for j in range(len(unit)):
+            h = block_decode(layer_view(seg[str(j)], i), cfg, h, cos, sin,
+                             layer_view(caches[str(j)], i), pos)
+    return h

@@ -1,0 +1,78 @@
+"""The port stands alone: no JAX, nothing of ``repro``, and entry points
+that run on the card unless the caller asks for the CPU."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch import device as device_mod
+from repro_torch.configs.scope_estimator import TINY
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_no_jax_or_repro_imports_in_the_port():
+    files = sorted(PKG.rglob("*.py"))
+    assert len(files) > 20
+    bad = [(f.relative_to(ROOT), m) for f in files
+           for m in _imported_modules(f)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro", "flax")]
+    assert not bad, bad
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, repro_torch, repro_torch.api, repro_torch.io, "
+            "repro_torch.kernels, repro_torch.serving.sampler\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_resolve_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        device_mod.resolve_device()
+    assert device_mod.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Without CUDA, every entry point called without ``device`` raises
+    instead of sliding onto the plain versions."""
+    from repro_torch import io
+    from repro_torch.core.fingerprint import AnchorSet
+    from repro_torch.core.retrieval import AnchorRetriever
+    from repro_torch.models import model as M
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        M.init_params(TINY)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        M.init_cache(TINY, 1, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        AnchorRetriever(AnchorSet([], torch.zeros(3, 4).numpy()))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        io.params_from_numpy({}, TINY)
+
+
+def test_resolve_device_turns_tf32_off(monkeypatch):
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    assert device_mod.resolve_device("cuda:0").type == "cuda"
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32

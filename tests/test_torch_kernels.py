@@ -1,0 +1,319 @@
+"""The port's plain kernel versions against the JAX oracles and the Pallas
+kernels (interpret mode), on the same numpy-seeded inputs.
+
+The CUDA kernels themselves run only on the card: ``chip_smoke.py`` holds
+each one against these plain versions there.  Here the plain versions are
+held to JAX, and the wrappers' argument checks and device dispatch are
+exercised on the CPU.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.decode_attention import decode_attention as da_pallas
+from repro.kernels.flash_attention import flash_attention as fa_pallas
+from repro.kernels.topk_retrieval import topk_retrieval as topk_pallas
+from repro_torch.kernels import build, launch_counts, ops
+from repro_torch.kernels import decode_attention as DA
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import topk_retrieval as TK
+
+F32_TOL = 2e-5
+BF16_TOL = 3e-2
+TOPK_TOL = 1e-5
+
+
+def _normal(seed, *shape):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+def _qkv(seed, b, hq, hkv, sq, sk, d, dv=None):
+    return (_normal(seed, b, hq, sq, d), _normal(seed + 1, b, hkv, sk, d),
+            _normal(seed + 2, b, hkv, sk, dv or d))
+
+
+def _both(*arrays, dtype=torch.float32):
+    """numpy arrays -> (jax arrays, torch CPU tensors) of the same values."""
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    return ([jnp.asarray(a, jdt) for a in arrays],
+            [torch.tensor(a).to(dtype) for a in arrays])
+
+
+# b, hq, hkv, sq, sk, d, causal, window, softcap  (tests/test_kernels.py)
+ATTN_CASES = [
+    (1, 2, 2, 128, 128, 32, True, 0, 0.0),
+    (2, 4, 2, 256, 256, 64, True, 0, 0.0),
+    (2, 4, 1, 192, 192, 64, True, 64, 0.0),
+    (1, 8, 4, 128, 128, 32, True, 0, 50.0),
+    (2, 2, 2, 96, 160, 32, False, 0, 0.0),
+    (1, 4, 4, 256, 256, 64, True, 100, 30.0),
+]
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_flash_plain_matches_jax_ref(case):
+    b, hq, hkv, sq, sk, d, causal, window, cap = case
+    (jq, jk, jv), (tq, tk, tv) = _both(*_qkv(0, b, hq, hkv, sq, sk, d))
+    want = jref.attention(jq, jk, jv, causal=causal, window=window,
+                          softcap=cap)
+    got = ops.flash_attention(tq, tk, tv, causal=causal, window=window,
+                              softcap=cap)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_TOL,
+                               rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("case", [ATTN_CASES[0], ATTN_CASES[3],
+                                  ATTN_CASES[4]])
+def test_flash_plain_matches_pallas_interpret(case):
+    b, hq, hkv, sq, sk, d, causal, window, cap = case
+    (jq, jk, jv), (tq, tk, tv) = _both(*_qkv(1, b, hq, hkv, sq, sk, d))
+    want = fa_pallas(jq, jk, jv, causal=causal, window=window, softcap=cap,
+                     block_q=64, block_k=64, interpret=True)
+    got = FA.flash_attention_plain(tq, tk, tv, causal=causal, window=window,
+                                   softcap=cap)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_TOL,
+                               rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_plain_dtypes(dtype):
+    (jq, jk, jv), (tq, tk, tv) = _both(*_qkv(2, 2, 4, 2, 64, 64, 64),
+                                       dtype=dtype)
+    want = jref.attention(jq, jk, jv, causal=True)
+    got = ops.flash_attention(tq, tk, tv, causal=True)
+    assert got.dtype == dtype
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=tol,
+                               rtol=tol)
+
+
+def test_flash_plain_separate_v_dim_and_offset():
+    (jq, jk, jv), (tq, tk, tv) = _both(*_qkv(3, 2, 4, 2, 24, 40, 48, dv=32))
+    want = jref.attention(jq, jk, jv, causal=True, q_offset=16)
+    got = ops.flash_attention(tq, tk, tv, causal=True, q_offset=16)
+    assert tuple(got.shape) == (2, 4, 24, 32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_TOL)
+
+
+@pytest.mark.parametrize("hkv", [1, 2])
+def test_flash_gqa_head_mapping(hkv):
+    """q-head h reads kv-head h // group (repeat_interleave, not repeat)."""
+    hq = 4
+    q, k, v = _qkv(4, 1, hq, hkv, 20, 20, 32)
+    (jq, jk, jv), (tq, tk, tv) = _both(q, k, v)
+    got = ops.flash_attention(tq, tk, tv, causal=True)
+    group = hq // hkv
+    for h in range(hq):
+        one = tref.attention(tq[:, h:h + 1], tk[:, h // group:h // group + 1],
+                             tv[:, h // group:h // group + 1], causal=True)
+        np.testing.assert_allclose(got[:, h:h + 1].numpy(), one.numpy(),
+                                   atol=F32_TOL)
+    want = jref.attention(jq, jk, jv, causal=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_TOL)
+
+
+def test_flash_fully_masked_row_gives_zero_like_pallas():
+    """Rows with no valid key (causal, q_offset < 0): the plain version and
+    the Pallas kernel give 0, never NaN.  The JAX oracle averages v there
+    (-1e30 logits, uniform softmax); the port's ``ref.attention`` mirrors
+    that, and the two agree on every row that has a valid key."""
+    (jq, jk, jv), (tq, tk, tv) = _both(*_qkv(5, 1, 4, 2, 16, 16, 32))
+    got = FA.flash_attention_plain(tq, tk, tv, causal=True, q_offset=-5)
+    pallas = fa_pallas(jq, jk, jv, causal=True, q_offset=-5, block_q=16,
+                       block_k=16, interpret=True)
+    assert torch.isfinite(got).all()
+    assert (got[:, :, :5] == 0).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), atol=F32_TOL)
+    oracle = jref.attention(jq, jk, jv, causal=True, q_offset=-5)
+    np.testing.assert_allclose(
+        tref.attention(tq, tk, tv, causal=True, q_offset=-5).numpy(),
+        np.asarray(oracle), atol=F32_TOL)
+    np.testing.assert_allclose(got[:, :, 5:].numpy(),
+                               np.asarray(oracle)[:, :, 5:], atol=F32_TOL)
+
+
+# b, hq, hkv, S, d, cache_len, window, softcap  (tests/test_kernels.py)
+DECODE_CASES = [
+    (2, 4, 2, 128, 32, 100, 0, 0.0),
+    (1, 8, 4, 256, 64, 256, 0, 50.0),
+    (2, 2, 1, 96, 32, 40, 16, 0.0),
+    (1, 4, 4, 300, 32, 123, 0, 0.0),
+    (3, 8, 2, 61, 32, (49, 61, 55), 0, 0.0),
+    (3, 4, 2, 64, 32, (10, 64, 33), 8, 30.0),
+]
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_decode_plain_matches_jax(case):
+    b, hq, hkv, S, d, clen, window, cap = case
+    q, kc, vc = _qkv(6, b, hq, hkv, 1, S, d)
+    (jq, jk, jv), (tq, tk, tv) = _both(q, kc, vc)
+    jlen = jnp.asarray(clen, jnp.int32)
+    tlen = torch.tensor(clen, dtype=torch.int32)
+    want = jops.decode_attention(jq, jk, jv, jlen, window=window, softcap=cap)
+    pallas = da_pallas(jq, jk, jv, jlen, window=window, softcap=cap,
+                       block_k=32, interpret=True)
+    got = ops.decode_attention(tq, tk, tv, tlen, window=window, softcap=cap)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_TOL,
+                               rtol=F32_TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), atol=F32_TOL,
+                               rtol=F32_TOL)
+
+
+def test_decode_plain_empty_row_gives_zero_like_pallas():
+    q, kc, vc = _qkv(7, 2, 4, 2, 1, 32, 32)
+    (jq, jk, jv), (tq, tk, tv) = _both(q, kc, vc)
+    lens = (0, 17)
+    got = ops.decode_attention(tq, tk, tv, torch.tensor(lens,
+                                                        dtype=torch.int32))
+    pallas = da_pallas(jq, jk, jv, jnp.asarray(lens, jnp.int32), block_k=16,
+                       interpret=True)
+    assert (got[0] == 0).all() and torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), atol=F32_TOL)
+
+
+def test_decode_plain_is_causal_attention_at_its_length():
+    """Decode at cache_len == full causal attention's last row."""
+    q, kc, vc = _qkv(8, 2, 4, 2, 1, 64, 32)
+    _, (tq, tk, tv) = _both(q, kc, vc)
+    got = ops.decode_attention(tq, tk, tv, 40)
+    want = tref.attention(tq, tk[:, :, :40], tv[:, :, :40], causal=True,
+                          q_offset=39)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=F32_TOL)
+
+
+# nq, na, d, k  (tests/test_kernels.py, plus the SCOPE shape)
+TOPK_CASES = [(16, 64, 8, 3), (37, 301, 24, 5), (128, 250, 32, 5),
+              (5, 1000, 16, 10), (8, 250, 32, 5)]
+
+
+@pytest.mark.parametrize("case", TOPK_CASES)
+def test_topk_plain_matches_jax(case):
+    nq, na, d, k = case
+    (jq, ja), (tq, ta) = _both(_normal(9, nq, d), _normal(10, na, d))
+    sr, ir = jref.topk_retrieval(jq, ja, k)
+    sp, ip = topk_pallas(jq, ja, k, block_q=16, block_n=64, interpret=True)
+    st, it = ops.topk_retrieval(tq, ta, k)
+    assert it.dtype == torch.int32 and st.dtype == torch.float32
+    np.testing.assert_allclose(st.numpy(), np.asarray(sr), atol=TOPK_TOL)
+    np.testing.assert_allclose(st.numpy(), np.asarray(sp), atol=TOPK_TOL)
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ir))
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ip))
+
+
+def test_topk_exact_ties_go_to_the_lower_index():
+    """One-hot rows make every similarity exact (0, 1 or 2 / sqrt 2 ...
+    computed without rounding), so ties are real ties in every framework:
+    all three implementations must order them by anchor index."""
+    anchors = np.zeros((300, 32), np.float32)
+    anchors[np.arange(300), np.arange(300) % 32] = 1.0
+    queries = np.zeros((7, 32), np.float32)
+    queries[np.arange(7), np.arange(7) * 3] = 1.0
+    queries[0, 5] = 1.0
+    (jq, ja), (tq, ta) = _both(queries, anchors)
+    sr, ir = jref.topk_retrieval(jq, ja, 12, anchors_prenormalized=True)
+    sp, ip = topk_pallas(jq, ja, 12, block_q=8, block_n=64, interpret=True,
+                         anchors_prenormalized=True)
+    st, it = ops.topk_retrieval(tq, ta, 12, anchors_prenormalized=True)
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ir))
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ip))
+    np.testing.assert_allclose(st.numpy(), np.asarray(sr), atol=TOPK_TOL)
+    assert it[1].tolist() == [3 + 32 * j for j in range(10)] + [0, 1]
+
+
+# ---------------------------------------------------------------------------
+# Wrappers: argument checks, device dispatch, no fallback
+# ---------------------------------------------------------------------------
+def test_cpu_dispatch_runs_plain_versions_and_counts_no_launch():
+    before = launch_counts()
+    _, (tq, tk, tv) = _both(*_qkv(11, 1, 4, 2, 8, 8, 32))
+    ops.flash_attention(tq, tk, tv)
+    ops.decode_attention(tq[:, :, :1], tk, tv, 5)
+    ops.topk_retrieval(tq[0, 0], tk[0, 0], 3)
+    assert launch_counts() == before
+
+
+@pytest.mark.parametrize("fn", [
+    lambda t: FA.flash_attention(t, t, t),
+    lambda t: DA.decode_attention(t[:, :, :1], t, t, 3),
+    lambda t: TK.topk_retrieval(t[0, 0], t[0, 0], 2),
+])
+def test_non_cpu_non_cuda_tensor_raises(fn):
+    """Only a CPU tensor takes the plain version; anything else must reach
+    the kernel or raise — here a meta tensor raises before any launch."""
+    t = torch.empty((1, 2, 8, 32), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        fn(t)
+
+
+def _t(*shape, dtype=torch.float32):
+    return torch.zeros(shape, dtype=dtype)
+
+
+@pytest.mark.parametrize("q,k,v,match", [
+    (_t(1, 2, 8, 48), _t(1, 2, 8, 48), _t(1, 2, 8, 48), "head dims"),
+    (_t(1, 2, 8, 32), _t(1, 2, 8, 32), _t(1, 2, 8, 40), "head dims"),
+    (_t(1, 2, 8, 32, dtype=torch.float16), _t(1, 2, 8, 32,
+                                              dtype=torch.float16),
+     _t(1, 2, 8, 32, dtype=torch.float16), "dtypes"),
+    (_t(1, 2, 8, 32), _t(1, 2, 8, 32, dtype=torch.bfloat16),
+     _t(1, 2, 8, 32), "dtypes"),
+    (_t(1, 3, 8, 32), _t(1, 2, 8, 32), _t(1, 2, 8, 32), "multiple"),
+    (_t(1, 2, 8, 32), _t(1, 2, 8, 32), _t(1, 2, 9, 32), "mismatch"),
+    (_t(1, 2, 32, 8).transpose(2, 3), _t(1, 2, 8, 32), _t(1, 2, 8, 32),
+     "contiguous"),
+])
+def test_flash_check_args_rejects(q, k, v, match):
+    with pytest.raises(ValueError, match=match):
+        FA.check_args(q, k, v)
+
+
+def test_decode_check_args_rejects():
+    q, kc = _t(2, 4, 1, 32), _t(2, 2, 16, 32)
+    lens = torch.tensor([3, 4], dtype=torch.int32)
+    DA.check_args(q, kc, kc, lens)                     # accepted
+    with pytest.raises(ValueError, match="one query token"):
+        DA.check_args(_t(2, 4, 2, 32), kc, kc, lens)
+    with pytest.raises(ValueError, match="group"):
+        DA.check_args(_t(2, 34, 1, 32), _t(2, 2, 16, 32), _t(2, 2, 16, 32),
+                      lens)
+    with pytest.raises(ValueError, match="int32"):
+        DA.check_args(q, kc, kc, lens.long())
+    with pytest.raises(ValueError, match="head dims"):
+        DA.check_args(_t(2, 4, 1, 96), _t(2, 2, 16, 96), _t(2, 2, 16, 96),
+                      lens)
+
+
+def test_topk_check_args_rejects():
+    TK.check_args(_t(3, 32), _t(250, 32), 5)           # accepted
+    with pytest.raises(ValueError, match="k="):
+        TK.check_args(_t(3, 32), _t(250, 32), 65)
+    with pytest.raises(ValueError, match="k="):
+        TK.check_args(_t(3, 32), _t(4, 32), 5)
+    with pytest.raises(ValueError, match="float32"):
+        TK.check_args(_t(3, 32, dtype=torch.bfloat16), _t(250, 32), 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        TK.check_args(_t(32, 3).T, _t(250, 32), 2)
+
+
+def test_build_raises_without_nvcc(tmp_path, monkeypatch):
+    """No compiler, no kernel: the build fails loudly rather than letting a
+    caller slide onto a plain version."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "NVCC_PATHS", (str(tmp_path / "no-nvcc"),))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build(["topk_retrieval"])
+    assert not list(tmp_path.iterdir())
+
+
+def test_library_path_tracks_sources():
+    p = build.lib_path("flash_attention")
+    assert p.parent == build.BUILD_DIR and p.suffix == ".so"
+    assert p == build.lib_path("flash_attention")
+    assert p != build.lib_path("decode_attention")
