@@ -6,14 +6,18 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each of which must pass (any failure exits non-zero with no result):
 
   1. device      — the card's name and power limit, torch and CUDA versions
-  2. build       — compile the three CUDA kernels from ``src/repro_torch/csrc``
+  2. build       — compile the four CUDA kernels from ``src/repro_torch/csrc``
                    (one nvcc per source, in parallel)
   3. kernels     — each kernel against its plain PyTorch version on the card,
-                   at the main path's shapes and at edge shapes
+                   at the main path's shapes and at edge shapes; the paged
+                   decode kernel also bit for bit against the dense decode
+                   kernel on the same logical cache, and with the trash page
+                   and every unreferenced page poisoned to 1e9
   4. timing      — each kernel, its plain version and one PyTorch library
                    call computing the same function (device time: CUDA
                    graph replays between CUDA events), beside the least time
-                   the card could take (its bound)
+                   the card could take (its bound); for the paged kernel the
+                   yardstick is a page gather plus SDPA
   5. tiny        — ``ScopeEngine.serve`` on scope-tiny with seeded weights,
                    once on the card (kernels) and once on the CPU (plain
                    versions): equal token streams and decisions
@@ -21,6 +25,18 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    (36 layers, d 2560, random seeded weights, bf16): 8 test
                    queries x 7 models, launch counts of every kernel read
                    around the run
+  7. tiny stream — ``predict_stream`` on scope-tiny, whole-retire and with
+                   slot refill over a dense and a paged KV cache, on the
+                   card and on the CPU: equal token streams, parsed fields,
+                   decisions and scheduler counters
+  8. full stream — ``serve_stream`` with slot refill on scope-qwen3-4b at
+                   full width: 16 test queries x 7 models in ragged ticks,
+                   over the paged KV (paged kernel) and over a dense cache on
+                   the same schedule (dense kernel), which must agree bit for
+                   bit; launch counts read around each run (36 per decode
+                   step or prefill call), wall time, KV footprint, peak
+                   memory, and the device's idle share over a window of
+                   segments
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.  Details go to
@@ -46,15 +62,18 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 F32_TOL, BF16_TOL, TOPK_TOL = 2e-5, 3e-2, 1e-5
 N_QUERIES, K_ANCHORS, N_ANCHORS, NEW_TOKENS = 8, 5, 250, 12
 
+# the streaming phases: 16 test queries x 7 models in ragged ticks, slot
+# buckets up to 16, 4-step segments, 16-token KV pages
+STREAM_QUERIES, STREAM_BUCKETS, SEGMENT, PAGE = 16, (1, 2, 4, 8, 16), 4, 16
+
 TPU_KERNELS = {
     "topk_retrieval": "src/repro/kernels/topk_retrieval.py:68",
     "flash_attention": "src/repro/kernels/flash_attention.py:76",
     "decode_attention": "src/repro/kernels/decode_attention.py:88",
+    "paged_decode_attention": "src/repro/kernels/decode_attention.py:185",
 }
+SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in TPU_KERNELS}
 TO_PORT = [
-    {"name": "paged_decode_attention",
-     "replaces": "src/repro/kernels/decode_attention.py:185",
-     "path": "paged KV on the streaming refill runtime (not on this path)"},
     {"name": "ssd_scan", "replaces": "src/repro/kernels/ssd_scan.py:80",
      "path": "Mamba2 pool backbones (not on this path)"},
 ]
@@ -252,7 +271,84 @@ def kernel_checks(torch, L: int):
     s2, i2 = TK.topk_retrieval_plain(qq, aa, 12, anchors_prenormalized=True)
     compare("topk exact ties", s1, s2, TOPK_TOL)
     check(torch.equal(i1, i2), "topk ties: indices differ")
+
+    # paged decode: (b, hq, hkv, S = kv_cap, d, dv, page, lens, softcap, dtype)
+    kv_cap = L + NEW_TOKENS
+    paged_cases = [
+        ("paged main", (16, 32, 8, kv_cap, 128, 128, PAGE, None, 0.0, bf),
+         "paged_decode_attention"),
+        ("paged f32 page 8 ragged clipped", (3, 4, 2, 70, 32, 32, 8,
+                                             [10, 70, 33], 0.0, torch.float32),
+         None),
+        ("paged f32 page 32 softcap", (2, 8, 4, 96, 64, 64, 32, [40, 96],
+                                       50.0, torch.float32), None),
+        ("paged bf16 page 32 softcap", (2, 8, 4, 96, 64, 64, 32, [41, 90],
+                                        30.0, bf), None),
+        ("paged g=16 empty row dv=32", (2, 16, 1, 40, 64, 32, 16, [0, 40],
+                                        0.0, torch.float32), None),
+        ("paged kv_cap < W*page", (2, 4, 2, 50, 32, 32, 16, [50, 17], 0.0,
+                                   torch.float32), None),
+        ("paged d=256 bf16", (1, 4, 4, 300, 256, 256, 16, [123], 0.0, bf),
+         None),
+    ]
+    for name, (b, hq, hkv, S_, d, dv, page, lens, cap, dt), main in \
+            paged_cases:
+        q = rnd(b, hq, 1, d, dt=dt)
+        kc, vc, kp, vp, table = paged_layout(torch, gen, b, hkv, S_, d, dv,
+                                             page, dt)
+        if lens is None:
+            lens_t = torch.randint(L + 1, S_ + 1, (b,), generator=gen,
+                                   device=dev, dtype=torch.int32)
+        else:
+            lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        kw = dict(page_size=page, kv_cap=S_, softcap=cap)
+        got = DA.paged_decode_attention_cuda(q, kp, vp, lens_t, table, **kw)
+        compare(name, got, DA.paged_decode_attention_plain(
+            q, kp, vp, lens_t, table, **kw),
+            F32_TOL if dt == torch.float32 else BF16_TOL, main)
+        # the dense kernel on the same logical cache: same tiles, same bits
+        dense = DA.decode_attention_cuda(q, kc, vc, lens_t, softcap=cap)
+        check(torch.equal(got, dense), f"{name}: paged and dense kernels "
+              "differ on the same logical cache")
+        if lens is not None and 0 in lens:
+            check(bool((got[lens.index(0)] == 0).all()), "empty row not 0")
+        # poison the trash page and every unreferenced page: not one bit
+        # of the output may move
+        unref = torch.ones(kp.shape[0], dtype=torch.bool, device=dev)
+        unref[table.reshape(-1).long()] = False
+        kp2, vp2 = kp.clone(), vp.clone()
+        kp2[unref], vp2[unref] = 1e9, 1e9
+        poisoned = DA.paged_decode_attention_cuda(q, kp2, vp2, lens_t, table,
+                                                  **kw)
+        check(torch.equal(poisoned, got), f"{name}: poisoned pages leak")
+    print("   paged == dense kernel bit for bit; poisoned pages inert")
     return errs
+
+
+def paged_layout(torch, gen, b, hkv, S, d, dv, page, dt, spare: int = 5):
+    """Dense caches (b, hkv, S, d[v]) and the same keys in block-paged
+    storage behind a permuted page table: (n_pages + 1, hkv, page, d[v])
+    pages, the last the trash page, ``spare`` unreferenced pages, random
+    values everywhere the table does not point."""
+    dev = "cuda"
+    n_w = -(-S // page)
+    n_pages = b * n_w + spare
+    kc = torch.randn(b, hkv, S, d, generator=gen, device=dev).to(dt)
+    vc = torch.randn(b, hkv, S, dv, generator=gen, device=dev).to(dt)
+    kp = torch.randn(n_pages + 1, hkv, page, d, generator=gen,
+                     device=dev).to(dt)
+    vp = torch.randn(n_pages + 1, hkv, page, dv, generator=gen,
+                     device=dev).to(dt)
+    table = torch.randperm(n_pages, generator=gen, device=dev)[: b * n_w]
+    pad = n_w * page - S
+
+    def blocks(c):
+        c = torch.nn.functional.pad(c, (0, 0, 0, pad))
+        return c.reshape(b, hkv, n_w, page, -1).permute(0, 2, 1, 3, 4) \
+            .reshape(b * n_w, hkv, page, -1)
+
+    kp[table], vp[table] = blocks(kc), blocks(vc)
+    return kc, vc, kp, vp, table.reshape(b, n_w).to(torch.int32).contiguous()
 
 
 def kernel_timings(torch, L: int, retriever, query_embs):
@@ -302,6 +398,44 @@ def kernel_timings(torch, L: int, retriever, query_embs):
     out["decode_attention"]["bound_ms"], out["decode_attention"]["bound_by"] = \
         bound(nbytes, 2 * 2 * d * valid * hq, "bfloat16")
 
+    # paged decode: the stream's last decode step (16 slots, cache_len =
+    # kv_cap on every row, 16-token pages behind a permuted table); the
+    # yardstick is the gather of the rows' pages plus SDPA on the result
+    b, S = 16, L + NEW_TOKENS
+    qd = torch.randn(b, hq, 1, d, generator=gen, device=dev).to(bf)
+    kc, vc, kp, vp, table = paged_layout(torch, gen, b, hkv, S, d, d, PAGE,
+                                         bf)
+    lens = torch.full((b,), S, dtype=torch.int32, device=dev)
+    mask = torch.ones(b, 1, 1, S, dtype=torch.bool, device=dev)
+    n_w = table.shape[1]
+
+    def gather_sdpa():
+        idx = table.long()
+        kd = kp[idx].permute(0, 2, 1, 3, 4).reshape(b, hkv, n_w * PAGE, d)
+        vd = vp[idx].permute(0, 2, 1, 3, 4).reshape(b, hkv, n_w * PAGE, d)
+        return F.scaled_dot_product_attention(
+            qd, kd[:, :, :S], vd[:, :, :S], attn_mask=mask, enable_gqa=True)
+
+    kw = dict(page_size=PAGE, kv_cap=S)
+    valid = int(lens.sum())
+    nbytes = (2 * (2 * qd.numel() + 2 * valid * hkv * d) + 4 * b
+              + 4 * table.numel())
+    out["paged_decode_attention"] = dict(
+        times(torch, lambda: DA.paged_decode_attention_cuda(
+                  qd, kp, vp, lens, table, **kw),
+              lambda: DA.paged_decode_attention_plain(
+                  qd, kp, vp, lens, table, **kw), gather_sdpa, 200),
+        shape=f"q ({b},{hq},1,{d}) pages ({kp.shape[0]},{hkv},{PAGE},{d}) "
+              f"table ({b},{n_w}) bf16 cache_len {S}",
+        library_call="gather of the pages + scaled_dot_product_attention",
+        # the dense decode kernel on the same logical cache, for the cost of
+        # the page indirection alone
+        dense_kernel_ms=device_ms(torch, lambda: DA.decode_attention_cuda(
+            qd, kc, vc, lens), 200))
+    out["paged_decode_attention"]["bound_ms"], \
+        out["paged_decode_attention"]["bound_by"] = \
+        bound(nbytes, 2 * 2 * d * valid * hq, "bfloat16")
+
     # top-k: the request's 8 query embeddings against the 250 SCOPE anchors
     qe = torch.as_tensor(query_embs, device=dev)
     an = retriever._anchors_norm
@@ -317,6 +451,8 @@ def kernel_timings(torch, L: int, retriever, query_embs):
         shape=f"queries ({nq},{dd}) anchors ({n},{dd}) f32 k {K_ANCHORS}")
     out["topk_retrieval"]["bound_ms"], out["topk_retrieval"]["bound_by"] = \
         bound(nbytes, 2 * nq * n * dd, "float32")
+    print(f"   dense decode kernel at the paged row's shape: "
+          f"{out['paged_decode_attention']['dense_kernel_ms']:.5f} ms")
     for name, t in out.items():
         print(f"   {name} [{t['shape']}]: kernel_ms {t['ms']:.5f} "
               f"plain_ms {t['plain_ms']:.5f} library_ms {t['library_ms']:.5f}"
@@ -344,7 +480,7 @@ def build_world():
     return world, data, anchors, lib
 
 
-def make_engine(cfg, params, anchors, lib, world, data, device):
+def make_engine(cfg, params, anchors, lib, world, data, device, **kw):
     from repro_torch.api import EngineConfig, ScopeEngine
     from repro_torch.core.estimator import ReasoningEstimator
     from repro_torch.core.retrieval import AnchorRetriever
@@ -352,7 +488,7 @@ def make_engine(cfg, params, anchors, lib, world, data, device):
         estimator=ReasoningEstimator(cfg, params,
                                      max_new_tokens=NEW_TOKENS),
         retriever=AnchorRetriever(anchors, device=device), library=lib,
-        models_meta={m: world.models[m] for m in data.models}))
+        models_meta={m: world.models[m] for m in data.models}, **kw))
 
 
 def tiny_card_vs_cpu(torch, world, data, anchors, lib, qids):
@@ -362,15 +498,7 @@ def tiny_card_vs_cpu(torch, world, data, anchors, lib, qids):
     from repro_torch.models.model import init_params
 
     cpu_params = init_params(TINY, seed=0, device="cpu")
-
-    def to(tree, dev):
-        if isinstance(tree, dict):
-            return {k: to(v, dev) for k, v in tree.items()}
-        if isinstance(tree, tuple):
-            return tuple(to(v, dev) for v in tree)
-        return tree.to(dev)
-
-    engines = {dev: make_engine(TINY, to(cpu_params, dev), anchors, lib,
+    engines = {dev: make_engine(TINY, _to(cpu_params, dev), anchors, lib,
                                 world, data, dev) for dev in ("cpu", "cuda")}
     # token streams of the estimator on both devices, same prompts
     st = engines["cpu"]._prepare(RouteRequest([data.queries[q]
@@ -414,14 +542,10 @@ def tiny_card_vs_cpu(torch, world, data, anchors, lib, qids):
     return result
 
 
-def full_width(torch, world, data, anchors, lib, qids):
-    import numpy as np
-    from repro_torch import kernels
-    from repro_torch.api import FixedAlphaPolicy, RouteRequest, SetBudgetPolicy
+def full_params(torch):
+    """scope-qwen3-4b's random weights, seeded, on the card."""
     from repro_torch.configs.scope_estimator import CONFIG
     from repro_torch.models.model import init_params
-    from repro_torch.serving import sampler
-
     t0 = time.perf_counter()
     params = init_params(CONFIG, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -429,6 +553,15 @@ def full_width(torch, world, data, anchors, lib, qids):
     print(f"   init {n_params / 1e9:.3f} B params in "
           f"{time.perf_counter() - t0:.1f} s")
     check(n_params > 3.9e9, f"scope-qwen3-4b has {n_params} params")
+    return params, n_params
+
+
+def full_width(torch, world, data, anchors, lib, qids, params, n_params):
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.api import FixedAlphaPolicy, RouteRequest, SetBudgetPolicy
+    from repro_torch.configs.scope_estimator import CONFIG
+    from repro_torch.serving import sampler
 
     # warm-up on a throwaway engine (cuBLAS handles, library loads)
     warm = make_engine(CONFIG, params, anchors, lib, world, data, "cuda")
@@ -458,7 +591,7 @@ def full_width(torch, world, data, anchors, lib, qids):
     # three retrievals: two serves and the budget probe; one prefill and
     # 12 decode steps of all 36 layers, for the one cold serve
     want = {"topk_retrieval": 3, "flash_attention": L,
-            "decode_attention": L * NEW_TOKENS}
+            "decode_attention": L * NEW_TOKENS, "paged_decode_attention": 0}
     check(counts == want, f"launch counts {counts} != {want}")
     check(rep_a.cache_misses == pairs and rep_b.cache_hits == pairs,
           f"cache accounting {rep_a.cache_misses}/{rep_b.cache_hits}")
@@ -519,6 +652,294 @@ def full_width(torch, world, data, anchors, lib, qids):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phases 7/8: the streaming serve stack (predict_stream / serve_stream with
+# slot refill, dense and block-paged KV)
+# ---------------------------------------------------------------------------
+def tick_sizes(n_queries: int, seed: int = 0, max_tick: int = 8):
+    """Deterministic ragged traffic: tick sizes in [1, max_tick] (a copy of
+    benchmarks/bench_serve_throughput.py::_tick_sizes)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    sizes, left = [], n_queries
+    while left > 0:
+        s = int(rng.integers(1, max_tick + 1))
+        sizes.append(min(s, left))
+        left -= sizes[-1]
+    return sizes
+
+
+def stream_ticks(data, n_queries: int):
+    """The first ``n_queries`` test queries, cut into ragged ticks."""
+    qids = [int(q) for q in data.test_qids[:n_queries]]
+    ticks, i = [], 0
+    for size in tick_sizes(n_queries, seed=0, max_tick=3):
+        ticks.append(qids[i: i + size])
+        i += size
+    return ticks
+
+
+class StreamProbe:
+    """While installed: counts the model's prefill and decode-step calls
+    and keeps every host copy the serve path makes (token ids and decision
+    logits of each decode segment), by wrapping the module attributes the
+    sampler and the estimator call through."""
+
+    def __enter__(self):
+        from repro_torch.models import model as M
+        from repro_torch.serving import sampler
+        self.prefills, self.decode_steps, self.segments = 0, 0, []
+        self._saved = (M.prefill, M.decode_step, sampler.to_host)
+        prefill, decode_step, to_host = self._saved
+
+        def counted_prefill(*a, **kw):
+            self.prefills += 1
+            return prefill(*a, **kw)
+
+        def counted_decode_step(*a, **kw):
+            self.decode_steps += 1
+            return decode_step(*a, **kw)
+
+        def kept_to_host(*a, **kw):
+            out = to_host(*a, **kw)
+            self.segments.append((out[0].copy(), out[1].copy()))
+            return out
+
+        M.prefill, M.decode_step, sampler.to_host = (
+            counted_prefill, counted_decode_step, kept_to_host)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import model as M
+        from repro_torch.serving import sampler
+        M.prefill, M.decode_step, sampler.to_host = self._saved
+        return False
+
+
+def same_segments(a, b, what: str, tol: float = 0.0):
+    """Equal token ids in every decode segment of two runs, decision logits
+    within ``tol``."""
+    import numpy as np
+    check(len(a) == len(b), f"{what}: {len(a)} vs {len(b)} segments")
+    err = 0.0
+    for i, ((ga, da), (gb, db)) in enumerate(zip(a, b)):
+        check(ga.shape == gb.shape and np.array_equal(ga, gb),
+              f"{what}: token streams differ in segment {i}")
+        err = max(err, float(np.abs(da - db).max()) if da.size else 0.0)
+    check(err <= tol, f"{what}: decision logits differ by {err}")
+    return err
+
+
+STAT_FIELDS = ("emitted", "microbatches", "slots_refilled",
+               "slot_steps_total", "slot_steps_active", "refill_steps_saved",
+               "pages_peak", "kv_peak_tokens", "admissions_deferred_on_pages",
+               "admissions_deferred_on_horizon")
+
+
+def tiny_stream_card_vs_cpu(torch, world, data, anchors, lib):
+    """``predict_stream`` on scope-tiny with seeded weights — whole-retire,
+    and slot refill over a dense and a paged (8-token pages) KV cache — on
+    the card and on the CPU: equal token streams, parsed fields, decisions
+    and scheduler counters; confidences within the float32 tolerance."""
+    import numpy as np
+    from repro_torch.api import FixedAlphaPolicy, RouteRequest
+    from repro_torch.configs.scope_estimator import TINY
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.scheduler import BucketConfig, MicrobatchScheduler
+
+    cpu_params = init_params(TINY, seed=0, device="cpu")
+    params = {"cpu": cpu_params, "cuda": _to(cpu_params, "cuda")}
+    ticks = stream_ticks(data, STREAM_QUERIES)
+    policy = FixedAlphaPolicy(0.6)
+    result = {}
+    for mode, kw in (("whole-retire", {}), ("dense", dict(refill=True)),
+                     ("paged", dict(refill=True, kv_paged=True,
+                                    kv_page_size=8))):
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            eng = make_engine(TINY, params[dev], anchors, lib, world, data,
+                              dev, segment_len=SEGMENT, **kw)
+            sched = MicrobatchScheduler(BucketConfig(STREAM_BUCKETS))
+            with StreamProbe() as probe:
+                pools = list(eng.predict_stream(
+                    (RouteRequest([data.queries[q] for q in t])
+                     for t in ticks), scheduler=sched, use_cache=False))
+            choices = [policy.decide(p, eng).choices for p in pools]
+            runs[dev] = (pools, choices, sched.stats, probe.segments)
+        (pc, cc, sc, gc), (pg, cg, sg, gg) = runs["cpu"], runs["cuda"]
+        dec_err = same_segments(gc, gg, f"tiny {mode} stream", F32_TOL)
+        p_err = 0.0
+        for a, b in zip(pc, pg, strict=True):
+            for f in ("y_hat", "len_hat", "well_formed", "pred_overhead"):
+                check(np.array_equal(getattr(a, f), getattr(b, f)),
+                      f"tiny {mode} stream: {f} differs card vs cpu")
+            p_err = max(p_err, float(np.abs(a.p_hat - b.p_hat).max()))
+        check(p_err <= F32_TOL, f"tiny {mode} stream: p_hat differs {p_err}")
+        check(all(np.array_equal(a, b) for a, b in zip(cc, cg, strict=True)),
+              f"tiny {mode} stream: decisions differ")
+        stats = {f: (getattr(sc, f), getattr(sg, f)) for f in STAT_FIELDS}
+        check(all(a == b for a, b in stats.values()),
+              f"tiny {mode} stream: scheduler counters differ {stats}")
+        result[mode] = {"segments": len(gg), "dec_max_abs_err": dec_err,
+                        "p_hat_max_abs_err": p_err,
+                        "stats": {f: v[1] for f, v in stats.items()}}
+        print(f"   {mode}: {len(ticks)} ticks, {len(gg)} segments equal, "
+              f"decisions equal, p_hat max_abs_err {p_err:.3g}, counters "
+              f"{result[mode]['stats']}")
+    return result
+
+
+def full_stream(torch, world, data, anchors, lib, params):
+    """``serve_stream`` on scope-qwen3-4b at full width: refill over the
+    block-paged KV (the paged kernel), then over a dense cache with the
+    same admission schedule (the dense kernel), then over a dense cache at
+    the reference's default horizon.  The first two must agree bit for
+    bit; launch counts are read around each run."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.api import FixedAlphaPolicy
+    from repro_torch.configs.scope_estimator import CONFIG
+    from repro_torch.serving.scheduler import BucketConfig, MicrobatchScheduler
+
+    ticks = stream_ticks(data, STREAM_QUERIES)
+    policy = FixedAlphaPolicy(0.6)
+    L = CONFIG.num_layers
+    # first: a window of segments on one 16-slot state, paged and dense,
+    # which also warms the stream's shapes before the timed runs below
+    window = segment_window(torch, params, data, ticks, anchors, lib, world)
+
+    def run(name, **kw):
+        eng = make_engine(CONFIG, params, anchors, lib, world, data, "cuda",
+                          refill=True, segment_len=SEGMENT, **kw)
+        sched = MicrobatchScheduler(BucketConfig(STREAM_BUCKETS))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        with StreamProbe() as probe:
+            t0 = time.perf_counter()
+            reports = list(eng.serve_stream(data, ticks, policy,
+                                            scheduler=sched, use_cache=False))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        st = sched.stats
+        out = {"wall_s": wall, "launches": counts,
+               "prefill_calls": probe.prefills,
+               "decode_steps": probe.decode_steps,
+               "segments": len(probe.segments),
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "stats": {f: getattr(st, f) for f in STAT_FIELDS}}
+        check(len(reports) == len(ticks) and all(
+            len(r.decisions) == len(t) for r, t in zip(reports, ticks)),
+            f"{name}: one report per tick, one decision per query")
+        check(all(np.isfinite([d.p_hat, d.cost_hat]).all()
+                  and 0.0 <= d.p_hat <= 1.0
+                  for r in reports for d in r.decisions),
+              f"{name}: non-finite or out-of-range estimates")
+        check(st.emitted == STREAM_QUERIES * len(data.models),
+              f"{name}: {st.emitted} prompts emitted")
+        print(f"   {name}: {wall:.3f} s wall, {out['segments']} segments, "
+              f"{out['decode_steps']} decode steps, {out['prefill_calls']} "
+              f"prefills, launches {counts}, kv_peak_tokens "
+              f"{st.kv_peak_tokens}, pages_peak {st.pages_peak}, peak "
+              f"{out['peak_mem_gib']:.2f} GiB")
+        return reports, probe.segments, out
+
+    rep_p, seg_p, paged = run("paged", kv_paged=True, kv_page_size=PAGE)
+    want = {"topk_retrieval": len(ticks), "flash_attention":
+            L * paged["prefill_calls"], "decode_attention": 0,
+            "paged_decode_attention": L * paged["decode_steps"]}
+    check(paged["launches"] == want,
+          f"paged launches {paged['launches']} != {want}")
+    # a dense slot state deep enough to serve the whole stream admits on
+    # the same boundaries as the paged one (whose pool never defers)
+    rep_d, seg_d, dense = run("dense, matched horizon",
+                              refill_horizon=paged["decode_steps"])
+    want = dict(want, decode_attention=L * dense["decode_steps"],
+                paged_decode_attention=0,
+                flash_attention=L * dense["prefill_calls"])
+    check(dense["launches"] == want,
+          f"dense launches {dense['launches']} != {want}")
+    check(dense["decode_steps"] == paged["decode_steps"],
+          "dense and paged schedules differ")
+    same_segments(seg_p, seg_d, "full-width paged vs dense stream")
+    for a, b in zip(rep_p, rep_d, strict=True):
+        check([d.model for d in a.decisions] == [d.model for d in b.decisions]
+              and [d.p_hat for d in a.decisions]
+              == [d.p_hat for d in b.decisions],
+              "full-width paged vs dense stream: decisions differ")
+    print(f"   paged and dense streams: {len(seg_p)} segments of tokens "
+          f"equal, {sum(len(r.decisions) for r in rep_p)} decisions equal")
+    _, _, default = run("dense, default horizon")
+    return {"config": CONFIG.name, "ticks": [len(t) for t in ticks],
+            "pairs": STREAM_QUERIES * len(data.models), "paged": paged,
+            "dense_matched": dense, "dense_default": default,
+            "window": window}
+
+
+def segment_window(torch, params, data, ticks, anchors, lib, world,
+                   n_seg: int = NEW_TOKENS // SEGMENT):
+    """A window of decode segments on one full 16-slot state, paged and
+    dense, after one untimed warm-up window: host ms per segment (launch +
+    sync) and the device's busy time over the same segments from the
+    profiler (CUDA activity), whose ratio is the idle share."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.api import RouteRequest
+    from repro_torch.configs.scope_estimator import CONFIG
+    from repro_torch.serving.kv_pool import KVPool
+
+    eng = make_engine(CONFIG, params, anchors, lib, world, data, "cuda")
+    st = eng._prepare(RouteRequest([data.queries[q] for t in ticks
+                                    for q in t][:3]), False)
+    prompts = np.asarray(st.prompts[:STREAM_BUCKETS[-1]], np.int32)
+    b, width = prompts.shape
+    est = eng.estimator
+
+    def open_run(paged):
+        if not paged:
+            return est.open_slots(prompts, segment_len=SEGMENT)
+        pool = KVPool(b * -(-(width + NEW_TOKENS) // PAGE), PAGE)
+        return est.open_slots(prompts, segment_len=SEGMENT, kv_pool=pool)
+
+    out = {}
+    for name, paged in (("paged", True), ("dense", False)):
+        run = open_run(paged)
+        for _ in range(n_seg):
+            run.launch()
+            run.sync()
+        run = open_run(paged)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_seg):
+            run.launch()
+            run.sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n_seg
+        run = open_run(paged)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_seg):
+                run.launch()
+                run.sync()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        busy_us = sum(e.self_device_time_total for e in events)
+        top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
+        res = {"rows": b, "segment_ms": wall_ms,
+               "device_ms_per_segment": busy_us / 1e3 / n_seg or None,
+               "top": [(e.key[:48], round(e.self_device_time_total
+                                          / max(busy_us, 1), 3))
+                       for e in top]}
+        res["idle_share"] = (None if not busy_us else
+                             1 - res["device_ms_per_segment"] / wall_ms)
+        out[name] = res
+        print(f"   {name} window: {b} slots x {SEGMENT} steps: "
+              f"{wall_ms:.2f} ms per segment, device busy "
+              f"{res['device_ms_per_segment']} ms, idle share "
+              f"{res['idle_share']}; top {res['top']}")
+    return out
+
+
 def device_busy(torch, params, cfg, prompts, steps: int = 4):
     """Device time of one prefill and of a decode step, summed over every
     kernel the profiler saw (``torch.profiler``, CUDA activity), and the
@@ -549,6 +970,14 @@ def device_busy(torch, params, cfg, prompts, steps: int = 4):
             "decode_step_ms": total / steps / 1e3,
             "top": [(e.key[:48], round(e.self_device_time_total / total, 3))
                     for e in top]}
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_to(v, dev) for v in tree)
+    return tree.to(dev)
 
 
 def _leaves(tree):
@@ -636,17 +1065,32 @@ def main() -> int:
     done(t)
 
     t = phase("full width: scope-qwen3-4b")
-    report["full"] = full_width(torch, world, data, anchors, lib, qids)
+    params, n_params = full_params(torch)
+    report["full"] = full_width(torch, world, data, anchors, lib, qids,
+                                params, n_params)
     done(t)
 
+    t = phase("tiny stream: card vs cpu, whole-retire, dense and paged "
+              "refill")
+    report["tiny_stream"] = tiny_stream_card_vs_cpu(torch, world, data,
+                                                    anchors, lib)
+    done(t)
+
+    t = phase("full-width stream: scope-qwen3-4b, paged and dense refill")
+    report["stream"] = full_stream(torch, world, data, anchors, lib, params)
+    done(t)
+
+    # launches: each kernel's count on its own path's run — the batch serve
+    # for the three kernels of that path, the paged stream for the paged one
+    launches = dict(report["full"]["launches"],
+                    paged_decode_attention=report["stream"]["paged"][
+                        "launches"]["paged_decode_attention"])
     kernel_rows = []
-    for name in ("topk_retrieval", "flash_attention", "decode_attention"):
+    for name in TPU_KERNELS:
         tm = timing[name]
         kernel_rows.append({
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{name}.cu",
-            "replaces": TPU_KERNELS[name],
-            "launches": report["full"]["launches"][name],
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": TPU_KERNELS[name], "launches": launches[name],
             "max_abs_err": errs[name], "ms": tm["ms"],
             "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
             "bound_by": tm["bound_by"], "library_ms": tm["library_ms"]})

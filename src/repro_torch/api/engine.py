@@ -1,4 +1,4 @@
-"""``ScopeEngine`` — the public entry point for SCOPE routing (batch path).
+"""``ScopeEngine`` — the public entry point for SCOPE routing.
 
 The engine owns the components the paper's pipeline needs at serve time
 (reasoning estimator, anchor retriever, fingerprint library, model pool)
@@ -9,16 +9,29 @@ and exposes the routing surface as four verbs:
   serve    — route + execute against a ``ScopeData`` world, report realized
   onboard  — training-free pool growth (fingerprint pass, §3.1)
 
+plus their streaming duals for continuous traffic:
+
+  predict_stream — drain an iterator of requests through the bucketed
+                   microbatch scheduler (``serving.scheduler``), whole-retire
+                   (``ServeRuntime``) or segment-chunked with slot refill
+                   (``SlotRuntime``, dense or block-paged KV)
+  serve_stream   — predict_stream + per-tick policy decision + execution
+
 ``predict`` consults the ``PredictionCache`` keyed by
 ``(query_id, model, estimator_version)`` and runs the estimator only for the
-missing (query, model) pairs.  This is the batch path of
-``repro/api/engine.py`` with the same math step for step; its streaming,
-tier-0, drift and fault-tolerance layers are ported in later slices.
+missing (query, model) pairs.  This is ``repro/api/engine.py`` with the same
+math step for step, fault tolerance (retry, quarantine, deadlines,
+degradation to retrieval priors) included; its tier-0 and drift layers are
+ported in later slices.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+import time
+from collections import deque
+from typing import (
+    Any, Deque, Dict, Iterable, Iterator, List, Optional,
+    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -29,12 +42,16 @@ from repro_torch.api.registry import PoolRegistry
 from repro_torch.api.types import (
     BatchReport, EngineConfig, RouteDecision, RouteRequest)
 from repro_torch.core import calibration, serialization, utility
-from repro_torch.core.estimator import ParsedBatch
+from repro_torch.core.estimator import FallbackEstimator, ParsedBatch
 from repro_torch.core.fingerprint import Fingerprint
 from repro_torch.core.router import PoolPredictions
 from repro_torch.core.status import STATUS_OK, status_name
 from repro_torch.data.datasets import ScopeData
 from repro_torch.data.worldsim import PoolModel, World
+from repro_torch.serving.faults import FaultInjector
+from repro_torch.serving.kv_pool import KVPool, check_kv_kernel
+from repro_torch.serving.runtime import ServeRuntime, SlotRuntime
+from repro_torch.serving.scheduler import MicrobatchScheduler
 
 FALLBACK_LEN_HAT = 512.0    # tokens charged when the estimate is malformed
 
@@ -57,6 +74,188 @@ class _PredictState:
     prompts: List[List[int]]    # serialized prompt per missing pair
     use_cache: bool
     status: Optional[np.ndarray] = None     # (Q, M) core.status codes
+
+
+class _StreamEntry:
+    """One in-flight stream request: collects estimator rows as the
+    scheduler's microbatches land, in ``missing``-pair order."""
+
+    def __init__(self, state: _PredictState):
+        self.state = state
+        n = len(state.prompts)
+        self.remaining = n
+        self.y_hat = np.zeros(n, int)
+        self.len_hat = np.zeros(n, np.float64)
+        self.well_formed = np.zeros(n, bool)
+        self.p_conf = np.zeros(n, np.float64)
+        self.pred_tokens = np.zeros(n, int)
+        self.rationale_len = np.zeros(n, int)
+        self.status = np.full(n, STATUS_OK, np.int8)
+
+    def fill(self, i: int, batch, row: int, *, shared: bool = False) -> None:
+        """``shared=True`` marks a pair that rode an in-flight duplicate's
+        generation: it copies the estimate but spends no new tokens."""
+        self.y_hat[i] = batch.y_hat[row]
+        self.len_hat[i] = batch.len_hat[row]
+        self.well_formed[i] = batch.well_formed[row]
+        self.p_conf[i] = batch.p_conf[row]
+        self.pred_tokens[i] = 0 if shared else batch.pred_tokens[row]
+        self.rationale_len[i] = batch.rationale_len[row]
+        self.status[i] = batch.status[row]
+        self.remaining -= 1
+
+    def parsed(self) -> ParsedBatch:
+        return ParsedBatch(self.y_hat, self.len_hat, self.well_formed,
+                           self.p_conf, self.pred_tokens, self.rationale_len,
+                           status=self.status)
+
+
+def _mb_rows(mb) -> List[Tuple[Any, List[int]]]:
+    """(tag, prompt) per real row of a failed microbatch, for requeue."""
+    return [(mb.tags[r], mb.tokens[r, : mb.lengths[r]].tolist())
+            for r in range(mb.n_real)]
+
+
+class _StreamControl:
+    """Per-stream fault tolerance: bounded retry/requeue, quarantine, SLO
+    deadlines, and degraded answers from retrieval priors.
+
+    One instance per ``predict_stream`` call.  It owns the stream's
+    ``FaultInjector`` (a no-op without an ``EngineConfig.fault_plan``) and
+    the per-prompt failure ledger: ``attempts`` counts failures per
+    in-flight dedup key, ``unresolved`` is the ordered set of keys whose
+    waiters have not been answered yet, ``t_submit``/``n_prompt`` back the
+    deadline check and late cache writes.  Exactly-once delivery is the
+    invariant everything here preserves: a key leaves ``unresolved`` the
+    moment its waiters are filled — by a real parse (``note_resolved`` via
+    ``_stream_fill``) or by ``degrade`` — and every later event on that
+    key (a requeue race, a late parse of an expired row) only touches the
+    cache, never the waiters.
+    """
+
+    def __init__(self, engine: "ScopeEngine", sched, inflight: Dict,
+                 use_cache: bool):
+        cfg = engine.config
+        self.engine = engine
+        self.sched = sched
+        self.inflight = inflight
+        self.use_cache = use_cache
+        self.injector = FaultInjector(cfg.fault_plan)
+        self.max_retries = int(cfg.max_retries)
+        self.backoff_s = float(cfg.retry_backoff_s)
+        self.deadline_s = (None if cfg.deadline_ms is None
+                           else float(cfg.deadline_ms) / 1e3)
+        self.fallback = FallbackEstimator(engine.library)
+        self.attempts: Dict[Any, int] = {}
+        self.t_submit: Dict[Any, float] = {}
+        self.n_prompt: Dict[Any, int] = {}
+        self.unresolved: Dict[Any, bool] = {}   # insertion-ordered set
+        self.sleep = time.sleep                 # injectable in tests
+
+    def now(self) -> float:
+        """Deadline time base: the scheduler's (injectable) clock plus the
+        seconds injected by fired ``stall`` faults."""
+        return self.sched.now() + self.injector.stall_offset
+
+    # -- ledger --------------------------------------------------------
+    def note_submit(self, key, prompt) -> None:
+        """A key was scheduled (fresh, or fresh again after an earlier
+        resolution): reset its deadline epoch and failure budget."""
+        self.t_submit[key] = self.now()
+        self.n_prompt[key] = len(prompt)
+        self.attempts.pop(key, None)
+        self.unresolved[key] = True
+
+    def note_resolved(self, key) -> None:
+        self.unresolved.pop(key, None)
+
+    def prompt_tokens(self, key) -> int:
+        return self.n_prompt.get(key, 0)
+
+    # -- injection hooks ------------------------------------------------
+    def pre_dispatch(self) -> None:
+        """Microbatch-launch boundary: one stall event, one dispatch event."""
+        self.injector.tick("stall")
+        self.injector.raise_if("dispatch")
+
+    def corrupt(self, batch):
+        return self.injector.corrupt_parse(batch)
+
+    # -- bounded retry / quarantine --------------------------------------
+    def on_failed(self, rows, exc: Optional[Exception] = None) -> None:
+        """Route one failure event's rows (``[(key, prompt)]``) back into
+        the scheduler, quarantining rows past their retry budget.  Keys no
+        longer unresolved (already answered degraded — e.g. a deadline
+        expiry racing the in-flight decode) are dropped: their requests
+        were served exactly once already."""
+        stats = self.sched.stats
+        stats.retries += 1
+        worst = 0
+        for key, prompt in rows:
+            if key not in self.unresolved:
+                continue
+            n = self.attempts.get(key, 0) + 1
+            self.attempts[key] = n
+            if n <= self.max_retries:
+                worst = max(worst, n)
+                self.sched.requeue(key, prompt)
+            else:
+                stats.quarantined += 1
+                self.degrade(key)
+        if worst and self.backoff_s > 0.0:
+            self.sleep(self.backoff_s * (2 ** (worst - 1)))
+
+    def on_failed_mb(self, mb, exc: Optional[Exception] = None) -> None:
+        self.on_failed(_mb_rows(mb), exc)
+
+    # -- SLO deadlines ----------------------------------------------------
+    def expire(self) -> None:
+        """Answer every unresolved key past its deadline in degraded mode.
+        Queued rows are cancelled outright; in-flight rows keep decoding
+        and their late parse heals the cache entry."""
+        if self.deadline_s is None or not self.unresolved:
+            return
+        now = self.now()
+        for key in list(self.unresolved):
+            if now - self.t_submit[key] < self.deadline_s:
+                continue
+            self.sched.cancel(key)
+            self.sched.stats.deadline_expired += 1
+            self.degrade(key)
+
+    # -- graceful degradation ---------------------------------------------
+    def degrade(self, key) -> None:
+        """Answer every waiter on ``key`` in degraded mode and resolve the
+        key.  The fallback ladder: retrieval priors, then FAILED when
+        ``EngineConfig.degrade`` is off (the reference's first rung, a
+        stashed pre-router answer, arrives with the two-tier slice).  All
+        waiters share one fallback row — they are the same (query, model)
+        content by construction of the dedup key."""
+        waiters = self.inflight.pop(key, None)
+        self.note_resolved(key)
+        if not waiters:
+            return
+        cfg = self.engine.config
+        stats = self.sched.stats
+        owner, miss_i = waiters[0]
+        st = owner.state
+        qi, mi = st.missing[miss_i]
+        if cfg.degrade:
+            batch = self.fallback.predict_pairs(
+                st.sims[qi:qi + 1], st.idx[qi:qi + 1], [st.models[mi]])
+            stats.degraded += 1
+        else:
+            batch = self.fallback.failed_pairs(1)
+            stats.failed_pairs += 1
+        for j, (entry, i) in enumerate(waiters):
+            entry.fill(i, batch, 0, shared=j > 0)
+        if self.use_cache and cfg.degrade:
+            self.engine.cache.put_many([key], [CachedPrediction(
+                y_hat=int(batch.y_hat[0]), len_hat=float(batch.len_hat[0]),
+                well_formed=bool(batch.well_formed[0]),
+                p_conf=float(batch.p_conf[0]), pred_tokens=0,
+                prompt_tokens=self.prompt_tokens(key),
+                status=int(batch.status[0]))])
 
 
 class ScopeEngine:
@@ -190,10 +389,12 @@ class ScopeEngine:
                              len_hat, wf, p_conf, prompt_tok, missing,
                              prompts, use_cache, status=status)
 
-    def _finalize(self, st: _PredictState, batch: ParsedBatch
-                  ) -> PoolPredictions:
-        """Scatter fresh estimator rows over the cache-probe columns, write
-        them to the cache, and assemble the ``PoolPredictions``."""
+    def _finalize(self, st: _PredictState, batch: ParsedBatch, *,
+                  put_cache: bool = True) -> PoolPredictions:
+        """Scatter fresh estimator rows over the cache-probe columns and
+        assemble the ``PoolPredictions`` (identical math for batch and
+        stream paths).  ``put_cache=False`` when the caller already wrote
+        the entries (the stream path puts per microbatch)."""
         cfg = self.config
         Q, M = len(st.queries), len(st.models)
         if Q == 0 or M == 0:
@@ -219,7 +420,7 @@ class ScopeEngine:
                 st.status[mq, mm] = batch.status
             # cached pairs spend no new estimator tokens on this call
             overhead[mq, mm] = batch.pred_tokens
-            if st.use_cache:
+            if st.use_cache and put_cache:
                 entries = [CachedPrediction(
                     y_hat=int(batch.y_hat[i]),
                     len_hat=float(batch.len_hat[i]),
@@ -261,6 +462,375 @@ class ScopeEngine:
         st = self._prepare(request, use_cache)
         batch = self._run_estimator(st.prompts, rng)
         return self._finalize(st, batch)
+
+    # -- streaming prediction ------------------------------------------
+    def _dispatch_microbatch(self, mb, rng):
+        """Launch one microbatch: non-blocking handle for estimators with
+        ``dispatch_batch`` (overlapped execution); a finished
+        ``ParsedBatch`` for duck-typed object-list estimators."""
+        dispatch = getattr(self.estimator, "dispatch_batch", None)
+        if dispatch is not None:
+            return dispatch(mb.tokens, prompt_lens=mb.lengths, rng=rng)
+        return self._run_estimator(mb.tokens, rng)
+
+    def _stream_fill(self, inflight, use_cache, control=None):
+        """Parse consumer shared by the stream paths: scatter one parse
+        group's rows into every waiting request (duplicates ride the first
+        waiter's generation at zero extra tokens) and write the cache per
+        group — the moment generations parse, before the owning request
+        drains.
+
+        ``pop(key, None)``: a parsed key may have no waiters left — its
+        request was already answered degraded (a deadline expiry or an
+        abort racing the in-flight decode).  The late full result still
+        reaches the cache, healing the provisional degraded entry, and the
+        unconditional pop guarantees the dedup map never retains a key
+        past its resolution, whichever path resolved it.
+        """
+        def fill(tags, batch):
+            keys, entries = [], []
+            for row, key in enumerate(tags):
+                waiters = inflight.pop(key, None)
+                if control is not None:
+                    control.note_resolved(key)
+                if waiters:
+                    for j, (entry, miss_i) in enumerate(waiters):
+                        entry.fill(miss_i, batch, row, shared=j > 0)
+                if use_cache:
+                    if waiters:                         # true token spend
+                        owner, miss_i = waiters[0]
+                        n_prompt = len(owner.state.prompts[miss_i])
+                    else:                               # late heal
+                        n_prompt = (control.prompt_tokens(key)
+                                    if control is not None else 0)
+                    keys.append(key)
+                    entries.append(CachedPrediction(
+                        y_hat=int(batch.y_hat[row]),
+                        len_hat=float(batch.len_hat[row]),
+                        well_formed=bool(batch.well_formed[row]),
+                        p_conf=float(batch.p_conf[row]),
+                        pred_tokens=int(batch.pred_tokens[row]),
+                        prompt_tokens=n_prompt,
+                        status=int(batch.status[row])))
+            if keys:
+                self.cache.put_many(keys, entries)
+        return fill
+
+    def _submit_misses(self, st, entry, sched, inflight, use_cache,
+                       serial: int, control=None) -> int:
+        """Queue a request's missing (query, model) prompts; a pair whose
+        key duplicates one still in flight shares that generation instead
+        of being scheduled again."""
+        for miss_i, prompt in enumerate(st.prompts):
+            qi, mi = st.missing[miss_i]
+            key = (st.qkeys[qi], st.models[mi], self.config.estimator_version)
+            if use_cache and key in inflight:
+                inflight[key].append((entry, miss_i))
+                continue
+            if not use_cache:           # uncached: never share work
+                key, serial = ("uncached", serial), serial + 1
+            inflight[key] = [(entry, miss_i)]
+            if control is not None:
+                control.note_submit(key, prompt)
+            sched.submit(key, prompt)
+        return serial
+
+    def predict_stream(self, requests: Iterable[RouteRequest], *,
+                       scheduler: Optional["MicrobatchScheduler"] = None,
+                       rng: Optional[torch.Generator] = None,
+                       use_cache: Optional[bool] = None,
+                       overlap: bool = True,
+                       refill: Optional[bool] = None,
+                       segment_len: Optional[int] = None,
+                       max_pending: Optional[int] = None
+                       ) -> Iterator[PoolPredictions]:
+        """Drain an iterator of requests through the continuous-batching
+        serve runtime.
+
+        Yields one ``PoolPredictions`` per request, in arrival order, with
+        the exact semantics of ``predict``: per-request ``get_many`` cache
+        probes, estimator work for the misses only, per-request
+        ``put_many`` on completion.  The difference is *how* the estimator
+        runs: miss prompts from all in-flight requests are assembled into
+        fixed-shape bucket microbatches (see ``serving.scheduler``) — so
+        ragged traffic reuses a handful of batch shapes and small
+        ticks ride along with large ones — and each microbatch is
+        **double-buffer dispatched** through a ``ServeRuntime``
+        (``overlap=True``): batch N+1's host assembly (cache probe,
+        serialization, packing) runs while N's device decode is in flight,
+        and the host blocks only at parse time.  Parses stay in dispatch
+        (FIFO) order, so overlap changes when the host blocks, never what
+        it observes; ``overlap=False`` restores the fully synchronous
+        loop.  Under greedy decoding the yielded predictions match
+        ``predict`` on the same queries — token- and decision-identical,
+        with confidences to f32 ulp (reduction order varies with batch
+        shape).
+
+        The scheduler's deadline/occupancy knobs (``max_queue_age`` /
+        ``min_fill``) are honored on every request arrival via ``tick()``:
+        a latency-sensitive prompt rides out in a partially-filled bucket
+        instead of waiting for a full one.  A request is emitted once all
+        its missing pairs are resolved; partially-filled buckets are
+        flushed when the input iterator is exhausted, so every submitted
+        request is always answered.  A pair whose (query, model)
+        duplicates one still in flight (a hot query repeated across ticks,
+        probed before the first tick's microbatch parsed into the cache)
+        is not scheduled again: it shares the in-flight generation and,
+        like a cache hit, spends no new estimator tokens.  Cache writes
+        happen per microbatch — the moment a bucket's generations are
+        parsed — so later requests hit entries from microbatches parsed
+        before they arrived, even while the owning request is still
+        FIFO-blocked from emitting.
+
+        ``max_pending`` sets the pipelining depth of the runtime (how many
+        dispatched microbatches may be in flight before the oldest is
+        block-parsed): ``None`` defaults to ``EngineConfig.max_pending``,
+        then to 1 when ``overlap`` else 0.  Depths > 1 interleave batch
+        N+1's prefill with batch N's decode on the card's one stream —
+        not measured yet.
+
+        ``refill=True`` (default ``EngineConfig.refill``) switches to
+        **segment-chunked continuous batching**: decode runs in
+        ``segment_len``-step decode segments over a fixed slot batch, and
+        between segments rows that drained at EOS (or exhausted their
+        budget) are parsed from their own window of the decode buffer and
+        their slot refilled with the oldest queued prompt
+        (``scheduler.pop_one``) — a row that finishes early admits the
+        next request instead of idling until the batch retires.  All
+        cache/dedup semantics above are preserved; under greedy decoding
+        refill-on and refill-off streams make identical routing decisions
+        (token-derived fields bit-equal, confidences to f32 ulp).
+
+        Refill-mode latency caveat: while a slot state is live, queued
+        prompts are admitted at segment cadence via ``pop_one`` — usually
+        *sooner* than a deadline flush — but the scheduler's
+        ``max_queue_age``/``min_fill`` knobs and full-bucket emission are
+        only consulted between states, so a prompt that cannot ride the
+        live state (wider than its slots, or all slots busy) waits up to
+        the remaining refill horizon before a new bucket opens.  With
+        ``EngineConfig.kv_paged`` the horizon ceiling does not exist: the
+        slot cache is block-paged (``serving.kv_pool``), admission gates
+        on free pool pages, and a state serves requests indefinitely —
+        the wait collapses to "until a slot drains and pages free up".
+        """
+        cfg = self.config
+        if use_cache is None:
+            use_cache = cfg.enable_cache
+        if refill is None:
+            refill = cfg.refill
+        if cfg.kv_paged and not refill:
+            raise ValueError(
+                "kv_paged requires the refill serve path (the whole-retire "
+                "runtime keeps dense per-microbatch caches) — set "
+                "EngineConfig.refill=True or pass refill=True")
+        sched = scheduler if scheduler is not None else MicrobatchScheduler()
+        if refill:
+            yield from self._predict_stream_refill(
+                requests, sched, rng=rng, use_cache=use_cache,
+                segment_len=(cfg.segment_len if segment_len is None
+                             else int(segment_len)))
+            return
+        if max_pending is None:
+            max_pending = cfg.max_pending
+        if max_pending is None:
+            max_pending = 1 if overlap else 0
+        pending: Deque[_StreamEntry] = deque()
+        # (query_key, model, version) -> waiters; the first waiter's prompt
+        # is the one scheduled, later duplicates ride along
+        inflight: Dict[Tuple, List[Tuple[_StreamEntry, int]]] = {}
+        control = _StreamControl(self, sched, inflight, use_cache)
+        fill = self._stream_fill(inflight, use_cache, control)
+        serial = 0                          # unique keys for uncached pairs
+        # decode-slot occupancy: whole-retire runs every bucket the full
+        # budget; pad rows and post-EOS steps idle (duck-typed estimators
+        # have no token budget — counters stay zero)
+        budget = int(getattr(self.estimator, "max_new_tokens", 0) or 0)
+
+        def on_parsed(mb, batch):
+            batch = control.corrupt(batch)
+            fill(mb.tags, batch)
+            if budget:
+                sched.stats.slot_steps_total += mb.tokens.shape[0] * budget
+                sched.stats.slot_steps_active += int(
+                    batch.pred_tokens[: mb.n_real].sum())
+
+        def dispatch_fn(mb):
+            control.pre_dispatch()
+            return self._dispatch_microbatch(mb, rng)
+
+        runtime = ServeRuntime(
+            dispatch_fn, on_parsed=on_parsed, max_pending=max_pending,
+            on_failed=control.on_failed_mb)
+
+        def drain_completed():
+            while pending and pending[0].remaining == 0:
+                entry = pending.popleft()
+                yield self._finalize(entry.state, entry.parsed(),
+                                     put_cache=False)
+
+        with runtime:
+            for request in requests:
+                st = self._prepare(request, use_cache)
+                entry = _StreamEntry(st)
+                pending.append(entry)
+                serial = self._submit_misses(st, entry, sched, inflight,
+                                             use_cache, serial, control)
+                runtime.dispatch(sched.tick())
+                runtime.poll()              # free parses: device already done
+                control.expire()
+                yield from drain_completed()
+            # shutdown drains until the retry machinery settles: a failed
+            # microbatch requeues its rows mid-flush, so flush + parse
+            # until both the queue and the pipeline are empty (bounded by
+            # max_retries — every key ends parsed or quarantined)
+            while len(sched) or len(runtime):
+                runtime.dispatch(sched.flush())
+                runtime.finish()
+                control.expire()
+            sched.stats.injected_faults = control.injector.fired
+        yield from drain_completed()
+        assert not pending, "stream ended with unresolved requests"
+
+    def _predict_stream_refill(self, requests: Iterable[RouteRequest],
+                               sched, *, rng, use_cache: bool,
+                               segment_len: int
+                               ) -> Iterator[PoolPredictions]:
+        """Segment-chunked continuous batching (see ``predict_stream``).
+
+        One decode state is live at a time (device work is serialized
+        anyway); whole microbatches open a state, and between segments
+        drained slots pull single requests off the scheduler queue.  One
+        segment advances per request arrival, so admission interleaves
+        with traffic; at stream end the loop drains until every slot
+        retires.  A queued prompt wider than the live state's slots waits
+        for that state to retire and then opens its own.
+        """
+        est = self.estimator
+        open_slots = getattr(est, "open_slots", None)
+        if open_slots is None:
+            raise TypeError(
+                "refill streaming requires an estimator with open_slots() "
+                f"(ReasoningEstimator); {type(est).__name__} lacks it — "
+                "stream with refill=False instead")
+        cfg = self.config
+
+        def open_base(tokens, **kw):
+            # resolved per state-open, not per stream: the live state's
+            # slots finish on the estimator they opened with
+            return self.estimator.open_slots(tokens, **kw)
+
+        open_fn = open_base
+        if cfg.kv_paged:
+            if cfg.refill_horizon is not None:
+                raise ValueError(
+                    "kv_paged and refill_horizon are mutually exclusive: "
+                    "paged admission is gated on free pool pages, not a "
+                    "slot horizon")
+            kernel = check_kv_kernel(cfg.kv_kernel)
+            page = int(cfg.kv_page_size)
+            shared = (None if cfg.kv_pool_pages is None
+                      else KVPool(n_pages=int(cfg.kv_pool_pages),
+                                  page_size=page))
+
+            def open_fn(tokens, **kw):
+                if shared is not None:
+                    pool = shared
+                else:
+                    # auto-size: the opening bucket's dense worst case —
+                    # paged still wins whenever rows finish early or the
+                    # run outlives one horizon.
+                    budget = int(getattr(self.estimator, "max_new_tokens",
+                                         0) or 0)
+                    budget_steps = -(-budget // segment_len) * segment_len
+                    b, width = np.asarray(tokens).shape
+                    pool = KVPool(
+                        n_pages=b * (-(-(width + budget_steps) // page)),
+                        page_size=page)
+                return open_base(tokens, kv_pool=pool, kv_kernel=kernel,
+                                 **kw)
+
+        pending: Deque[_StreamEntry] = deque()
+        inflight: Dict[Tuple, List[Tuple[_StreamEntry, int]]] = {}
+        control = _StreamControl(self, sched, inflight, use_cache)
+        fill = self._stream_fill(inflight, use_cache, control)
+
+        def on_parsed(tags, batch):
+            fill(tags, control.corrupt(batch))
+
+        runtime = SlotRuntime(open_fn, sched, segment_len=segment_len,
+                              on_parsed=on_parsed,
+                              horizon=cfg.refill_horizon, rng=rng,
+                              injector=control.injector,
+                              on_failed=control.on_failed)
+        serial = 0
+
+        def drain_completed():
+            while pending and pending[0].remaining == 0:
+                entry = pending.popleft()
+                yield self._finalize(entry.state, entry.parsed(),
+                                     put_cache=False)
+
+        for request in requests:
+            st = self._prepare(request, use_cache)
+            entry = _StreamEntry(st)
+            pending.append(entry)
+            serial = self._submit_misses(st, entry, sched, inflight,
+                                         use_cache, serial, control)
+            runtime.pump(final=False)
+            control.expire()
+            yield from drain_completed()
+        runtime.pump(final=True)
+        control.expire()
+        # deadline expiry between pumps may strand nothing, but a late
+        # requeue can: drain until the queue and the slot state settle
+        while len(sched) or len(runtime):
+            runtime.pump(final=True)
+            control.expire()
+        sched.stats.injected_faults = control.injector.fired
+        yield from drain_completed()
+        assert not pending, "stream ended with unresolved requests"
+
+    def serve_stream(self, data: ScopeData, qid_stream: Iterable[Sequence[int]],
+                     policy: RoutingPolicy, *,
+                     models: Optional[Sequence[str]] = None,
+                     scheduler: Optional["MicrobatchScheduler"] = None,
+                     rng: Optional[torch.Generator] = None,
+                     use_cache: Optional[bool] = None,
+                     overlap: bool = True,
+                     refill: Optional[bool] = None,
+                     segment_len: Optional[int] = None,
+                     max_pending: Optional[int] = None
+                     ) -> Iterator[BatchReport]:
+        """Streaming ``serve``: one executed ``BatchReport`` per qid tick.
+
+        ``qid_stream`` yields batches of query ids (one traffic tick each);
+        prediction flows through ``predict_stream``'s bucketed scheduler
+        (including its ``refill``/``segment_len``/``max_pending`` runtime
+        knobs), then each tick is decided by ``policy`` and executed
+        against the world exactly like ``serve``.
+        """
+        pool_models = (list(models) if models is not None
+                       else self.registry.routable())
+        ticks: Deque[List[int]] = deque()
+
+        def as_requests():
+            for qids in qid_stream:
+                tick = [int(q) for q in qids]
+                ticks.append(tick)
+                yield RouteRequest([data.queries[q] for q in tick],
+                                   models=pool_models)
+
+        for pool in self.predict_stream(as_requests(), scheduler=scheduler,
+                                        rng=rng, use_cache=use_cache,
+                                        overlap=overlap, refill=refill,
+                                        segment_len=segment_len,
+                                        max_pending=max_pending):
+            qids = ticks.popleft()
+            if not qids:
+                yield BatchReport.empty(policy.name, pool_models)
+                continue
+            decision = policy.decide(pool, self)
+            yield self.execute(data, qids, pool, decision, policy.name)
 
     def _run_estimator(self, prompts, rng: Optional[torch.Generator]
                        ) -> ParsedBatch:

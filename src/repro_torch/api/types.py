@@ -4,8 +4,9 @@ These dataclasses are the stable contract between callers and the
 ``ScopeEngine`` facade: a ``RouteRequest`` goes in, ``RouteDecision`` /
 ``BatchReport`` come out, and ``EngineConfig`` is the one input of
 ``ScopeEngine.build``.
-The port's ``EngineConfig`` carries the fields the batch routing path reads;
-the streaming, fault, tier-0 and drift knobs arrive with their slices.
+The port's ``EngineConfig`` carries the fields of the batch routing path
+and of the streaming serve stack (refill, paged KV, fault tolerance); the
+tier-0 and drift knobs arrive with their slices.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ if TYPE_CHECKING:                               # components, no runtime cycle
     from repro_torch.core.fingerprint import FingerprintLibrary
     from repro_torch.core.retrieval import AnchorRetriever
     from repro_torch.data.worldsim import PoolModel
+    from repro_torch.serving.faults import FaultPlan
 
 
 @dataclasses.dataclass
@@ -48,6 +50,39 @@ class EngineConfig:
     estimator_version: str = "v0"
     enable_cache: bool = True
     cache_capacity: Optional[int] = None
+    # streaming serve runtime (predict_stream / serve_stream)
+    refill: bool = False            # segment-chunked mid-batch slot refill
+    segment_len: int = 4            # decode steps per segment (refill)
+    refill_horizon: Optional[int] = None    # decode-slot capacity in steps
+    #                                         (None = 4x max_new_tokens)
+    max_pending: Optional[int] = None       # in-flight microbatches in the
+    #                                         ServeRuntime pipeline (None =
+    #                                         1 if overlap else 0)
+    # paged KV cache (refill path only): block-paged decode-cache pool
+    # instead of the dense per-slot horizon — KV memory scales with live
+    # tokens, admission gates on free pages
+    kv_paged: bool = False
+    kv_page_size: int = 16          # token positions per KV page
+    kv_pool_pages: Optional[int] = None     # pool size in pages (None =
+    #                                         auto-size to the opening
+    #                                         bucket's worst case)
+    kv_kernel: str = "xla"          # the reference's paged-attention names,
+    #                                 "xla" or "pallas"; both run the CUDA
+    #                                 kernel on the card and its plain
+    #                                 version on the CPU
+    # fault tolerance (stream paths): a failed microbatch / slot segment
+    # requeues its rows and retries up to max_retries times (exponential
+    # backoff from retry_backoff_s); rows that keep failing are
+    # quarantined and answered from retrieval priors (degrade=True) or
+    # marked FAILED.  deadline_ms bounds a request's queue + in-flight
+    # age — past it the pair is answered degraded immediately.
+    # fault_plan (serving.faults.FaultPlan) injects deterministic chaos;
+    # None and FaultPlan.none() are identical no-ops.
+    max_retries: int = 2
+    retry_backoff_s: float = 0.0
+    deadline_ms: Optional[float] = None
+    degrade: bool = True
+    fault_plan: Optional["FaultPlan"] = None
 
 
 @dataclasses.dataclass

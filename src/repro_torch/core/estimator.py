@@ -6,12 +6,13 @@ Besides the parsed binary label we expose the correctness *confidence*
 p(YES)/(p(YES)+p(NO)) at the decision token — Appendix D's p_hat(x, M) in
 [0, 1] used by the budget-controlled alpha search.
 
-``Prediction``, ``ParsedBatch`` and the batched numpy parse
-``parse_generations`` are those of ``repro/core/estimator.py`` unchanged;
-``_parse_one`` remains as the scalar reference the parity tests pin the
-batched parse against.  The batch serve path (``predict_batch`` ->
-``dispatch_batch`` -> ``sampler.generate_async``) runs on the params'
-device.
+``Prediction``, ``ParsedBatch``, the batched numpy parse
+``parse_generations`` and ``FallbackEstimator`` are those of
+``repro/core/estimator.py`` unchanged; ``_parse_one`` remains as the scalar
+reference the parity tests pin the batched parse against.  The batch serve
+path (``predict_batch`` -> ``dispatch_batch`` -> ``sampler.generate_async``)
+and the continuous-batching slot state (``open_slots`` -> ``SlotRun``) run
+on the params' device.
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.status import STATUS_OK
+from repro_torch.core.status import (STATUS_DEGRADED, STATUS_FAILED,
+                                     STATUS_OK)
 from repro_torch.data import tokenizer as tok
 from repro_torch.serving import sampler
 
@@ -172,21 +174,443 @@ def parse_generations(gen: np.ndarray, dec_logits: np.ndarray, *,
         rationale_len=np.where(cot, first_tend - first_think + 1, 0))
 
 
+class FallbackEstimator:
+    """Degraded-mode estimator: answers a (query, model) pair from
+    retrieval priors instead of a reasoning decode.
+
+    The prediction is the similarity-weighted outcome of the model's
+    fingerprint at the query's nearest anchors — the same signal the
+    serialized prompt shows the reasoning estimator, minus the reasoning:
+    ``p_conf`` is the weighted anchor correctness, ``len_hat`` the
+    weighted anchor completion tokens, and ``y_hat = p_conf >= 0.5``.
+    Zero decode tokens are spent, rows are marked ``STATUS_DEGRADED``,
+    and ``well_formed=True`` so the cost model prices the predicted
+    length rather than the malformed-estimate pessimistic fallback.
+    """
+
+    def __init__(self, library):
+        self.library = library
+
+    def predict_pairs(self, sims: np.ndarray, idx: np.ndarray,
+                      models: Sequence[str]) -> ParsedBatch:
+        """One degraded prediction per row of (N, K) ``sims``/``idx``."""
+        sims = np.atleast_2d(np.asarray(sims, np.float64))
+        idx = np.atleast_2d(np.asarray(idx, int))
+        n = len(models)
+        p = np.zeros(n, np.float64)
+        len_hat = np.zeros(n, np.float64)
+        for i, model in enumerate(models):
+            fp = self.library.get(model)
+            w = np.clip(sims[i], 0.0, None)
+            total = w.sum()
+            w = w / total if total > 0 else np.full(len(w), 1.0 / len(w))
+            p[i] = float(w @ np.asarray(fp.y, np.float64)[idx[i]])
+            len_hat[i] = float(w @ np.asarray(fp.tokens,
+                                              np.float64)[idx[i]])
+        return ParsedBatch(
+            y_hat=(p >= 0.5).astype(int), len_hat=len_hat,
+            well_formed=np.ones(n, bool), p_conf=p,
+            pred_tokens=np.zeros(n, int), rationale_len=np.zeros(n, int),
+            status=np.full(n, STATUS_DEGRADED, np.int8))
+
+    @staticmethod
+    def failed_pairs(n: int) -> ParsedBatch:
+        """All-FAILED rows for when degradation itself is disabled: the
+        malformed-estimate shape (``well_formed=False``, ``p_conf=0``)
+        so policies price these pairs at the pessimistic fallback."""
+        return ParsedBatch(
+            y_hat=np.zeros(n, int), len_hat=np.zeros(n, np.float64),
+            well_formed=np.zeros(n, bool), p_conf=np.zeros(n, np.float64),
+            pred_tokens=np.zeros(n, int), rationale_len=np.zeros(n, int),
+            status=np.full(n, STATUS_FAILED, np.int8))
+
+
 @dataclasses.dataclass
 class DecodeHandle:
     """In-flight generation: device tensors dispatched, not yet parsed.
 
-    ``parse`` copies each chunk to the host in one transfer
-    (``sampler.to_host``) and runs the batched parse.
+    ``is_ready`` polls without blocking: ``event`` is a CUDA event recorded
+    on the stream right after the dispatch (None for work on the CPU, which
+    is done when the call returns).  ``parse`` copies each chunk to the host
+    in one transfer (``sampler.to_host``) and runs the batched parse.
+    ``windows`` optionally carries one (start, length) pair per row of the
+    concatenated buffer — the per-row windows of a segment-chunked decode
+    whose refilled rows start mid-buffer.
     """
     chunks: List[tuple]             # [(gen (b, T), dec (b, T, 2)), ...]
+    windows: Optional[List[tuple]] = None   # [(start, length)] per row
+    event: Optional["torch.cuda.Event"] = None
+
+    def is_ready(self) -> bool:
+        return self.event is None or self.event.query()
 
     def parse(self) -> ParsedBatch:
         if not self.chunks:
             return ParsedBatch.empty()
         host = [sampler.to_host(g, d) for g, d in self.chunks]
+        starts = lens = None
+        if self.windows is not None:
+            starts = np.asarray([w[0] for w in self.windows], int)
+            lens = np.asarray([w[1] for w in self.windows], int)
         return parse_generations(np.concatenate([g for g, _ in host], axis=0),
-                                 np.concatenate([d for _, d in host], axis=0))
+                                 np.concatenate([d for _, d in host], axis=0),
+                                 starts=starts, lens=lens)
+
+
+def _dispatched_event(device: torch.device) -> Optional["torch.cuda.Event"]:
+    """A CUDA event recorded now on ``device``'s current stream, or None
+    on the CPU."""
+    if device.type != "cuda":
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+@dataclasses.dataclass
+class _Slot:
+    """One live request occupying a decode slot.
+
+    ``prompt`` keeps the row's serialized tokens so a failed row can be
+    requeued into the scheduler without a reverse lookup.
+    """
+    tag: object
+    start: int              # decode-step offset of its window in the run
+    refilled: bool
+    prompt: List[int] = dataclasses.field(default_factory=list)
+
+
+class SlotRun:
+    """One live continuous-batching decode state (the refill serve path).
+
+    Wraps a ``sampler.DecodeState`` over a fixed (b, L) bucket and drives
+    it in ``segment_len``-step decode segments: after each segment, rows that
+    drained at EOS (or exhausted the per-request ``max_new_tokens`` budget)
+    are parsed from their own window of the accumulated decode buffer and
+    their slot freed; ``admit`` prefills freshly popped prompts into the
+    free slots — one batched prefill of the slot-aligned (b, L) prompt
+    matrix per boundary, however many slots drain together.  The slot
+    cache is allocated ``horizon`` decode steps deep (default 4x the
+    budget, rounded up to whole segments) so a slot serves several requests
+    back-to-back before the state retires; ``can_admit`` turns False once
+    the remaining horizon cannot fit a full budget — a request is never
+    admitted into a window it could not finish, so every admitted request
+    decodes exactly the window a standalone run would.
+    """
+
+    def __init__(self, estimator: "ReasoningEstimator", tokens, *,
+                 lengths=None, tags=None, segment_len: int = 4,
+                 horizon: Optional[int] = None,
+                 rng: Optional[torch.Generator] = None,
+                 kv_pool=None, kv_kernel=None):
+        tokens = np.asarray(tokens, np.int32)
+        if tokens.ndim != 2:
+            raise ValueError(f"tokens must be (b, L), got {tokens.shape}")
+        b, L = tokens.shape
+        self.est = estimator
+        self.batch = b
+        self.width = L
+        self.budget = int(estimator.max_new_tokens)
+        self.segment_len = int(segment_len)
+        if not 1 <= self.segment_len <= self.budget:
+            raise ValueError(
+                f"segment_len must lie in [1, {self.budget}] "
+                f"(max_new_tokens), got {segment_len}")
+        # a request admitted at a boundary is freed at the first boundary
+        # >= budget steps later, so a row writes at most this many decode
+        # slots past its prompt — the paged per-row capacity and the unit
+        # the host decode buffers grow by
+        self.budget_steps = -(-self.budget // self.segment_len) \
+            * self.segment_len
+        self.kv_pool = kv_pool
+        if kv_pool is None:
+            horizon = int(horizon) if horizon else 4 * self.budget
+            horizon = max(horizon, self.budget)
+            # whole segments only: a window admitted while can_admit()
+            # holds always completes by the horizon boundary
+            self.horizon = -(-horizon // self.segment_len) \
+                * self.segment_len
+            buf = self.horizon
+        else:
+            # paged mode has no shared horizon: admission is gated on free
+            # pages and the host buffers grow per segment instead
+            self.horizon = None
+            buf = self.budget_steps
+        tags = list(tags) if tags is not None else list(range(b))
+        if len(tags) > b:
+            raise ValueError(f"{len(tags)} tags for {b} slots")
+        lens = None if lengths is None else np.asarray(lengths, int)
+        # per-row true lengths only when genuinely ragged: exact-fit
+        # buckets stay on the unmasked path (SSM backbones included)
+        pl = lens if lens is not None and (lens != L).any() else None
+        if kv_pool is None:
+            self.state = sampler.prefill_state(
+                estimator.params, estimator.cfg, tokens,
+                max_new_tokens=self.horizon, prompt_lens=pl, generator=rng)
+        else:
+            self.state = sampler.prefill_state(
+                estimator.params, estimator.cfg, tokens,
+                max_new_tokens=self.budget_steps, prompt_lens=pl,
+                generator=rng, kv_pool=kv_pool,
+                kv_kernel=kv_kernel or "xla",
+                kv_active=np.arange(b) < len(tags))
+        # rows past the real tags are free slots from the start (a
+        # partially-filled opening bucket refills instead of padding)
+        true_lens = lens if lens is not None else np.full(b, L, int)
+        self.slots: List[Optional[_Slot]] = [
+            _Slot(tags[i], 0, False,
+                  prompt=tokens[i, : int(true_lens[i])].tolist())
+            if i < len(tags) else None
+            for i in range(b)]
+        self.steps_run = 0                  # decode steps *launched*
+        self.steps_done = 0                 # decode steps synced to host
+        # host copy of the decode buffer, written once per segment
+        self._gen = np.full((b, buf), -1, np.int32)
+        self._dec = np.zeros((b, buf, 2), np.float32)
+        # slot-aligned refills admitted since the last launch; fused into
+        # the next ``decode_segment(refill=...)`` call
+        self._pending: Optional[tuple] = None
+        self._inflight: Optional[tuple] = None      # (gen, dec) futures
+        # decode-slot accounting (token granularity; folded into
+        # SchedulerStats by ``account``)
+        self.slot_steps_total = 0
+        self.slot_steps_active = 0
+        self.refill_steps = 0               # active steps on refilled rows
+
+    # -- slot bookkeeping ----------------------------------------------
+    @property
+    def n_live(self) -> int:
+        return sum(s is not None for s in self.slots)
+
+    @property
+    def finished(self) -> bool:
+        return self.n_live == 0
+
+    def free_rows(self) -> List[int]:
+        return [i for i, s in enumerate(self.slots) if s is None]
+
+    @property
+    def paged(self) -> bool:
+        return self.kv_pool is not None
+
+    def can_admit(self) -> bool:
+        """Whether one more request may be admitted into a free slot.
+
+        Dense mode gates on the remaining horizon fitting a full budget;
+        paged mode gates on the pool having a worst-case row's pages free
+        — the ``refill_horizon`` ceiling does not exist there, so a
+        queued prompt drains as soon as pages free up, however long the
+        run has already decoded.
+        """
+        if self.paged:
+            return self.state.paged.can_admit(self.width)
+        return self.steps_run + self.budget <= self.horizon
+
+    @property
+    def deferral_reason(self) -> str:
+        """Which resource a ``can_admit() == False`` boundary waits on
+        (the stats counter the serve runtime bumps)."""
+        return "pages" if self.paged else "horizon"
+
+    def admit(self, items: Sequence[tuple]) -> None:
+        """Refill free slots with ``items`` = [(tag, prompt, length)].
+
+        Admissions are **deferred and fused**: every refill collected at a
+        boundary rides the next ``decode_segment(refill=...)`` call — the
+        slot-aligned prompt matrix is prefilled, merged, and decoded in
+        one call, so a boundary costs one prefill however many slots
+        drained.  Each refilled row's window starts at the
+        current boundary (``steps_run``).
+        """
+        if not items:
+            return
+        if self._inflight is not None:
+            raise RuntimeError(
+                "cannot admit while a segment is in flight — sync() first")
+        free = self.free_rows()
+        if len(items) > len(free):
+            raise ValueError(
+                f"{len(items)} refills for {len(free)} free slots")
+        if self._pending is None:
+            self._pending = (np.zeros(self.batch, bool),
+                             np.full((self.batch, self.width), tok.PAD,
+                                     np.int32),
+                             np.ones(self.batch, np.int64))
+        mask, mat, lens = self._pending
+        for (tag, prompt, length), row in zip(items, free, strict=False):
+            if not self.can_admit():
+                raise ValueError(
+                    "cannot admit: the kv pool has no room for a "
+                    "worst-case row" if self.paged else
+                    "remaining horizon cannot fit a full decode budget")
+            p = np.asarray(prompt, np.int32).reshape(-1)
+            if not 1 <= len(p) <= self.width:
+                raise ValueError(
+                    f"refill prompt of {len(p)} tokens does not fit the "
+                    f"slot width {self.width}")
+            mask[row] = True
+            mat[row] = tok.PAD
+            mat[row, : len(p)] = p
+            lens[row] = int(length) if length else len(p)
+            if self.paged:
+                # reserve the row's pages NOW so the next can_admit()
+                # check sees the pool as the coming launch will leave it
+                self.state.paged.pre_admit(row, int(lens[row]))
+            self.slots[row] = _Slot(tag, self.steps_run, True,
+                                    prompt=p.tolist())
+
+    # -- failure surface (serve-runtime fault tolerance) ---------------
+    @property
+    def in_flight(self) -> bool:
+        """Whether a launched segment is awaiting ``sync``."""
+        return self._inflight is not None
+
+    def live_rows(self) -> List[int]:
+        return [i for i, s in enumerate(self.slots) if s is not None]
+
+    def pick_live_row(self, k: int) -> Optional[int]:
+        """The k-th live row (mod the live count) — how an injected pool
+        fault selects its victim deterministically."""
+        live = self.live_rows()
+        return live[int(k) % len(live)] if live else None
+
+    def starved_rows(self) -> List[int]:
+        """Live rows the next segment's page allocation would starve
+        (paged mode; always empty within reserved budgets)."""
+        if not self.paged:
+            return []
+        return self.state.paged.starved_rows(self.segment_len)
+
+    def fail_row(self, row: int) -> Optional[tuple]:
+        """Row-level failure (KV pool exhaustion, injected or real):
+        release the row's pages and free its slot, returning
+        ``(tag, prompt)`` for requeue.  The slot decodes PAD into the
+        trash page until the state retires — exactly a retired row."""
+        slot = self.slots[row]
+        if slot is None:
+            return None
+        self.slots[row] = None
+        if self.paged:
+            self.state.paged.retire_row(row)
+        return (slot.tag, slot.prompt)
+
+    def abort(self) -> List[tuple]:
+        """Tear down a poisoned run: release every live row's pages,
+        drop pending refills and in-flight futures, and return the live
+        ``(tag, prompt)`` pairs for requeue.  The state is dead afterwards
+        (``finished`` is True); rows already completed by ``sync`` are
+        *not* returned — they parsed (or will parse) normally."""
+        failed = []
+        for row in self.live_rows():
+            failed.append(self.fail_row(row))
+        self._pending = None
+        self._inflight = None
+        return failed
+
+    # -- decode --------------------------------------------------------
+    def launch(self) -> None:
+        """Dispatch the next decode segment without blocking, fusing any
+        pending refills into the same call.  ``sync`` collects it;
+        launching before the host parses the previous boundary overlaps
+        host work with device decode."""
+        if self._inflight is not None:
+            raise RuntimeError("a segment is already in flight")
+        if not self.paged and \
+                self.steps_run + self.segment_len > self.horizon:
+            raise RuntimeError(
+                f"segment overruns the {self.horizon}-step slot horizon")
+        self.state, g, d = sampler.decode_segment(
+            self.est.params, self.est.cfg, self.state, self.segment_len,
+            refill=self._pending)
+        self._pending = None
+        self._inflight = (g, d)
+        self.steps_run += self.segment_len
+        self.slot_steps_total += self.batch * self.segment_len
+
+    def sync(self) -> List[tuple]:
+        """Block on the in-flight segment (launching one first if needed)
+        and free the slots whose rows completed at this boundary.
+
+        Returns the freed ``(row, slot)`` pairs for ``parse_completed`` —
+        the parse is split off so the serve runtime can launch the next
+        segment *before* parsing, keeping the device busy while the host
+        assembles results.
+        """
+        if self._inflight is None:
+            self.launch()
+        g, d = self._inflight
+        self._inflight = None
+        t0, t1 = self.steps_done, self.steps_done + self.segment_len
+        if t1 > self._gen.shape[1]:
+            # paged runs have no horizon, so the host buffers grow in
+            # budget-sized chunks as the run outlives its initial window
+            grow = -(-(t1 - self._gen.shape[1]) // self.budget_steps) \
+                * self.budget_steps
+            self._gen = np.concatenate(
+                [self._gen, np.full((self.batch, grow), -1, np.int32)], 1)
+            self._dec = np.concatenate(
+                [self._dec,
+                 np.zeros((self.batch, grow, 2), np.float32)], 1)
+        # the segment's tokens, decision logits and done-mask reach the
+        # host in one copy
+        self._gen[:, t0:t1], self._dec[:, t0:t1], done = sampler.to_host(
+            g, d, self.state.done)
+        self.steps_done = t1
+        completed = []
+        for row, slot in enumerate(self.slots):
+            if slot is None:
+                continue
+            if bool(done[row]) or t1 - slot.start >= self.budget:
+                completed.append((row, slot))
+                self.slots[row] = None
+                if self.paged:
+                    # hand the row's pages back the moment it drains —
+                    # its table entries fall back to the trash page, so
+                    # the still-running PAD decode scatters harmlessly
+                    self.state.paged.retire_row(row)
+        return completed
+
+    def parse_completed(self, completed: List[tuple]):
+        """(tags, ParsedBatch) for the rows ``sync`` freed: each row's
+        generation is its own window of the decode buffer."""
+        if not completed:
+            return [], ParsedBatch.empty()
+        rows = [r for r, _ in completed]
+        starts = np.asarray([s.start for _, s in completed], int)
+        lens = np.minimum(self.budget, self.steps_done - starts)
+        batch = parse_generations(self._gen[rows, : self.steps_done],
+                                  self._dec[rows, : self.steps_done],
+                                  starts=starts, lens=lens)
+        self.slot_steps_active += int(batch.pred_tokens.sum())
+        refilled = [i for i, (_, s) in enumerate(completed) if s.refilled]
+        if refilled:
+            self.refill_steps += int(batch.pred_tokens[refilled].sum())
+        return [s.tag for _, s in completed], batch
+
+    def step(self):
+        """``sync`` + ``parse_completed`` in one blocking call — the
+        unpipelined drive (unit tests); the serve runtime interleaves a
+        ``launch`` between the two to overlap host parsing with decode."""
+        return self.parse_completed(self.sync())
+
+    def account(self, stats) -> None:
+        """Fold this run's decode-slot counters into ``SchedulerStats``."""
+        stats.slot_steps_total += self.slot_steps_total
+        stats.slot_steps_active += self.slot_steps_active
+        stats.refill_steps_saved += self.refill_steps
+        if self.paged:
+            pool = self.kv_pool
+            stats.kv_page_size = pool.page_size
+            stats.pages_in_use = pool.pages_in_use
+            stats.pages_peak = max(stats.pages_peak, pool.pages_peak)
+            stats.kv_live_tokens = pool.live_tokens
+            stats.kv_peak_tokens = max(stats.kv_peak_tokens,
+                                       pool.tokens_peak)
+        else:
+            # dense KV is committed wholesale at prefill: every slot holds
+            # max_len token positions for the whole run
+            stats.kv_peak_tokens = max(
+                stats.kv_peak_tokens, self.batch * self.state.max_len)
 
 
 class ReasoningEstimator:
@@ -224,7 +648,29 @@ class ReasoningEstimator:
                 self.params, self.cfg, arr[i: i + self.batch_size],
                 max_new_tokens=self.max_new_tokens, temperature=temperature,
                 generator=rng, prompt_lens=pl))
-        return DecodeHandle(chunks)
+        return DecodeHandle(chunks, event=_dispatched_event(
+            self.params["embed"].device))
+
+    def open_slots(self, tokens, *, lengths=None, tags=None,
+                   segment_len: int = 4, horizon: Optional[int] = None,
+                   rng: Optional[torch.Generator] = None,
+                   kv_pool=None, kv_kernel=None) -> SlotRun:
+        """Open a continuous-batching decode state over one microbatch.
+
+        The engine's segment-chunked refill path drives the returned
+        ``SlotRun``: ``step`` decode segments, ``admit`` fresh prompts into
+        drained slots between them.  ``tokens``/``lengths``/``tags`` are a
+        scheduler ``Microbatch``'s fields; rows beyond the real tags are
+        immediately-free slots.  Passing a ``kv_pool`` (``serving.kv_pool.
+        KVPool``) switches the slot cache to the block-paged layout —
+        ``horizon`` must then stay None (admission is page-gated).
+        """
+        if kv_pool is not None and horizon is not None:
+            raise ValueError("horizon and kv_pool are mutually exclusive: "
+                             "paged admission is gated on free pages")
+        return SlotRun(self, tokens, lengths=lengths, tags=tags,
+                       segment_len=segment_len, horizon=horizon, rng=rng,
+                       kv_pool=kv_pool, kv_kernel=kv_kernel)
 
     def predict_batch(self, prompts: List[List[int]], *,
                       prompt_lens=None, temperature: float = 0.0,

@@ -13,6 +13,11 @@
 // writes 0.  Tiles that lie wholly outside a row's interval are skipped for
 // that row: on them the TPU kernel adds p = 0 with alpha = 1, a no-op.
 //
+// Where key kpos lives is a policy (Keys) the caller passes: DenseKeys for a
+// contiguous (.., S, d) cache, PagedKeys for a block-paged one.  Only the
+// two tile loaders read it, so prefill, dense decode and paged decode share
+// one online-softmax body and stream their keys in the same tile order.
+//
 // Plain CUDA cores (fmaf), no tensor cores, TMA or wgmma: simple and right
 // first.  Registers per lane: R * DV / 32 accumulators.
 #pragma once
@@ -66,18 +71,44 @@ constexpr size_t attend_smem_bytes() {
          sizeof(float);
 }
 
+// Key addresses of a dense cache: key j of this (batch, kv-head) starts at
+// base + j * ss.
+struct DenseKeys {
+  long long k_ss, v_ss;
+  __device__ __forceinline__ long long k(int kpos) const { return kpos * k_ss; }
+  __device__ __forceinline__ long long v(int kpos) const { return kpos * v_ss; }
+};
+
+// Key addresses of a block-paged cache: logical key j lives in slot j % page
+// of physical page table[j / page]; base points at this kv-head's slice of
+// page 0.  ``table`` is the row's page table, in shared memory.
+struct PagedKeys {
+  const int* table;
+  int page;
+  long long k_sp, k_ss, v_sp, v_ss;  // page and slot strides of K and V
+  __device__ __forceinline__ long long k(int kpos) const {
+    const int lp = kpos / page;
+    return table[lp] * k_sp + (kpos - lp * page) * k_ss;
+  }
+  __device__ __forceinline__ long long v(int kpos) const {
+    const int lp = kpos / page;
+    return table[lp] * v_sp + (kpos - lp * page) * v_ss;
+  }
+};
+
 // qs: the block's ROWS query rows, f32, already multiplied by the scale.
 // lo/hi: per-row key interval; a row with lo >= hi attends nothing.
 // out: per-row output pointer (DV contiguous elements) or nullptr.
 // [key_lo, key_hi): union of the rows' intervals (what the block streams).
-// kp/vp: K/V of this (batch, kv-head); key j starts at kp + j * k_ss.
-template <typename T, int D, int DV, int R>
+// kp/vp: K/V bases of this (batch, kv-head); key j starts at
+// kp + keys.k(j) and vp + keys.v(j).
+template <typename T, int D, int DV, int R, typename Keys>
 __device__ void attend_rows(const float* __restrict__ qs,
                             const int* __restrict__ lo, const int* __restrict__ hi,
                             T* const* __restrict__ out, int key_lo, int key_hi,
-                            const T* __restrict__ kp, long long k_ss,
-                            const T* __restrict__ vp, long long v_ss,
-                            float softcap, float* ks, float* vs) {
+                            const T* __restrict__ kp, const T* __restrict__ vp,
+                            const Keys keys, float softcap, float* ks,
+                            float* vs) {
   static_assert(DV % 32 == 0, "DV must be a multiple of 32");
   constexpr int C = DV / 32;  // output columns per lane
   const int warp = threadIdx.x >> 5;
@@ -97,12 +128,12 @@ __device__ void attend_rows(const float* __restrict__ qs,
     for (int e = threadIdx.x; e < BK * D; e += THREADS) {
       const int j = e / D, c = e - j * D;
       const int kpos = t0 + j;
-      ks[j * (D + 1) + c] = kpos < key_hi ? to_f32(kp[kpos * k_ss + c]) : 0.f;
+      ks[j * (D + 1) + c] = kpos < key_hi ? to_f32(kp[keys.k(kpos) + c]) : 0.f;
     }
     for (int e = threadIdx.x; e < BK * DV; e += THREADS) {
       const int j = e / DV, c = e - j * DV;
       const int kpos = t0 + j;
-      vs[e] = kpos < key_hi ? to_f32(vp[kpos * v_ss + c]) : 0.f;
+      vs[e] = kpos < key_hi ? to_f32(vp[keys.v(kpos) + c]) : 0.f;
     }
     __syncthreads();
 

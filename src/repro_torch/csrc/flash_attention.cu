@@ -86,9 +86,9 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(const FlashParams p) {
 
   attend_rows<T, D, DV, FLASH_R>(
       qs, lo, hi, out, key_range[0], key_range[1],
-      static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh, p.k_ss,
-      static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh, p.v_ss,
-      p.softcap, ks, vs);
+      static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh,
+      static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh,
+      DenseKeys{p.k_ss, p.v_ss}, p.softcap, ks, vs);
 }
 
 struct FlashLaunch {

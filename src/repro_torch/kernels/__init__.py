@@ -1,26 +1,32 @@
 """Hand-written CUDA kernels (``csrc/``) with their plain PyTorch versions.
 
-  topk_retrieval   — anchor retrieval   (replaces kernels/topk_retrieval.py)
-  flash_attention  — prefill attention  (replaces kernels/flash_attention.py)
-  decode_attention — decode attention   (replaces kernels/decode_attention.py)
+  topk_retrieval         — anchor retrieval  (replaces kernels/topk_retrieval.py)
+  flash_attention        — prefill attention (replaces kernels/flash_attention.py)
+  decode_attention       — decode attention, dense cache
+                           (replaces kernels/decode_attention.py::decode_attention)
+  paged_decode_attention — decode attention, block-paged cache (replaces
+                           kernels/decode_attention.py::paged_decode_attention)
 
-Each module keeps a ``launches`` count of its kernel's launches; the helpers
-below read and reset all three at once.
+Each kernel's wrapper keeps a count of its launches in a module attribute;
+the helpers below read and reset all four at once.
 """
 from typing import Dict
 
 from repro_torch.kernels import (decode_attention, flash_attention,
                                  topk_retrieval)
 
-_MODULES = {"topk_retrieval": topk_retrieval,
-            "flash_attention": flash_attention,
-            "decode_attention": decode_attention}
+# kernel -> (module, counter attribute)
+_COUNTERS = {"topk_retrieval": (topk_retrieval, "launches"),
+             "flash_attention": (flash_attention, "launches"),
+             "decode_attention": (decode_attention, "launches"),
+             "paged_decode_attention": (decode_attention, "paged_launches")}
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: mod.launches for name, mod in _MODULES.items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in _COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _MODULES.values():
-        mod.launches = 0
+    for mod, attr in _COUNTERS.values():
+        setattr(mod, attr, 0)

@@ -2,7 +2,8 @@
 
 Activations are (batch, seq, d_model); heads are split internally.  The
 full-sequence path (prefill) returns the layer's K/V; the single-token
-decode path writes the new K/V into the cache at each row's own slot.
+decode paths write the new K/V into the cache at each row's own slot, of a
+dense (b, hkv, S, hd) cache or of a block-paged one.
 """
 from __future__ import annotations
 
@@ -73,5 +74,35 @@ def gqa_decode(p, cfg: ModelConfig, x, cos, sin, cache: Dict,
     cache["v"][rows, :, pos] = v[:, 0].to(cache["v"].dtype)
     out = ops.decode_attention(q.transpose(1, 2), cache["k"], cache["v"],
                                pos + 1)
+    y = out.transpose(1, 2).reshape(b, 1, cfg.num_heads * cfg.resolved_head_dim)
+    return y @ p["wo"]
+
+
+def gqa_decode_paged(p, cfg: ModelConfig, x, cos, sin, cache: Dict,
+                     pos: torch.Tensor, table: torch.Tensor, spec
+                     ) -> torch.Tensor:
+    """Single-token GQA decode against a block-paged cache.
+
+    cache["k"/"v"]: (n_pages + 1, hkv, page_size, hd) physical pages shared
+    by the whole batch; ``table``: (b, W) int32 page table; ``spec``: a
+    ``kv_pool.PagedSpec`` (page_size, kv_cap).  Row i's new K/V go to slot
+    ``pos[i] % page_size`` of page ``table[i, min(pos[i] // page_size, W -
+    1)]``.  The clamp only fires for retired and done rows, whose tables
+    point at the trash page: their PAD writes collide there, so the scatter
+    is a plain index assignment that tolerates duplicate indices (which of
+    them wins is irrelevant — the trash page is never read unmasked for a
+    live row).  Written IN PLACE, as ``gqa_decode``.
+    """
+    b = x.shape[0]
+    q, k, v = _gqa_qkv(p, cfg, x, cos, sin)
+    lp = torch.clamp(pos // spec.page_size, max=table.shape[1] - 1)
+    rows = torch.arange(b, device=x.device)
+    pid = table[rows, lp].long()
+    slot = pos % spec.page_size
+    cache["k"][pid, :, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][pid, :, slot] = v[:, 0].to(cache["v"].dtype)
+    out = ops.paged_decode_attention(
+        q.transpose(1, 2), cache["k"], cache["v"], pos + 1, table,
+        page_size=spec.page_size, kv_cap=spec.kv_cap)
     y = out.transpose(1, 2).reshape(b, 1, cfg.num_heads * cfg.resolved_head_dim)
     return y @ p["wo"]

@@ -2,7 +2,8 @@
 
   init_params(cfg, *, seed, device)          -> params dict
   prefill(params, cfg, batch)                -> (logits (b, s, V), caches)
-  decode_step(params, cfg, token, caches, pos) -> (logits (b, 1, V), caches)
+  decode_step(params, cfg, token, caches, pos, paged=None)
+                                             -> (logits (b, 1, V), caches)
   init_cache(cfg, batch_size, max_len, device) -> zeroed caches
 
 The params dict has the JAX pytree's layout: ``embed`` (V, d),
@@ -74,9 +75,11 @@ def prefill(params, cfg: ModelConfig, batch: Dict):
 
 
 def decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches,
-                pos: torch.Tensor):
+                pos: torch.Tensor, paged=None):
     """token: (b, 1) int; pos: (b,) int — per-row count of tokens already
     cached (row i's new token lands at absolute position pos[i]).
+    ``paged`` = (``kv_pool.PagedSpec``, (b, W) int32 page table) when the
+    caches are block-paged storage (n_pages + 1, hkv, page, hd) per layer.
 
     Returns (logits (b, 1, V), caches).  The caches are written in place
     and returned as the same objects (JAX returns new arrays)."""
@@ -87,7 +90,8 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches,
                                      cfg.rope_theta)
     for seg, cache, (unit, count) in zip(params["segments"], caches,
                                          tf.build_plan(cfg), strict=True):
-        h = tf.segment_decode(seg, cfg, unit, count, h, cos, sin, cache, pos)
+        h = tf.segment_decode(seg, cfg, unit, count, h, cos, sin, cache, pos,
+                              paged)
     return _logits(params, cfg, h), caches
 
 

@@ -67,10 +67,17 @@ def block_full(p: Dict, cfg: ModelConfig, h: torch.Tensor, cos, sin
 
 
 def block_decode(p: Dict, cfg: ModelConfig, h: torch.Tensor, cos, sin,
-                 cache: Dict, pos: torch.Tensor) -> torch.Tensor:
-    """Writes the new K/V into ``cache`` in place."""
+                 cache: Dict, pos: torch.Tensor, paged=None) -> torch.Tensor:
+    """Writes the new K/V into ``cache`` in place.  ``paged`` = (spec,
+    table) routes them through the block-paged layout."""
     x = rmsnorm(p["attn_norm"], h, cfg.rmsnorm_eps)
-    h = h + attn_mod.gqa_decode(p["attn"], cfg, x, cos, sin, cache, pos)
+    if paged is None:
+        y = attn_mod.gqa_decode(p["attn"], cfg, x, cos, sin, cache, pos)
+    else:
+        spec, table = paged
+        y = attn_mod.gqa_decode_paged(p["attn"], cfg, x, cos, sin, cache,
+                                      pos, table, spec)
+    h = h + y
     x2 = rmsnorm(p["mlp_norm"], h, cfg.rmsnorm_eps)
     return h + mlp_mod.mlp_forward(p["mlp"], cfg, x2)
 
@@ -89,9 +96,9 @@ def segment_full(seg: Dict, cfg: ModelConfig, unit: Tuple[str, ...],
 
 def segment_decode(seg: Dict, cfg: ModelConfig, unit: Tuple[str, ...],
                    count: int, h: torch.Tensor, cos, sin, caches: Dict,
-                   pos: torch.Tensor) -> torch.Tensor:
+                   pos: torch.Tensor, paged=None) -> torch.Tensor:
     for i in range(count):
         for j in range(len(unit)):
             h = block_decode(layer_view(seg[str(j)], i), cfg, h, cos, sin,
-                             layer_view(caches[str(j)], i), pos)
+                             layer_view(caches[str(j)], i), pos, paged)
     return h

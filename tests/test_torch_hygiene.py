@@ -35,7 +35,10 @@ def test_no_jax_or_repro_imports_in_the_port():
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.api, repro_torch.io, "
-            "repro_torch.kernels, repro_torch.serving.sampler\n"
+            "repro_torch.kernels, repro_torch.serving.sampler, "
+            "repro_torch.serving.kv_pool, repro_torch.serving.scheduler, "
+            "repro_torch.serving.runtime, repro_torch.serving.faults, "
+            "repro_torch.serving.engine\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "print(bad); sys.exit(1 if bad else 0)")
