@@ -6,18 +6,21 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each of which must pass (any failure exits non-zero with no result):
 
   1. device      — the card's name and power limit, torch and CUDA versions
-  2. build       — compile the four CUDA kernels from ``src/repro_torch/csrc``
+  2. build       — compile the five CUDA kernels from ``src/repro_torch/csrc``
                    (one nvcc per source, in parallel)
   3. kernels     — each kernel against its plain PyTorch version on the card,
                    at the main path's shapes and at edge shapes; the paged
                    decode kernel also bit for bit against the dense decode
                    kernel on the same logical cache, and with the trash page
-                   and every unreferenced page poisoned to 1e9
+                   and every unreferenced page poisoned to 1e9; the SSD scan
+                   also at chunks 1 to 128, across chunk boundaries and on
+                   strided inputs
   4. timing      — each kernel, its plain version and one PyTorch library
                    call computing the same function (device time: CUDA
                    graph replays between CUDA events), beside the least time
                    the card could take (its bound); for the paged kernel the
-                   yardstick is a page gather plus SDPA
+                   yardstick is a page gather plus SDPA; no single PyTorch
+                   call computes the SSD scan
   5. tiny        — ``ScopeEngine.serve`` on scope-tiny with seeded weights,
                    once on the card (kernels) and once on the CPU (plain
                    versions): equal token streams and decisions
@@ -37,6 +40,15 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    step or prefill call), wall time, KV footprint, peak
                    memory, and the device's idle share over a window of
                    segments
+  9. tiny ssm    — ``ScopeEngine.serve`` on a small pure-SSM Mamba2 config
+                   with seeded weights, on the card (SSD kernel) and on the
+                   CPU (plain version): equal token streams and decisions
+ 10. full ssm    — ``ScopeEngine.serve`` on mamba2-1.3b at full width and
+                   depth (48 layers, d 2048, 64 SSM heads of 64, state 128,
+                   random seeded weights, bf16): 8 test queries x 7 models,
+                   48 SSD launches per prefill call and no attention kernel,
+                   finite logits, prefill and decode times, idle share, peak
+                   memory
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.  Details go to
@@ -71,12 +83,11 @@ TPU_KERNELS = {
     "flash_attention": "src/repro/kernels/flash_attention.py:76",
     "decode_attention": "src/repro/kernels/decode_attention.py:88",
     "paged_decode_attention": "src/repro/kernels/decode_attention.py:185",
+    "ssd_scan": "src/repro/kernels/ssd_scan.py:80",
 }
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in TPU_KERNELS}
-TO_PORT = [
-    {"name": "ssd_scan", "replaces": "src/repro/kernels/ssd_scan.py:80",
-     "path": "Mamba2 pool backbones (not on this path)"},
-]
+TO_PORT = []            # every TPU kernel of the repository has a port
+NO_LAUNCHES = {name: 0 for name in TPU_KERNELS}
 
 
 class SmokeFailure(RuntimeError):
@@ -155,11 +166,13 @@ def device_ms(torch, fn, iters: int, replays: int = 5) -> float:
 
 
 def times(torch, kernel, plain, library, iters: int):
-    """Device ms of the kernel, its plain version and the library call, and
-    the eager per-call ms of the kernel's wrapper."""
+    """Device ms of the kernel, its plain version and the library call
+    (None where no single PyTorch call computes the function), and the
+    eager per-call ms of the kernel's wrapper."""
     return dict(ms=device_ms(torch, kernel, iters),
                 plain_ms=device_ms(torch, plain, max(iters // 10, 5)),
-                library_ms=device_ms(torch, library, iters),
+                library_ms=(None if library is None
+                            else device_ms(torch, library, iters)),
                 eager_ms=eager_ms(torch, kernel, iters))
 
 
@@ -188,12 +201,24 @@ def kernel_checks(torch, L: int):
 
     errs = {}
 
-    def compare(name, got, want, tol, main=None):
+    def compare(name, got, want, tol, main=None, scale="abs"):
+        """max |got - want| within ``tol`` ("abs"), within ``tol * max(1,
+        max |want|)`` ("max"), or each element's within ``tol * max(1,
+        |want|)`` ("each")."""
         torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
+        w = want.float()
+        diff = (got.float() - w).abs()
+        err = diff.max().item()
+        if scale == "each":
+            bad = (diff / w.abs().clamp(min=1.0)).max().item()
+        else:
+            bad = err / (max(1.0, w.abs().max().item()) if scale == "max"
+                         else 1.0)
         finite = bool(torch.isfinite(got.float()).all())
-        print(f"   {name}: max_abs_err {err:.3g} (tol {tol})")
-        check(finite and err <= tol, f"{name}: err {err} > {tol} or non-finite")
+        how = {"abs": "", "max": " x max(1, max|want|)",
+               "each": " x max(1, |want|) each"}[scale]
+        print(f"   {name}: max_abs_err {err:.3g} (tol {tol}{how})")
+        check(finite and bad <= tol, f"{name}: err {bad} > {tol} or non-finite")
         if main:
             errs[main] = err
 
@@ -322,7 +347,74 @@ def kernel_checks(torch, L: int):
                                                   **kw)
         check(torch.equal(poisoned, got), f"{name}: poisoned pages leak")
     print("   paged == dense kernel bit for bit; poisoned pages inert")
+
+    # SSD scan: the main path's shape (mamba2-1.3b's prefill of 56 prompts
+    # of L tokens: one chunk of L) in bf16 and in f32, then float32 edge
+    # shapes — the reference's SSD_CASES, chunks 1 / 7 / 24 / 128, nc >= 2,
+    # n 4 to 128.  Both sides sum in f32 in different orders (the plain
+    # version's a_cum is a parallel scan on the card), and an error of the
+    # running sum a_cum (|a_cum| ~ 40 at the main shape) comes back through
+    # exp() as a relative error of every term: f32 y and state are held to
+    # tol x max(1, max |plain|).  bf16 y is held element by element to
+    # 3e-2 x max(1, |plain|): |y| reaches ~50 there, where one bf16 step
+    # is 0.25, and a rounding of either side may land one step away
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.models.ssm import _largest_chunk
+    main_chunk = _largest_chunk(L, 128)
+    ssd_cases = [
+        ("ssd main", (56, L, 64, 64, 128, main_chunk), bf, 1.0, "ssd_scan"),
+        ("ssd main f32", (56, L, 64, 64, 128, main_chunk), torch.float32,
+         1.0, None),
+        ("ssd chunk 16 nc 4", (1, 64, 2, 16, 8, 16), torch.float32, 0.1, None),
+        ("ssd chunk 32 nc 4", (2, 128, 3, 16, 8, 32), torch.float32, 0.1,
+         None),
+        ("ssd chunk 24 nc 4", (2, 96, 1, 32, 16, 24), torch.float32, 0.1,
+         None),
+        ("ssd chunk 128 nc 2", (1, 256, 4, 8, 4, 128), torch.float32, 0.1,
+         None),
+        ("ssd chunk 7 nc 7", (2, L, 3, 32, 16, 7), torch.float32, 0.1, None),
+        ("ssd chunk 1", (2, 5, 3, 16, 8, 1), torch.float32, 0.1, None),
+        ("ssd chunk 49 f32 full head", (2, 49, 4, 64, 128, 49),
+         torch.float32, 0.1, None),
+        ("ssd chunk 128 nc 2 full head", (2, 256, 64, 64, 128, 128),
+         torch.float32, 0.1, None),
+        ("ssd chunk 24 nc 4 n 16", (1, 96, 4, 64, 16, 24), torch.float32,
+         0.1, None),
+    ]
+    for name, (b, l, h, p, n, chunk), dt, dts, main in ssd_cases:
+        x, dtv, A, B, C = ssd_inputs(torch, gen, b, l, h, p, n, dts, dt)
+        y, st = SS.ssd_scan_cuda(x, dtv, A, B, C, chunk=chunk)
+        yp, sp = SS.ssd_scan_plain(x, dtv, A, B, C, chunk=chunk)
+        if dt == torch.float32:
+            compare(f"{name} y", y, yp, F32_TOL, main, scale="max")
+        else:
+            compare(f"{name} y", y, yp, BF16_TOL, main, scale="each")
+        compare(f"{name} state", st, sp, F32_TOL, scale="max")
+    # strided inputs, as the model passes them: x a head-split slice of the
+    # conv output, B and C slices of one wider tensor
+    wide = rnd(2, 49, 3 * 16 + 40)
+    x = wide[..., :48].reshape(2, 49, 3, 16)
+    _, dtv, A, _, _ = ssd_inputs(torch, gen, 2, 49, 3, 16, 8, 0.1,
+                                 torch.float32)
+    bc = rnd(2, 49, 40) * 0.5
+    B, C = bc[..., :8], bc[..., 8:16]
+    y, st = SS.ssd_scan_cuda(x, dtv, A, B, C, chunk=7)
+    yp, sp = SS.ssd_scan_plain(x, dtv, A, B, C, chunk=7)
+    compare("ssd strided y", y, yp, F32_TOL)
+    compare("ssd strided state", st, sp, F32_TOL)
     return errs
+
+
+def ssd_inputs(torch, gen, b, l, h, p, n, dt_scale, dtype):
+    """x (b, l, h, p) and A (h,) in ``dtype``, dt (b, l, h), B and C (b, l,
+    n) float32, distributed as the reference's SSD tests draw them
+    (``dt_scale`` 0.1) or as the model's random weights give them (1.0)."""
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    x = (rnd(b, l, h, p) * 0.5).to(dtype)
+    dt = torch.nn.functional.softplus(rnd(b, l, h)) * dt_scale
+    A = (-torch.exp(rnd(h) * 0.3)).to(dtype)
+    return x, dt, A, rnd(b, l, n) * 0.5, rnd(b, l, n) * 0.5
 
 
 def paged_layout(torch, gen, b, hkv, S, d, dv, page, dt, spare: int = 5):
@@ -453,16 +545,50 @@ def kernel_timings(torch, L: int, retriever, query_embs):
         bound(nbytes, 2 * nq * n * dd, "float32")
     print(f"   dense decode kernel at the paged row's shape: "
           f"{out['paged_decode_attention']['dense_kernel_ms']:.5f} ms")
+    # SSD scan: mamba2-1.3b's prefill of the request's 56 prompts (one
+    # chunk of L tokens a (row, head)); no single PyTorch call computes it
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.models.ssm import _largest_chunk
+    b, h, p, n = 56, 64, 64, 128
+    chunk = _largest_chunk(L, 128)
+    x, dtv, A, B, C = ssd_inputs(torch, gen, b, L, h, p, n, 1.0, bf)
+    out["ssd_scan"] = dict(
+        times(torch, lambda: SS.ssd_scan_cuda(x, dtv, A, B, C, chunk=chunk),
+              lambda: SS.ssd_scan_plain(x, dtv, A, B, C, chunk=chunk), None,
+              50),
+        shape=f"x ({b},{L},{h},{p}) bf16 dt ({b},{L},{h}) A ({h},) bf16 B, C "
+              f"({b},{L},{n}) f32 chunk {chunk}",
+        library_call="none: no single PyTorch call computes the SSD scan")
+    out["ssd_scan"]["bound_ms"], out["ssd_scan"]["bound_by"] = \
+        bound(*ssd_work(b, L, h, p, n, chunk, x.element_size(),
+                        A.element_size()), "float32")
     for name, t in out.items():
+        lib = ("none" if t["library_ms"] is None
+               else f"{t['library_ms']:.5f}")
         print(f"   {name} [{t['shape']}]: kernel_ms {t['ms']:.5f} "
-              f"plain_ms {t['plain_ms']:.5f} library_ms {t['library_ms']:.5f}"
+              f"plain_ms {t['plain_ms']:.5f} library_ms {lib}"
               f" bound_ms {t['bound_ms']:.6f} ({t['bound_by']}); eager "
               f"wrapper call {t['eager_ms']:.5f} ms")
     return out
 
 
+def ssd_work(b, l, h, p, n, chunk, x_bytes, a_bytes):
+    """(bytes, f32 FLOPs) the SSD scan needs: x, dt, A, B and C read once,
+    y and the f32 final state written once; per (row, head) and chunk of T,
+    the causal scores C[s].B[t] and their weighted sum of x dt over the
+    T (T + 1) / 2 pairs t <= s, the state update (T x p x n), and from the
+    second chunk on the entering state's term C[s].h (T x p x n)."""
+    nc = l // chunk
+    nbytes = (2 * x_bytes * b * l * h * p + 4 * b * l * h + a_bytes * h
+              + 2 * 4 * b * l * n + 4 * b * h * p * n)
+    pairs = chunk * (chunk + 1) // 2
+    per_head = (nc * (2 * pairs * (n + p) + 2 * chunk * p * n)
+                + (nc - 1) * 2 * chunk * p * n)
+    return nbytes, b * h * per_head
+
+
 # ---------------------------------------------------------------------------
-# phases 5/6: the main path through ScopeEngine.serve
+# phases 5/6 and 9/10: the main path through ScopeEngine.serve
 # ---------------------------------------------------------------------------
 def build_world():
     from repro_torch.core.fingerprint import (FingerprintLibrary,
@@ -491,15 +617,30 @@ def make_engine(cfg, params, anchors, lib, world, data, device, **kw):
         models_meta={m: world.models[m] for m in data.models}, **kw))
 
 
-def tiny_card_vs_cpu(torch, world, data, anchors, lib, qids):
+def tiny_ssm_config():
+    """The small pure-SSM Mamba2 config of the CPU tests: mamba2-1.3b's
+    ``reduced()`` (2 layers, d 256, 16 heads of 32, state 16, chunk 16,
+    f32) with its shared attention switched off."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("mamba2-1.3b").reduced(),
+                               shared_attn_every=0)
+
+
+def tiny_card_vs_cpu(torch, cfg, world, data, anchors, lib, qids):
+    """``ScopeEngine.serve`` on the small ``cfg`` with seeded weights, on
+    the card (kernels) and on the CPU (plain versions): equal token
+    streams, decisions and cache accounting; launch counts of the card's
+    runs."""
     import numpy as np
+    from repro_torch import kernels
     from repro_torch.api import FixedAlphaPolicy, RouteRequest, SetBudgetPolicy
-    from repro_torch.configs.scope_estimator import TINY
     from repro_torch.models.model import init_params
 
-    cpu_params = init_params(TINY, seed=0, device="cpu")
-    engines = {dev: make_engine(TINY, _to(cpu_params, dev), anchors, lib,
+    cpu_params = init_params(cfg, seed=0, device="cpu")
+    engines = {dev: make_engine(cfg, _to(cpu_params, dev), anchors, lib,
                                 world, data, dev) for dev in ("cpu", "cuda")}
+    kernels.reset_launch_counts()
     # token streams of the estimator on both devices, same prompts
     st = engines["cpu"]._prepare(RouteRequest([data.queries[q]
                                                for q in qids]), False)
@@ -521,7 +662,8 @@ def tiny_card_vs_cpu(torch, world, data, anchors, lib, qids):
                                                 for q in qids]),
                                   use_cache=False)
     budget = float(pool.cost_hat.min(axis=1).sum() * 1.5)
-    result = {"tokens_compared": int(g_cpu.size), "dec_max_abs_err": dec_err}
+    result = {"config": cfg.name, "tokens_compared": int(g_cpu.size),
+              "dec_max_abs_err": dec_err}
     for policy in (FixedAlphaPolicy(0.7), SetBudgetPolicy(budget)):
         reps = {dev: eng.serve(data, qids, policy)
                 for dev, eng in engines.items()}
@@ -537,38 +679,47 @@ def tiny_card_vs_cpu(torch, world, data, anchors, lib, qids):
                                "models": [x.model for x in b.decisions]}
         print(f"   {policy.name}: {len(b.decisions)} decisions equal, "
               f"p_hat max_abs_err {p_err:.3g}")
+    result["launches"] = launches = kernels.launch_counts()
+    ran = ({"ssd_scan"} if cfg.is_attention_free()
+           else {"flash_attention", "decode_attention"})
+    check(all((launches[k] > 0) == (k in ran) for k in
+              ("flash_attention", "decode_attention", "ssd_scan")),
+          f"tiny {cfg.name}: launches {launches}, expected only {ran}")
     print(f"   {g_cpu.size} tokens equal, decision logits max_abs_err "
-          f"{dec_err:.3g}")
+          f"{dec_err:.3g}; card launches {result['launches']}")
     return result
 
 
-def full_params(torch):
-    """scope-qwen3-4b's random weights, seeded, on the card."""
-    from repro_torch.configs.scope_estimator import CONFIG
+def full_params(torch, cfg, min_params: float):
+    """``cfg``'s random weights, seeded, on the card."""
     from repro_torch.models.model import init_params
     t0 = time.perf_counter()
-    params = init_params(CONFIG, seed=0, device="cuda")
+    params = init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
     print(f"   init {n_params / 1e9:.3f} B params in "
           f"{time.perf_counter() - t0:.1f} s")
-    check(n_params > 3.9e9, f"scope-qwen3-4b has {n_params} params")
+    check(n_params > min_params, f"{cfg.name} has {n_params} params")
     return params, n_params
 
 
-def full_width(torch, world, data, anchors, lib, qids, params, n_params):
+def full_width(torch, cfg, world, data, anchors, lib, qids, params,
+               n_params):
+    """``ScopeEngine.serve`` on ``cfg`` at full width: a cold and a warm
+    serve with launch counts read around them, then the estimator's
+    prefill / decode split and the device's busy time on the same 56
+    prompts."""
     import numpy as np
     from repro_torch import kernels
     from repro_torch.api import FixedAlphaPolicy, RouteRequest, SetBudgetPolicy
-    from repro_torch.configs.scope_estimator import CONFIG
     from repro_torch.serving import sampler
 
     # warm-up on a throwaway engine (cuBLAS handles, library loads)
-    warm = make_engine(CONFIG, params, anchors, lib, world, data, "cuda")
+    warm = make_engine(cfg, params, anchors, lib, world, data, "cuda")
     warm.serve(data, qids[:1], FixedAlphaPolicy(0.7))
     del warm
 
-    engine = make_engine(CONFIG, params, anchors, lib, world, data, "cuda")
+    engine = make_engine(cfg, params, anchors, lib, world, data, "cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -586,12 +737,17 @@ def full_width(torch, world, data, anchors, lib, qids, params, n_params):
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     pairs = len(qids) * len(data.models)
-    L = CONFIG.num_layers
+    L = cfg.num_layers
     print(f"   launches {counts}")
     # three retrievals: two serves and the budget probe; one prefill and
-    # 12 decode steps of all 36 layers, for the one cold serve
-    want = {"topk_retrieval": 3, "flash_attention": L,
-            "decode_attention": L * NEW_TOKENS, "paged_decode_attention": 0}
+    # 12 decode steps of every layer, for the one cold serve: flash and
+    # decode attention on an attention stack, one SSD scan a layer of the
+    # prefill on an SSM one (its decode is the plain recurrence)
+    if cfg.is_attention_free():
+        want = dict(NO_LAUNCHES, topk_retrieval=3, ssd_scan=L)
+    else:
+        want = dict(NO_LAUNCHES, topk_retrieval=3, flash_attention=L,
+                    decode_attention=L * NEW_TOKENS)
     check(counts == want, f"launch counts {counts} != {want}")
     check(rep_a.cache_misses == pairs and rep_b.cache_hits == pairs,
           f"cache accounting {rep_a.cache_misses}/{rep_b.cache_hits}")
@@ -612,11 +768,13 @@ def full_width(torch, world, data, anchors, lib, qids, params, n_params):
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state = sampler.prefill_state(params, CONFIG, prompts,
+        state = sampler.prefill_state(params, cfg, prompts,
                                       max_new_tokens=NEW_TOKENS)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        _, gen, dec = sampler.decode_segment(params, CONFIG, state,
+        check(bool(torch.isfinite(state.last_logits).all()),
+              "non-finite prefill logits")
+        _, gen, dec = sampler.decode_segment(params, cfg, state,
                                              NEW_TOKENS)
         g, d = sampler.to_host(gen, dec)
         t2 = time.perf_counter()
@@ -624,11 +782,11 @@ def full_width(torch, world, data, anchors, lib, qids, params, n_params):
         times["decode_s"].append(t2 - t1)
     check(g.shape == (pairs, NEW_TOKENS) and np.isfinite(d).all(),
           "generation output malformed")
-    busy = device_busy(torch, params, CONFIG, prompts)
+    busy = device_busy(torch, params, cfg, prompts)
     prefill_s, decode_s = min(times["prefill_s"]), min(times["decode_s"])
     step_ms = decode_s / NEW_TOKENS * 1e3
     result = {
-        "config": CONFIG.name, "params": n_params, "pairs": pairs,
+        "config": cfg.name, "params": n_params, "pairs": pairs,
         "prompt_len": int(prompts.shape[1]), "new_tokens": NEW_TOKENS,
         "serve_cold_s": t_cold, "serve_warm_s": t_warm,
         "prefill_s": prefill_s, "decode_s": decode_s,
@@ -644,7 +802,8 @@ def full_width(torch, world, data, anchors, lib, qids, params, n_params):
         print(f"   device busy: prefill {busy['prefill_ms']:.2f} ms (idle "
               f"share {result['prefill_idle_share']:.3f}), decode step "
               f"{busy['decode_step_ms']:.2f} ms (idle share "
-              f"{result['decode_idle_share']:.3f}); top ops {busy['top']}")
+              f"{result['decode_idle_share']:.3f}); top ops: prefill "
+              f"{busy['prefill_top']}, decode {busy['top']}")
     print(f"   serve cold {t_cold:.3f} s, warm {t_warm:.4f} s; prefill "
           f"{result['prefill_s']:.4f} s, decode {result['decode_s']:.4f} s "
           f"({result['decode_step_ms']:.2f} ms/step); peak "
@@ -846,9 +1005,9 @@ def full_stream(torch, world, data, anchors, lib, params):
         return reports, probe.segments, out
 
     rep_p, seg_p, paged = run("paged", kv_paged=True, kv_page_size=PAGE)
-    want = {"topk_retrieval": len(ticks), "flash_attention":
-            L * paged["prefill_calls"], "decode_attention": 0,
-            "paged_decode_attention": L * paged["decode_steps"]}
+    want = dict(NO_LAUNCHES, topk_retrieval=len(ticks),
+                flash_attention=L * paged["prefill_calls"],
+                paged_decode_attention=L * paged["decode_steps"])
     check(paged["launches"] == want,
           f"paged launches {paged['launches']} != {want}")
     # a dense slot state deep enough to serve the whole stream admits on
@@ -951,12 +1110,18 @@ def device_busy(torch, params, cfg, prompts, steps: int = 4):
     def dev_us(events):
         return sum(e.self_device_time_total for e in events)
 
+    def top_ops(events, total, k):
+        top = sorted(events, key=lambda e: -e.self_device_time_total)[:k]
+        return [(e.key[:100], round(e.self_device_time_total / total, 3))
+                for e in top]
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         state = sampler.prefill_state(params, cfg, prompts,
                                       max_new_tokens=steps)
         torch.cuda.synchronize()
-    prefill_us = dev_us(prof.key_averages())
+    prefill_events = prof.key_averages()
+    prefill_us = dev_us(prefill_events)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         sampler.decode_segment(params, cfg, state, steps)
         torch.cuda.synchronize()
@@ -965,11 +1130,10 @@ def device_busy(torch, params, cfg, prompts, steps: int = 4):
     if prefill_us <= 0 or total <= 0:       # no CUPTI device activity
         print("   profiler recorded no device time: idle share not measured")
         return None
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
     return {"prefill_ms": prefill_us / 1e3,
             "decode_step_ms": total / steps / 1e3,
-            "top": [(e.key[:48], round(e.self_device_time_total / total, 3))
-                    for e in top]}
+            "prefill_top": top_ops(prefill_events, prefill_us, 6),
+            "top": top_ops(events, total, 6)}
 
 
 def _to(tree, dev):
@@ -1061,13 +1225,15 @@ def main() -> int:
     done(t)
 
     t = phase("tiny: card vs cpu")
-    report["tiny"] = tiny_card_vs_cpu(torch, world, data, anchors, lib, qids)
+    report["tiny"] = tiny_card_vs_cpu(torch, TINY, world, data, anchors, lib,
+                                      qids)
     done(t)
 
     t = phase("full width: scope-qwen3-4b")
-    params, n_params = full_params(torch)
-    report["full"] = full_width(torch, world, data, anchors, lib, qids,
-                                params, n_params)
+    from repro_torch.configs.scope_estimator import CONFIG
+    params, n_params = full_params(torch, CONFIG, 3.9e9)
+    report["full"] = full_width(torch, CONFIG, world, data, anchors, lib,
+                                qids, params, n_params)
     done(t)
 
     t = phase("tiny stream: card vs cpu, whole-retire, dense and paged "
@@ -1078,13 +1244,31 @@ def main() -> int:
 
     t = phase("full-width stream: scope-qwen3-4b, paged and dense refill")
     report["stream"] = full_stream(torch, world, data, anchors, lib, params)
+    del params
+    torch.cuda.empty_cache()
+    done(t)
+
+    t = phase("tiny ssm: card vs cpu")
+    report["tiny_ssm"] = tiny_card_vs_cpu(torch, tiny_ssm_config(), world,
+                                          data, anchors, lib, qids)
+    done(t)
+
+    t = phase("full width: mamba2-1.3b")
+    from repro_torch.configs import get_config
+    ssm_cfg = get_config("mamba2-1.3b")
+    params, n_params = full_params(torch, ssm_cfg, 1.3e9)
+    report["ssm"] = full_width(torch, ssm_cfg, world, data, anchors, lib,
+                               qids, params, n_params)
+    del params
     done(t)
 
     # launches: each kernel's count on its own path's run — the batch serve
-    # for the three kernels of that path, the paged stream for the paged one
+    # for the three kernels of that path, the paged stream for the paged
+    # one, the mamba2-1.3b serve for the SSD scan
     launches = dict(report["full"]["launches"],
                     paged_decode_attention=report["stream"]["paged"][
-                        "launches"]["paged_decode_attention"])
+                        "launches"]["paged_decode_attention"],
+                    ssd_scan=report["ssm"]["launches"]["ssd_scan"])
     kernel_rows = []
     for name in TPU_KERNELS:
         tm = timing[name]

@@ -1,10 +1,11 @@
-"""Model configuration: the dense-family subset of ``repro.configs.base``.
+"""Model configuration: the dense and SSM subset of ``repro.configs.base``.
 
-Only the fields the SCOPE estimator configs (``configs/scope_estimator``)
-set or rely on are kept, with the JAX package's defaults, so a config built
-here describes the same network as its JAX twin.  Other families (sliding
-windows, softcaps, MoE, MLA, SSM, encoder-decoder, multimodal) arrive with
-their own port slices.
+Only the fields the ported configs set or rely on are kept — the SCOPE
+estimator configs (``configs/scope_estimator``) and the pure-SSM Mamba2
+backbone (``configs/mamba2_1_3b``) — with the JAX package's defaults, so a
+config built here describes the same network as its JAX twin.  Other
+families (sliding windows, softcaps, MoE, MLA, the zamba2 hybrid,
+encoder-decoder, multimodal) arrive with their own port slices.
 """
 from __future__ import annotations
 
@@ -12,14 +13,15 @@ import dataclasses
 import math
 from typing import Tuple
 
-# "attn": global self-attention + MLP (the SCOPE estimator family)
-VALID_BLOCK_KINDS = ("attn",)
+# "attn" : global self-attention + MLP (the SCOPE estimator family)
+# "mamba": Mamba2 SSD block (attention-free)
+VALID_BLOCK_KINDS = ("attn", "mamba")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str                      # dense
+    arch_type: str                      # dense | ssm
     source: str = ""                    # paper / model card citation
 
     # Core transformer dims
@@ -38,6 +40,15 @@ class ModelConfig:
     rope_theta: float = 10000.0
     qk_norm: bool = False
 
+    # SSM (Mamba2 / SSD)
+    ssm_state: int = 0
+    ssm_heads: int = 0                  # 0 -> d_inner // ssm_head_dim
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 128
+    ssm_conv_width: int = 4
+    shared_attn_every: int = 6          # zamba2: shared attn after every k-th mamba
+
     # Norm / misc
     rmsnorm_eps: float = 1e-6
     tie_embeddings: bool = True
@@ -53,7 +64,44 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
 
+    @property
+    def d_inner(self) -> int:
+        """Mamba2 inner width."""
+        return self.ssm_expand * self.d_model
+
+    @property
+    def resolved_ssm_heads(self) -> int:
+        return self.ssm_heads or self.d_inner // self.ssm_head_dim
+
     def layer_kinds(self) -> Tuple[str, ...]:
         """Expand block_pattern to exactly num_layers entries."""
         reps = math.ceil(self.num_layers / len(self.block_pattern))
         return tuple((self.block_pattern * reps)[: self.num_layers])
+
+    def is_attention_free(self) -> bool:
+        return all(k == "mamba" for k in self.layer_kinds())
+
+    def has_ssm(self) -> bool:
+        return any(k.startswith("mamba") for k in self.layer_kinds())
+
+    def reduced(self, *, num_layers: int = 2, d_model: int = 256,
+                num_heads: int = 4, vocab_size: int = 512) -> "ModelConfig":
+        """A smoke-test variant of the same family (CPU-runnable): the JAX
+        ``reduced()`` on the fields the port has.  As there, an SSM config
+        comes back with ``shared_attn_every=2`` (zamba2's layout, not
+        ported): replace it with 0 for a pure-SSM variant."""
+        changes = {
+            "num_layers": num_layers,
+            "d_model": d_model,
+            "num_heads": num_heads,
+            "num_kv_heads": max(1, min(self.num_kv_heads, num_heads)),
+            "head_dim": max(32, d_model // num_heads),
+            "d_ff": d_model * 4,
+            "vocab_size": vocab_size,
+            "dtype": "float32",
+        }
+        if self.has_ssm():
+            changes.update(ssm_state=min(self.ssm_state or 16, 16),
+                           ssm_head_dim=32, ssm_heads=0, ssm_chunk=16,
+                           shared_attn_every=2)
+        return dataclasses.replace(self, **changes)

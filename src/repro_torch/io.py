@@ -37,9 +37,15 @@ def _to_tensor(arr: np.ndarray, device) -> torch.Tensor:
 
 
 def _check(params: Dict, cfg: ModelConfig) -> None:
-    """The bridged tree must describe ``cfg``'s dense tied network."""
+    """The bridged tree must describe ``cfg``'s tied dense or pure-SSM
+    network."""
     if "lm_head" in params or not cfg.tie_embeddings:
         raise NotImplementedError("untied LM heads are not ported yet")
+    if "shared_attn" in params or (cfg.has_ssm()
+                                   and cfg.shared_attn_every > 0):
+        raise NotImplementedError(
+            f"{cfg.name!r}: the zamba2 hybrid (a tied shared attention "
+            "block between mamba layers) is not ported yet")
     want = (cfg.vocab_size, cfg.d_model)
     if tuple(params["embed"].shape) != want:
         raise ValueError(f"embed {tuple(params['embed'].shape)} != {want} "

@@ -6,20 +6,23 @@
                            (replaces kernels/decode_attention.py::decode_attention)
   paged_decode_attention — decode attention, block-paged cache (replaces
                            kernels/decode_attention.py::paged_decode_attention)
+  ssd_scan               — Mamba2 SSD chunk scan of the prefill
+                           (replaces kernels/ssd_scan.py)
 
 Each kernel's wrapper keeps a count of its launches in a module attribute;
-the helpers below read and reset all four at once.
+the helpers below read and reset all five at once.
 """
 from typing import Dict
 
-from repro_torch.kernels import (decode_attention, flash_attention,
+from repro_torch.kernels import (decode_attention, flash_attention, ssd_scan,
                                  topk_retrieval)
 
 # kernel -> (module, counter attribute)
 _COUNTERS = {"topk_retrieval": (topk_retrieval, "launches"),
              "flash_attention": (flash_attention, "launches"),
              "decode_attention": (decode_attention, "launches"),
-             "paged_decode_attention": (decode_attention, "paged_launches")}
+             "paged_decode_attention": (decode_attention, "paged_launches"),
+             "ssd_scan": (ssd_scan, "launches")}
 
 
 def launch_counts() -> Dict[str, int]:

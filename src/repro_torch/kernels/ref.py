@@ -2,8 +2,9 @@
 
 Ground truth for the kernel tests and the math the JAX main path runs
 (``ops.flash_attention`` sends sq, sk <= 1024 to ``ref.attention``; the
-retriever's default is ``ref.topk_retrieval``).  Same layouts, masks and
-epsilons as the JAX functions, float32 math throughout.
+retriever's default is ``ref.topk_retrieval``; ``ops.ssd`` defaults to
+``ref.ssd``).  Same layouts, masks and epsilons as the JAX functions,
+float32 math throughout.
 """
 from __future__ import annotations
 
@@ -59,6 +60,93 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", probs, v.float())
     return out.reshape(b, hq, sq, dv).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD (state-space duality, chunked) — the minimal listing of
+# arXiv:2405.21060 App. B, with an explicit initial state for decode handoff.
+# ---------------------------------------------------------------------------
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """Stable segment-sum: out[..., i, j] = sum_{k=j+1..i} x[..., k]."""
+    t = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    out = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((t, t), dtype=torch.bool, device=x.device))
+    return out.masked_fill(~mask, float("-inf"))
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+        C: torch.Tensor, *, chunk: int,
+        init_state: Optional[torch.Tensor] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan.
+
+    x:  (b, l, h, p)  per-head inputs
+    dt: (b, l, h)     positive step sizes (already softplus'd)
+    A:  (h,)          negative per-head decay rates
+    B:  (b, l, n)     input projections (single group)
+    C:  (b, l, n)     output projections
+    Returns y (b, l, h, p) in x's dtype and the final state (b, h, p, n)
+    f32.  Where JAX scans the inter-chunk recurrence, this loops over the
+    chunks.
+    """
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    if l % chunk:
+        raise ValueError(f"sequence {l} is not a multiple of chunk {chunk}")
+    nc = l // chunk
+
+    a = dt * A[None, None, :]                       # (b, l, h) log-decay <= 0
+    xdt = x * dt[..., None]                         # discretized input
+
+    ar = a.reshape(b, nc, chunk, h).permute(0, 3, 1, 2)          # (b,h,c,t)
+    xr = xdt.reshape(b, nc, chunk, h, p)                         # (b,c,t,h,p)
+    Br = B.reshape(b, nc, chunk, n)                              # (b,c,t,n)
+    Cr = C.reshape(b, nc, chunk, n)
+
+    # 1. intra-chunk (diagonal block) output
+    L = torch.exp(_segsum(ar))                                   # (b,h,c,t,t)
+    y_diag = torch.einsum("bcsn,bctn,bhcst,bcthp->bcshp", Cr, Br, L, xr)
+
+    # 2. chunk-final states
+    a_cum = torch.cumsum(ar, dim=-1)                             # (b,h,c,t)
+    a_total = a_cum[..., -1]                                     # (b,h,c)
+    decay_states = torch.exp(a_total[..., None] - a_cum)         # (b,h,c,t)
+    states = torch.einsum("bctn,bhct,bcthp->bchpn", Br, decay_states, xr)
+
+    # 3. inter-chunk recurrence over chunk states: the state *entering*
+    #    each chunk, and the final one
+    state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+             if init_state is None else init_state.float())
+    entry = []
+    for c in range(nc):
+        entry.append(state)
+        state = (state * torch.exp(a_total[:, :, c])[..., None, None]
+                 + states[:, c].float())
+    entry_states = torch.stack(entry)                            # (c,b,h,p,n)
+
+    # 4. inter-chunk (off-diagonal) output: y_off = C_t . (decay_in . h_entry)
+    decay_out = torch.exp(a_cum)                                 # (b,h,c,t)
+    y_off = torch.einsum("bcsn,bhcs,cbhpn->bcshp", Cr, decay_out,
+                         entry_states)
+
+    y = (y_diag + y_off).reshape(b, l, h, p)
+    return y.to(x.dtype), state
+
+
+def ssd_decode_step(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
+                    A: torch.Tensor, B: torch.Tensor, C: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-token recurrent SSD update.
+
+    state: (b, h, p, n); x: (b, h, p); dt: (b, h); B, C: (b, n).
+    Returns (y (b, h, p) in x's dtype, new_state).
+    """
+    a = torch.exp(dt * A[None, :])                      # (b, h)
+    upd = torch.einsum("bhp,bn->bhpn", x * dt[..., None], B)
+    new_state = state * a[..., None, None] + upd
+    y = torch.einsum("bhpn,bn->bhp", new_state, C)
+    return y.to(x.dtype), new_state
 
 
 def topk_retrieval(queries: torch.Tensor, anchors: torch.Tensor, k: int, *,

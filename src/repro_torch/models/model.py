@@ -1,4 +1,5 @@
-"""Top-level model API of the dense estimator backbone.
+"""Top-level model API of the estimator backbones: the dense GQA stack and
+the pure-SSM Mamba2 stack.
 
   init_params(cfg, *, seed, device)          -> params dict
   prefill(params, cfg, batch)                -> (logits (b, s, V), caches)
@@ -9,7 +10,10 @@
 The params dict has the JAX pytree's layout: ``embed`` (V, d),
 ``final_norm.scale`` (d,), and ``segments``, a tuple with one dict per
 segment of (L, ...) stacked layer leaves.  Caches are a tuple with one dict
-per segment, ``{"<j>": {"k", "v"}}`` of shape (L, b, hkv, S, hd).
+per segment, ``{"<j>": {"k", "v"}}`` of shape (L, b, hkv, S, hd) for an
+attention layer, ``{"<j>": {"conv", "ssm"}}`` of shape (L, b, width - 1,
+d_inner + 2 n) in the model dtype and (L, b, heads, head_dim, n) in float32
+for a mamba layer.
 """
 from __future__ import annotations
 
@@ -28,18 +32,22 @@ from repro_torch.models.common import (
 def init_params(cfg: ModelConfig, *, seed: int = 0,
                 device: DeviceLike = None) -> Dict:
     """Random weights from a seeded ``torch.Generator`` on ``device``, with
-    the JAX initializers' distributions and dtypes: every leaf of rank >= 2
-    (embedding, projections, stacked norm scales) in ``cfg.dtype``, the
-    final norm scale in float32.  Untied heads are not supported."""
+    the JAX initializers' distributions and dtypes.  JAX casts every float32
+    leaf of rank >= 2 to ``cfg.dtype`` after stacking, so the embedding and
+    every per-layer leaf (projections, norm scales, and a mamba layer's conv
+    weights and bias, ``A_log``, ``D`` and ``dt_bias``) are made in
+    ``cfg.dtype``; the final norm scale stays float32.  Untied heads are not
+    supported."""
     if not cfg.tie_embeddings:
         raise NotImplementedError("untied LM heads are not ported yet")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = dtype_of(cfg.dtype)
     segments = tuple(
-        {str(j): tf.stack_trees([tf.init_block(gen, cfg, device=dev, dtype=dt)
+        {str(j): tf.stack_trees([tf.init_block(gen, cfg, kind, device=dev,
+                                               dtype=dt)
                                  for _ in range(count)])
-         for j, _ in enumerate(unit)}
+         for j, kind in enumerate(unit)}
         for unit, count in tf.build_plan(cfg))
     return {"embed": embed_init((cfg.vocab_size, cfg.d_model), gen,
                                 device=dev, dtype=dt),
@@ -57,15 +65,23 @@ def _logits(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     return h @ params["embed"].T
 
 
+def _cos_sin(cfg: ModelConfig, pos: torch.Tensor):
+    """RoPE tables at ``pos``; none for an attention-free stack (whose
+    ``resolved_head_dim`` would divide by its zero heads)."""
+    if cfg.is_attention_free() and cfg.shared_attn_every == 0:
+        return None, None
+    return rope_mod.rope_cos_sin(pos, cfg.resolved_head_dim, cfg.rope_theta)
+
+
 def prefill(params, cfg: ModelConfig, batch: Dict):
     """Full causal forward over ``batch["tokens"]`` (b, s); returns the
-    logits and per-layer caches sized to the prompt (seq axis = s)."""
+    logits and per-layer caches: K/V sized to the prompt (seq axis = s),
+    a mamba layer's conv window and final SSM state."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     h = _embed(params, cfg, tokens)
-    pos = torch.arange(s, device=tokens.device).expand(b, s)
-    cos, sin = rope_mod.rope_cos_sin(pos, cfg.resolved_head_dim,
-                                     cfg.rope_theta)
+    cos, sin = _cos_sin(cfg, torch.arange(s, device=tokens.device)
+                        .expand(b, s))
     caches = []
     for seg, (unit, count) in zip(params["segments"], tf.build_plan(cfg),
                                   strict=True):
@@ -86,8 +102,7 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches,
     b = token.shape[0]
     pos = pos.reshape(-1).expand(b)
     h = params["embed"][token]
-    cos, sin = rope_mod.rope_cos_sin(pos[:, None], cfg.resolved_head_dim,
-                                     cfg.rope_theta)
+    cos, sin = _cos_sin(cfg, pos[:, None])
     for seg, cache, (unit, count) in zip(params["segments"], caches,
                                          tf.build_plan(cfg), strict=True):
         h = tf.segment_decode(seg, cfg, unit, count, h, cos, sin, cache, pos,
@@ -100,10 +115,21 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
     """Zeroed caches shaped for ``decode_step``."""
     dev = resolve_device(device)
     dt = dtype_of(cfg.dtype)
-    hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+
+    def spec(kind: str, count: int):
+        """(shape, dtype) of each cache leaf of a ``kind`` layer stack."""
+        if kind == "mamba":
+            conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+            return {"conv": ((count, batch_size, cfg.ssm_conv_width - 1,
+                              conv_dim), dt),
+                    "ssm": ((count, batch_size, cfg.resolved_ssm_heads,
+                             cfg.ssm_head_dim, cfg.ssm_state), torch.float32)}
+        shape = (count, batch_size, cfg.num_kv_heads, max_len,
+                 cfg.resolved_head_dim)
+        return {"k": (shape, dt), "v": (shape, dt)}
+
     return tuple(
-        {str(j): {name: torch.zeros((count, batch_size, hkv, max_len, hd),
-                                    dtype=dt, device=dev)
-                  for name in ("k", "v")}
-         for j, _ in enumerate(unit)}
+        {str(j): {name: torch.zeros(shape, dtype=dtype, device=dev)
+                  for name, (shape, dtype) in spec(kind, count).items()}
+         for j, kind in enumerate(unit)}
         for unit, count in tf.build_plan(cfg))

@@ -1,9 +1,11 @@
-"""Decoder stack: the ``attn`` block kinds and a loop over stacked layers.
+"""Decoder stack: the ``attn`` and ``mamba`` block kinds and a loop over
+stacked layers.
 
 As in the JAX package, layers are grouped into homogeneous segments whose
 parameters are stacked on a leading layer axis; where JAX scans the layer
 body, the port runs a Python loop over the stack (layer ``i`` reads the
-views ``leaf[i]``).
+views ``leaf[i]``).  An ``attn`` layer caches {"k", "v"}, a ``mamba`` layer
+{"conv", "ssm"}, each leaf stacked per segment.
 """
 from __future__ import annotations
 
@@ -14,11 +16,17 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import init_rmsnorm, rmsnorm
 
 
 def build_plan(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
     """[(unit_kinds, count), ...]: consecutive identical kinds grouped."""
+    if cfg.has_ssm() and cfg.shared_attn_every > 0:
+        raise NotImplementedError(
+            f"{cfg.name!r}: SSM with a shared attention block every "
+            f"{cfg.shared_attn_every} layers (the zamba2 hybrid) is not "
+            "ported yet; a pure-SSM config sets shared_attn_every=0")
     kinds = cfg.layer_kinds()
     plan = []
     i = 0
@@ -31,9 +39,13 @@ def build_plan(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
     return plan
 
 
-def init_block(generator: torch.Generator, cfg: ModelConfig, *, device,
-               dtype) -> Dict:
+def init_block(generator: torch.Generator, cfg: ModelConfig, kind: str, *,
+               device, dtype) -> Dict:
     d = cfg.d_model
+    if kind == "mamba":
+        return {"norm": init_rmsnorm(d, device=device, dtype=dtype),
+                "mamba": ssm_mod.init_mamba(generator, cfg, device=device,
+                                            dtype=dtype)}
     return {"attn_norm": init_rmsnorm(d, device=device, dtype=dtype),
             "mlp_norm": init_rmsnorm(d, device=device, dtype=dtype),
             "attn": attn_mod.init_gqa(generator, cfg, device=device,
@@ -57,8 +69,12 @@ def layer_view(tree: Dict, i: int) -> Dict:
     return tree[i]
 
 
-def block_full(p: Dict, cfg: ModelConfig, h: torch.Tensor, cos, sin
-               ) -> Tuple[torch.Tensor, Dict]:
+def block_full(p: Dict, cfg: ModelConfig, kind: str, h: torch.Tensor, cos,
+               sin) -> Tuple[torch.Tensor, Dict]:
+    if kind == "mamba":
+        y, cache = ssm_mod.mamba_full(p["mamba"], cfg,
+                                      rmsnorm(p["norm"], h, cfg.rmsnorm_eps))
+        return h + y, cache
     x = rmsnorm(p["attn_norm"], h, cfg.rmsnorm_eps)
     y, kv = attn_mod.gqa_full(p["attn"], cfg, x, cos, sin)
     h = h + y
@@ -66,10 +82,15 @@ def block_full(p: Dict, cfg: ModelConfig, h: torch.Tensor, cos, sin
     return h + mlp_mod.mlp_forward(p["mlp"], cfg, x2), kv
 
 
-def block_decode(p: Dict, cfg: ModelConfig, h: torch.Tensor, cos, sin,
-                 cache: Dict, pos: torch.Tensor, paged=None) -> torch.Tensor:
-    """Writes the new K/V into ``cache`` in place.  ``paged`` = (spec,
-    table) routes them through the block-paged layout."""
+def block_decode(p: Dict, cfg: ModelConfig, kind: str, h: torch.Tensor,
+                 cos, sin, cache: Dict, pos: torch.Tensor,
+                 paged=None) -> torch.Tensor:
+    """Writes the new K/V (or conv window and SSM state) into ``cache`` in
+    place.  ``paged`` = (spec, table) routes K/V through the block-paged
+    layout; ``kv_pool.check_paged_support`` keeps SSM layers off it."""
+    if kind == "mamba":
+        return h + ssm_mod.mamba_decode(
+            p["mamba"], cfg, rmsnorm(p["norm"], h, cfg.rmsnorm_eps), cache)
     x = rmsnorm(p["attn_norm"], h, cfg.rmsnorm_eps)
     if paged is None:
         y = attn_mod.gqa_decode(p["attn"], cfg, x, cos, sin, cache, pos)
@@ -84,13 +105,15 @@ def block_decode(p: Dict, cfg: ModelConfig, h: torch.Tensor, cos, sin,
 
 def segment_full(seg: Dict, cfg: ModelConfig, unit: Tuple[str, ...],
                  count: int, h: torch.Tensor, cos, sin):
-    """Run ``count`` stacked units.  Returns (h, {"<j>": {"k", "v"}}) with
-    each cache leaf stacked to (count, b, hkv, s, hd)."""
+    """Run ``count`` stacked units.  Returns (h, {"<j>": cache}) with each
+    cache leaf stacked on a leading count axis: k/v (count, b, hkv, s, hd),
+    conv (count, b, width - 1, conv_dim), ssm (count, b, heads, p, n)."""
     per_layer = {str(j): [] for j in range(len(unit))}
     for i in range(count):
-        for j in range(len(unit)):
-            h, kv = block_full(layer_view(seg[str(j)], i), cfg, h, cos, sin)
-            per_layer[str(j)].append(kv)
+        for j, kind in enumerate(unit):
+            h, cache = block_full(layer_view(seg[str(j)], i), cfg, kind, h,
+                                  cos, sin)
+            per_layer[str(j)].append(cache)
     return h, {j: stack_trees(kvs) for j, kvs in per_layer.items()}
 
 
@@ -98,7 +121,7 @@ def segment_decode(seg: Dict, cfg: ModelConfig, unit: Tuple[str, ...],
                    count: int, h: torch.Tensor, cos, sin, caches: Dict,
                    pos: torch.Tensor, paged=None) -> torch.Tensor:
     for i in range(count):
-        for j in range(len(unit)):
-            h = block_decode(layer_view(seg[str(j)], i), cfg, h, cos, sin,
-                             layer_view(caches[str(j)], i), pos, paged)
+        for j, kind in enumerate(unit):
+            h = block_decode(layer_view(seg[str(j)], i), cfg, kind, h, cos,
+                             sin, layer_view(caches[str(j)], i), pos, paged)
     return h

@@ -60,14 +60,15 @@ def kv_bytes_per_token(cfg: ModelConfig) -> int:
 
 
 def check_paged_support(cfg: ModelConfig) -> None:
-    """Paged KV covers full-window GQA attention stacks only — every block
-    kind the port has.  Loud failure beats decoding from the wrong cache
-    lines should another kind arrive."""
+    """Paged KV covers full-window GQA attention stacks only: SSM/conv
+    states have no paged layout.  Loud failure beats decoding from the
+    wrong cache lines."""
     for kind in cfg.layer_kinds():
         if kind != "attn":
             raise ValueError(
                 "paged KV requires an attention-only GQA backbone: "
-                f"{cfg.name!r} has a {kind!r} layer")
+                f"{cfg.name!r} has a {kind!r} layer (SSM/MLA states have "
+                "no paged layout)")
 
 
 class PagedSpec(NamedTuple):

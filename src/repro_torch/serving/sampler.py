@@ -30,8 +30,11 @@ packed into one transfer (``to_host``).
 Positions are per row: right-padded prompts with true lengths
 ``prompt_lens`` decode from their own length, the new K/V overwriting the
 pad slots and attention masked at each row's own valid length, so a padded
-row reproduces an unpadded run.  Rows past EOS keep decoding PAD (and
-writing K/V), exactly as in JAX.
+row reproduces an unpadded run (attention backbones).  SSM/conv prefill
+state consumes right-pad tokens, so an SSM backbone takes exact-fit
+lengths only: ragged ``prompt_lens`` and padded refills raise, as in the
+reference.  Rows past EOS keep decoding PAD (and writing K/V), exactly as
+in JAX.
 """
 from __future__ import annotations
 
@@ -53,6 +56,8 @@ DECISION_TOKENS = (YES, NO)
 
 # Seq axis of each decode-cache leaf, behind the layer-stack dim:
 #   k / v : (L, b, kv_heads, S, head_dim) -> axis 3
+# Everything else (the mamba conv window and SSM state) has no decode-time
+# sequence axis and is never grown, whatever its shape.
 CACHE_SEQ_AXIS = {"k": 3, "v": 3}
 
 
@@ -75,9 +80,12 @@ def _leaves(caches):
 
 def _pad_caches(caches, max_len: int, prompt_len: int):
     """Grow prefill caches (seq = prompt_len) to decode capacity, by the
-    explicit seq-axis contract of ``CACHE_SEQ_AXIS`` (never by shape)."""
+    explicit seq-axis contract of ``CACHE_SEQ_AXIS`` (never by shape);
+    leaves without a seq axis pass through unchanged."""
     def grow(name, leaf):
-        ax = CACHE_SEQ_AXIS[name]
+        ax = CACHE_SEQ_AXIS.get(name)
+        if ax is None:
+            return leaf
         if leaf.shape[ax] != prompt_len:
             raise ValueError(
                 f"cache leaf {name!r} has seq axis {leaf.shape[ax]} != "
@@ -94,12 +102,17 @@ def _pad_caches(caches, max_len: int, prompt_len: int):
 
 def _merge_rows(caches, new_caches, rows: torch.Tensor,
                 src: torch.Tensor) -> None:
-    """Replace dense cache rows ``rows`` by rows ``src`` of the (count, p,
-    hkv, W, hd) prefill caches ``new_caches``, zero past W — the
-    reference's row replacement by a grown prefill cache, in place."""
+    """Replace dense cache rows ``rows`` by rows ``src`` of the prefill
+    caches ``new_caches`` — (count, p, hkv, W, hd) K/V, zero past W; a
+    mamba layer's conv window and SSM state whole — the reference's row
+    replacement by a grown prefill cache, in place."""
     for (name, old), (_, new) in zip(_leaves(caches), _leaves(new_caches),
                                      strict=True):
-        width = new.shape[CACHE_SEQ_AXIS[name]]
+        ax = CACHE_SEQ_AXIS.get(name)
+        if ax is None:
+            old[:, rows] = new[:, src].to(old.dtype)
+            continue
+        width = new.shape[ax]
         old[:, rows, :, :width] = new[:, src].to(old.dtype)
         old[:, rows, :, width:] = 0
 
@@ -147,16 +160,20 @@ def _fresh_paged_storage(new_caches, n_pages_total: int, page_size: int):
                   for j, unit in seg.items()} for seg in new_caches)
 
 
-def _check_refill_lens(state: "DecodeState", width: int,
+def _check_refill_lens(cfg: ModelConfig, state: "DecodeState", width: int,
                        lens: np.ndarray) -> None:
     """Shared refill-prompt guards (fused and unfused paths accept exactly
-    the same inputs): true lengths in [1, width] and decode room left in
-    the slot cache.  The reference's SSM guard has no counterpart: the
-    port's backbones are attention-only."""
+    the same inputs): true lengths in [1, width], attention-only backbones
+    when padded, and decode room left in the slot cache."""
     if lens.min() < 1 or lens.max() > width:
         raise ValueError(
             f"prompt_lens must lie in [1, {width}], got "
             f"[{lens.min()}, {lens.max()}]")
+    if lens.min() < width and cfg.has_ssm():
+        raise ValueError(
+            "padded refill requires an attention-only backbone: "
+            f"{cfg.name!r} has SSM/conv layers whose prefill state consumes "
+            "right-pad tokens — refill at the exact prompt length instead")
     if lens.max() >= state.max_len or width > state.max_len:
         raise ValueError(
             f"refill prompt of {lens.max()} tokens (padded to {width}) "
@@ -224,6 +241,14 @@ def prefill_state(params, cfg: ModelConfig, prompts, *, max_new_tokens: int,
             raise ValueError(
                 f"prompt_lens must lie in [1, {lp}], got "
                 f"[{lens.min()}, {lens.max()}]")
+        if lens.min() < lp and cfg.has_ssm():
+            # SSM/conv prefill has no per-row masking: the recurrent state
+            # consumes right-pad tokens, silently corrupting sub-bucket rows
+            raise ValueError(
+                "ragged prompt_lens require an attention-only backbone: "
+                f"{cfg.name!r} has SSM/conv layers whose prefill state "
+                "consumes right-pad tokens — use exact-fit lengths "
+                "(BucketConfig(prompt_lens=()))")
     paged = None
     if kv_pool is not None:
         check_paged_support(cfg)
@@ -319,7 +344,7 @@ def decode_segment(params, cfg: ModelConfig, state: DecodeState, steps: int,
         if not mask.any():
             raise ValueError("refill mask selects no rows — pass "
                              "refill=None for a plain segment")
-        _check_refill_lens(state, width, lens[mask])
+        _check_refill_lens(cfg, state, width, lens[mask])
         mlens = lens[mask]
         lens = np.where(mask, lens, 1)      # unmasked rows: any valid index
         if pg is not None:
@@ -410,7 +435,7 @@ def refill_slots(params, cfg: ModelConfig, state: DecodeState,
             else np.asarray(prompt_lens, np.int64).reshape(-1))
     if lens.shape != (r,):
         raise ValueError(f"prompt_lens shape {lens.shape} != ({r},)")
-    _check_refill_lens(state, width, lens)
+    _check_refill_lens(cfg, state, width, lens)
     dev = state.last_logits.device
     ridx = torch.as_tensor(rows, device=dev)
     if state.paged is not None:

@@ -38,7 +38,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels, repro_torch.serving.sampler, "
             "repro_torch.serving.kv_pool, repro_torch.serving.scheduler, "
             "repro_torch.serving.runtime, repro_torch.serving.faults, "
-            "repro_torch.serving.engine\n"
+            "repro_torch.serving.engine, repro_torch.models.ssm, "
+            "repro_torch.kernels.ssd_scan, repro_torch.configs.mamba2_1_3b\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "print(bad); sys.exit(1 if bad else 0)")
