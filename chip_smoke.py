@@ -89,6 +89,29 @@ SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in TPU_KERNELS}
 TO_PORT = []            # every TPU kernel of the repository has a port
 NO_LAUNCHES = {name: 0 for name in TPU_KERNELS}
 
+# SSD scan checks: name, (b, l, h, p, n, chunk; 0 = the main path's chunk
+# of an L-token prompt, l 0 = L), x / A dtype, dt scale, the kernel whose
+# max_abs_err it gives, x as a strided slice of the conv output
+SSD_CASES = [
+    ("ssd main", (56, 0, 64, 64, 128, 0), "bfloat16", 1.0, "ssd_scan", True),
+    ("ssd main f32", (56, 0, 64, 64, 128, 0), "float32", 1.0, None, True),
+    ("ssd chunk 16 nc 4", (1, 64, 2, 16, 8, 16), "float32", 0.1, None, False),
+    ("ssd chunk 32 nc 4", (2, 128, 3, 16, 8, 32), "float32", 0.1, None,
+     False),
+    ("ssd chunk 24 nc 4", (2, 96, 1, 32, 16, 24), "float32", 0.1, None,
+     False),
+    ("ssd chunk 128 nc 2", (1, 256, 4, 8, 4, 128), "float32", 0.1, None,
+     False),
+    ("ssd chunk 7 nc 7", (2, 49, 3, 32, 16, 7), "float32", 0.1, None, False),
+    ("ssd chunk 1", (2, 5, 3, 16, 8, 1), "float32", 0.1, None, False),
+    ("ssd chunk 49 f32 full head", (2, 49, 4, 64, 128, 49), "float32", 0.1,
+     None, False),
+    ("ssd chunk 128 nc 2 full head", (2, 256, 64, 64, 128, 128), "float32",
+     0.1, None, False),
+    ("ssd chunk 24 nc 4 n 16", (1, 96, 4, 64, 16, 24), "float32", 0.1, None,
+     False),
+]
+
 
 class SmokeFailure(RuntimeError):
     pass
@@ -349,49 +372,34 @@ def kernel_checks(torch, L: int):
     print("   paged == dense kernel bit for bit; poisoned pages inert")
 
     # SSD scan: the main path's shape (mamba2-1.3b's prefill of 56 prompts
-    # of L tokens: one chunk of L) in bf16 and in f32, then float32 edge
-    # shapes — the reference's SSD_CASES, chunks 1 / 7 / 24 / 128, nc >= 2,
-    # n 4 to 128.  Both sides sum in f32 in different orders (the plain
-    # version's a_cum is a parallel scan on the card), and an error of the
-    # running sum a_cum (|a_cum| ~ 40 at the main shape) comes back through
-    # exp() as a relative error of every term: f32 y and state are held to
-    # tol x max(1, max |plain|).  bf16 y is held element by element to
-    # 3e-2 x max(1, |plain|): |y| reaches ~50 there, where one bf16 step
-    # is 0.25, and a rounding of either side may land one step away
+    # of L tokens: one chunk of L, x a head-split slice of the conv output
+    # as mamba_full passes it) in bf16 and in f32, then float32 edge shapes
+    # — the reference's SSD_CASES, chunks 1 / 7 / 24 / 128, nc >= 2, n 4 to
+    # 128.  Kernel and f32 plain version sum in f32 in different orders, so
+    # each is held element by element to the plain version run in float64
+    # on the same values, within tol x max(1, |witness|): 2e-5 for f32 y
+    # and every state, 3e-2 for bf16 y (|y| reaches ~50 there, where one
+    # bf16 step is 0.25)
+    from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as SS
     from repro_torch.models.ssm import _largest_chunk
     main_chunk = _largest_chunk(L, 128)
-    ssd_cases = [
-        ("ssd main", (56, L, 64, 64, 128, main_chunk), bf, 1.0, "ssd_scan"),
-        ("ssd main f32", (56, L, 64, 64, 128, main_chunk), torch.float32,
-         1.0, None),
-        ("ssd chunk 16 nc 4", (1, 64, 2, 16, 8, 16), torch.float32, 0.1, None),
-        ("ssd chunk 32 nc 4", (2, 128, 3, 16, 8, 32), torch.float32, 0.1,
-         None),
-        ("ssd chunk 24 nc 4", (2, 96, 1, 32, 16, 24), torch.float32, 0.1,
-         None),
-        ("ssd chunk 128 nc 2", (1, 256, 4, 8, 4, 128), torch.float32, 0.1,
-         None),
-        ("ssd chunk 7 nc 7", (2, L, 3, 32, 16, 7), torch.float32, 0.1, None),
-        ("ssd chunk 1", (2, 5, 3, 16, 8, 1), torch.float32, 0.1, None),
-        ("ssd chunk 49 f32 full head", (2, 49, 4, 64, 128, 49),
-         torch.float32, 0.1, None),
-        ("ssd chunk 128 nc 2 full head", (2, 256, 64, 64, 128, 128),
-         torch.float32, 0.1, None),
-        ("ssd chunk 24 nc 4 n 16", (1, 96, 4, 64, 16, 24), torch.float32,
-         0.1, None),
-    ]
-    for name, (b, l, h, p, n, chunk), dt, dts, main in ssd_cases:
-        x, dtv, A, B, C = ssd_inputs(torch, gen, b, l, h, p, n, dts, dt)
-        y, st = SS.ssd_scan_cuda(x, dtv, A, B, C, chunk=chunk)
-        yp, sp = SS.ssd_scan_plain(x, dtv, A, B, C, chunk=chunk)
-        if dt == torch.float32:
-            compare(f"{name} y", y, yp, F32_TOL, main, scale="max")
-        else:
-            compare(f"{name} y", y, yp, BF16_TOL, main, scale="each")
-        compare(f"{name} state", st, sp, F32_TOL, scale="max")
-    # strided inputs, as the model passes them: x a head-split slice of the
-    # conv output, B and C slices of one wider tensor
+    for name, (b, l, h, p, n, chunk), dtn, dts, main, strided in SSD_CASES:
+        dt = getattr(torch, dtn)
+        l, chunk = l or L, chunk or main_chunk
+        x, dtv, A, B, C = ssd_inputs(torch, gen, b, l, h, p, n, dts, dt,
+                                     conv_layout=strided)
+        got = SS.ssd_scan_cuda(x, dtv, A, B, C, chunk=chunk)
+        plain = ref.ssd(x, dtv, A, B, C, chunk=chunk)
+        yw, sw = ref.ssd(*(t.double() for t in (x, dtv, A, B, C)),
+                         chunk=chunk)
+        y_tol = F32_TOL if dt == torch.float32 else BF16_TOL
+        for side, (y, st) in (("kernel", got), ("plain", plain)):
+            compare(f"{name} {side} y", y, yw, y_tol,
+                    main if side == "kernel" else None, scale="each")
+            compare(f"{name} {side} state", st, sw, F32_TOL, scale="each")
+    # B and C strided too (at an f32 model dtype mamba_full passes them as
+    # slices of the conv output; at bf16 they are float32 copies)
     wide = rnd(2, 49, 3 * 16 + 40)
     x = wide[..., :48].reshape(2, 49, 3, 16)
     _, dtv, A, _, _ = ssd_inputs(torch, gen, 2, 49, 3, 16, 8, 0.1,
@@ -399,19 +407,26 @@ def kernel_checks(torch, L: int):
     bc = rnd(2, 49, 40) * 0.5
     B, C = bc[..., :8], bc[..., 8:16]
     y, st = SS.ssd_scan_cuda(x, dtv, A, B, C, chunk=7)
-    yp, sp = SS.ssd_scan_plain(x, dtv, A, B, C, chunk=7)
+    yp, sp = ref.ssd(x, dtv, A, B, C, chunk=7)
     compare("ssd strided y", y, yp, F32_TOL)
     compare("ssd strided state", st, sp, F32_TOL)
     return errs
 
 
-def ssd_inputs(torch, gen, b, l, h, p, n, dt_scale, dtype):
+def ssd_inputs(torch, gen, b, l, h, p, n, dt_scale, dtype,
+               conv_layout: bool = False):
     """x (b, l, h, p) and A (h,) in ``dtype``, dt (b, l, h), B and C (b, l,
     n) float32, distributed as the reference's SSD tests draw them
-    (``dt_scale`` 0.1) or as the model's random weights give them (1.0)."""
+    (``dt_scale`` 0.1) or as the model's random weights give them (1.0).
+    With ``conv_layout`` x is the head-split slice of a (b, l, h p + 2 n)
+    conv output, the strided view mamba_full passes."""
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device="cuda")
-    x = (rnd(b, l, h, p) * 0.5).to(dtype)
+    if conv_layout:
+        x = (rnd(b, l, h * p + 2 * n) * 0.5).to(dtype)[..., :h * p]
+        x = x.reshape(b, l, h, p)
+    else:
+        x = (rnd(b, l, h, p) * 0.5).to(dtype)
     dt = torch.nn.functional.softplus(rnd(b, l, h)) * dt_scale
     A = (-torch.exp(rnd(h) * 0.3)).to(dtype)
     return x, dt, A, rnd(b, l, n) * 0.5, rnd(b, l, n) * 0.5
@@ -546,17 +561,19 @@ def kernel_timings(torch, L: int, retriever, query_embs):
     print(f"   dense decode kernel at the paged row's shape: "
           f"{out['paged_decode_attention']['dense_kernel_ms']:.5f} ms")
     # SSD scan: mamba2-1.3b's prefill of the request's 56 prompts (one
-    # chunk of L tokens a (row, head)); no single PyTorch call computes it
+    # chunk of L tokens a (row, head), x strided as mamba_full passes it);
+    # no single PyTorch call computes it
+    from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as SS
     from repro_torch.models.ssm import _largest_chunk
     b, h, p, n = 56, 64, 64, 128
     chunk = _largest_chunk(L, 128)
-    x, dtv, A, B, C = ssd_inputs(torch, gen, b, L, h, p, n, 1.0, bf)
+    x, dtv, A, B, C = ssd_inputs(torch, gen, b, L, h, p, n, 1.0, bf,
+                                 conv_layout=True)
     out["ssd_scan"] = dict(
         times(torch, lambda: SS.ssd_scan_cuda(x, dtv, A, B, C, chunk=chunk),
-              lambda: SS.ssd_scan_plain(x, dtv, A, B, C, chunk=chunk), None,
-              50),
-        shape=f"x ({b},{L},{h},{p}) bf16 dt ({b},{L},{h}) A ({h},) bf16 B, C "
+              lambda: ref.ssd(x, dtv, A, B, C, chunk=chunk), None, 50),
+        shape=f"x ({b},{L},{h},{p}) bf16 conv-output slice dt ({b},{L},{h}) A ({h},) bf16 B, C "
               f"({b},{L},{n}) f32 chunk {chunk}",
         library_call="none: no single PyTorch call computes the SSD scan")
     out["ssd_scan"]["bound_ms"], out["ssd_scan"]["bound_by"] = \
@@ -574,17 +591,20 @@ def kernel_timings(torch, L: int, retriever, query_embs):
 
 def ssd_work(b, l, h, p, n, chunk, x_bytes, a_bytes):
     """(bytes, f32 FLOPs) the SSD scan needs: x, dt, A, B and C read once,
-    y and the f32 final state written once; per (row, head) and chunk of T,
-    the causal scores C[s].B[t] and their weighted sum of x dt over the
-    T (T + 1) / 2 pairs t <= s, the state update (T x p x n), and from the
-    second chunk on the entering state's term C[s].h (T x p x n)."""
+    y and the f32 final state written once.  B and C are one group that
+    every head shares, so the causal scores C[s].B[t] over the T (T + 1) / 2
+    pairs t <= s of a chunk of T are needed once per (row, chunk); per
+    (row, head) and chunk, their weighted sum of x dt, the state update
+    (T x p x n), and from the second chunk on the entering state's term
+    C[s].h (T x p x n)."""
     nc = l // chunk
     nbytes = (2 * x_bytes * b * l * h * p + 4 * b * l * h + a_bytes * h
               + 2 * 4 * b * l * n + 4 * b * h * p * n)
     pairs = chunk * (chunk + 1) // 2
-    per_head = (nc * (2 * pairs * (n + p) + 2 * chunk * p * n)
+    scores = b * nc * 2 * pairs * n
+    per_head = (nc * (2 * pairs * p + 2 * chunk * p * n)
                 + (nc - 1) * 2 * chunk * p * n)
-    return nbytes, b * h * per_head
+    return nbytes, scores + b * h * per_head
 
 
 # ---------------------------------------------------------------------------

@@ -84,20 +84,20 @@ class ModelConfig:
     def has_ssm(self) -> bool:
         return any(k.startswith("mamba") for k in self.layer_kinds())
 
-    def reduced(self, *, num_layers: int = 2, d_model: int = 256,
-                num_heads: int = 4, vocab_size: int = 512) -> "ModelConfig":
+    def reduced(self) -> "ModelConfig":
         """A smoke-test variant of the same family (CPU-runnable): the JAX
-        ``reduced()`` on the fields the port has.  As there, an SSM config
-        comes back with ``shared_attn_every=2`` (zamba2's layout, not
-        ported): replace it with 0 for a pure-SSM variant."""
+        ``reduced()`` at its defaults (2 layers, d_model 256, 4 heads, 512
+        ids) on the fields the port has.  As there, an SSM config comes back
+        with ``shared_attn_every=2`` (zamba2's layout, not ported): replace
+        it with 0 for a pure-SSM variant."""
         changes = {
-            "num_layers": num_layers,
-            "d_model": d_model,
-            "num_heads": num_heads,
-            "num_kv_heads": max(1, min(self.num_kv_heads, num_heads)),
-            "head_dim": max(32, d_model // num_heads),
-            "d_ff": d_model * 4,
-            "vocab_size": vocab_size,
+            "num_layers": 2,
+            "d_model": 256,
+            "num_heads": 4,
+            "num_kv_heads": max(1, min(self.num_kv_heads, 4)),
+            "head_dim": 64,
+            "d_ff": 1024,
+            "vocab_size": 512,
             "dtype": "float32",
         }
         if self.has_ssm():

@@ -5,36 +5,15 @@ launches the hand-written kernel (or raises on what it does not take), a
 CPU tensor runs the plain PyTorch version.  There is no implementation
 switch, so the main path on the card always goes through the kernels.
 """
-from typing import Optional, Tuple
-
-import torch
-
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   paged_decode_attention)
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+from repro_torch.kernels.ssd_scan import ssd_scan as ssd
 from repro_torch.kernels.topk_retrieval import topk_retrieval
 
 __all__ = ["decode_attention", "flash_attention", "paged_decode_attention",
            "ssd", "ssd_decode_step", "topk_retrieval"]
-
-
-def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
-        C: torch.Tensor, *, chunk: int = 128,
-        init_state: Optional[torch.Tensor] = None
-        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunked SSD scan: (y (b, l, h, p), final state (b, h, p, n) f32).
-
-    On the card the kernel starts from a zero state, as the Pallas kernel
-    does: an ``init_state`` there raises (the reference's ``ops.ssd`` raises
-    on it for Pallas too) instead of sliding onto the plain version."""
-    if x.device.type == "cpu":
-        return ref.ssd(x, dt, A, B, C, chunk=chunk, init_state=init_state)
-    if init_state is not None:
-        raise NotImplementedError("the ssd_scan kernel starts from a zero "
-                                  "state")
-    return ssd_scan_cuda(x, dt, A, B, C, chunk=chunk)
 
 
 # the single-token recurrence is a few elementwise ops and two small

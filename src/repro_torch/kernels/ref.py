@@ -87,8 +87,8 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     B:  (b, l, n)     input projections (single group)
     C:  (b, l, n)     output projections
     Returns y (b, l, h, p) in x's dtype and the final state (b, h, p, n)
-    f32.  Where JAX scans the inter-chunk recurrence, this loops over the
-    chunks.
+    f32 (f64 for f64 inputs, a witness for the f32 versions).  Where JAX
+    scans the inter-chunk recurrence, this loops over the chunks.
     """
     b, l, h, p = x.shape
     n = B.shape[-1]
@@ -116,13 +116,14 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
 
     # 3. inter-chunk recurrence over chunk states: the state *entering*
     #    each chunk, and the final one
-    state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
-             if init_state is None else init_state.float())
+    sdt = torch.float64 if x.dtype == torch.float64 else torch.float32
+    state = (torch.zeros((b, h, p, n), dtype=sdt, device=x.device)
+             if init_state is None else init_state.to(sdt))
     entry = []
     for c in range(nc):
         entry.append(state)
         state = (state * torch.exp(a_total[:, :, c])[..., None, None]
-                 + states[:, c].float())
+                 + states[:, c].to(sdt))
     entry_states = torch.stack(entry)                            # (c,b,h,p,n)
 
     # 4. inter-chunk (off-diagonal) output: y_off = C_t . (decay_in . h_entry)

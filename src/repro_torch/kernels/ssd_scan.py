@@ -10,15 +10,15 @@ and reads x, dt, B and C in their model layouts through strides, so the
 model passes its projection slices without a copy.  See the source for the
 design.
 
-``ssd_scan`` dispatches on the tensor's device: a CPU tensor goes to
-``ssd_scan_plain`` (``ref.ssd`` from a zero state), a CUDA tensor launches
-the kernel (or raises on what the kernel does not take).  ``launches``
-counts kernel launches.
+``ssd_scan`` (``ops.ssd``) dispatches on the tensor's device: a CPU tensor
+goes to the plain version ``ref.ssd``, a CUDA tensor launches the kernel
+(or raises on what the kernel does not take, an initial state included).
+``launches`` counts kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -48,17 +48,21 @@ def smem_bytes(chunk: int, p: int, n: int) -> int:
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-             B: torch.Tensor, C: torch.Tensor, *, chunk: int
+             B: torch.Tensor, C: torch.Tensor, *, chunk: int = 128,
+             init_state: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (b, l, h, p), dt (b, l, h), A (h,), B, C (b, l, n) -> (y (b, l,
-    h, p) in x's dtype, final state (b, h, p, n) f32), from a zero state."""
+    h, p) in x's dtype, final state (b, h, p, n) f32).
+
+    On the card the kernel starts from a zero state, as the Pallas kernel
+    does: an ``init_state`` there raises (the reference's ``ops.ssd`` raises
+    on it for Pallas too) instead of sliding onto the plain version."""
     if x.device.type == "cpu":
-        return ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
+        return ref.ssd(x, dt, A, B, C, chunk=chunk, init_state=init_state)
+    if init_state is not None:
+        raise NotImplementedError("the ssd_scan kernel starts from a zero "
+                                  "state")
     return ssd_scan_cuda(x, dt, A, B, C, chunk=chunk)
-
-
-def ssd_scan_plain(x, dt, A, B, C, *, chunk: int):
-    return ref.ssd(x, dt, A, B, C, chunk=chunk)
 
 
 def check_args(x, dt, A, B, C, chunk: int) -> None:

@@ -7,7 +7,7 @@ the (heads, head_dim, n) SSM state, and writes both into the cache in place.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -79,9 +79,8 @@ def _conv_tail(cfg: ModelConfig, zxbcdt: torch.Tensor) -> torch.Tensor:
     return torch.cat([pad, xBC], dim=1)
 
 
-def mamba_full(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-               init_state: Optional[Dict] = None
-               ) -> Tuple[torch.Tensor, Dict]:
+def mamba_full(p: Dict, cfg: ModelConfig,
+               x: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
     """x: (b, l, d) -> (y, cache {"conv", "ssm"})."""
     b, l, _ = x.shape
     din, n = cfg.d_inner, cfg.ssm_state
@@ -97,9 +96,7 @@ def mamba_full(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     xh = x_in.reshape(b, l, heads, hd)      # a strided view of the conv out
     chunk = cfg.ssm_chunk if l % cfg.ssm_chunk == 0 else (
         1 if l == 1 else _largest_chunk(l, cfg.ssm_chunk))
-    y, final_state = ops.ssd(
-        xh, dt, A, B.float(), C.float(), chunk=chunk,
-        init_state=None if init_state is None else init_state["ssm"])
+    y, final_state = ops.ssd(xh, dt, A, B.float(), C.float(), chunk=chunk)
     y = y + xh * p["D"][None, None, :, None].to(xh.dtype)
     y = y.reshape(b, l, din)
     y = rmsnorm(p["norm"], y * F.silu(z), cfg.rmsnorm_eps)

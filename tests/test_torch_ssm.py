@@ -6,7 +6,7 @@ block, the pure-SSM model on bridged weights, the sampler (generation,
 guards, refill of the conv/SSM rows) and ``ScopeEngine.serve``.
 
 The CUDA kernel runs only on the card: ``chip_smoke.py`` holds it against
-``ssd_scan_plain`` there.  Here the plain version is held to JAX, and the
+the plain version ``ref.ssd`` there.  Here the plain version is held to JAX, and the
 wrapper's argument checks and device dispatch are exercised on the CPU.
 """
 import dataclasses
@@ -112,7 +112,7 @@ def test_ssd_plain_matches_jax(case, against):
         yw, sw = jref.ssd(jx, jdt, jA, jB, jC, chunk=chunk)
     else:
         yw, sw = ssd_pallas(jx, jdt, jA, jB, jC, chunk=chunk, interpret=True)
-    yg, sg = SS.ssd_scan(tx, tdt, tA, tB, tC, chunk=chunk)
+    yg, sg = ops.ssd(tx, tdt, tA, tB, tC, chunk=chunk)
     assert yg.dtype == tx.dtype and sg.dtype == torch.float32
     assert tuple(yg.shape) == (b, l, h, p) and tuple(sg.shape) == (b, h, p, n)
     tol = F32_TOL if dtype == "float32" else BF16_TOL
@@ -165,11 +165,10 @@ def test_ssd_decode_step_matches_chunked_scan_and_jax():
 def test_ssd_cpu_dispatch_runs_plain_and_counts_no_launch():
     _, (tx, tdt, tA, tB, tC) = _both(*_ssd_inputs(1, 1, 32, 2, 8, 4))
     before = launch_counts()
-    y, s = SS.ssd_scan(tx, tdt, tA, tB, tC, chunk=8)
-    yp, sp = SS.ssd_scan_plain(tx, tdt, tA, tB, tC, chunk=8)
-    yo, so = ops.ssd(tx, tdt, tA, tB, tC, chunk=8)
+    y, s = ops.ssd(tx, tdt, tA, tB, tC, chunk=8)
+    yp, sp = tref.ssd(tx, tdt, tA, tB, tC, chunk=8)
+    assert ops.ssd is SS.ssd_scan
     assert torch.equal(y, yp) and torch.equal(s, sp)
-    assert torch.equal(y, yo) and torch.equal(s, so)
     assert launch_counts() == before
     assert "ssd_scan" in before
 
@@ -181,9 +180,9 @@ def test_ssd_off_cpu_launches_or_raises():
     args = [torch.empty(s, device="meta") for s in
             ((1, 8, 2, 4), (1, 8, 2), (2,), (1, 8, 4), (1, 8, 4))]
     with pytest.raises(ValueError, match="CUDA"):
-        SS.ssd_scan(*args, chunk=8)
-    with pytest.raises(ValueError, match="CUDA"):
         ops.ssd(*args, chunk=8)
+    with pytest.raises(ValueError, match="CUDA"):
+        SS.ssd_scan_cuda(*args, chunk=8)
     with pytest.raises(NotImplementedError, match="zero state"):
         ops.ssd(*args, chunk=8,
                 init_state=torch.zeros((1, 2, 4, 4), device="meta"))
