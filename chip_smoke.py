@@ -9,7 +9,16 @@ Phases, each of which must pass (any failure exits non-zero with no result):
   2. build       — compile the five CUDA kernels from ``src/repro_torch/csrc``
                    (one nvcc per source, in parallel)
   3. kernels     — each kernel against its plain PyTorch version on the card,
-                   at the main path's shapes and at edge shapes; the paged
+                   at the main path's shapes and at edge shapes (flash: q,
+                   k, v as the model's transposed (b, s, h, d) views; bf16
+                   through the tensor-core kernel with every mask and shape
+                   it takes — window + softcap, negative q_offset with its
+                   masked rows exactly 0, non-causal sk != sq, dv != d,
+                   groups 1 to 8, sq = 1, 200 tokens, d 32 to 256 — two
+                   launches bitwise equal, and a bf16 view whose stride is
+                   not a multiple of 8 refused; f32 through the FMA
+                   kernel at 2e-5; top-k on raw queries, one launch a
+                   call, exact ties included); the paged
                    decode kernel also bit for bit against the dense decode
                    kernel on the same logical cache, and with the trash page
                    and every unreferenced page poisoned to 1e9; the SSD scan
@@ -19,7 +28,9 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    call computing the same function (device time: CUDA
                    graph replays between CUDA events), beside the least time
                    the card could take (its bound); for the paged kernel the
-                   yardstick is a page gather plus SDPA; no single PyTorch
+                   yardstick is a page gather plus SDPA, for top-k the
+                   same work as the wrapper's one launch (normalize the raw
+                   queries, the product, torch.topk); no single PyTorch
                    call computes the SSD scan
   5. tiny        — ``ScopeEngine.serve`` on scope-tiny with seeded weights,
                    once on the card (kernels) and once on the CPU (plain
@@ -246,35 +257,95 @@ def kernel_checks(torch, L: int):
             errs[main] = err
 
     S = L + NEW_TOKENS
-    # main-path shapes: 56 prompts of L tokens, 32/8 heads of 128, bf16
+    # flash: (b, hq, hkv, sq, sk, d, dv), kwargs, dtype, the kernel whose
+    # max_abs_err it gives, and the layout: "model" builds q, k, v as
+    # gqa_full passes them (transposed views of (b, s, h, d) projections),
+    # "heads" as contiguous (b, h, s, d).  The main path's shape is 56
+    # prompts of L tokens, 32/8 heads of 128, bf16.  bf16 runs the
+    # tensor-core kernel (every mask and shape it takes), f32 the FMA one
     bf = torch.bfloat16
+    f32 = torch.float32
     flash_cases = [
-        ("flash main", (56, 32, 8, L, L, 128, 128), {}, bf, "flash_attention"),
-        ("flash f32 tiny", (2, 4, 2, 17, 17, 32, 32), {}, torch.float32, None),
+        ("flash main", (56, 32, 8, L, L, 128, 128), {}, bf, "flash_attention",
+         "model"),
+        ("flash f32 tiny", (2, 4, 2, 17, 17, 32, 32), {}, f32, None, "heads"),
         ("flash window+softcap", (2, 4, 1, 70, 70, 64, 64),
-         dict(window=16, softcap=30.0), torch.float32, None),
-        ("flash dv!=d hkv=4", (1, 8, 4, 40, 40, 64, 32), {}, torch.float32,
-         None),
+         dict(window=16, softcap=30.0), f32, None, "heads"),
+        ("flash dv!=d hkv=4", (1, 8, 4, 40, 40, 64, 32), {}, f32, None,
+         "heads"),
         ("flash sk!=sq non-causal", (2, 2, 2, 33, 50, 32, 32),
-         dict(causal=False), torch.float32, None),
+         dict(causal=False), f32, None, "heads"),
         ("flash fully masked rows", (1, 4, 2, 20, 20, 32, 32),
-         dict(q_offset=-5), torch.float32, None),
+         dict(q_offset=-5), f32, None, "heads"),
         ("flash d=256 bf16 softcap", (1, 4, 1, 33, 33, 256, 256),
-         dict(softcap=50.0), bf, None),
+         dict(softcap=50.0), bf, None, "heads"),
+        ("flash bf16 window+softcap", (2, 8, 2, 70, 70, 64, 64),
+         dict(window=16, softcap=30.0), bf, None, "model"),
+        ("flash bf16 fully masked rows", (1, 4, 2, 20, 20, 32, 32),
+         dict(q_offset=-5), bf, None, "model"),
+        ("flash bf16 sk!=sq non-causal", (2, 4, 2, 33, 50, 64, 64),
+         dict(causal=False), bf, None, "heads"),
+        ("flash bf16 sk!=sq window offset", (2, 4, 2, 70, 130, 64, 128),
+         dict(causal=False, window=40, q_offset=60), bf, None, "heads"),
+        ("flash bf16 dv!=d", (1, 8, 4, 40, 40, 64, 32), {}, bf, None,
+         "model"),
+        ("flash bf16 group 1", (2, 8, 8, L, L, 128, 128), {}, bf, None,
+         "model"),
+        ("flash bf16 group 2", (2, 8, 4, L, L, 128, 128), {}, bf, None,
+         "model"),
+        ("flash bf16 group 4", (2, 8, 2, L, L, 128, 128), {}, bf, None,
+         "model"),
+        ("flash bf16 group 8", (2, 16, 2, L, L, 128, 128), {}, bf, None,
+         "model"),
+        ("flash bf16 group 3", (2, 6, 2, L, L, 128, 128), {}, bf, None,
+         "model"),
+        ("flash bf16 sq=1", (3, 32, 8, 1, 1, 128, 128), {}, bf, None,
+         "model"),
+        ("flash bf16 sq=1 last row", (3, 32, 8, 1, L, 128, 128),
+         dict(q_offset=L - 1), bf, None, "heads"),
+        ("flash bf16 s=200", (2, 32, 8, 200, 200, 128, 128), {}, bf, None,
+         "model"),
+        ("flash bf16 d=32", (2, 8, 2, L, L, 32, 32), {}, bf, None, "model"),
+        ("flash bf16 d=64", (2, 8, 2, L, L, 64, 64), {}, bf, None, "model"),
+        ("flash bf16 d=256 s=200", (1, 4, 2, 200, 200, 256, 256), {}, bf,
+         None, "model"),
     ]
-    for name, (b, hq, hkv, sq, sk, d, dv), kw, dt, main in flash_cases:
-        q, k, v = rnd(b, hq, sq, d, dt=dt), rnd(b, hkv, sk, d, dt=dt), \
-            rnd(b, hkv, sk, dv, dt=dt)
+    for name, (b, hq, hkv, sq, sk, d, dv), kw, dt, main, layout in \
+            flash_cases:
+        if layout == "model":
+            q = rnd(b, sq, hq, d, dt=dt).transpose(1, 2)
+            k = rnd(b, sk, hkv, d, dt=dt).transpose(1, 2)
+            v = rnd(b, sk, hkv, dv, dt=dt).transpose(1, 2)
+        else:
+            q, k, v = rnd(b, hq, sq, d, dt=dt), rnd(b, hkv, sk, d, dt=dt), \
+                rnd(b, hkv, sk, dv, dt=dt)
         got = FA.flash_attention_cuda(q, k, v, **kw)
         compare(name, got, FA.flash_attention_plain(q, k, v, **kw),
-                F32_TOL if dt == torch.float32 else BF16_TOL, main)
+                F32_TOL if dt == f32 else BF16_TOL, main)
         if "masked" in name:
-            check(bool((got[:, :, :5] == 0).all()), "masked rows not 0")
+            check(bool((got[:, :, :5] == 0).all()), f"{name}: masked rows "
+                  "not 0")
+        if main:
+            # no atomics, no split over keys: the same bits every launch
+            check(torch.equal(got, FA.flash_attention_cuda(q, k, v, **kw)),
+                  f"{name}: two launches differ")
+            print(f"   {name}: two launches bitwise equal")
     x = rnd(3, 21, 4, 32)
     kt, vt = rnd(3, 21, 2, 32).transpose(1, 2), rnd(3, 21, 2, 32).transpose(1, 2)
     compare("flash strided views", FA.flash_attention_cuda(x.transpose(1, 2),
                                                            kt, vt),
             FA.flash_attention_plain(x.transpose(1, 2), kt, vt), F32_TOL)
+    # bf16 rows go in 16-byte copies: a view whose strides are not
+    # multiples of 8 elements is refused before any launch
+    qo = rnd(2, 21, 4, 132, dt=bf)[..., :128].transpose(1, 2)
+    ko = rnd(2, 21, 2, 128, dt=bf).transpose(1, 2)
+    try:
+        FA.flash_attention_cuda(qo, ko, ko)
+    except ValueError as e:
+        print(f"   flash bf16 stride {qo.stride()}: refused ({e})")
+    else:
+        raise SmokeFailure("flash: a bf16 view with a stride that is not a "
+                           "multiple of 8 was not refused")
 
     decode_cases = [
         ("decode main", (56, 32, 8, S, 128, 128), None, {}, bf,
@@ -470,11 +541,16 @@ def kernel_timings(torch, L: int, retriever, query_embs):
     bf = torch.bfloat16
     out = {}
 
-    # flash: the prefill of 56 prompts (b = 56, hq 32, hkv 8, s = L, d 128)
+    # flash: the prefill of 56 prompts (b = 56, hq 32, hkv 8, s = L, d 128),
+    # q, k, v transposed views of the (b, s, h, d) projections, as gqa_full
+    # passes them
     b, hq, hkv, s, d = 56, 32, 8, L, 128
-    q = torch.randn(b, hq, s, d, generator=gen, device=dev).to(bf)
-    k = torch.randn(b, hkv, s, d, generator=gen, device=dev).to(bf)
-    v = torch.randn(b, hkv, s, d, generator=gen, device=dev).to(bf)
+    q = torch.randn(b, s, hq, d, generator=gen, device=dev).to(bf) \
+        .transpose(1, 2)
+    k = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(bf) \
+        .transpose(1, 2)
+    v = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(bf) \
+        .transpose(1, 2)
     pairs = s * (s + 1) // 2                         # causal (q, k) pairs
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())   # q, k, v, out
     out["flash_attention"] = dict(
@@ -482,9 +558,23 @@ def kernel_timings(torch, L: int, retriever, query_embs):
               lambda: FA.flash_attention_plain(q, k, v),
               lambda: F.scaled_dot_product_attention(
                   q, k, v, is_causal=True, enable_gqa=True), 50),
-        shape=f"q ({b},{hq},{s},{d}) kv ({b},{hkv},{s},{d}) bf16 causal")
+        shape=f"q ({b},{hq},{s},{d}) kv ({b},{hkv},{s},{d}) bf16 causal, "
+              f"views of (b, s, h, d)")
     out["flash_attention"]["bound_ms"], out["flash_attention"]["bound_by"] = \
         bound(nbytes, 2 * 2 * d * pairs * b * hq, "bfloat16")
+    # the same batch at 128-token prompts, off the main path: 4 key tiles a
+    # row tile instead of 2
+    q2, k2, v2 = (torch.randn(b, 128, h, d, generator=gen, device=dev)
+                  .to(bf).transpose(1, 2) for h in (hq, hkv, hkv))
+    out["flash_attention"]["at_128_tokens"] = dict(
+        ms=device_ms(torch, lambda: FA.flash_attention_cuda(q2, k2, v2), 50),
+        library_ms=device_ms(torch, lambda: F.scaled_dot_product_attention(
+            q2, k2, v2, is_causal=True, enable_gqa=True), 50),
+        bound_ms=bound(2 * (2 * q2.numel() + k2.numel() + v2.numel()),
+                       2 * 2 * d * 128 * 129 // 2 * b * hq, "bfloat16")[0])
+    print(f"   flash_attention at 128 tokens: "
+          + " ".join(f"{key} {val:.5f}" for key, val in
+                     out["flash_attention"]["at_128_tokens"].items()))
 
     # decode: the last decode step (cache_len = L + 12 on every row)
     S = L + NEW_TOKENS
@@ -543,19 +633,31 @@ def kernel_timings(torch, L: int, retriever, query_embs):
         out["paged_decode_attention"]["bound_by"] = \
         bound(nbytes, 2 * 2 * d * valid * hq, "bfloat16")
 
-    # top-k: the request's 8 query embeddings against the 250 SCOPE anchors
+    # top-k: the request's 8 raw query embeddings against the 250 unit-norm
+    # SCOPE anchors, as retrieve() calls it; the library call does the same
+    # work (normalize the queries, the product, torch.topk)
     qe = torch.as_tensor(query_embs, device=dev)
     an = retriever._anchors_norm
-    qn = qe / (torch.linalg.norm(qe, dim=-1, keepdim=True) + 1e-8)
     nq, n, dd = qe.shape[0], an.shape[0], an.shape[1]
     nbytes = 4 * (qe.numel() + an.numel()) + 8 * nq * K_ANCHORS
+
+    def topk_library():
+        qn = qe / (torch.linalg.norm(qe, dim=-1, keepdim=True) + 1e-8)
+        return torch.topk(qn @ an.T, K_ANCHORS)
+
     out["topk_retrieval"] = dict(
         times(torch, lambda: TK.topk_retrieval_cuda(
                   qe, an, K_ANCHORS, anchors_prenormalized=True),
               lambda: TK.topk_retrieval_plain(
                   qe, an, K_ANCHORS, anchors_prenormalized=True),
-              lambda: torch.topk(qn @ an.T, K_ANCHORS), 200),
-        shape=f"queries ({nq},{dd}) anchors ({n},{dd}) f32 k {K_ANCHORS}")
+              topk_library, 200),
+        shape=f"queries ({nq},{dd}) raw, anchors ({n},{dd}) unit, f32 k "
+              f"{K_ANCHORS}",
+        library_call="q / (|q| + 1e-8), the product, torch.topk",
+        library_eager_ms=eager_ms(torch, topk_library, 200))
+    print(f"   topk_retrieval eager: wrapper call "
+          f"{out['topk_retrieval']['eager_ms']:.5f} ms, library chain "
+          f"{out['topk_retrieval']['library_eager_ms']:.5f} ms")
     out["topk_retrieval"]["bound_ms"], out["topk_retrieval"]["bound_by"] = \
         bound(nbytes, 2 * nq * n * dd, "float32")
     print(f"   dense decode kernel at the paged row's shape: "

@@ -31,7 +31,8 @@ class AnchorRetriever:
     def retrieve(self, query_embs: np.ndarray, k: int
                  ) -> Tuple[np.ndarray, np.ndarray]:
         """query_embs: (Q, d) or (d,).  Returns (sims (Q, k), idx (Q, k))."""
-        q = torch.as_tensor(np.atleast_2d(np.asarray(query_embs, np.float32)),
+        q = torch.as_tensor(np.ascontiguousarray(np.atleast_2d(query_embs),
+                                                 dtype=np.float32),
                             device=self.device)
         scores, idx = ops.topk_retrieval(q, self._anchors_norm, int(k),
                                          anchors_prenormalized=True)

@@ -2,10 +2,14 @@
 PyTorch version.
 
 Replaces ``repro/kernels/flash_attention.py::flash_attention`` (Pallas TPU).
-On the H100 the prefill shape is bound by moving q/k/v/o once; the kernel
-streams each KV head's tiles through shared memory with an online softmax in
-registers and reads strided q/k/v views directly, so the model passes its
-transposed projections without a copy.  See the source for the design.
+On the H100 the prefill shape is bound by moving q/k/v/o once.  One C entry
+point picks the kernel by dtype: bf16 (the model's path) runs on tensor
+cores (``mma.sync``, one block per (batch, kv-head) and 64 of its group's
+query rows, tiles loaded with 16-byte ``cp.async``); float32 runs the FMA
+kernel, which keeps the 2e-5 parity tensor cores cannot.  Both keep the
+online softmax in registers and read strided q/k/v views directly, so the
+model passes its transposed projections without a copy.  See the source
+for the design.
 
 ``flash_attention`` dispatches on the tensor's device: a CPU tensor goes to
 ``flash_attention_plain``, a CUDA tensor launches the kernel (or raises on
@@ -82,6 +86,12 @@ def check_args(q, k, v) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"{name} must be contiguous in its last dim")
+        # the bf16 kernel copies every row in 16-byte pieces
+        if t.dtype == torch.bfloat16 and (
+                any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16):
+            raise ValueError(f"bf16 {name} needs strides {t.stride()} that "
+                             "are multiples of 8 elements and a 16-byte "
+                             "aligned base")
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,

@@ -138,6 +138,73 @@ def test_flash_fully_masked_row_gives_zero_like_pallas():
                                np.asarray(oracle)[:, :, 5:], atol=F32_TOL)
 
 
+# ---------------------------------------------------------------------------
+# The bf16 tensor-core flash kernel's rounding budget, on the CPU
+# ---------------------------------------------------------------------------
+LOG2E = 1.4426950408889634
+
+
+def _emulate_bf16_flash(q, k, v, *, causal=True, window=0, softcap=0.0,
+                        q_offset=0, block_k=32):
+    """The numerics of ``flash_mma_kernel`` (``csrc/flash_attention.cu``),
+    test-only: bf16 q, k, v; S = q.k^T summed in f32 and scaled after the
+    product, inside the exponent (2^(s c - m c), c = scale log2 e, or
+    log2 e after a softcap); an online softmax in f32 over 32-key tiles
+    with the TPU kernel's guards; P rounded to bf16 before P.V, which sums
+    in f32; l sums the unrounded P."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = d ** -0.5
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    x = q.float() @ kf.transpose(-1, -2)                 # (b, hq, sq, sk)
+    c = LOG2E
+    if softcap > 0.0:
+        x = softcap * torch.tanh(x * (scale / softcap))
+    else:
+        c = scale * LOG2E
+    mask = tref.attention_mask(sq, sk, causal=causal, window=window,
+                               q_offset=q_offset, device=q.device)
+    neg = tref.NEG_INF
+    m = torch.full((b, hq, sq, 1), neg)
+    l = torch.zeros((b, hq, sq, 1))
+    acc = torch.zeros((b, hq, sq, v.shape[-1]))
+    for t0 in range(0, sk, block_k):
+        xt = torch.where(mask[:, t0:t0 + block_k],
+                         x[..., t0:t0 + block_k], neg)
+        m_new = torch.maximum(m, xt.amax(-1, keepdim=True))
+        m_safe = torch.where(m_new <= neg, 0.0, m_new)
+        p = torch.exp2(xt * c - m_safe * c)               # masked -> 0
+        alpha = torch.where(m <= neg, 0.0, torch.exp2(m * c - m_safe * c))
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.bfloat16().float() @ vf[:, :, t0:t0 + block_k]
+        m = m_new
+    return (acc / torch.where(l == 0.0, 1.0, l)).bfloat16()
+
+
+@pytest.mark.parametrize("kw", [{}, dict(window=16, softcap=30.0),
+                                dict(q_offset=-5)],
+                         ids=["causal", "window+softcap", "q_offset=-5"])
+def test_bf16_tensor_core_numerics_within_budget_of_pallas(kw):
+    """The one new rounding of the bf16 kernel (P to bf16 before P.V) and
+    its other reorderings stay within the bf16 tolerance of the Pallas
+    kernel (interpret mode) at the main path's head geometry (d 128, group
+    4, 49 tokens) and of the port's plain version."""
+    q, k, v = _qkv(21, 2, 8, 2, 49, 49, 128)
+    (jq, jk, jv), (tq, tk, tv) = _both(q, k, v, dtype=torch.bfloat16)
+    got = _emulate_bf16_flash(tq, tk, tv, **kw)
+    pallas = fa_pallas(jq, jk, jv, interpret=True, **kw)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(pallas, np.float32),
+                               atol=BF16_TOL, rtol=0)
+    plain = FA.flash_attention_plain(tq, tk, tv, **kw)
+    np.testing.assert_allclose(got.float().numpy(), plain.float().numpy(),
+                               atol=BF16_TOL, rtol=0)
+    if kw.get("q_offset", 0) < 0:
+        assert (got[:, :, :5] == 0).all()
+
+
 # b, hq, hkv, S, d, cache_len, window, softcap  (tests/test_kernels.py)
 DECODE_CASES = [
     (2, 4, 2, 128, 32, 100, 0, 0.0),
@@ -268,10 +335,29 @@ def _t(*shape, dtype=torch.float32):
     (_t(1, 2, 8, 32), _t(1, 2, 8, 32), _t(1, 2, 9, 32), "mismatch"),
     (_t(1, 2, 32, 8).transpose(2, 3), _t(1, 2, 8, 32), _t(1, 2, 8, 32),
      "contiguous"),
+    # bf16 rows are copied in 16-byte pieces: strides in multiples of 8
+    # elements, 16-byte aligned bases
+    (_t(1, 2, 8, 36, dtype=torch.bfloat16)[..., :32],
+     _t(1, 2, 8, 32, dtype=torch.bfloat16),
+     _t(1, 2, 8, 32, dtype=torch.bfloat16), "multiples of 8"),
+    (_t(1, 2, 8, 32, dtype=torch.bfloat16),
+     _t(1, 2, 8, 40, dtype=torch.bfloat16)[..., 1:33],
+     _t(1, 2, 8, 32, dtype=torch.bfloat16), "aligned"),
 ])
 def test_flash_check_args_rejects(q, k, v, match):
     with pytest.raises(ValueError, match=match):
         FA.check_args(q, k, v)
+
+
+def test_flash_check_args_accepts_model_layout_and_f32_odd_strides():
+    """The model's bf16 views ((b, s, h, d) projections transposed) pass the
+    16-byte rules; float32 runs the FMA kernel, which takes any stride."""
+    bf = torch.bfloat16
+    q = _t(2, 49, 32, 128, dtype=bf).transpose(1, 2)
+    kv = _t(2, 49, 8, 128, dtype=bf).transpose(1, 2)
+    FA.check_args(q, kv, kv)
+    odd = _t(1, 2, 8, 36)[..., 1:33]
+    FA.check_args(odd, odd, odd)
 
 
 def test_decode_check_args_rejects():
