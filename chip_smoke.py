@@ -21,17 +21,22 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    call, exact ties included); the paged
                    decode kernel also bit for bit against the dense decode
                    kernel on the same logical cache, and with the trash page
-                   and every unreferenced page poisoned to 1e9; the SSD scan
-                   also at chunks 1 to 128, across chunk boundaries and on
-                   strided inputs
+                   and every unreferenced page poisoned to 1e9; both decode
+                   kernels at ~4000 keys, two launches bitwise equal, and
+                   the dense one bitwise equal on the same keys in a deeper
+                   cache and in a view whose rows are not 16-byte aligned;
+                   the SSD scan also at chunks 1 to 128, across chunk
+                   boundaries and on strided inputs
   4. timing      — each kernel, its plain version and one PyTorch library
                    call computing the same function (device time: CUDA
                    graph replays between CUDA events), beside the least time
-                   the card could take (its bound); for the paged kernel the
-                   yardstick is a page gather plus SDPA, for top-k the
-                   same work as the wrapper's one launch (normalize the raw
-                   queries, the product, torch.topk); no single PyTorch
-                   call computes the SSD scan
+                   the card could take (its bound) and, for the decode
+                   kernels, the launch floor (a one-element op in the same
+                   harness); for the paged kernel the yardstick is a page
+                   gather plus SDPA, for top-k the same work as the
+                   wrapper's one launch (normalize the raw queries, the
+                   product, torch.topk); no single PyTorch call computes
+                   the SSD scan
   5. tiny        — ``ScopeEngine.serve`` on scope-tiny with seeded weights,
                    once on the card (kernels) and once on the CPU (plain
                    versions): equal token streams and decisions
@@ -357,6 +362,12 @@ def kernel_checks(torch, L: int):
         ("decode empty row g=16", (2, 16, 1, 40, 64, 32), [0, 40], {},
          torch.float32, None),
         ("decode d=256 bf16", (1, 4, 4, 300, 256, 256), [123], {}, bf, None),
+        ("decode g=6 window f32", (2, 12, 2, 90, 64, 128), [90, 33],
+         dict(window=20), torch.float32, None),
+        ("decode long bf16", (2, 32, 8, 4000, 128, 128), [4000, 3001], {}, bf,
+         None),
+        ("decode long f32 window+softcap", (2, 32, 8, 4000, 128, 128),
+         [4000, 3001], dict(window=1000, softcap=30.0), torch.float32, None),
     ]
     for name, (b, hq, hkv, S_, d, dv), lens, kw, dt, main in decode_cases:
         q = rnd(b, hq, 1, d, dt=dt)
@@ -366,9 +377,36 @@ def kernel_checks(torch, L: int):
                                    device=dev, dtype=torch.int32)
         else:
             lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
-        compare(name, DA.decode_attention_cuda(q, kc, vc, lens_t, **kw),
-                DA.decode_attention_plain(q, kc, vc, lens_t, **kw),
+        got = DA.decode_attention_cuda(q, kc, vc, lens_t, **kw)
+        compare(name, got, DA.decode_attention_plain(q, kc, vc, lens_t, **kw),
                 F32_TOL if dt == torch.float32 else BF16_TOL, main)
+        if lens is not None and 0 in lens:
+            check(bool((got[lens.index(0)] == 0).all()), f"{name}: empty row "
+                  "not 0")
+        if not main:
+            continue
+        # no atomics: the same bits every launch
+        check(torch.equal(got, DA.decode_attention_cuda(q, kc, vc, lens_t)),
+              f"{name}: two launches differ")
+        # a row's bits depend on its keys and length, not on the cache's
+        # depth: the same keys in a cache 37 deeper, garbage behind them
+        deep_k, deep_v = rnd(b, hkv, S_ + 37, d, dt=dt), \
+            rnd(b, hkv, S_ + 37, dv, dt=dt)
+        deep_k[:, :, :S_], deep_v[:, :, :S_] = kc, vc
+        check(torch.equal(got, DA.decode_attention_cuda(q, deep_k, deep_v,
+                                                        lens_t)),
+              f"{name}: depth {S_} and {S_ + 37} differ")
+        # rows that do not start on 16 bytes (a view of a wider cache) are
+        # copied element by element into the same layout: the same bits
+        wide_k, wide_v = rnd(b, hkv, S_, d + 4, dt=dt), \
+            rnd(b, hkv, S_, dv + 4, dt=dt)
+        wide_k[..., :d], wide_v[..., :dv] = kc, vc
+        check(torch.equal(got, DA.decode_attention_cuda(
+            q, wide_k[..., :d], wide_v[..., :dv], lens_t)),
+            f"{name}: a view with row stride {d + 4} differs")
+        print(f"   {name}: two launches bitwise equal; depth {S_} and "
+              f"{S_ + 37} bitwise equal; row stride {d + 4} view bitwise "
+              "equal")
 
     for name, (nq, na, d, k), main in [
             ("topk main", (N_QUERIES, N_ANCHORS, 32, K_ANCHORS),
@@ -409,6 +447,12 @@ def kernel_checks(torch, L: int):
                                    torch.float32), None),
         ("paged d=256 bf16", (1, 4, 4, 300, 256, 256, 16, [123], 0.0, bf),
          None),
+        # ~4000 keys: 63 chunks a warp, the stage loop with the next chunk
+        # of each warp in flight
+        ("paged long bf16", (2, 32, 8, 4000, 128, 128, PAGE, [4000, 3001],
+                             0.0, bf), None),
+        ("paged long f32", (2, 32, 8, 4000, 128, 128, PAGE, [4000, 3001],
+                            0.0, torch.float32), None),
     ]
     for name, (b, hq, hkv, S_, d, dv, page, lens, cap, dt), main in \
             paged_cases:
@@ -425,7 +469,7 @@ def kernel_checks(torch, L: int):
         compare(name, got, DA.paged_decode_attention_plain(
             q, kp, vp, lens_t, table, **kw),
             F32_TOL if dt == torch.float32 else BF16_TOL, main)
-        # the dense kernel on the same logical cache: same tiles, same bits
+        # the dense kernel on the same logical cache: same chunks, same bits
         dense = DA.decode_attention_cuda(q, kc, vc, lens_t, softcap=cap)
         check(torch.equal(got, dense), f"{name}: paged and dense kernels "
               "differ on the same logical cache")
@@ -440,6 +484,11 @@ def kernel_checks(torch, L: int):
         poisoned = DA.paged_decode_attention_cuda(q, kp2, vp2, lens_t, table,
                                                   **kw)
         check(torch.equal(poisoned, got), f"{name}: poisoned pages leak")
+        if main:
+            check(torch.equal(got, DA.paged_decode_attention_cuda(
+                q, kp, vp, lens_t, table, **kw)),
+                f"{name}: two launches differ")
+            print(f"   {name}: two launches bitwise equal")
     print("   paged == dense kernel bit for bit; poisoned pages inert")
 
     # SSD scan: the main path's shape (mamba2-1.3b's prefill of 56 prompts
@@ -662,6 +711,15 @@ def kernel_timings(torch, L: int, retriever, query_embs):
         bound(nbytes, 2 * nq * n * dd, "float32")
     print(f"   dense decode kernel at the paged row's shape: "
           f"{out['paged_decode_attention']['dense_kernel_ms']:.5f} ms")
+    # the launch floor: a one-element PyTorch op in the same graph harness,
+    # what any kernel of a few microseconds pays per launch besides its work
+    one = torch.zeros(1, device=dev)
+    floor_ms = device_ms(torch, lambda: one.add_(1.0), 200)
+    for name in ("decode_attention", "paged_decode_attention"):
+        out[name]["launch_floor_ms"] = floor_ms
+    print(f"   launch floor (one-element add_): {floor_ms:.5f} ms; decode "
+          f"{out['decode_attention']['ms']:.5f} ms, paged decode "
+          f"{out['paged_decode_attention']['ms']:.5f} ms")
     # SSD scan: mamba2-1.3b's prefill of the request's 56 prompts (one
     # chunk of L tokens a (row, head), x strided as mamba_full passes it);
     # no single PyTorch call computes it

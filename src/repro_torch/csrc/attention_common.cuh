@@ -1,25 +1,26 @@
-// Shared block routine of the flash-prefill and decode attention kernels.
+// Shared helpers of the attention kernels, and the block routine of the f32
+// flash-prefill kernel (flash_attention.cu).  The decode kernels run their
+// own body, decode_block in decode_common.cuh; the bf16 flash kernel runs
+// on tensor cores (mma_bf16.cuh).
 //
-// A block owns up to ROWS = WARPS * R query rows that all read the same
-// (batch, kv-head) K/V stream.  Row rr lives in warp (rr % WARPS), slot
-// (rr / WARPS), and may attend the keys kpos in [lo[rr], hi[rr]) — that one
-// interval expresses every mask the TPU kernels apply (padding, causal with
-// q_offset, sliding window, per-row valid cache length).  K/V stream through
-// shared memory in tiles of BK = 32 keys (one key per lane when scoring), as
-// f32, and each row keeps an online softmax (running max m, denominator l,
-// weighted values acc) in registers: the f32 math, the NEG_INF masking and
-// the fully-masked-row guards (m_safe, l == 0 -> 1) are those of
-// repro/kernels/flash_attention.py::_flash_kernel, so a row with no valid key
-// writes 0.  Tiles that lie wholly outside a row's interval are skipped for
-// that row: on them the TPU kernel adds p = 0 with alpha = 1, a no-op.
+// attend_rows: a block owns up to ROWS = WARPS * R query rows that all read
+// the same (batch, kv-head) K/V stream.  Row rr lives in warp (rr % WARPS),
+// slot (rr / WARPS), and may attend the keys kpos in [lo[rr], hi[rr]) —
+// that one interval expresses every mask the TPU kernels apply (padding,
+// causal with q_offset, sliding window).  K/V stream through shared memory
+// in tiles of BK = 32 keys (one key per lane when scoring), as f32, and
+// each row keeps an online softmax (running max m, denominator l, weighted
+// values acc) in registers: the f32 math, the NEG_INF masking and the
+// fully-masked-row guards (m_safe, l == 0 -> 1) are those of
+// repro/kernels/flash_attention.py::_flash_kernel, so a row with no valid
+// key writes 0.  Tiles that lie wholly outside a row's interval are skipped
+// for that row: on them the TPU kernel adds p = 0 with alpha = 1, a no-op.
+// Where key kpos lives is a policy (Keys); the f32 flash kernel passes
+// DenseKeys for a contiguous (.., S, d) cache.
 //
-// Where key kpos lives is a policy (Keys) the caller passes: DenseKeys for a
-// contiguous (.., S, d) cache, PagedKeys for a block-paged one.  Only the
-// two tile loaders read it, so prefill, dense decode and paged decode share
-// one online-softmax body and stream their keys in the same tile order.
-//
-// Plain CUDA cores (fmaf), no tensor cores, TMA or wgmma: simple and right
-// first.  Registers per lane: R * DV / 32 accumulators.
+// Plain CUDA cores (fmaf), no tensor cores, TMA or wgmma: the f32 path
+// keeps the 2e-5 parity that tensor cores cannot.  Registers per lane:
+// R * DV / 32 accumulators.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -77,23 +78,6 @@ struct DenseKeys {
   long long k_ss, v_ss;
   __device__ __forceinline__ long long k(int kpos) const { return kpos * k_ss; }
   __device__ __forceinline__ long long v(int kpos) const { return kpos * v_ss; }
-};
-
-// Key addresses of a block-paged cache: logical key j lives in slot j % page
-// of physical page table[j / page]; base points at this kv-head's slice of
-// page 0.  ``table`` is the row's page table, in shared memory.
-struct PagedKeys {
-  const int* table;
-  int page;
-  long long k_sp, k_ss, v_sp, v_ss;  // page and slot strides of K and V
-  __device__ __forceinline__ long long k(int kpos) const {
-    const int lp = kpos / page;
-    return table[lp] * k_sp + (kpos - lp * page) * k_ss;
-  }
-  __device__ __forceinline__ long long v(int kpos) const {
-    const int lp = kpos / page;
-    return table[lp] * v_sp + (kpos - lp * page) * v_ss;
-  }
 };
 
 // qs: the block's ROWS query rows, f32, already multiplied by the scale.

@@ -1,17 +1,25 @@
 // Single-token decode attention against a dense KV cache, CUDA for sm_90a.
 //
-// Replaces repro/kernels/decode_attention.py::decode_attention (Pallas TPU,
-// body _decode_kernel): one query token per (batch row, q-head) against a
-// (b, hkv, S, d) cache, masked by the row's valid length cache_len[b]
-// (current token included), an optional sliding window and softcap.
+// Replaces repro/kernels/decode_attention.py:88 decode_attention (Pallas
+// TPU, body _decode_kernel, pl.pallas_call at :113): one query token per
+// (batch row, q-head) against a (b, hkv, S, d) cache, masked by the row's
+// valid length cache_len[b] (current token included), an optional sliding
+// window and softcap.  A row with no valid key writes 0.
 //
-// Bound on the H100: memory.  Each row reads its valid K/V once and does
-// ~2 * 2 * d FLOPs per key per q-head, ~g FLOP/B with g = hq / hkv, so the
-// least time is the valid K/V bytes over 3.35 TB/s.  Design, as
-// on the TPU: one block per (batch row, kv-head) serves all g grouped q-heads
-// (g <= 16), so that head's K/V stream through shared memory exactly once per
-// step; blocks stop at the row's valid length instead of sweeping S.
-#include "attention_common.cuh"
+// Bound on the H100: bytes.  Each row reads its valid K/V once and does ~g
+// FLOP per byte (g = hq / hkv), so the least time is the valid K/V bytes
+// over 3.35 TB/s; at the batch decode shape (56 rows x 8 kv-heads, 61 keys
+// of 128, bf16) ~4.5 us.  What held the first version back was latency
+// inside a block (one 2-byte load per thread per step, a 128-FMA chain per
+// key, two barriers per 32-key tile), not bytes.  Design: one block per
+// (batch row, kv-head) serves all g <= 16 grouped q-heads, so each head's
+// K/V are read once; it stops at the row's length (and starts at its
+// window) instead of sweeping S.  The block body is decode_block
+// (decode_common.cuh): every valid key of a 64-key stage in flight at once
+// as 16-byte cp.async, split by logical position over the 4 warps, scored
+// in registers, one combine.  The paged kernel runs the same body, so on
+// the same logical cache the two agree bit for bit.
+#include "decode_common.cuh"
 
 namespace repro {
 
@@ -24,47 +32,25 @@ struct DecodeParams {
   int hkv, g, S, window;
   long long q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
   float softcap, scale;
+  int nbuf;    // K/V buffers a warp
+  bool vec16;  // every K/V row starts on 16 bytes
 };
 
-constexpr int DECODE_R = 4;                      // rows per warp (max)
-constexpr int DECODE_ROWS = WARPS * DECODE_R;    // max grouped q-heads
-
 template <typename T, int D, int DV>
-__global__ void __launch_bounds__(THREADS) decode_kernel(const DecodeParams p) {
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* ks = qs + DECODE_ROWS * D;
-  float* vs = ks + BK * (D + 1);
-  __shared__ int lo[DECODE_ROWS], hi[DECODE_ROWS];
-  __shared__ T* out[DECODE_ROWS];
-
+__global__ void __launch_bounds__(THREADS, DecodeGeom<T, D, DV>::MIN_BLOCKS)
+    decode_kernel(const DecodeParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x / p.hkv, kvh = blockIdx.x % p.hkv;
-  const int hq = p.hkv * p.g;
-  const int len = p.cache_len[b];
-  const int rhi = min(len, p.S);
-  const int rlo = p.window > 0 ? max(len - p.window, 0) : 0;
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb;
-
-  for (int e = threadIdx.x; e < DECODE_ROWS * D; e += THREADS) {
-    const int r = e / D, c = e - r * D;
-    qs[e] = r < p.g ? to_f32(q[(kvh * p.g + r) * p.q_sh + c]) * p.scale : 0.f;
-  }
-  if (threadIdx.x < DECODE_ROWS) {
-    const int r = threadIdx.x;
-    const bool active = r < p.g;
-    lo[r] = active ? rlo : 0;
-    hi[r] = active ? rhi : 0;
-    out[r] = active ? static_cast<T*>(p.out) +
-                          (static_cast<long long>(b) * hq + kvh * p.g + r) * DV
-                    : nullptr;
-  }
-  __syncthreads();
-
-  attend_rows<T, D, DV, DECODE_R>(
-      qs, lo, hi, out, rlo, rhi,
+  const long long head0 = static_cast<long long>(b) * p.hkv * p.g +
+                          kvh * p.g;
+  decode_block<T, D, DV>(
+      static_cast<const T*>(p.q) + b * p.q_sb + kvh * p.g * p.q_sh, p.q_sh,
+      p.g, p.cache_len + b,
       static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh,
       static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh,
-      DenseKeys{p.k_ss, p.v_ss}, p.softcap, ks, vs);
+      DenseRows{p.k_ss, p.v_ss, p.S, p.window},
+      static_cast<T*>(p.out) + head0 * DV, p.softcap, p.scale, p.nbuf,
+      p.vec16, smem);
 }
 
 struct DecodeLaunch {
@@ -72,14 +58,20 @@ struct DecodeLaunch {
   int batch, dtype;
   cudaStream_t stream;
 
+  template <typename T, int D, int DV>
+  cudaError_t run() const {
+    DecodeParams q = p;
+    q.vec16 = rows_aligned16(p.k, sizeof(T), {p.k_sb, p.k_sh, p.k_ss}) &&
+              rows_aligned16(p.v, sizeof(T), {p.v_sb, p.v_sh, p.v_ss});
+    q.nbuf = decode_nbuf<T, D, DV>(p.S);
+    return launch(decode_kernel<T, D, DV>, dim3(batch * p.hkv),
+                  decode_smem_bytes<T, D, DV>(q.nbuf), stream, q);
+  }
+
   template <int D, int DV>
   cudaError_t operator()() const {
-    const dim3 grid(batch * p.hkv);
-    const size_t smem = attend_smem_bytes<D, DV, DECODE_R>();
-    if (dtype == DTYPE_BF16)
-      return launch(decode_kernel<__nv_bfloat16, D, DV>, grid, smem, stream, p);
-    if (dtype == DTYPE_F32)
-      return launch(decode_kernel<float, D, DV>, grid, smem, stream, p);
+    if (dtype == DTYPE_BF16) return run<__nv_bfloat16, D, DV>();
+    if (dtype == DTYPE_F32) return run<float, D, DV>();
     return cudaErrorInvalidValue;
   }
 };
@@ -92,13 +84,13 @@ extern "C" int repro_decode_attention(
     long long q_sb, long long q_sh, long long k_sb, long long k_sh,
     long long k_ss, long long v_sb, long long v_sh, long long v_ss, int window,
     float softcap, float scale, void* stream) {
-  if (b <= 0 || hkv <= 0 || hq % hkv != 0 || hq / hkv > repro::DECODE_ROWS)
+  if (b <= 0 || hkv <= 0 || hq % hkv != 0 || hq / hkv > repro::DEC_MAX_GROUP)
     return cudaErrorInvalidValue;
   repro::DecodeLaunch f;
   f.p = repro::DecodeParams{q, k, v, static_cast<const int*>(cache_len), out,
                             hkv, hq / hkv, S, window,
                             q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
-                            softcap, scale};
+                            softcap, scale, 1, false};
   f.batch = b;
   f.dtype = dtype;
   f.stream = static_cast<cudaStream_t>(stream);

@@ -5,15 +5,16 @@
 decode_attention`` (Pallas TPU).  One token per row attends a dense
 (b, hkv, S, d) cache up to the row's valid length.  On the H100 this is
 bound by reading the valid K/V once; as on the TPU, one block per (row,
-kv-head) serves all grouped q-heads so each head's K/V stream once, and it
-stops at the row's length.  See the source for the design.
+kv-head) serves all grouped q-heads so each head's K/V are read once, and
+it stops at the row's length.  See ``csrc/decode_common.cuh`` for the
+design.
 
 ``paged_decode_attention`` replaces ``repro/kernels/decode_attention.py::
 paged_decode_attention``: the same math over block-paged storage, each
 logical page resolved through the row's page table, masked by ``cache_len``
-and ``kv_cap``.  Its kernel shares the dense kernel's softmax body and tile
-order (``csrc/attention_common.cuh``), so the two agree bit for bit on the
-same logical cache.
+and ``kv_cap``.  Its kernel shares the dense kernel's body
+(``csrc/decode_common.cuh``: keys split by logical position, one combine),
+so the two agree bit for bit on the same logical cache.
 
 Both dispatch on the tensor's device: a CPU tensor goes to the plain
 version, a CUDA tensor launches the kernel (or raises).  ``launches`` and

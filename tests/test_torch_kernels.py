@@ -13,6 +13,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.decode_attention import KernelType
 from repro.kernels.decode_attention import decode_attention as da_pallas
 from repro.kernels.flash_attention import flash_attention as fa_pallas
 from repro.kernels.topk_retrieval import topk_retrieval as topk_pallas
@@ -253,6 +254,232 @@ def test_decode_plain_is_causal_attention_at_its_length():
     want = tref.attention(tq, tk[:, :, :40], tv[:, :, :40], causal=True,
                           q_offset=39)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=F32_TOL)
+
+
+# ---------------------------------------------------------------------------
+# The decode kernels' arithmetic (csrc/decode_common.cuh), on the CPU
+# ---------------------------------------------------------------------------
+DEC_CHUNK, DEC_WARPS = 16, 4
+
+
+def _emulate_decode_block(q, fetch, lo, hi, *, softcap=0.0, scale=None):
+    """The numerics of ``decode_block`` (``csrc/decode_common.cuh``),
+    test-only: f32 math on the storage-type q, K, V; keys in chunks of 16
+    by logical position, chunk c to warp c % 4; an online softmax per warp
+    over its own chunks in order, with the TPU kernel's guards; the warps'
+    (m, l, acc) merged in warp order, a warp without a valid key skipped;
+    l == 0 -> 1.  q: (b, hkv, g, d); lo, hi: (b,) key intervals; fetch(kpos,
+    valid) -> the chunk's K (b, hkv, 16, d) and V (b, hkv, 16, dv), read
+    through the cache's own addressing, 0 where not valid.  Every operation
+    runs on (b, hkv, g, 16)-shaped tiles, so the result depends only on the
+    logical keys, not on how the cache is laid out."""
+    b, hkv, g, d = q.shape
+    scale = scale if scale is not None else d ** -0.5
+    neg = tref.NEG_INF
+    qf = q.float() * scale
+    warps = []
+    for w in range(DEC_WARPS):
+        m = torch.full((b, hkv, g), neg)
+        l = torch.zeros((b, hkv, g))
+        acc = None
+        for c in range(w, -(-int(hi.max()) // DEC_CHUNK), DEC_WARPS):
+            kpos = c * DEC_CHUNK + torch.arange(DEC_CHUNK)
+            valid = (kpos[None] >= lo[:, None]) & (kpos[None] < hi[:, None])
+            k, v = fetch(kpos, valid)
+            s = torch.einsum("bhgd,bhjd->bhgj", qf, k.float())
+            if softcap > 0.0:
+                s = softcap * torch.tanh(s / softcap)
+            vmask = valid[:, None, None]
+            s = torch.where(vmask, s, neg)
+            m_new = torch.maximum(m, s.amax(-1))
+            m_safe = torch.where(m_new <= neg, 0.0, m_new)
+            p = torch.where(vmask, torch.exp(s - m_safe[..., None]), 0.0)
+            alpha = torch.where(m <= neg, 0.0, torch.exp(m - m_safe))
+            l = l * alpha + p.sum(-1)
+            pv = torch.einsum("bhgj,bhjd->bhgd", p, v.float())
+            acc = pv if acc is None else acc * alpha[..., None] + pv
+            m = m_new
+        warps.append((m, l, acc))
+    mx = torch.stack([m for m, _, _ in warps]).amax(0)
+    m_safe = torch.where(mx <= neg, 0.0, mx)
+    lsum, a = torch.zeros_like(mx), None
+    for m, l, acc in warps:
+        if acc is None:                       # the warp owns no chunk
+            continue
+        f = torch.where(m <= neg, 0.0, torch.exp(m - m_safe))
+        lsum = lsum + l * f
+        a = acc * f[..., None] if a is None else a + acc * f[..., None]
+    out = a / torch.where(lsum == 0.0, 1.0, lsum)[..., None]
+    return out.reshape(b, hkv * g, 1, -1).to(q.dtype)
+
+
+def _dense_fetch(k_cache, v_cache):
+    S = k_cache.shape[2]
+
+    def fetch(kpos, valid):
+        idx = kpos.clamp(max=S - 1)
+        keep = valid[:, None, :, None]
+        return (torch.where(keep, k_cache[:, :, idx], 0.0).contiguous(),
+                torch.where(keep, v_cache[:, :, idx], 0.0).contiguous())
+    return fetch
+
+
+def _paged_fetch(k_pages, v_pages, table, page):
+    rows = torch.arange(table.shape[0])[:, None]
+
+    def fetch(kpos, valid):
+        lp = (kpos // page).clamp(max=table.shape[1] - 1)
+        phys = table.long()[rows, lp[None]]               # (b, 16)
+        slot = (kpos % page)[None].expand_as(phys)
+        keep = valid[:, None, :, None]
+        k = k_pages[phys, :, slot].permute(0, 2, 1, 3)     # (b, hkv, 16, d)
+        v = v_pages[phys, :, slot].permute(0, 2, 1, 3)
+        return (torch.where(keep, k, 0.0).contiguous(),
+                torch.where(keep, v, 0.0).contiguous())
+    return fetch
+
+
+def _emulate_dense(q, k_cache, v_cache, lens, *, window=0, softcap=0.0):
+    b, hq, _, d = q.shape
+    hkv = k_cache.shape[1]
+    lens = torch.as_tensor(lens, dtype=torch.int64).reshape(-1).expand(b)
+    hi = lens.clamp(max=k_cache.shape[2])
+    lo = (lens - window).clamp(min=0) if window > 0 else torch.zeros_like(hi)
+    return _emulate_decode_block(q.reshape(b, hkv, hq // hkv, d),
+                                 _dense_fetch(k_cache, v_cache), lo, hi,
+                                 softcap=softcap)
+
+
+def _emulate_paged(q, k_pages, v_pages, lens, table, *, page_size, kv_cap,
+                   softcap=0.0):
+    b, hq, _, d = q.shape
+    hkv = k_pages.shape[1]
+    hi = torch.as_tensor(lens, dtype=torch.int64).clamp(max=kv_cap)
+    return _emulate_decode_block(
+        q.reshape(b, hkv, hq // hkv, d),
+        _paged_fetch(k_pages, v_pages, table, page_size), torch.zeros_like(hi),
+        hi, softcap=softcap)
+
+
+def _paged_copy(kc, vc, page, n_spare=5, seed=0):
+    """The dense caches' keys in block-paged storage behind a permuted page
+    table, random values in the trash page and every unreferenced page."""
+    b, hkv, S, _ = kc.shape
+    n_w = -(-S // page)
+    n_pages = b * n_w + n_spare
+    g = torch.Generator().manual_seed(seed)
+    kp = torch.randn((n_pages + 1, hkv, page, kc.shape[3]), generator=g)
+    vp = torch.randn((n_pages + 1, hkv, page, vc.shape[3]), generator=g)
+    kp, vp = kp.to(kc.dtype), vp.to(vc.dtype)
+    table = torch.randperm(n_pages, generator=g)[: b * n_w].reshape(b, n_w)
+    for i in range(b):
+        for w in range(n_w):
+            n = min(page, S - w * page)
+            kp[table[i, w], :, :n] = kc[i, :, w * page: w * page + n]
+            vp[table[i, w], :, :n] = vc[i, :, w * page: w * page + n]
+    return kp, vp, table.to(torch.int32)
+
+
+# DECODE_CASES, then the main path's head geometry (g 4, d 128, 61 keys)
+# and an empty row
+EMULATED_DECODE_CASES = DECODE_CASES + [
+    (2, 8, 2, 61, 128, (61, 49), 0, 0.0),
+    (2, 4, 2, 32, 32, (0, 17), 0, 0.0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", EMULATED_DECODE_CASES)
+def test_decode_kernel_numerics_within_budget_of_pallas(case, dtype):
+    """The redesigned decode body's arithmetic (chunks by logical position
+    over 4 warps, per-warp online softmax, one combine in warp order) stays
+    within 2e-5 (f32) / 3e-2 (bf16 storage, f32 math) of the Pallas kernel
+    (interpret mode) and of the port's plain version."""
+    b, hq, hkv, S, d, clen, window, cap = case
+    q, kc, vc = _qkv(6, b, hq, hkv, 1, S, d)
+    (jq, jk, jv), (tq, tk, tv) = _both(q, kc, vc, dtype=dtype)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    tlen = torch.tensor(clen, dtype=torch.int32)
+    got = _emulate_dense(tq, tk, tv, tlen, window=window, softcap=cap)
+    pallas = da_pallas(jq, jk, jv, jnp.asarray(clen, jnp.int32),
+                       window=window, softcap=cap, block_k=32, interpret=True)
+    plain = DA.decode_attention_plain(tq, tk, tv, tlen, window=window,
+                                      softcap=cap)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(pallas, np.float32), atol=tol,
+                               rtol=tol)
+    np.testing.assert_allclose(got.float().numpy(), plain.float().numpy(),
+                               atol=tol, rtol=tol)
+    if 0 in np.atleast_1d(clen):
+        assert (got[list(np.atleast_1d(clen)).index(0)] == 0).all()
+
+
+# test_torch_paged.PAGED_CASES (b, hq, hkv, S, d, page, lens, softcap), then
+# the stream's head geometry (g 4, d 128, 16-token pages, 61 keys)
+EMULATED_PAGED_CASES = [
+    (2, 4, 2, 128, 32, 16, (100, 128), 0.0),
+    (1, 8, 4, 64, 64, 8, (40,), 50.0),
+    (3, 4, 2, 96, 32, 32, (10, 77, 96), 0.0),
+    (2, 8, 2, 61, 128, 16, (61, 50), 0.0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", EMULATED_PAGED_CASES)
+def test_paged_kernel_numerics_within_budget_of_pallas(case, dtype):
+    """The same body over block-paged storage (a clipped last page where S
+    is not a multiple of the page) against the Pallas paged kernel
+    (interpret mode) and the plain paged version; bit for bit the dense
+    emulation on the same logical cache."""
+    b, hq, hkv, S, d, page, lens, cap = case
+    q, kc, vc = _qkv(16, b, hq, hkv, 1, S, d)
+    tq, tk, tv = (torch.tensor(a).to(dtype) for a in (q, kc, vc))
+    kp, vp, table = _paged_copy(tk, tv, page, seed=S)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    tlen = torch.tensor(lens, dtype=torch.int32)
+    kw = dict(page_size=page, kv_cap=S, softcap=cap)
+    got = _emulate_paged(tq, kp, vp, tlen, table, **kw)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    pallas = jops.paged_decode_attention(
+        *(jnp.asarray(t.float().numpy(), jdt) for t in (tq, kp, vp)),
+        jnp.asarray(lens, jnp.int32), jnp.asarray(table.numpy()),
+        kernel=KernelType.PALLAS, **kw)
+    plain = DA.paged_decode_attention_plain(tq, kp, vp, tlen, table, **kw)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(pallas, np.float32), atol=tol,
+                               rtol=tol)
+    np.testing.assert_allclose(got.float().numpy(), plain.float().numpy(),
+                               atol=tol, rtol=tol)
+    assert torch.equal(got, _emulate_dense(tq, tk, tv, tlen, softcap=cap))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_decode_emulation_row_bits_independent_of_layout(dtype):
+    """Requirement of the kernels' design, at the level of the algorithm: a
+    row's output depends only on its logical keys and length.  One row of 61
+    keys gives the same bits from dense caches of depth 61 and 98 and from
+    paged caches with pages of 8 and 16 and kv_caps of 61 and 80."""
+    q, kc, vc = _qkv(31, 1, 8, 2, 1, 98, 128)
+    tq, tk, tv = (torch.tensor(a).to(dtype) for a in (q, kc, vc))
+    lens = torch.tensor([61], dtype=torch.int32)
+    outs = {f"dense S={S}": _emulate_dense(tq, tk[:, :, :S].contiguous(),
+                                           tv[:, :, :S].contiguous(), lens)
+            for S in (61, 98)}
+    for page, kv_cap in ((8, 61), (16, 61), (16, 80), (8, 80)):
+        kp, vp, table = _paged_copy(tk[:, :, :kv_cap], tv[:, :, :kv_cap],
+                                    page, seed=page + kv_cap)
+        outs[f"paged page={page} kv_cap={kv_cap}"] = _emulate_paged(
+            tq, kp, vp, lens, table, page_size=page, kv_cap=kv_cap)
+    base = outs["dense S=61"]
+    for name, out in outs.items():
+        assert torch.equal(out, base), name
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    plain = DA.decode_attention_plain(tq, tk, tv, lens)
+    np.testing.assert_allclose(base.float().numpy(), plain.float().numpy(),
+                               atol=tol, rtol=tol)
 
 
 # nq, na, d, k  (tests/test_kernels.py, plus the SCOPE shape)
