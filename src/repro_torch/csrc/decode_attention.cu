@@ -32,7 +32,6 @@ struct DecodeParams {
   int hkv, g, S, window;
   long long q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
   float softcap, scale;
-  int nbuf;    // K/V buffers a warp
   bool vec16;  // every K/V row starts on 16 bytes
 };
 
@@ -49,7 +48,7 @@ __global__ void __launch_bounds__(THREADS, DecodeGeom<T, D, DV>::MIN_BLOCKS)
       static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh,
       static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh,
       DenseRows{p.k_ss, p.v_ss, p.S, p.window},
-      static_cast<T*>(p.out) + head0 * DV, p.softcap, p.scale, p.nbuf,
+      static_cast<T*>(p.out) + head0 * DV, p.softcap, p.scale,
       p.vec16, smem);
 }
 
@@ -63,9 +62,8 @@ struct DecodeLaunch {
     DecodeParams q = p;
     q.vec16 = rows_aligned16(p.k, sizeof(T), {p.k_sb, p.k_sh, p.k_ss}) &&
               rows_aligned16(p.v, sizeof(T), {p.v_sb, p.v_sh, p.v_ss});
-    q.nbuf = decode_nbuf<T, D, DV>(p.S);
     return launch(decode_kernel<T, D, DV>, dim3(batch * p.hkv),
-                  decode_smem_bytes<T, D, DV>(q.nbuf), stream, q);
+                  decode_smem_bytes<T, D, DV>(), stream, q);
   }
 
   template <int D, int DV>
@@ -90,7 +88,7 @@ extern "C" int repro_decode_attention(
   f.p = repro::DecodeParams{q, k, v, static_cast<const int*>(cache_len), out,
                             hkv, hq / hkv, S, window,
                             q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
-                            softcap, scale, 1, false};
+                            softcap, scale, false};
   f.batch = b;
   f.dtype = dtype;
   f.stream = static_cast<cudaStream_t>(stream);

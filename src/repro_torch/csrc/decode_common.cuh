@@ -17,8 +17,8 @@
 //    row is one stage.  Each warp copies its own chunks, K and V in their
 //    storage type, with 16-byte cp.async, and waits only on its own copies:
 //    no block barrier until the combine.  q's loads go out right after the
-//    copy.  Longer rows run the same loop with the warp's next chunk in
-//    flight while it works on this one.
+//    copy.  Longer rows run the same loop, one K/V buffer a warp: a warp
+//    issues its next chunk's copy once it is done with this one.
 //  * A key row's address is computed once, by one lane, before its copy:
 //    for a paged cache that is one division and one read of the page table,
 //    and only for valid keys (the block never copies the table).  Invalid
@@ -66,10 +66,8 @@
 namespace repro {
 
 constexpr int DEC_CHUNK = 16;                   // keys a chunk
-constexpr int DEC_STAGE = WARPS * DEC_CHUNK;    // one chunk a warp: 64 keys
 constexpr int DEC_HEADS = 4;                    // q-heads a pass
 constexpr int DEC_MAX_GROUP = 16;               // grouped q-heads a block
-constexpr size_t DEC_MAX_SMEM = 232448;         // a block's shared memory cap
 
 // Where a row's keys are: its key interval [lo, hi) from its valid length,
 // and key rows' addresses, in elements from this (row, kv-head)'s K and V
@@ -128,24 +126,14 @@ struct DecodeGeom {
   static_assert(NI * 2 == LK, "the reduce-scatter needs NI = LK / 2");
 };
 
-// Dynamic shared memory of one block: each warp's nbuf K/V buffers, the
-// row offsets and P of its chunk, and the warps' (acc, m, l) for the
-// combine.
+// Dynamic shared memory of one block: each warp's K/V buffer, the row
+// offsets and P of its chunk, and the warps' (acc, m, l) for the combine.
 template <typename T, int D, int DV>
-constexpr size_t decode_smem_bytes(int nbuf) {
-  return size_t(WARPS) * nbuf * DecodeGeom<T, D, DV>::BUF * sizeof(T) +
+constexpr size_t decode_smem_bytes() {
+  return size_t(WARPS) * DecodeGeom<T, D, DV>::BUF * sizeof(T) +
          size_t(WARPS) * 2 * DEC_CHUNK * sizeof(long long) +
          size_t(WARPS) * DEC_HEADS * DEC_CHUNK * sizeof(float) +
          size_t(WARPS) * DEC_HEADS * (DV + 2) * sizeof(float);
-}
-
-// K/V buffers a warp: 2 when a row may hold more than one stage of keys
-// (max_keys: S or kv_cap) and two fit, so the next chunk's copy flies
-// while a warp works on this one; else 1.
-template <typename T, int D, int DV>
-int decode_nbuf(int max_keys) {
-  return max_keys > DEC_STAGE && decode_smem_bytes<T, D, DV>(2) <= DEC_MAX_SMEM
-             ? 2 : 1;
 }
 
 // True when every K/V row of the cache starts on 16 bytes, so chunks can
@@ -276,22 +264,22 @@ __device__ __forceinline__ void load_q(float (&qr)[H][QE],
 // q: this row's first q-head of the kv-head (heads q_sh apart, d
 // contiguous); len: the row's valid length, which rows turns into its key
 // interval [lo, hi); kp / vp: this (row, kv-head)'s K / V bases, key j's
-// row at kp + rows.at(j); out: (g, DV) contiguous.  nbuf: K/V buffers a
-// warp (decode_nbuf); vec16: K and V rows start on 16 bytes.
+// row at kp + rows.at(j); out: (g, DV) contiguous.  vec16: K and V rows
+// start on 16 bytes.
 template <typename T, int D, int DV, typename Rows>
 __device__ __forceinline__ void decode_block(
     const T* __restrict__ q, long long q_sh, int g,
     const int* __restrict__ len, const T* __restrict__ kp,
     const T* __restrict__ vp, const Rows rows, T* __restrict__ out,
-    float softcap, float scale, int nbuf, bool vec16, unsigned char* smem) {
+    float softcap, float scale, bool vec16, unsigned char* smem) {
   using G = DecodeGeom<T, D, DV>;
   constexpr int CH = DEC_CHUNK, H = DEC_HEADS;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
-  T* kv = reinterpret_cast<T*>(smem) + warp * nbuf * G::BUF;
+  T* kv = reinterpret_cast<T*>(smem) + warp * G::BUF;
   long long* offs_all = reinterpret_cast<long long*>(
-      smem + size_t(WARPS) * nbuf * G::BUF * sizeof(T));
+      smem + size_t(WARPS) * G::BUF * sizeof(T));
   long long* offs = offs_all + warp * 2 * CH;
   float* pbuf_all = reinterpret_cast<float*>(offs_all + WARPS * 2 * CH);
   float* pw = pbuf_all + warp * H * CH;
@@ -331,17 +319,9 @@ __device__ __forceinline__ void decode_block(
 
     for (int i = 0; i < n_mine; ++i) {
       const int c = first + i * WARPS;
-      const bool ahead = nbuf > 1 && i + 1 < n_mine;
-      if (ahead) {        // the next chunk's copy flies while this one is used
-        issue_chunk<T, D, DV>(kv + ((i + 1) & 1) * G::BUF, offs,
-                              c + WARPS, lo, hi, rows, kp, vp, lane,
-                              vec16);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
+      cp_async_wait<0>();
       __syncwarp();
-      const T* kb = kv + (nbuf > 1 ? (i & 1) : 0) * G::BUF;
+      const T* kb = kv;
       const T* vb = kb + CH * D;
       // scores: partial dot products of every K row this lane reads ...
       float part[G::NI][H];
@@ -406,7 +386,7 @@ __device__ __forceinline__ void decode_block(
         }
       }
       __syncwarp();                   // the buffer and P are free again
-      if (nbuf == 1 && i + 1 < n_mine)
+      if (i + 1 < n_mine)
         issue_chunk<T, D, DV>(kv, offs, c + WARPS, lo, hi, rows, kp, vp,
                               lane, vec16);
     }

@@ -46,7 +46,6 @@ struct PagedParams {
   int hkv, g, page, n_w, kv_cap;
   long long q_sb, q_sh, k_sp, k_sh, k_ss, v_sp, v_sh, v_ss;
   float softcap, scale;
-  int nbuf;    // K/V buffers a warp
   bool vec16;  // every K/V row starts on 16 bytes
 };
 
@@ -65,7 +64,7 @@ __global__ void __launch_bounds__(THREADS, DecodeGeom<T, D, DV>::MIN_BLOCKS)
       static_cast<const T*>(p.v) + kvh * p.v_sh,
       PagedRows{p.table + static_cast<long long>(b) * p.n_w, p.page,
                 p.kv_cap, p.k_sp, p.k_ss, p.v_sp, p.v_ss},
-      static_cast<T*>(p.out) + head0 * DV, p.softcap, p.scale, p.nbuf,
+      static_cast<T*>(p.out) + head0 * DV, p.softcap, p.scale,
       p.vec16, smem);
 }
 
@@ -79,9 +78,8 @@ struct PagedLaunch {
     PagedParams q = p;
     q.vec16 = rows_aligned16(p.k, sizeof(T), {p.k_sp, p.k_sh, p.k_ss}) &&
               rows_aligned16(p.v, sizeof(T), {p.v_sp, p.v_sh, p.v_ss});
-    q.nbuf = decode_nbuf<T, D, DV>(p.kv_cap);
     return launch(paged_decode_kernel<T, D, DV>, dim3(batch * p.hkv),
-                  decode_smem_bytes<T, D, DV>(q.nbuf), stream, q);
+                  decode_smem_bytes<T, D, DV>(), stream, q);
   }
 
   template <int D, int DV>
@@ -110,7 +108,7 @@ extern "C" int repro_paged_decode_attention(
                            static_cast<const int*>(table), out,
                            hkv, hq / hkv, page, n_w, kv_cap,
                            q_sb, q_sh, k_sp, k_sh, k_ss, v_sp, v_sh, v_ss,
-                           softcap, scale, 1, false};
+                           softcap, scale, false};
   f.batch = b;
   f.dtype = dtype;
   f.stream = static_cast<cudaStream_t>(stream);
