@@ -6,8 +6,9 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each of which must pass (any failure exits non-zero with no result):
 
   1. device      — the card's name and power limit, torch and CUDA versions
-  2. build       — compile the five CUDA kernels from ``src/repro_torch/csrc``
-                   (one nvcc per source, in parallel)
+  2. build       — compile the six CUDA kernels from ``src/repro_torch/csrc``
+                   (one nvcc per source, in parallel); ptxas must report
+                   no spill
   3. kernels     — each kernel against its plain PyTorch version on the card,
                    at the main path's shapes and at edge shapes (flash: q,
                    k, v as the model's transposed (b, s, h, d) views; bf16
@@ -26,7 +27,12 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    the dense one bitwise equal on the same keys in a deeper
                    cache and in a view whose rows are not 16-byte aligned;
                    the SSD scan also at chunks 1 to 128, across chunk
-                   boundaries and on strided inputs
+                   boundaries, on strided inputs and at head counts its
+                   group of 4 does not divide; the SSD decode step in place
+                   on a layer view of the full 48-layer stacked cache (the
+                   other layers untouched), 12 steps chained from the
+                   scan's final state, two launches bitwise equal, and at
+                   edge shapes
   4. timing      — each kernel, its plain version and one PyTorch library
                    call computing the same function (device time: CUDA
                    graph replays between CUDA events), beside the least time
@@ -36,7 +42,7 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    gather plus SDPA, for top-k the same work as the
                    wrapper's one launch (normalize the raw queries, the
                    product, torch.topk); no single PyTorch call computes
-                   the SSD scan
+                   the SSD scan or the SSD decode step
   5. tiny        — ``ScopeEngine.serve`` on scope-tiny with seeded weights,
                    once on the card (kernels) and once on the CPU (plain
                    versions): equal token streams and decisions
@@ -57,12 +63,13 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    memory, and the device's idle share over a window of
                    segments
   9. tiny ssm    — ``ScopeEngine.serve`` on a small pure-SSM Mamba2 config
-                   with seeded weights, on the card (SSD kernel) and on the
-                   CPU (plain version): equal token streams and decisions
+                   with seeded weights, on the card (SSD kernels) and on the
+                   CPU (plain versions): equal token streams and decisions
  10. full ssm    — ``ScopeEngine.serve`` on mamba2-1.3b at full width and
                    depth (48 layers, d 2048, 64 SSM heads of 64, state 128,
                    random seeded weights, bf16): 8 test queries x 7 models,
-                   48 SSD launches per prefill call and no attention kernel,
+                   48 SSD scan launches per prefill call and 48 SSD decode
+                   step launches per decode step, no attention kernel,
                    finite logits, prefill and decode times, idle share, peak
                    memory
 
@@ -100,6 +107,8 @@ TPU_KERNELS = {
     "decode_attention": "src/repro/kernels/decode_attention.py:88",
     "paged_decode_attention": "src/repro/kernels/decode_attention.py:185",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:80",
+    "ssd_decode_step": "src/repro/kernels/ops.py:308 (plain XLA, no Pallas "
+                       "kernel)",
 }
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in TPU_KERNELS}
 TO_PORT = []            # every TPU kernel of the repository has a port
@@ -126,7 +135,19 @@ SSD_CASES = [
      0.1, None, False),
     ("ssd chunk 24 nc 4 n 16", (1, 96, 4, 64, 16, 24), "float32", 0.1, None,
      False),
+    # one head, and head counts the group of 4 does not divide (3, 5, 6);
+    # p 12 / n 6 take the element-by-element x (bf16) and B, C paths; a
+    # chunk of 100 is walked in two pieces of 50
+    ("ssd h 1", (2, 49, 1, 64, 128, 49), "float32", 1.0, None, False),
+    ("ssd h 3 bf16", (3, 49, 3, 64, 128, 49), "bfloat16", 1.0, None, True),
+    ("ssd h 5 p 12 n 6 bf16", (2, 49, 5, 12, 6, 49), "bfloat16", 0.1, None,
+     False),
+    ("ssd h 5 p 12 n 6", (2, 49, 5, 12, 6, 49), "float32", 0.1, None, False),
+    ("ssd h 6 chunk 100 nc 2", (1, 200, 6, 16, 8, 100), "float32", 0.1, None,
+     False),
 ]
+# the SSD decode step's edge shapes: (b, h, p, n), chained steps
+STEP_CASES = [((1, 3, 16, 8), 4), ((2, 5, 16, 16), 4), ((1, 64, 64, 128), 3)]
 
 
 class SmokeFailure(RuntimeError):
@@ -547,7 +568,89 @@ def kernel_checks(torch, L: int):
     yp, sp = ref.ssd(x, dtv, A, B, C, chunk=7)
     compare("ssd strided y", y, yp, F32_TOL)
     compare("ssd strided state", st, sp, F32_TOL)
+    step_checks(torch, gen, L, main_chunk, compare)
     return errs
+
+
+def step_checks(torch, gen, L: int, main_chunk: int, compare):
+    """The SSD decode step, in place.  The main path's shape: mamba2-1.3b's
+    decode of 56 rows on a (56, 64, 64, 128) f32 layer view of the full
+    48-layer stacked cache, every other layer poisoned to 1e9 and checked
+    untouched, 12 chained steps from the scan's final state on the main
+    prompt, x, B and C slices of a conv-output row whose batch dim is the
+    fastest and A in bf16, as mamba_decode passes them.  Kernel and f32
+    plain version are
+    each held element by element to the chain run in float64 from the same
+    state, within 2e-5 x max(1, |witness|) (y of every step and the final
+    state); two launches on the same inputs are bitwise equal.  Then edge
+    shapes (n 8 and 16, p 16, b 1, A in f32) with contiguous inputs, and
+    one small one in the conv-output layout."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_decode_step as SD
+    from repro_torch.kernels import ssd_scan as SS
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    def step_inputs(b, h, p, n, conv=False):
+        if conv:   # x (b, h, p), B, C (b, n): slices of (b, h p + 2 n)
+            row = rnd(h * p + 2 * n, b).t() * 0.5     # batch dim fastest
+            return (row[:, :h * p].reshape(b, h, p),
+                    torch.nn.functional.softplus(rnd(b, h)),
+                    row[:, h * p:h * p + n], row[:, h * p + n:])
+        return (rnd(b, h, p) * 0.5, torch.nn.functional.softplus(rnd(b, h)),
+                rnd(b, n) * 0.5, rnd(b, n) * 0.5)
+
+    def chain(name, state, A, steps, main=None, conv=False):
+        """``steps`` steps on ``state`` in place (kernel), on a copy (plain)
+        and in float64 (witness)."""
+        b, h, p, n = state.shape
+        plain, wit = state.clone(), state.double()
+        ys = {"kernel": [], "plain": [], "witness": []}
+        for _ in range(steps):
+            x, dt, B, C = step_inputs(b, h, p, n, conv)
+            y, st = SD.ssd_decode_step_cuda(state, x, dt, A, B, C)
+            check(st is state, f"{name}: the state is not updated in place")
+            yp, plain = ref.ssd_decode_step(plain, x, dt, A, B, C)
+            yw, wit = ref.ssd_decode_step(
+                wit, *(t.double() for t in (x, dt, A, B, C)))
+            for side, v in (("kernel", y), ("plain", yp), ("witness", yw)):
+                ys[side].append(v)
+        yw = torch.stack(ys["witness"])
+        for side, st in (("kernel", state), ("plain", plain)):
+            compare(f"{name} {side} y ({steps} steps)",
+                    torch.stack(ys[side]), yw, F32_TOL,
+                    main if side == "kernel" else None, scale="each")
+            compare(f"{name} {side} state", st, wit, F32_TOL, scale="each")
+
+    b, h, p, n, depth, layer, poison = 56, 64, 64, 128, 48, 17, 1e9
+    x, dtv, A, B, C = ssd_inputs(torch, gen, b, L, h, p, n, 1.0,
+                                 torch.bfloat16, conv_layout=True)
+    _, s0 = SS.ssd_scan_cuda(x, dtv, A, B, C, chunk=main_chunk)
+    cache = torch.full((depth, b, h, p, n), poison, device="cuda")
+    cache[layer] = s0
+    chain("step main", cache[layer], A, NEW_TOKENS, main="ssd_decode_step",
+          conv=True)
+    check(bool((cache[:layer] == poison).all())
+          and bool((cache[layer + 1:] == poison).all()),
+          "step main: a layer other than the stepped one changed")
+    print(f"   step main: the other {depth - 1} layers of the stacked cache "
+          "untouched")
+    del cache
+    x, dt, B, C = step_inputs(b, h, p, n, conv=True)
+    s1, s2 = s0.clone(), s0.clone()
+    y1, _ = SD.ssd_decode_step_cuda(s1, x, dt, A, B, C)
+    y2, _ = SD.ssd_decode_step_cuda(s2, x, dt, A, B, C)
+    torch.cuda.synchronize()
+    check(torch.equal(y1, y2) and torch.equal(s1, s2),
+          "step main: two launches differ")
+    print("   step main: two launches bitwise equal")
+    for (b, h, p, n), steps in STEP_CASES:
+        A = -torch.exp(rnd(h) * 0.3)
+        chain(f"step b {b} h {h} p {p} n {n}", rnd(b, h, p, n) * 0.5, A,
+              steps)
+    chain("step conv-output slices", rnd(2, 5, 16, 16) * 0.5,
+          -torch.exp(rnd(5) * 0.3), 4, conv=True)
 
 
 def ssd_inputs(torch, gen, b, l, h, p, n, dt_scale, dtype,
@@ -756,6 +859,27 @@ def kernel_timings(torch, L: int, retriever, query_embs):
     out["ssd_scan"]["bound_ms"], out["ssd_scan"]["bound_by"] = \
         bound(*ssd_work(b, L, h, p, n, chunk, x.element_size(),
                         A.element_size()), "float32")
+    # SSD decode step: mamba2-1.3b's decode of the 56 rows, one layer's f32
+    # state (a layer view of a stacked cache) updated in place, x, dt, B, C
+    # in f32 and A in bf16 as mamba_decode passes them; no single PyTorch
+    # call computes it
+    from repro_torch.kernels import ssd_decode_step as SD
+    cache = torch.randn(2, b, h, p, n, generator=gen, device=dev) * 0.1
+    st = cache[1]
+    row = torch.randn(h * p + 2 * n, b, generator=gen, device=dev).t() * 0.5
+    xs, Bs, Cs = (row[:, :h * p].reshape(b, h, p), row[:, h * p:h * p + n],
+                  row[:, h * p + n:])       # conv-output slices, batch fastest
+    dts = F.softplus(torch.randn(b, h, generator=gen, device=dev))
+    out["ssd_decode_step"] = dict(
+        times(torch, lambda: SD.ssd_decode_step_cuda(st, xs, dts, A, Bs, Cs),
+              lambda: ref.ssd_decode_step(st, xs, dts, A, Bs, Cs), None, 200),
+        shape=f"state ({b},{h},{p},{n}) f32 layer view, x ({b},{h},{p}) dt "
+              f"({b},{h}) B, C ({b},{n}) f32 conv-output slices, A ({h},) "
+              "bf16, in place",
+        library_call="none: no single PyTorch call computes the SSD step")
+    out["ssd_decode_step"]["bound_ms"], out["ssd_decode_step"]["bound_by"] = \
+        bound(*step_work(b, h, p, n, A.element_size()), "float32")
+    del cache
     for name, t in out.items():
         lib = ("none" if t["library_ms"] is None
                else f"{t['library_ms']:.5f}")
@@ -764,6 +888,15 @@ def kernel_timings(torch, L: int, retriever, query_embs):
               f" bound_ms {t['bound_ms']:.6f} ({t['bound_by']}); eager "
               f"wrapper call {t['eager_ms']:.5f} ms")
     return out
+
+
+def step_work(b, h, p, n, a_bytes):
+    """(bytes, f32 FLOPs) of one SSD decode step: the f32 state read once and
+    written once, x, dt, A, B and C read once, y written once; per state
+    element x dt B (1), state a + that (2) and y's product and sum (2)."""
+    nbytes = (2 * 4 * b * h * p * n + 4 * (2 * b * h * p + b * h + 2 * b * n)
+              + a_bytes * h)
+    return nbytes, 5 * b * h * p * n
 
 
 def ssd_work(b, l, h, p, n, chunk, x_bytes, a_bytes):
@@ -877,10 +1010,11 @@ def tiny_card_vs_cpu(torch, cfg, world, data, anchors, lib, qids):
         print(f"   {policy.name}: {len(b.decisions)} decisions equal, "
               f"p_hat max_abs_err {p_err:.3g}")
     result["launches"] = launches = kernels.launch_counts()
-    ran = ({"ssd_scan"} if cfg.is_attention_free()
+    ran = ({"ssd_scan", "ssd_decode_step"} if cfg.is_attention_free()
            else {"flash_attention", "decode_attention"})
     check(all((launches[k] > 0) == (k in ran) for k in
-              ("flash_attention", "decode_attention", "ssd_scan")),
+              ("flash_attention", "decode_attention", "ssd_scan",
+               "ssd_decode_step")),
           f"tiny {cfg.name}: launches {launches}, expected only {ran}")
     print(f"   {g_cpu.size} tokens equal, decision logits max_abs_err "
           f"{dec_err:.3g}; card launches {result['launches']}")
@@ -939,9 +1073,10 @@ def full_width(torch, cfg, world, data, anchors, lib, qids, params,
     # three retrievals: two serves and the budget probe; one prefill and
     # 12 decode steps of every layer, for the one cold serve: flash and
     # decode attention on an attention stack, one SSD scan a layer of the
-    # prefill on an SSM one (its decode is the plain recurrence)
+    # prefill and one SSD decode step a layer and step on an SSM one
     if cfg.is_attention_free():
-        want = dict(NO_LAUNCHES, topk_retrieval=3, ssd_scan=L)
+        want = dict(NO_LAUNCHES, topk_retrieval=3, ssd_scan=L,
+                    ssd_decode_step=L * NEW_TOKENS)
     else:
         want = dict(NO_LAUNCHES, topk_retrieval=3, flash_attention=L,
                     decode_attention=L * NEW_TOKENS)
@@ -1392,6 +1527,7 @@ def main() -> int:
                   if "spill" in line and " 0 bytes spill" not in line]
         print(f"   {name}: {len(regs)} instantiations, registers "
               f"{sorted(set(regs))}, spills {spills or 'none'}")
+        check(not spills, f"{name}: ptxas reports spills {spills}")
     done(t)
 
     t = phase("world")
@@ -1461,11 +1597,13 @@ def main() -> int:
 
     # launches: each kernel's count on its own path's run — the batch serve
     # for the three kernels of that path, the paged stream for the paged
-    # one, the mamba2-1.3b serve for the SSD scan
+    # one, the mamba2-1.3b serve for the SSD scan and decode step
     launches = dict(report["full"]["launches"],
                     paged_decode_attention=report["stream"]["paged"][
                         "launches"]["paged_decode_attention"],
-                    ssd_scan=report["ssm"]["launches"]["ssd_scan"])
+                    ssd_scan=report["ssm"]["launches"]["ssd_scan"],
+                    ssd_decode_step=report["ssm"]["launches"][
+                        "ssd_decode_step"])
     kernel_rows = []
     for name in TPU_KERNELS:
         tm = timing[name]

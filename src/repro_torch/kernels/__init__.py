@@ -8,21 +8,24 @@
                            kernels/decode_attention.py::paged_decode_attention)
   ssd_scan               — Mamba2 SSD chunk scan of the prefill
                            (replaces kernels/ssd_scan.py)
+  ssd_decode_step        — Mamba2 SSD decode step, state updated in place
+                           (the reference's plain-XLA ref.ssd_decode_step)
 
 Each kernel's wrapper keeps a count of its launches in a module attribute;
-the helpers below read and reset all five at once.
+the helpers below read and reset all six at once.
 """
 from typing import Dict
 
-from repro_torch.kernels import (decode_attention, flash_attention, ssd_scan,
-                                 topk_retrieval)
+from repro_torch.kernels import (decode_attention, flash_attention,
+                                 ssd_decode_step, ssd_scan, topk_retrieval)
 
 # kernel -> (module, counter attribute)
 _COUNTERS = {"topk_retrieval": (topk_retrieval, "launches"),
              "flash_attention": (flash_attention, "launches"),
              "decode_attention": (decode_attention, "launches"),
              "paged_decode_attention": (decode_attention, "paged_launches"),
-             "ssd_scan": (ssd_scan, "launches")}
+             "ssd_scan": (ssd_scan, "launches"),
+             "ssd_decode_step": (ssd_decode_step, "launches")}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -4,11 +4,15 @@ PyTorch version.
 Replaces ``repro/kernels/ssd_scan.py::ssd_scan`` (Pallas TPU): the chunked
 scan from a zero state, y (b, l, h, p) in x's dtype and the final state
 (b, h, p, n) in float32.  On the H100 the prefill shape is bound by its
-float32 arithmetic on CUDA cores; the kernel gives one block per (batch,
-head), walks the chunks in order with the (p, n) state in shared memory,
-and reads x, dt, B and C in their model layouts through strides, so the
-model passes its projection slices without a copy.  See the source for the
-design.
+float32 arithmetic on CUDA cores; the kernel gives one block per row and
+group of ``GROUP`` heads, computes the causal scores C.B^T of a chunk once
+for the group, sums a_cum in float64, and runs every product as
+register-tiled f32 FFMAs: y as (T x T)(T x p) tiles, each head's (p, n)
+state held in registers as 4 x 4 tiles while a rank-T product updates it,
+and written to device memory once.  A chunk longer than ``MAX_PIECE`` is
+walked in pieces of at most ``MAX_PIECE`` positions.  x, dt, B and C are
+read in their model layouts through strides, so the model passes its
+projection slices without a copy.  See the source for the design.
 
 ``ssd_scan`` (``ops.ssd``) dispatches on the tensor's device: a CPU tensor
 goes to the plain version ``ref.ssd``, a CUDA tensor launches the kernel
@@ -25,9 +29,12 @@ import torch
 from repro_torch.kernels import build, ref
 
 MAX_CHUNK = 128
+MAX_PIECE = 64          # positions of a chunk staged at once
+GROUP = 4               # heads a block
 # dynamic shared memory a block may use on the H100 (227 KB)
 MAX_SMEM_BYTES = 232448
 THREADS = 256
+STATE_TILES = 2         # 4 x 4 state tiles a thread holds in registers
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
@@ -36,15 +43,38 @@ _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
              + [ctypes.c_longlong] * 10 + [ctypes.c_void_p])
 
 
-def smem_bytes(chunk: int, p: int, n: int) -> int:
-    """Dynamic shared memory of one block (mirrors ``ssd_smem_floats`` in
-    the source): the state (p, n + 1), x * dt (chunk, p), B and C (chunk,
-    n + 1) each, a_cum and the decays (chunk) each, one weight row per
-    warp (chunk)."""
-    warps = THREADS // 32
-    floats = (p * (n + 1) + chunk * p + 2 * chunk * (n + 1) + 2 * chunk
-              + warps * chunk)
+def _round4(v: int) -> int:
+    return (v + 3) // 4 * 4
+
+
+def piece_len(chunk: int) -> int:
+    """Positions a chunk is staged in at once: ``chunk`` split into
+    ceil(chunk / MAX_PIECE) pieces of ceil(chunk / pieces), the last one
+    shorter (``piece_len`` in the source)."""
+    pieces = -(-chunk // MAX_PIECE)
+    return -(-chunk // pieces)
+
+
+def smem_bytes(l: int, chunk: int, p: int, n: int) -> int:
+    """Dynamic shared memory of one block (mirrors ``set_layout`` in the
+    source), in rows of a piece: B and C (n rounded up to 4, + 4 of
+    padding) each, the scores and one head's weights (the piece rounded up
+    to 4, squared) each, x dt and X' (p rounded up to 4) each, dt, a_cum (in
+    float64, two floats each) and the decays; and where the sequence has
+    more than one piece, the entering state (p, n + 4) staged for y."""
+    tp = piece_len(chunk)
+    t4, p4, ns = _round4(tp), _round4(p), _round4(n) + 4
+    floats = (2 * t4 * ns + 2 * t4 * t4 + 2 * t4 * p4 + 4 * t4
+              + (p4 * ns if l > tp else 0))
     return 4 * floats
+
+
+def state_fits(p: int, n: int) -> bool:
+    """Whether the (p, n) state fits the threads' register tiles: n / 4
+    column quads at most ``THREADS``, and the p / 4 row quads within the
+    ``STATE_TILES`` bands of ``THREADS // (n / 4)`` threads."""
+    cq, rq = _round4(n) // 4, _round4(p) // 4
+    return cq <= THREADS and rq <= (THREADS // cq) * STATE_TILES
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -90,10 +120,15 @@ def check_args(x, dt, A, B, C, chunk: int) -> None:
     if not 1 <= chunk <= MAX_CHUNK or l % chunk:
         raise ValueError(f"chunk {chunk}: the kernel takes 1 <= chunk <= "
                          f"{MAX_CHUNK} dividing the sequence {l}")
-    if smem_bytes(chunk, p, n) > MAX_SMEM_BYTES:
+    if smem_bytes(l, chunk, p, n) > MAX_SMEM_BYTES:
         raise ValueError(f"chunk {chunk}, head dim {p}, state {n} need "
-                         f"{smem_bytes(chunk, p, n)} bytes of shared memory, "
-                         f"more than the {MAX_SMEM_BYTES} a block has")
+                         f"{smem_bytes(l, chunk, p, n)} bytes of shared "
+                         f"memory, more than the {MAX_SMEM_BYTES} a block "
+                         "has")
+    if not state_fits(p, n):
+        raise ValueError(f"a ({p}, {n}) state does not fit the register "
+                         f"tiles of {THREADS} threads ({STATE_TILES} 4 x 4 "
+                         "tiles a thread)")
     for name, t in (("x", x), ("B", B), ("C", C)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must be contiguous in its last dim")

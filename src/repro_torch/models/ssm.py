@@ -110,7 +110,8 @@ def mamba_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
 
     x: (b, 1, d); cache: {"conv": (b, width-1, conv_dim), "ssm": (b, heads,
     head_dim, n)}, both written in place with the new window and state
-    (JAX returns new arrays)."""
+    (JAX returns new arrays): the state by ``ops.ssd_decode_step`` itself,
+    the kernel on the card updating it where it lies."""
     b = x.shape[0]
     din, n = cfg.d_inner, cfg.ssm_state
     heads, hd = cfg.resolved_ssm_heads, cfg.ssm_head_dim
@@ -126,11 +127,10 @@ def mamba_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     A = -torch.exp(p["A_log"])
 
     xh = x_in.reshape(b, heads, hd)
-    y, new_ssm = ops.ssd_decode_step(
+    y, _ = ops.ssd_decode_step(
         cache["ssm"], xh.float(), dt, A, B.float(), C.float())
     y = y + xh.float() * p["D"][None, :, None]
     y = y.reshape(b, 1, din).to(x.dtype)
     y = rmsnorm(p["norm"], y * F.silu(z), cfg.rmsnorm_eps)
     cache["conv"].copy_(conv_in[:, 1:])
-    cache["ssm"].copy_(new_ssm)
     return y @ p["out_proj"]

@@ -5,9 +5,12 @@ mode), the decode recurrence and the ``init_state`` handoff, the mamba
 block, the pure-SSM model on bridged weights, the sampler (generation,
 guards, refill of the conv/SSM rows) and ``ScopeEngine.serve``.
 
-The CUDA kernel runs only on the card: ``chip_smoke.py`` holds it against
-the plain version ``ref.ssd`` there.  Here the plain version is held to JAX, and the
-wrapper's argument checks and device dispatch are exercised on the CPU.
+The CUDA kernels (the scan, the in-place decode step) run only on the card:
+``chip_smoke.py`` holds them against the plain versions ``ref.ssd`` and
+``ref.ssd_decode_step`` there.  Here the plain versions are held to JAX, a
+float32 emulation of the scan kernel's arithmetic is held to the Pallas
+kernel and to a float64 witness, and the wrappers' argument checks and
+device dispatch are exercised on the CPU.
 """
 import dataclasses
 
@@ -37,6 +40,7 @@ from repro_torch.data.datasets import build_scope_data, stratified_anchors
 from repro_torch.data.worldsim import World
 from repro_torch.kernels import launch_counts, ops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import ssd_decode_step as SD
 from repro_torch.kernels import ssd_scan as SS
 from repro_torch.models import model as TM
 from repro_torch.models import ssm as TSSM
@@ -197,13 +201,15 @@ def _args(b=1, l=8, h=2, p=4, n=4, xdt=torch.float32, dtdt=torch.float32):
 @pytest.mark.parametrize("args,chunk,match", [
     (_args(), 3, "chunk"),
     (_args(l=256), 256, "chunk"),
-    (_args(l=128, p=128, n=128), 128, "shared memory"),
-    (_args(p=512, n=128), 8, "shared memory"),
+    (_args(l=128, p=8, n=1024), 128, "shared memory"),
+    (_args(l=32, p=8, n=1024), 32, "shared memory"),
     (_args(dtdt=torch.bfloat16), 8, "float32"),
     (_args(xdt=torch.float16), 8, "float32 or bfloat16"),
     (_args()[:3] + (torch.zeros(1, 8, 3), torch.zeros(1, 8, 4)), 8,
      "shape mismatch"),
     ((torch.zeros(1, 8, 2, 8)[..., ::2],) + _args()[1:], 8, "contiguous"),
+    (_args(l=64, p=128, n=128), 64, "register tiles"),
+    (_args(p=4, n=2048), 8, "register tiles"),
 ])
 def test_ssd_check_args_rejects(args, chunk, match):
     with pytest.raises(ValueError, match=match):
@@ -211,11 +217,217 @@ def test_ssd_check_args_rejects(args, chunk, match):
 
 
 def test_ssd_check_args_takes_the_main_path_shapes():
-    """mamba2-1.3b's prefill (chunk 49) and a full 128-token chunk fit."""
+    """mamba2-1.3b's prefill (chunk 49) and a full 128-token chunk fit; the
+    single chunk of 49 leaves room for two blocks an SM (no staged state)."""
     for l, chunk in ((49, 49), (256, 128), (1, 1)):
         SS.check_args(*_args(b=1, l=l, h=2, p=64, n=128,
                              xdt=torch.bfloat16), chunk)
-    assert SS.smem_bytes(128, 64, 128) <= SS.MAX_SMEM_BYTES
+    assert SS.smem_bytes(256, 128, 64, 128) <= SS.MAX_SMEM_BYTES
+    assert 2 * SS.smem_bytes(49, 49, 64, 128) <= SS.MAX_SMEM_BYTES
+    assert SS.piece_len(128) == 64 and SS.piece_len(49) == 49
+
+
+# ---------------------------------------------------------------------------
+# the scan kernel's arithmetic (csrc/ssd_scan.cu), emulated on the CPU
+# ---------------------------------------------------------------------------
+def _emulate_ssd_kernel(x, dt, A, B, C, chunk):
+    """float32 emulation of ``ssd_kernel``: blocks of ``SS.GROUP`` heads of
+    one row, chunks walked in pieces of ``SS.piece_len(chunk)``, the scores
+    C[s].B[t] computed once per piece and shared by the group's heads, and
+    the kernel's summation orders: each score over k in order within the
+    halves [0, kh) and [kh, n), then lo + hi; y_diag over t (W is 0 for
+    t > s), then + (exp(a_cum[s]) C[s]) . h over k; the state scaled by
+    exp(a_total), then + Xp[t] B[t]^T over t.  a_cum is summed in float64
+    from the exact products dt * A; each exponent, a difference of two such
+    sums, is rounded once to float32."""
+    b, l, h, p = x.shape
+    n = B.shape[2]
+    xf, Af = x.float(), A.float()
+    tp = SS.piece_len(chunk)
+    kh = (SS._round4(n) // 8) * 4
+    pieces = [(c * chunk + t0, min(tp, chunk - t0))
+              for c in range(l // chunk) for t0 in range(0, chunk, tp)]
+    y = torch.zeros(b, l, h, p)
+    state = torch.zeros(b, h, p, n)
+    for h0 in range(0, h, SS.GROUP):
+        scores = {}                             # piece -> (b, T, T) C.B^T
+        for hi in range(h0, min(h0 + SS.GROUP, h)):
+            hs = torch.zeros(b, p, n)
+            for q, (t0, tl) in enumerate(pieces):
+                Bp, Cp = B[:, t0:t0 + tl], C[:, t0:t0 + tl]
+                if q not in scores:
+                    halves = []
+                    for ks in (range(0, min(kh, n)), range(kh, n)):
+                        S = torch.zeros(b, tl, tl)
+                        for k in ks:
+                            S = S + Cp[:, :, None, k] * Bp[:, None, :, k]
+                        halves.append(S)
+                    scores[q] = halves[0] + halves[1]
+                dts = dt[:, t0:t0 + tl, hi]
+                acum = torch.cumsum(dts.double() * Af[hi].double(), 1)
+                a_total = acum[:, -1]
+                Xd = xf[:, t0:t0 + tl, hi] * dts[..., None]     # (b, T, p)
+                Xp = Xd * torch.exp((a_total[:, None] - acum).float())[
+                    ..., None]
+                causal = torch.tril(torch.ones(tl, tl, dtype=torch.bool))
+                W = torch.where(causal, scores[q] * torch.exp(
+                    (acum[:, :, None] - acum[:, None, :]).float()), 0.0)
+                yd = torch.zeros(b, tl, p)
+                for t in range(tl):
+                    yd = yd + W[:, :, t, None] * Xd[:, None, t, :]
+                if q > 0:
+                    eC = torch.exp(acum.float())[..., None] * Cp
+                    for k in range(n):
+                        yd = yd + eC[:, :, None, k] * hs[:, None, :, k]
+                y[:, t0:t0 + tl, hi] = yd
+                hs = hs * torch.exp(a_total.float())[:, None, None]
+                for t in range(tl):
+                    hs = hs + Xp[:, t, :, None] * Bp[:, t, None, :]
+            state[:, hi] = hs
+    return y.to(x.dtype), state
+
+
+# the reference's cases and the main paths' chunks, plus chunk 1, one head,
+# heads the group of 4 does not divide (1, 3, 5), a chunk walked in two
+# pieces (128 -> 64 + 64, 100 -> 50 + 50) and p, n not multiples of 4
+SSD_EMULATED = SSD_ALL + [
+    (2, 5, 3, 16, 8, 1, "float32"),
+    (1, 200, 5, 8, 4, 100, "float32"),
+    (2, 14, 5, 6, 10, 7, "float32"),
+]
+
+
+@pytest.mark.parametrize("case", SSD_EMULATED)
+def test_ssd_kernel_emulation_within_budget_of_pallas_and_witness(case):
+    """The emulated kernel against Pallas (interpret mode) and ``ref.ssd``
+    in float64, each element within 2e-5 x max(1, |witness|) (3e-2 for bf16
+    y): the bound ``chip_smoke.py`` holds the kernel to on the card."""
+    b, l, h, p, n, chunk, dtype = case
+    (jx, jdt, jA, jB, jC), (tx, tdt, tA, tB, tC) = _both(
+        *_ssd_inputs(0, b, l, h, p, n), dtype=dtype)
+    ye, se = _emulate_ssd_kernel(tx, tdt, tA, tB, tC, chunk)
+    assert ye.dtype == tx.dtype and tuple(se.shape) == (b, h, p, n)
+    yw, sw = tref.ssd(*(t.double() for t in (tx, tdt, tA, tB, tC)),
+                      chunk=chunk)
+    yp, sp = ssd_pallas(jx, jdt, jA, jB, jC, chunk=chunk, interpret=True)
+    y_tol = F32_TOL if dtype == "float32" else BF16_TOL
+    for (yg, sg), (yr, sr) in (((ye, se), (yw, sw)),
+                               ((ye, se), (yp, sp))):
+        yr, sr = _np(yr).astype(np.float64), _np(sr).astype(np.float64)
+        for got, want, tol in ((_np(yg), yr, y_tol), (_np(sg), sr, F32_TOL)):
+            err = np.abs(got - want) / np.maximum(1.0, np.abs(want))
+            assert err.max() <= tol, (case, err.max())
+
+
+# ---------------------------------------------------------------------------
+# the decode step, in place
+# ---------------------------------------------------------------------------
+def _step_inputs(seed, b, h, p, n):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, h, p)).astype(np.float32) * 0.5
+    dt = (np.log1p(np.exp(rng.standard_normal((b, h)))) * 0.1).astype(
+        np.float32)
+    B = rng.standard_normal((b, n)).astype(np.float32) * 0.5
+    C = rng.standard_normal((b, n)).astype(np.float32) * 0.5
+    return x, dt, B, C
+
+
+def test_ssd_decode_step_in_place_on_a_layer_view_matches_jax():
+    """12 chained steps through ``ops.ssd_decode_step`` on layer 1 of a
+    stacked (3, b, h, p, n) cache, from a scan's final state: y and the
+    state within 2e-5 of JAX's ``ref.ssd_decode_step``, the returned state
+    the argument itself, layers 0 and 2 untouched."""
+    b, h, p, n = 2, 3, 16, 8
+    (jx, jdt, jA, jB, jC), (tx, tdt, tA, tB, tC) = _both(
+        *_ssd_inputs(8, b, 16, h, p, n))
+    _, s0 = ops.ssd(tx, tdt, tA, tB, tC, chunk=8)
+    _, js = jref.ssd(jx, jdt, jA, jB, jC, chunk=8)
+    stacked = torch.randn(3, b, h, p, n, generator=torch.Generator()
+                          .manual_seed(0))
+    stacked[1] = s0
+    keep = stacked.clone()
+    layer = stacked[1]
+    for t in range(12):
+        x, dt, B, C = _step_inputs(100 + t, b, h, p, n)
+        y, st = ops.ssd_decode_step(layer, torch.tensor(x), torch.tensor(dt),
+                                    tA, torch.tensor(B), torch.tensor(C))
+        jy, js = jref.ssd_decode_step(js, jnp.asarray(x), jnp.asarray(dt),
+                                      jA, jnp.asarray(B), jnp.asarray(C))
+        assert st is layer
+        np.testing.assert_allclose(y.numpy(), _np(jy), atol=F32_TOL,
+                                   rtol=0)
+        np.testing.assert_allclose(layer.numpy(), _np(js), atol=F32_TOL,
+                                   rtol=0)
+    assert torch.equal(stacked[0], keep[0]) and torch.equal(stacked[2],
+                                                            keep[2])
+    assert not torch.equal(stacked[1], keep[1])
+
+
+def test_ssd_decode_step_cpu_dispatch_runs_plain_and_counts_no_launch():
+    b, h, p, n = 1, 2, 8, 4
+    x, dt, B, C = (torch.tensor(a) for a in _step_inputs(3, b, h, p, n))
+    A = -torch.ones(h)
+    state = torch.randn(b, h, p, n, generator=torch.Generator()
+                        .manual_seed(1))
+    yp, sp = tref.ssd_decode_step(state, x, dt, A, B, C)
+    before = launch_counts()
+    y, st = ops.ssd_decode_step(state, x, dt, A, B, C)
+    assert ops.ssd_decode_step is SD.ssd_decode_step
+    assert st is state and torch.equal(y, yp) and torch.equal(state, sp)
+    assert launch_counts() == before
+    assert "ssd_decode_step" in before
+
+
+def test_ssd_decode_step_off_cpu_launches_or_raises():
+    """A non-CPU state never reaches the plain version: without a card a
+    meta tensor raises before any launch."""
+    args = [torch.empty(s, device="meta") for s in
+            ((1, 2, 4, 8), (1, 2, 4), (1, 2), (2,), (1, 8), (1, 8))]
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.ssd_decode_step(*args)
+    with pytest.raises(ValueError, match="CUDA"):
+        SD.ssd_decode_step_cuda(*args)
+    with pytest.raises(ValueError, match="CUDA"):
+        SD.ssd_decode_step_cuda(torch.zeros(1, 2, 4, 8), *args[1:])
+
+
+def _step_args(b=1, h=2, p=4, n=8, sdt=torch.float32, adt=torch.float32):
+    return (torch.zeros(b, h, p, n, dtype=sdt), torch.zeros(b, h, p),
+            torch.zeros(b, h), torch.zeros(h, dtype=adt), torch.zeros(b, n),
+            torch.zeros(b, n))
+
+
+@pytest.mark.parametrize("args,match", [
+    (_step_args(n=6), "multiple of 4"),
+    (_step_args(sdt=torch.bfloat16), "float32"),
+    (_step_args(adt=torch.float16), "float32 or bfloat16"),
+    (_step_args()[:4] + (torch.zeros(1, 4), torch.zeros(1, 8)),
+     "shape mismatch"),
+    ((torch.zeros(1, 2, 4, 16)[..., ::2],) + _step_args()[1:], "strides"),
+    ((torch.zeros(1, 2, 4, 10)[..., 2:],) + _step_args()[1:], "strides"),
+    ((torch.zeros(2, 66)[:, :64].view(2, 2, 4, 8),) + _step_args(b=2)[1:],
+     "strides"),
+    ((torch.zeros(65)[1:].view(1, 2, 4, 8),) + _step_args()[1:],
+     "16-byte aligned"),
+    (_step_args()[:1] + (torch.zeros(1, 2, 4, dtype=torch.bfloat16),)
+     + _step_args()[2:], "x is torch.bfloat16"),
+    (_step_args(b=0), "empty"),
+])
+def test_ssd_decode_step_check_args_rejects(args, match):
+    with pytest.raises(ValueError, match=match):
+        SD.check_args(*args)
+
+
+def test_ssd_decode_step_check_args_takes_a_layer_view():
+    """mamba_decode's inputs: the state a layer view of the stacked (L, b,
+    h, p, n) cache, and x, B, C slices of the conv output, whose batch dim
+    is the fastest (the einsum's layout, kept by ``.float()``)."""
+    cache = torch.zeros(3, 2, 4, 16, 8)
+    conv = torch.zeros(4 * 16 + 2 * 8, 2).t()          # (b, conv_dim)
+    x, B, C = conv[:, :64].reshape(2, 4, 16), conv[:, 64:72], conv[:, 72:80]
+    assert x.stride() == (1, 32, 2) and B.stride() == (1, 2)
+    SD.check_args(cache[1], x, torch.zeros(2, 4),
+                  torch.zeros(4, dtype=torch.bfloat16), B, C)
 
 
 # ---------------------------------------------------------------------------
