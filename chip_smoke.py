@@ -72,6 +72,26 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    step launches per decode step, no attention kernel,
                    finite logits, prefill and decode times, idle share, peak
                    memory
+ 11. tiny tiers  — scope-tiny with seeded weights and a seeded tier-0 head,
+                   on the card and on the CPU: ``predict_stream`` over paged
+                   slot refill with the gate at a midpoint between two
+                   adjacent head confidences (equal answered and escalated
+                   pair sets, escalated token streams, decisions and
+                   ``tiers`` ledger); a dispatch fault with
+                   ``max_retries=0`` (equal tier-0 fallbacks and p); a
+                   ``hot_swap`` at a tick boundary to a second seeded
+                   estimator, whose post-swap ticks equal a fresh engine's
+                   on the new weights bit for bit on the card
+ 12. full tiers  — phase 8's paged refill ``serve_stream`` on scope-qwen3-4b
+                   at full width with the tier-0 gate on at the median head
+                   confidence, ``drift_detect`` on, a ``model_drift`` fault
+                   armed and one ``hot_swap`` after the fifth tick to a
+                   second seeded full-width weight set: answered +
+                   escalated = 112, submitted = escalated, tokens saved =
+                   answered x 12, one hot swap, paged decode launches = 36
+                   x decode steps, finite logits; the gate's wall and
+                   device time per request, the stream's wall and idle
+                   share, peak memory
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.  Details go to
@@ -80,6 +100,7 @@ code 1.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -1208,8 +1229,8 @@ class StreamProbe:
 
 
 def same_segments(a, b, what: str, tol: float = 0.0):
-    """Equal token ids in every decode segment of two runs, decision logits
-    within ``tol``."""
+    """Equal token ids in every decode segment (or parsed window) of two
+    runs, decision logits within ``tol``."""
     import numpy as np
     check(len(a) == len(b), f"{what}: {len(a)} vs {len(b)} segments")
     err = 0.0
@@ -1468,6 +1489,393 @@ def device_busy(torch, params, cfg, prompts, steps: int = 4):
             "top": top_ops(events, total, 6)}
 
 
+# ---------------------------------------------------------------------------
+# phases 11/12: two-tier routing (the tier-0 gate) and drift-aware
+# self-healing (outcome monitor, model_drift fault, live hot-swap)
+# ---------------------------------------------------------------------------
+class GateProbe:
+    """Wraps an engine's ``_gate_tier0``: per call, the missing pairs before
+    and after the gate (the escalated ones), the features, and the call's
+    host wall time (the gate ends in a device-to-host copy, so the wall
+    covers its device work)."""
+
+    def __init__(self, engine):
+        self.calls = []
+        inner = engine._gate_tier0
+
+        def gate(st, feats):
+            before = st.missing.copy()
+            t0 = time.perf_counter()
+            inner(st, feats)
+            wall = time.perf_counter() - t0
+            self.calls.append({"missing": before,
+                               "escalated": st.missing.copy(),
+                               "feats": feats, "wall_s": wall})
+        engine._gate_tier0 = gate
+
+    def split(self):
+        """(answered, escalated) (query row, model column) pairs of each
+        gated request."""
+        out = []
+        for c in self.calls:
+            esc = {tuple(x) for x in c["escalated"]}
+            out.append((sorted({tuple(x) for x in c["missing"]} - esc),
+                        sorted(esc)))
+        return out
+
+
+class ParseProbe:
+    """While installed: each completed slot row's own window of the decode
+    buffer (tokens and decision logits), by its request tag — exactly what
+    ``SlotRun.parse_completed`` parses.  Slot rows that are retired or were
+    never filled keep decoding filler from the trash page, which duplicate
+    index writes leave with unspecified content on the card; nothing reads
+    those rows, so runs are compared on the parsed windows."""
+
+    def __enter__(self):
+        from repro_torch.core.estimator import SlotRun
+        self.rows = {}
+        self._saved = SlotRun.parse_completed
+        saved, rows = self._saved, self.rows
+
+        def parse_completed(run, completed):
+            for r, slot in completed:
+                end = min(slot.start + run.budget, run.steps_done)
+                rows[slot.tag] = (run._gen[r, slot.start:end].copy(),
+                                  run._dec[r, slot.start:end].copy())
+            return saved(run, completed)
+
+        SlotRun.parse_completed = parse_completed
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core.estimator import SlotRun
+        SlotRun.parse_completed = self._saved
+        return False
+
+    def windows(self):
+        """The windows in tag order (request serials in submit order)."""
+        return [self.rows[k] for k in sorted(self.rows)]
+
+
+def midpoint_threshold(conf):
+    """A gate threshold between the two adjacent sorted head confidences
+    with the widest gap in the middle half, never at a pair's own
+    confidence: both sides of the gate are non-empty, and no pair sits
+    within float32 noise of it."""
+    import numpy as np
+    c = np.sort(np.asarray(conf, np.float64).ravel())
+    lo, hi = len(c) // 4, 3 * len(c) // 4
+    i = lo + int(np.argmax(np.diff(c[lo:hi + 1])))
+    check(c[i + 1] - c[i] > 1e-4,
+          f"no gap between head confidences near the median: {c[lo:hi]}")
+    return float((c[i] + c[i + 1]) / 2)
+
+
+def head_confidence(engine_fn, data, ticks):
+    """The head's confidence max(p, 1 - p) on every (query, model) pair of
+    the ticks: a threshold-0 engine answers every pair from the head, so
+    its p_hat is the head's calibrated p."""
+    import numpy as np
+    from repro_torch.api import RouteRequest
+    eng = engine_fn(0.0)
+    pool = eng.predict(RouteRequest([data.queries[q] for t in ticks
+                                     for q in t]), use_cache=False)
+    return np.maximum(pool.p_hat, 1.0 - pool.p_hat), pool, eng
+
+
+def tiny_tiers_card_vs_cpu(torch, world, data, anchors, lib):
+    """scope-tiny with seeded weights and a seeded tier-0 head, on the card
+    and on the CPU: ``predict_stream`` over paged slot refill with the gate
+    at a midpoint threshold (equal answered and escalated pair sets, equal
+    escalated token streams, decisions and tier ledger); a dispatch fault
+    with ``max_retries=0`` on the whole-retire path (equal
+    ``tier0_fallbacks`` and p); and on the card a ``hot_swap`` at a tick
+    boundary to a second seeded estimator, whose post-swap ticks must
+    equal a fresh engine's on the new weights bit for bit."""
+    import numpy as np
+    from repro_torch.api import FixedAlphaPolicy, RouteRequest
+    from repro_torch.configs.scope_estimator import TINY
+    from repro_torch.core.estimator import ReasoningEstimator
+    from repro_torch.models import tier0 as T0
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.faults import FaultPlan, FaultSpec
+    from repro_torch.serving.scheduler import BucketConfig, MicrobatchScheduler
+
+    cpu_params = init_params(TINY, seed=0, device="cpu")
+    params = {"cpu": cpu_params, "cuda": _to(cpu_params, "cuda")}
+    cpu_head = T0.init_tier0(torch.Generator().manual_seed(0), device="cpu")
+    heads = {"cpu": T0.Tier0Head(cpu_head),
+             "cuda": T0.Tier0Head(_to(cpu_head, "cuda"))}
+    ticks = stream_ticks(data, STREAM_QUERIES)
+    policy = FixedAlphaPolicy(0.6)
+    conf, _, _ = head_confidence(
+        lambda thr: make_engine(TINY, params["cpu"], anchors, lib, world,
+                                data, "cpu", tier0=heads["cpu"],
+                                escalation_threshold=thr), data, ticks)
+    thr = midpoint_threshold(conf)
+    paged = dict(refill=True, kv_paged=True, kv_page_size=8,
+                 segment_len=SEGMENT)
+
+    def engine(dev, **kw):
+        return make_engine(TINY, params[dev], anchors, lib, world, data, dev,
+                           tier0=heads[dev], escalation_threshold=thr, **kw)
+
+    def requests():
+        return (RouteRequest([data.queries[q] for q in t]) for t in ticks)
+
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        eng = engine(dev, **paged)
+        gate = GateProbe(eng)
+        sched = MicrobatchScheduler(BucketConfig(STREAM_BUCKETS))
+        with ParseProbe() as probe:
+            pools = list(eng.predict_stream(requests(), scheduler=sched,
+                                            use_cache=False))
+        runs[dev] = (pools, [policy.decide(p, eng).choices for p in pools],
+                     sched.stats, probe.windows(), gate.split())
+    (pc, cc, sc, gc, splc), (pg, cg, sg, gg, splg) = runs["cpu"], runs["cuda"]
+    check(splc == splg, "tiny tiers: answered/escalated pairs differ card "
+          "vs cpu")
+    check(len(gg) == sg.escalated, f"tiny tiers: {len(gg)} parsed rows, "
+          f"{sg.escalated} escalated")
+    dec_err = same_segments(gc, gg, "tiny tiers: escalated streams", F32_TOL)
+    p_err = max(float(np.abs(a.p_hat - b.p_hat).max())
+                for a, b in zip(pc, pg, strict=True))
+    check(p_err <= F32_TOL, f"tiny tiers: p_hat differs {p_err}")
+    for a, b in zip(pc, pg, strict=True):
+        for f in ("y_hat", "len_hat", "well_formed", "pred_overhead",
+                  "status"):
+            check(np.array_equal(getattr(a, f), getattr(b, f)),
+                  f"tiny tiers: {f} differs card vs cpu")
+    check(all(np.array_equal(a, b) for a, b in zip(cc, cg, strict=True)),
+          "tiny tiers: decisions differ")
+    tiers = sg.as_dict()["tiers"]
+    check(sc.as_dict()["tiers"] == tiers,
+          f"tiny tiers: ledgers differ {sc.as_dict()['tiers']} vs {tiers}")
+    check(sg.tier0_answered > 0 and sg.escalated > 0
+          and sg.submitted == sg.escalated
+          and sg.tier0_answered + sg.escalated
+          == STREAM_QUERIES * len(data.models),
+          f"tiny tiers: ledger {tiers}, submitted {sg.submitted}")
+    print(f"   threshold {thr:.6f}: {tiers}; {len(gg)} escalated token "
+          f"streams equal, decisions equal, p_hat max_abs_err {p_err:.3g}")
+
+    # the fallback rung: the first microbatch's dispatch fails and, with no
+    # retry, its rows are answered from their stashed tier-0 rows
+    fb = {}
+    for dev in ("cpu", "cuda"):
+        eng = engine(dev, max_retries=0,
+                     fault_plan=FaultPlan([FaultSpec("dispatch", 0)]))
+        sched = MicrobatchScheduler(BucketConfig(STREAM_BUCKETS))
+        pools = list(eng.predict_stream(requests(), scheduler=sched,
+                                        use_cache=False))
+        fb[dev] = (np.concatenate([p.p_hat.ravel() for p in pools]),
+                   sched.stats.tier0_fallbacks, sched.stats.quarantined)
+    fb_err = float(np.abs(fb["cpu"][0] - fb["cuda"][0]).max())
+    check(fb["cpu"][1:] == fb["cuda"][1:] and fb["cuda"][1] > 0
+          and fb["cuda"][1] == fb["cuda"][2],
+          f"tiny tiers fallback: (fallbacks, quarantined) cpu {fb['cpu'][1:]}"
+          f" cuda {fb['cuda'][1:]}")
+    check(fb_err <= F32_TOL, f"tiny tiers fallback: p_hat differs {fb_err}")
+    print(f"   dispatch fault, max_retries 0: {fb['cuda'][1]} tier-0 "
+          f"fallbacks on both, p_hat max_abs_err {fb_err:.3g}")
+
+    # hot_swap at a tick boundary: every tick emitted at once and decoded
+    # in one segment of the whole budget, so it drains before the next
+    params_b = init_params(TINY, seed=1, device="cuda")
+    swap_at = len(ticks) // 2
+    one_seg = dict(paged, segment_len=NEW_TOKENS)
+
+    def serve(eng, ticks_, swap=False):
+        sched = MicrobatchScheduler(BucketConfig(STREAM_BUCKETS),
+                                    max_queue_age=0.0)
+        reports = []
+        with ParseProbe() as probe:
+            for i, r in enumerate(eng.serve_stream(data, ticks_, policy,
+                                                   scheduler=sched,
+                                                   use_cache=False)):
+                reports.append(r)
+                if swap and i == swap_at - 1:
+                    probe.rows.clear()
+                    eng.hot_swap(ReasoningEstimator(
+                        TINY, params_b, max_new_tokens=NEW_TOKENS), "v1",
+                        tier0=heads["cuda"])
+        return reports, probe.windows(), sched.stats
+
+    swapped, seg_s, st_s = serve(engine("cuda", **one_seg), ticks, swap=True)
+    fresh = make_engine(TINY, params_b, anchors, lib, world, data, "cuda",
+                        tier0=heads["cuda"], escalation_threshold=thr,
+                        **one_seg)
+    want, seg_f, _ = serve(fresh, ticks[swap_at:])
+    check(len(seg_s) > 0, "tiny hot_swap: no post-swap decode")
+    same_segments(seg_s, seg_f, "tiny hot_swap vs fresh engine")
+    for a, b in zip(swapped[swap_at:], want, strict=True):
+        check([(d.model, d.p_hat, d.cost_hat) for d in a.decisions]
+              == [(d.model, d.p_hat, d.cost_hat) for d in b.decisions]
+              and a.overhead_tokens == b.overhead_tokens,
+              "tiny hot_swap: post-swap ticks differ from a fresh engine")
+    check(st_s.hot_swaps == 1, f"tiny hot_swap: hot_swaps {st_s.hot_swaps}")
+    print(f"   hot_swap after tick {swap_at}: {len(ticks) - swap_at} ticks, "
+          f"{len(seg_s)} token streams equal a fresh engine's bit for bit")
+    return {"threshold": thr, "tiers": tiers, "dec_max_abs_err": dec_err,
+            "p_hat_max_abs_err": p_err, "escalated_streams": len(gg),
+            "fallbacks": fb["cuda"][1], "fallback_p_max_abs_err": fb_err,
+            "hot_swap_streams": len(seg_s)}
+
+
+def full_tiers(torch, world, data, anchors, lib, smi):
+    """``serve_stream`` over the paged KV on scope-qwen3-4b at full width
+    (phase 8's 112 pairs in the same ragged ticks) with the tier-0 gate on
+    at the median confidence of the head's probe, ``drift_detect`` on, a
+    ``model_drift`` fault armed, and one ``hot_swap`` after the fifth tick
+    to a second seeded full-width weight set (the same head re-stamped).
+    Checks the tier ledger, the launch counts and finite outputs; reports
+    the gate's wall and device time per request, the stream's wall and
+    idle share, and peak memory."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import kernels
+    from repro_torch.api import FixedAlphaPolicy
+    from repro_torch.configs.scope_estimator import CONFIG
+    from repro_torch.core.estimator import ReasoningEstimator
+    from repro_torch.models import tier0 as T0
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.faults import FaultPlan, FaultSpec
+    from repro_torch.serving.scheduler import BucketConfig, MicrobatchScheduler
+
+    L = CONFIG.num_layers
+    ticks = stream_ticks(data, STREAM_QUERIES)
+    pairs = STREAM_QUERIES * len(data.models)
+    policy = FixedAlphaPolicy(0.6)
+    params_a, _ = full_params(torch, CONFIG, 3.9e9)
+    params_b = init_params(CONFIG, seed=1, device="cuda")
+    head = T0.Tier0Head(T0.init_tier0(
+        torch.Generator(device="cuda").manual_seed(0), device="cuda"))
+
+    def engine(thr, **kw):
+        return make_engine(CONFIG, params_a, anchors, lib, world, data,
+                           "cuda", tier0=head, escalation_threshold=thr, **kw)
+
+    conf, probe_pool, probe_eng = head_confidence(engine, data, ticks)
+    thr = float(np.median(conf))
+    counts = np.bincount(policy.decide(probe_pool, probe_eng).choices,
+                         minlength=len(data.models))
+    victim = data.models[int(np.argmax(counts))]
+    swap_at = 5
+
+    def run(profiled: bool):
+        eng = engine(thr, refill=True, segment_len=SEGMENT, kv_paged=True,
+                     kv_page_size=PAGE, drift_detect=True,
+                     fault_plan=FaultPlan([FaultSpec(
+                         "model_drift", 8, arg=1.0, model=victim)]))
+        gate = GateProbe(eng)
+        sched = MicrobatchScheduler(BucketConfig(STREAM_BUCKETS))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        prof = (profile(activities=[ProfilerActivity.CUDA]) if profiled
+                else contextlib.nullcontext())
+        with StreamProbe() as probe, prof:
+            t0 = time.perf_counter()
+            reports = []
+            for i, r in enumerate(eng.serve_stream(data, ticks, policy,
+                                                   scheduler=sched,
+                                                   use_cache=False)):
+                reports.append(r)
+                if i == swap_at - 1:
+                    eng.hot_swap(ReasoningEstimator(
+                        CONFIG, params_b, max_new_tokens=NEW_TOKENS), "v1",
+                        tier0=head)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy_ms = (sum(e.self_device_time_total for e in prof.key_averages())
+                   / 1e3 if profiled else None)
+        return dict(eng=eng, gate=gate, stats=sched.stats, reports=reports,
+                    probe=probe, wall_s=wall, busy_ms=busy_ms,
+                    launches=kernels.launch_counts(),
+                    peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    main = run(profiled=False)
+    st, probe = main["stats"], main["probe"]
+    tiers, drift = st.as_dict()["tiers"], st.as_dict()["drift"]
+    print(f"   threshold {thr:.6f} (median head confidence), drift on "
+          f"{victim}: tiers {tiers}; drift {drift}")
+    check(st.tier0_answered + st.escalated == pairs,
+          f"full tiers: answered {st.tier0_answered} + escalated "
+          f"{st.escalated} != {pairs}")
+    check(st.tier0_answered > 0 and st.escalated > 0,
+          f"full tiers: one side of the gate is empty {tiers}")
+    check(st.submitted == st.escalated,
+          f"full tiers: submitted {st.submitted} != escalated {st.escalated}")
+    check(st.tier0_decode_tokens_saved == st.tier0_answered * NEW_TOKENS,
+          f"full tiers: tokens saved {st.tier0_decode_tokens_saved}")
+    check(st.hot_swaps == 1, f"full tiers: hot_swaps {st.hot_swaps}")
+    check(st.replay_buffer_len == STREAM_QUERIES,
+          f"full tiers: replay buffer {st.replay_buffer_len} rows")
+    want = dict(NO_LAUNCHES, topk_retrieval=len(ticks),
+                flash_attention=L * probe.prefills,
+                paged_decode_attention=L * probe.decode_steps)
+    check(main["launches"] == want,
+          f"full tiers: launches {main['launches']} != {want}")
+    check(probe.decode_steps > 0
+          and all(np.isfinite(d).all() for _, d in probe.segments),
+          "full tiers: no decode or non-finite decision logits")
+    check(len(main["reports"]) == len(ticks) and all(
+        len(r.decisions) == len(t) and all(
+            np.isfinite(d.p_hat) and 0.0 <= d.p_hat <= 1.0
+            for d in r.decisions)
+        for r, t in zip(main["reports"], ticks)),
+        "full tiers: reports malformed")
+
+    # the gate alone: the same calls replayed on the head, unprofiled for
+    # the wall and under the profiler for the device time
+    feats = [c["feats"] for c in main["gate"].calls]
+    for f in feats:                          # warm
+        head.predict_features(f)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in feats:
+        head.predict_features(f)
+    gate_wall_ms = (time.perf_counter() - t0) * 1e3 / len(feats)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for f in feats:
+            head.predict_features(f)
+        torch.cuda.synchronize()
+    gate_dev_ms = sum(e.self_device_time_total
+                      for e in prof.key_averages()) / 1e3 / len(feats)
+    in_stream_ms = float(np.mean([c["wall_s"] for c in main["gate"].calls])
+                         ) * 1e3
+
+    shadow = run(profiled=True)
+    check(shadow["stats"].as_dict()["tiers"] == tiers,
+          "full tiers: the profiled run gated differently")
+    idle = (None if not shadow["busy_ms"] else
+            1 - shadow["busy_ms"] / (main["wall_s"] * 1e3))
+    out = {"config": CONFIG.name, "card": smi, "pairs": pairs,
+           "ticks": [len(t) for t in ticks], "threshold": thr,
+           "drift_model": victim, "tiers": tiers, "drift": drift,
+           "gate_requests": len(feats),
+           "gate_pairs": [len(f) for f in feats],
+           "gate_wall_ms_per_request": gate_wall_ms,
+           "gate_wall_ms_per_request_in_stream": in_stream_ms,
+           "gate_device_ms_per_request": gate_dev_ms or None,
+           "stream_wall_s": main["wall_s"],
+           "stream_device_busy_ms": shadow["busy_ms"] or None,
+           "stream_idle_share": idle, "peak_mem_gib": main["peak_gib"],
+           "launches": main["launches"], "prefill_calls": probe.prefills,
+           "decode_steps": probe.decode_steps,
+           "segments": len(probe.segments)}
+    print(f"   gate: {len(feats)} requests, {gate_wall_ms:.3f} ms wall "
+          f"({in_stream_ms:.3f} ms in the stream), {gate_dev_ms:.4f} ms "
+          f"device per request; stream {main['wall_s']:.3f} s wall, device "
+          f"busy {shadow['busy_ms']} ms, idle share {idle}; "
+          f"{probe.decode_steps} decode steps, {probe.prefills} prefills, "
+          f"launches {main['launches']}, peak {main['peak_gib']:.2f} GiB "
+          f"({smi})")
+    return out
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -1593,6 +2001,18 @@ def main() -> int:
     report["ssm"] = full_width(torch, ssm_cfg, world, data, anchors, lib,
                                qids, params, n_params)
     del params
+    torch.cuda.empty_cache()
+    done(t)
+
+    t = phase("tiny tiers: card vs cpu, tier-0 gate, fallback, hot_swap")
+    report["tiny_tiers"] = tiny_tiers_card_vs_cpu(torch, world, data,
+                                                  anchors, lib)
+    done(t)
+
+    t = phase("full-width tiers: scope-qwen3-4b, gated paged stream, drift, "
+              "hot_swap")
+    report["tiers"] = full_tiers(torch, world, data, anchors, lib, smi)
+    torch.cuda.empty_cache()
     done(t)
 
     # launches: each kernel's count on its own path's run — the batch serve

@@ -1,4 +1,4 @@
-"""repro_torch.api — the public SCOPE routing surface (batch path).
+"""repro_torch.api — the public SCOPE routing surface.
 
   ScopeEngine      — facade owning estimator, retriever, library, and pool
   EngineConfig     — the one typed input of ``ScopeEngine.build``
@@ -9,8 +9,8 @@
 from repro_torch.api.cache import CachedPrediction, CacheStats, PredictionCache
 from repro_torch.api.engine import ScopeEngine
 from repro_torch.api.policy import (
-    AccuracyFloorPolicy, CostCeilingPolicy, FixedAlphaPolicy, PolicyDecision,
-    RoutingPolicy, SetBudgetPolicy)
+    AccuracyFloorPolicy, CostCeilingPolicy, DriftAwarePolicy,
+    FixedAlphaPolicy, PolicyDecision, RoutingPolicy, SetBudgetPolicy)
 from repro_torch.api.registry import PoolRegistry
 from repro_torch.api.types import (
     BatchReport, EngineConfig, PoolPredictions, RouteDecision, RouteRequest)
@@ -21,6 +21,7 @@ __all__ = [
     "CacheStats",
     "CachedPrediction",
     "CostCeilingPolicy",
+    "DriftAwarePolicy",
     "EngineConfig",
     "FixedAlphaPolicy",
     "PolicyDecision",

@@ -20,9 +20,11 @@ plus their streaming duals for continuous traffic:
 ``predict`` consults the ``PredictionCache`` keyed by
 ``(query_id, model, estimator_version)`` and runs the estimator only for the
 missing (query, model) pairs.  This is ``repro/api/engine.py`` with the same
-math step for step, fault tolerance (retry, quarantine, deadlines,
-degradation to retrieval priors) included; its tier-0 and drift layers are
-ported in later slices.
+math step for step: fault tolerance (retry, quarantine, deadlines,
+degradation to tier-0 answers and retrieval priors), two-tier routing (a
+tier-0 head on the card answers confident pairs, the rest escalate to the
+reasoning decode), and drift-aware self-healing (an outcome monitor that
+alarms, quarantines and heals, and a live estimator hot-swap).
 """
 from __future__ import annotations
 
@@ -45,15 +47,20 @@ from repro_torch.core import calibration, serialization, utility
 from repro_torch.core.estimator import FallbackEstimator, ParsedBatch
 from repro_torch.core.fingerprint import Fingerprint
 from repro_torch.core.router import PoolPredictions
-from repro_torch.core.status import STATUS_OK, status_name
+from repro_torch.core.status import (
+    STATUS_DEGRADED, STATUS_DRIFTED, STATUS_OK, status_name)
 from repro_torch.data.datasets import ScopeData
 from repro_torch.data.worldsim import PoolModel, World
+from repro_torch.models.tier0 import pair_features
 from repro_torch.serving.faults import FaultInjector
+from repro_torch.serving.feedback import FeedbackMonitor, Outcome
 from repro_torch.serving.kv_pool import KVPool, check_kv_kernel
 from repro_torch.serving.runtime import ServeRuntime, SlotRuntime
 from repro_torch.serving.scheduler import MicrobatchScheduler
 
 FALLBACK_LEN_HAT = 512.0    # tokens charged when the estimate is malformed
+
+_UNSET = object()           # hot_swap: "caller passed no tier-0 head"
 
 
 @dataclasses.dataclass
@@ -74,6 +81,15 @@ class _PredictState:
     prompts: List[List[int]]    # serialized prompt per missing pair
     use_cache: bool
     status: Optional[np.ndarray] = None     # (Q, M) core.status codes
+    # two-tier gate outcome: after ``_gate_tier0`` runs, ``missing`` /
+    # ``prompts`` hold only the escalated pairs; answered pairs were
+    # scattered into the prediction columns directly.  ``t0_rows`` keeps
+    # the escalated pairs' tier-0 (p, len_hat, y_hat) so a quarantined or
+    # expired escalation degrades to the head's answer, not the retrieval
+    # prior.
+    tier0_answered: int = 0
+    escalated: int = 0
+    t0_rows: Optional[Dict[int, Tuple[float, float, int]]] = None
 
 
 class _StreamEntry:
@@ -118,7 +134,7 @@ def _mb_rows(mb) -> List[Tuple[Any, List[int]]]:
 
 class _StreamControl:
     """Per-stream fault tolerance: bounded retry/requeue, quarantine, SLO
-    deadlines, and degraded answers from retrieval priors.
+    deadlines, and degraded answers from tier-0 rows or retrieval priors.
 
     One instance per ``predict_stream`` call.  It owns the stream's
     ``FaultInjector`` (a no-op without an ``EngineConfig.fault_plan``) and
@@ -150,6 +166,10 @@ class _StreamControl:
         self.t_submit: Dict[Any, float] = {}
         self.n_prompt: Dict[Any, int] = {}
         self.unresolved: Dict[Any, bool] = {}   # insertion-ordered set
+        # escalated pairs' stashed tier-0 (p, len_hat, y_hat), keyed with
+        # their submit-time estimator version: the degrade ladder prefers
+        # the head's answer over the retrieval prior
+        self.t0_rows: Dict[Any, Tuple[str, Tuple[float, float, int]]] = {}
         self.sleep = time.sleep                 # injectable in tests
 
     def now(self) -> float:
@@ -226,11 +246,12 @@ class _StreamControl:
     # -- graceful degradation ---------------------------------------------
     def degrade(self, key) -> None:
         """Answer every waiter on ``key`` in degraded mode and resolve the
-        key.  The fallback ladder: retrieval priors, then FAILED when
-        ``EngineConfig.degrade`` is off (the reference's first rung, a
-        stashed pre-router answer, arrives with the two-tier slice).  All
-        waiters share one fallback row — they are the same (query, model)
-        content by construction of the dedup key."""
+        key.  The fallback ladder: the pair's stashed tier-0 answer (an
+        escalation that never completed its decode still has the head's
+        calibrated estimate), then retrieval priors, then FAILED when
+        ``EngineConfig.degrade`` is off.  All waiters share one fallback
+        row — they are the same (query, model) content by construction of
+        the dedup key."""
         waiters = self.inflight.pop(key, None)
         self.note_resolved(key)
         if not waiters:
@@ -240,7 +261,23 @@ class _StreamControl:
         owner, miss_i = waiters[0]
         st = owner.state
         qi, mi = st.missing[miss_i]
-        if cfg.degrade:
+        tier = 1
+        stash = self.t0_rows.get(key) if cfg.degrade else None
+        if stash is not None and stash[0] != cfg.estimator_version:
+            # stashed at submit time under a since-swapped estimator: the
+            # old head's answer is miscalibrated for the new version — fall
+            # through to the retrieval-prior rung (exactly-once unchanged)
+            stash = None
+        if stash is not None:
+            p, lh, y = stash[1]
+            batch = ParsedBatch(
+                np.asarray([y]), np.asarray([lh]), np.ones(1, bool),
+                np.asarray([p]), np.zeros(1, int), np.zeros(1, int),
+                status=np.full(1, STATUS_DEGRADED, np.int8))
+            stats.degraded += 1
+            stats.tier0_fallbacks += 1
+            tier = 0
+        elif cfg.degrade:
             batch = self.fallback.predict_pairs(
                 st.sims[qi:qi + 1], st.idx[qi:qi + 1], [st.models[mi]])
             stats.degraded += 1
@@ -255,15 +292,24 @@ class _StreamControl:
                 well_formed=bool(batch.well_formed[0]),
                 p_conf=float(batch.p_conf[0]), pred_tokens=0,
                 prompt_tokens=self.prompt_tokens(key),
-                status=int(batch.status[0]))])
+                status=int(batch.status[0]), tier=tier)])
 
 
 class ScopeEngine:
     def __init__(self, config: EngineConfig, registry: PoolRegistry,
-                 cache: PredictionCache):
+                 cache: PredictionCache, *,
+                 monitor: Optional[FeedbackMonitor] = None):
         self.config = config
         self.registry = registry
         self.cache = cache
+        # drift-aware self-healing: the outcome monitor (None unless
+        # EngineConfig.drift_detect), the engine-lifetime injector that
+        # arms model_drift faults at outcome-observation events (streams
+        # own separate injectors for the serve-boundary sites), and the
+        # hot-swap ledger
+        self.monitor = monitor
+        self._outcome_injector = FaultInjector(config.fault_plan)
+        self._hot_swaps = 0
 
     # -- construction --------------------------------------------------
     @classmethod
@@ -282,7 +328,15 @@ class ScopeEngine:
             registry = PoolRegistry(config.library, config.models_meta)
         elif registry.library is not config.library:
             raise ValueError("registry.library and config.library differ")
-        return cls(config, registry, PredictionCache(config.cache_capacity))
+        monitor = None
+        if config.drift_detect:
+            monitor = FeedbackMonitor(
+                capacity=config.feedback_capacity,
+                delta=config.drift_delta,
+                threshold=config.drift_threshold,
+                min_obs=config.drift_min_obs)
+        return cls(config, registry, PredictionCache(config.cache_capacity),
+                   monitor=monitor)
 
     # -- owned components ----------------------------------------------
     @property
@@ -297,20 +351,78 @@ class ScopeEngine:
     def library(self):
         return self.config.library
 
+    def set_estimator(self, estimator, version: str) -> None:
+        """Swap estimator weights; the version bump keys a fresh cache space."""
+        self.config.estimator = estimator
+        self.config.estimator_version = version
+
+    def hot_swap(self, estimator, version: str, *, tier0=_UNSET) -> None:
+        """Swap the estimator under live traffic, exactly-once preserved.
+
+        Safe mid-stream on the refill path: the live slot state keeps the
+        old params (its rows finish on them — ``ReasoningEstimator.
+        open_slots`` bound the params at state open), while the next state
+        opened at a segment boundary binds the new estimator.  The
+        required version bump invalidates the ``PredictionCache`` and the
+        in-flight dedup keys for free — both are keyed on
+        ``estimator_version`` — and stashed tier-0 fallback answers carry
+        their submit-time version, so ``_StreamControl.degrade`` refuses
+        any stash minted before the swap.
+
+        ``tier0``: a head distilled/calibrated against the *new* estimator
+        (stamped with ``version``); omitted, any configured head is
+        dropped — its probabilities and temperature calibrate the old
+        estimator, and serving miscalibrated tier-0 answers under a new
+        version would poison the fresh cache space.  Pass ``tier0=None``
+        explicitly for the same drop without the implicit-behavior read.
+
+        A host-side pointer swap: nothing is copied or rebuilt.
+        """
+        cfg = self.config
+        if version == cfg.estimator_version:
+            raise ValueError(
+                f"hot_swap requires a new estimator_version (got "
+                f"{version!r}, already current); the version bump is what "
+                "invalidates the cache and the tier-0 stashes")
+        cfg.estimator = estimator
+        cfg.estimator_version = version
+        if tier0 is _UNSET:
+            cfg.tier0 = None
+        else:
+            if tier0 is not None:
+                tier0.version = version
+            cfg.tier0 = tier0
+        self._hot_swaps += 1
+
     # -- pool lifecycle ------------------------------------------------
     def onboard(self, world: World, name: str, *, seed: int = 0,
                 meta: Optional[PoolModel] = None,
                 refresh: bool = False) -> Fingerprint:
         """Training-free: register + one fingerprint pass, no weight update.
 
-        ``refresh=True`` re-fingerprints an already-known model from the
-        world and drops its cached predictions (they were computed from the
-        old fingerprint).
+        ``refresh=True`` re-fingerprints an already-known model and drops
+        its cached predictions (they were computed from the old
+        fingerprint).  With a drift monitor attached and replay-buffer
+        outcomes recorded for the model, the refresh is synthesized from
+        *served traffic* (``FeedbackMonitor.refresh_fingerprint``) instead
+        of a world pass — the self-healing path needs no offline dataset —
+        and the model's quarantine and detector are cleared.
         """
+        monitor = self.monitor
+        if refresh and monitor is not None and monitor.can_refresh(name):
+            self.registry.add_model(meta if meta is not None
+                                    else world.models[name])
+            fp = monitor.refresh_fingerprint(name, self.library)
+            self.library.add(fp)
+            self.cache.invalidate_model(name)
+            monitor.clear(name)
+            return fp
         fp = self.registry.onboard(world, name, seed=seed, meta=meta,
                                    refresh=refresh)
         if refresh:
             self.cache.invalidate_model(name)
+            if monitor is not None:
+                monitor.clear(name)
         return fp
 
     def remove_model(self, name: str) -> None:
@@ -379,15 +491,94 @@ class ScopeEngine:
 
         missing = np.argwhere(~hit)                     # (n, 2) row-major
         prompts: List[List[int]] = []
+        feats = [] if cfg.tier0 is not None and len(missing) else None
         for qi, mi in missing:
             m = models[mi]
-            prompts.append(serialization.serialize_prompt(
-                self.registry.meta(m), self.registry.index(m),
-                self.library.anchor_set, self.library.get(m),
-                sims[qi], idx[qi], queries[qi]))
-        return _PredictState(models, queries, qkeys, sims, idx, hit, y_hat,
-                             len_hat, wf, p_conf, prompt_tok, missing,
-                             prompts, use_cache, status=status)
+            args = (self.registry.meta(m), self.registry.index(m),
+                    self.library.anchor_set, self.library.get(m),
+                    sims[qi], idx[qi], queries[qi])
+            prompts.append(serialization.serialize_prompt(*args))
+            if feats is not None:
+                feats.append(pair_features(*args))
+        st = _PredictState(models, queries, qkeys, sims, idx, hit, y_hat,
+                           len_hat, wf, p_conf, prompt_tok, missing,
+                           prompts, use_cache, status=status)
+        if feats is not None:
+            self._gate_tier0(st, feats)
+        return st
+
+    def _gate_tier0(self, st: _PredictState, feats: List) -> None:
+        """Tier-0 gating stage: one head forward over the missing pairs;
+        pairs whose calibrated confidence clears ``escalation_threshold``
+        are answered in place (OK status, zero decode overhead, the
+        serialized prompt length for Eq. 24 cost accounting) and removed
+        from ``missing``/``prompts`` so they never reach the estimator, the
+        scheduler, or the in-flight dedup map.  The rest escalate
+        unchanged, with their tier-0 rows stashed for quarantine/deadline
+        fallback."""
+        cfg = self.config
+        batch0 = cfg.tier0.predict_features(feats)
+        answer = batch0.conf >= cfg.escalation_threshold
+        st.tier0_answered = int(answer.sum())
+        st.escalated = len(feats) - st.tier0_answered
+        keep = np.flatnonzero(~answer)
+        st.t0_rows = {int(new_i): (float(batch0.p[i]),
+                                   float(batch0.len_hat[i]),
+                                   int(batch0.y_hat[i]))
+                      for new_i, i in enumerate(keep)}
+        if st.tier0_answered == 0:
+            return
+        taken = np.flatnonzero(answer)
+        aq, am = st.missing[taken, 0], st.missing[taken, 1]
+        st.y_hat[aq, am] = batch0.y_hat[taken]
+        st.len_hat[aq, am] = batch0.len_hat[taken]
+        st.wf[aq, am] = True
+        st.p_conf[aq, am] = batch0.p[taken]
+        plens = np.fromiter((len(st.prompts[i]) for i in taken), int,
+                            count=len(taken))
+        st.prompt_tok[aq, am] = plens
+        if st.use_cache:
+            self.cache.put_many(
+                [(st.qkeys[qi], st.models[mi], cfg.estimator_version)
+                 for qi, mi in st.missing[taken]],
+                [CachedPrediction(
+                    y_hat=int(batch0.y_hat[i]),
+                    len_hat=float(batch0.len_hat[i]),
+                    well_formed=True, p_conf=float(batch0.p[i]),
+                    pred_tokens=0, prompt_tokens=int(plens[j]),
+                    status=STATUS_OK, tier=0)
+                 for j, i in enumerate(taken)])
+        st.missing = st.missing[keep]
+        st.prompts = [st.prompts[i] for i in keep]
+
+    def _fold_tier_stats(self, stats, st: _PredictState) -> None:
+        """Accumulate the per-request gate outcome into the stream's
+        ``SchedulerStats`` tier ledger."""
+        if self.config.tier0 is None:
+            return
+        stats.tier0_answered += st.tier0_answered
+        stats.escalated += st.escalated
+        budget = int(getattr(self.estimator, "max_new_tokens", 0) or 0)
+        stats.tier0_decode_tokens_saved += st.tier0_answered * budget
+
+    def _fold_drift_stats(self, stats) -> None:
+        """Snapshot the drift ledger into a stream's ``SchedulerStats``.
+
+        Pure snapshot, no accumulation: the monitor owns the monotonic
+        counters.  Without a monitor only ``hot_swaps`` is stamped (the
+        counter exists monitor or not) and the rest stay at their zero
+        defaults.
+        """
+        stats.hot_swaps = self._hot_swaps
+        m = self.monitor
+        if m is None:
+            return
+        stats.drift_alarms = m.alarms
+        stats.models_quarantined = len(m.drifted)
+        stats.replay_buffer_len = len(m.buffer)
+        p50, p95 = m.residual_percentiles()
+        stats.drift_residual_p50 = p50
+        stats.drift_residual_p95 = p95
 
     def _finalize(self, st: _PredictState, batch: ParsedBatch, *,
                   put_cache: bool = True) -> PoolPredictions:
@@ -434,6 +625,20 @@ class ScopeEngine:
                     [(st.qkeys[qi], st.models[mi], cfg.estimator_version)
                      for qi, mi in missing], entries)
 
+        # quarantine stamping: a drifted model's *presented* status drops
+        # OK pairs to DRIFTED so policies and reports see the quarantine,
+        # while the stored cache entries stay truthful (demote_model
+        # rewrote them once at alarm time; post-refresh OK writes heal
+        # them).  An empty drifted set touches nothing — detector-on
+        # serving stays identical to detector-off without a fault.
+        if (self.monitor is not None and self.monitor.drifted
+                and st.status is not None):
+            for mi, m in enumerate(st.models):
+                if m in self.monitor.drifted:
+                    col = st.status[:, mi]
+                    st.status[:, mi] = np.where(
+                        col == STATUS_OK, STATUS_DRIFTED, col)
+
         lh = np.where(wf, len_hat, FALLBACK_LEN_HAT)
         price_in = np.asarray([self.registry.meta(m).price_in
                                for m in st.models])
@@ -446,7 +651,9 @@ class ScopeEngine:
                                overhead, st.sims, st.idx,
                                cache_hits=int(st.hit.sum()),
                                cache_misses=len(missing),
-                               status=st.status)
+                               status=st.status,
+                               tier0_answered=st.tier0_answered,
+                               escalated=st.escalated)
 
     def predict(self, request: RouteRequest, *,
                 rng: Optional[torch.Generator] = None,
@@ -532,6 +739,11 @@ class ScopeEngine:
             inflight[key] = [(entry, miss_i)]
             if control is not None:
                 control.note_submit(key, prompt)
+                if st.t0_rows is not None:
+                    # versioned stash: a hot_swap mid-stream must not let
+                    # degrade() serve a fallback the *old* head computed
+                    control.t0_rows[key] = (self.config.estimator_version,
+                                            st.t0_rows[miss_i])
             sched.submit(key, prompt)
         return serial
 
@@ -671,6 +883,7 @@ class ScopeEngine:
         with runtime:
             for request in requests:
                 st = self._prepare(request, use_cache)
+                self._fold_tier_stats(sched.stats, st)
                 entry = _StreamEntry(st)
                 pending.append(entry)
                 serial = self._submit_misses(st, entry, sched, inflight,
@@ -715,8 +928,11 @@ class ScopeEngine:
         cfg = self.config
 
         def open_base(tokens, **kw):
-            # resolved per state-open, not per stream: the live state's
-            # slots finish on the estimator they opened with
+            # resolved per state-open, not per stream: a hot_swap between
+            # segments binds the *new* estimator's params to the next
+            # opened state, while the live state's slots finish on the old
+            # params they opened with — the swap lands at a segment
+            # boundary with exactly-once and FIFO untouched
             return self.estimator.open_slots(tokens, **kw)
 
         open_fn = open_base
@@ -738,7 +954,8 @@ class ScopeEngine:
                 else:
                     # auto-size: the opening bucket's dense worst case —
                     # paged still wins whenever rows finish early or the
-                    # run outlives one horizon.
+                    # run outlives one horizon.  Budget read per open so a
+                    # hot-swapped estimator sizes its own pools.
                     budget = int(getattr(self.estimator, "max_new_tokens",
                                          0) or 0)
                     budget_steps = -(-budget // segment_len) * segment_len
@@ -772,6 +989,7 @@ class ScopeEngine:
 
         for request in requests:
             st = self._prepare(request, use_cache)
+            self._fold_tier_stats(sched.stats, st)
             entry = _StreamEntry(st)
             pending.append(entry)
             serial = self._submit_misses(st, entry, sched, inflight,
@@ -830,7 +1048,12 @@ class ScopeEngine:
                 yield BatchReport.empty(policy.name, pool_models)
                 continue
             decision = policy.decide(pool, self)
-            yield self.execute(data, qids, pool, decision, policy.name)
+            report = self.execute(data, qids, pool, decision, policy.name)
+            if scheduler is not None:
+                # executed outcomes just landed — snapshot the drift
+                # ledger so every yielded tick's stats are current
+                self._fold_drift_stats(scheduler.stats)
+            yield report
 
     def _run_estimator(self, prompts, rng: Optional[torch.Generator]
                        ) -> ParsedBatch:
@@ -952,12 +1175,33 @@ class ScopeEngine:
         if not qids:
             return BatchReport.empty(policy_name, pool.models)
         choices = np.asarray(decision.choices, int)
+        monitor = self.monitor
         accs, costs, tokens = [], [], 0
-        for q, c in zip(qids, choices, strict=True):
-            rec = data.record(q, pool.models[int(c)])
-            accs.append(rec.y)
-            costs.append(rec.cost)
-            tokens += rec.tokens
+        for i, (q, c) in enumerate(zip(qids, choices, strict=True)):
+            model = pool.models[int(c)]
+            rec = data.record(q, model)
+            # one outcome-observation event per served pair: an armed
+            # model_drift fault degrades the *realized* outcome (the
+            # deployed model genuinely got worse — accounting sees it too);
+            # with no plan this is a dict probe, identical to before
+            y, tok_i, cost = self._outcome_injector.corrupt_outcome(
+                model, rec.y, rec.tokens, rec.cost)
+            accs.append(y)
+            costs.append(cost)
+            tokens += tok_i
+            if monitor is not None:
+                newly = monitor.observe(Outcome(
+                    query_id=query_key(data.queries[q]), model=model,
+                    predicted_p=float(pool.p_hat[i, int(c)]),
+                    predicted_cost=float(pool.cost_hat[i, int(c)]),
+                    observed_y=float(y), observed_cost=float(cost),
+                    observed_tokens=int(tok_i),
+                    sims=pool.sims[i], idx=pool.idx[i],
+                    well_formed=bool(pool.well_formed[i, int(c)])))
+                if newly is not None:
+                    # new alarm: demote the model's cached predictions so
+                    # later probes surface DRIFTED until a refresh heals
+                    self.cache.demote_model(newly)
         return self._assemble(
             policy_name, decision, pool, qids,
             accuracy=float(np.mean(accs)), total_cost=float(np.sum(costs)),

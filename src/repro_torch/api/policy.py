@@ -158,3 +158,66 @@ class CostCeilingPolicy(RoutingPolicy):
                               {"ceiling": self.ceiling,
                                "capped_pairs": int(over.sum()),
                                "fallback_queries": int(all_over.sum())})
+
+
+class DriftAwarePolicy(RoutingPolicy):
+    """Quarantine-aware wrapper: route around drifted models.
+
+    Reads the engine's ``FeedbackMonitor`` quarantine set and either
+    removes the drifted models from the candidate pool before delegating
+    to ``inner`` (``mode="exclude"``) or scales their p_hat down by
+    ``1 - weight`` so the inner policy's own utility math deprioritizes
+    them (``mode="downweight"`` — a drifted model can still win when
+    nothing else is affordable).  With no monitor or an empty quarantine
+    set the wrapper is a pass-through: the inner policy sees the pool
+    unchanged, decision-identical to running unwrapped.  If *every* model
+    is quarantined, excluding would leave nothing to route — the wrapper
+    falls back to the full pool (``info["drift_all_quarantined"]``).
+    """
+
+    def __init__(self, inner: RoutingPolicy, *, mode: str = "exclude",
+                 weight: float = 0.5):
+        if mode not in ("exclude", "downweight"):
+            raise ValueError(f"unknown mode {mode!r} "
+                             "(expected 'exclude' or 'downweight')")
+        if not 0.0 <= weight <= 1.0:
+            raise ValueError(f"weight must be in [0, 1], got {weight}")
+        self.inner = inner
+        self.mode = mode
+        self.weight = float(weight)
+        self.name = f"drift_aware({inner.name})"
+
+    def decide(self, pool: PoolPredictions, engine: "ScopeEngine"
+               ) -> PolicyDecision:
+        monitor = getattr(engine, "monitor", None)
+        drifted = (monitor.drifted if monitor is not None else set())
+        hit = [m for m in pool.models if m in drifted]
+        if not hit:
+            return self.inner.decide(pool, engine)
+        if self.mode == "downweight":
+            mask = np.asarray([m in drifted for m in pool.models])
+            p = np.where(mask[None, :], pool.p_hat * (1.0 - self.weight),
+                         pool.p_hat)
+            decision = self.inner.decide(
+                dataclasses.replace(pool, p_hat=p), engine)
+            decision.info["drift_downweighted"] = hit
+            return decision
+        keep = np.asarray([i for i, m in enumerate(pool.models)
+                           if m not in drifted], int)
+        if len(keep) == 0:
+            decision = self.inner.decide(pool, engine)
+            decision.info["drift_all_quarantined"] = True
+            return decision
+        sliced = dataclasses.replace(
+            pool,
+            models=[pool.models[i] for i in keep],
+            p_hat=pool.p_hat[:, keep], y_hat=pool.y_hat[:, keep],
+            len_hat=pool.len_hat[:, keep], cost_hat=pool.cost_hat[:, keep],
+            well_formed=pool.well_formed[:, keep],
+            pred_overhead=pool.pred_overhead[:, keep],
+            status=(None if pool.status is None else pool.status[:, keep]))
+        decision = self.inner.decide(sliced, engine)
+        # remap the inner policy's column choices back into the full pool
+        decision.choices = keep[np.asarray(decision.choices, int)]
+        decision.info["drift_excluded"] = hit
+        return decision

@@ -3,10 +3,10 @@
 These dataclasses are the stable contract between callers and the
 ``ScopeEngine`` facade: a ``RouteRequest`` goes in, ``RouteDecision`` /
 ``BatchReport`` come out, and ``EngineConfig`` is the one input of
-``ScopeEngine.build``.
-The port's ``EngineConfig`` carries the fields of the batch routing path
-and of the streaming serve stack (refill, paged KV, fault tolerance); the
-tier-0 and drift knobs arrive with their slices.
+``ScopeEngine.build``.  The port's ``EngineConfig`` has the reference's
+fields and defaults: the batch routing path, the streaming serve stack
+(refill, paged KV, fault tolerance), two-tier routing and drift-aware
+self-healing.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ if TYPE_CHECKING:                               # components, no runtime cycle
     from repro_torch.core.fingerprint import FingerprintLibrary
     from repro_torch.core.retrieval import AnchorRetriever
     from repro_torch.data.worldsim import PoolModel
+    from repro_torch.models.tier0 import Tier0Head
     from repro_torch.serving.faults import FaultPlan
 
 
@@ -83,6 +84,35 @@ class EngineConfig:
     deadline_ms: Optional[float] = None
     degrade: bool = True
     fault_plan: Optional["FaultPlan"] = None
+    # two-tier routing: a distilled pre-router head answers (query, model)
+    # pairs whose calibrated confidence max(p, 1-p) clears
+    # escalation_threshold in one head forward; only the remainder pays
+    # the reasoning decode.  Thresholds <= 0.5 escalate nothing (conf is
+    # always >= 0.5); thresholds > 1.0 escalate everything, identical to
+    # tier0=None.  Tier-0 answers never enter the scheduler or the
+    # in-flight dedup map, and their cache entries carry tier=0 so an
+    # escalated decode overwrites them but never the reverse.
+    tier0: Optional["Tier0Head"] = None
+    escalation_threshold: float = 0.9
+    # drift-aware self-healing (serving.feedback): with drift_detect on,
+    # every executed (query, model) pair's (predicted, observed) outcome
+    # lands in a bounded replay buffer and feeds a per-model Page–Hinkley
+    # detector over the calibration residual p_hat - y.  On alarm the
+    # model's cached predictions are demoted to DRIFTED (an OK write
+    # after onboard(refresh=True) heals them), its serve-time status
+    # columns are stamped DRIFTED, and DriftAwarePolicy can exclude or
+    # down-weight it.  Collection is passive: with no model_drift fault
+    # in the plan, detector-on serving is identical to detector-off
+    # (predictions, cache contents, stats outside the drift block).
+    # drift_threshold is the Page–Hinkley alarm mass (lambda),
+    # drift_delta the per-observation drift allowance, drift_min_obs the
+    # observations a model needs before it may alarm, feedback_capacity
+    # the replay-buffer bound in rows; FeedbackMonitor validates them.
+    drift_detect: bool = False
+    drift_threshold: float = 5.0
+    drift_delta: float = 0.05
+    drift_min_obs: int = 8
+    feedback_capacity: int = 4096
 
 
 @dataclasses.dataclass

@@ -1,12 +1,14 @@
 """Weight bridge: JAX parameter pytrees and checkpoints -> port params.
 
-Two ways in, both numpy-only (no JAX import):
+Three ways in, all numpy-only (no JAX import):
 
   params_from_numpy(tree, cfg, device) — the JAX param pytree as numpy
       arrays (``jax.tree.map(np.asarray, params)``: nested dicts, the
       ``segments`` tuple, per-segment layer stacks on axis 0);
   load_checkpoint(npz_path, cfg, device) — the flat ``k:<name>|i:<idx>``
-      archive written by ``repro.training.checkpoint.save``.
+      archive written by ``repro.training.checkpoint.save``;
+  tier0_params_from_numpy(tree, device) — the tier-0 head's flat param dict
+      (``repro.models.tier0.init_tier0`` or a trained head's ``params``).
 
 The port keeps the JAX layout leaf for leaf (weights stored (in, out) and
 applied as ``x @ W``), so the bridge is a copy with dtypes preserved.
@@ -15,13 +17,14 @@ bfloat16 leaves arrive as ml_dtypes arrays (or, from an ``.npz``, as raw
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import tier0 as T0
 from repro_torch.models.common import dtype_of
 
 _SEP = "|"
@@ -104,3 +107,24 @@ def load_checkpoint(npz_path: str, cfg: ModelConfig,
     with np.load(npz_path, allow_pickle=False) as data:
         flat = {k: data[k] for k in data.files}
     return params_from_numpy(_unflatten(flat), cfg, device)
+
+
+def tier0_params_from_numpy(tree: Dict[str, Any], device: DeviceLike = None,
+                            cfg: Optional[T0.Tier0Config] = None
+                            ) -> Dict[str, torch.Tensor]:
+    """The reference tier-0 head's param dict (numpy leaves) as float32
+    tensors in the same ``(in, out)`` layout, shapes checked against
+    ``cfg`` (default ``Tier0Config()``)."""
+    cfg = cfg if cfg is not None else T0.Tier0Config()
+    want = T0.param_shapes(cfg)
+    if set(tree) != set(want):
+        raise ValueError(f"tier-0 params {sorted(tree)} != {sorted(want)}")
+    dev = resolve_device(device)
+    out = {}
+    for name in T0.PARAM_NAMES:
+        arr = np.asarray(tree[name])
+        if tuple(arr.shape) != want[name]:
+            raise ValueError(f"tier-0 {name} {tuple(arr.shape)} != "
+                             f"{want[name]} for {cfg}")
+        out[name] = torch.tensor(arr.astype(np.float32), device=dev)
+    return out

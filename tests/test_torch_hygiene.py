@@ -39,7 +39,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.serving.kv_pool, repro_torch.serving.scheduler, "
             "repro_torch.serving.runtime, repro_torch.serving.faults, "
             "repro_torch.serving.engine, repro_torch.models.ssm, "
-            "repro_torch.kernels.ssd_scan, repro_torch.configs.mamba2_1_3b\n"
+            "repro_torch.kernels.ssd_scan, repro_torch.configs.mamba2_1_3b, "
+            "repro_torch.models.tier0, repro_torch.serving.feedback, "
+            "repro_torch.training.optimizer, repro_torch.training.tier0\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -63,6 +65,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
     from repro_torch.core.fingerprint import AnchorSet
     from repro_torch.core.retrieval import AnchorRetriever
     from repro_torch.models import model as M
+    from repro_torch.models import tier0 as T0
+    from repro_torch.training import tier0 as T0train
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         M.init_params(TINY)
@@ -72,6 +76,13 @@ def test_entry_points_default_to_the_card(monkeypatch):
         AnchorRetriever(AnchorSet([], torch.zeros(3, 4).numpy()))
     with pytest.raises(RuntimeError, match="CUDA"):
         io.params_from_numpy({}, TINY)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T0.init_tier0(torch.Generator())
+    head = T0.init_tier0(torch.Generator(), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        io.tier0_params_from_numpy({k: v.numpy() for k, v in head.items()})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T0train.train_tier0({"q": torch.zeros(4).numpy()}, steps=1)
 
 
 def test_resolve_device_turns_tf32_off(monkeypatch):
