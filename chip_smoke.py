@@ -6,7 +6,7 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each of which must pass (any failure exits non-zero with no result):
 
   1. device      — the card's name and power limit, torch and CUDA versions
-  2. build       — compile the six CUDA kernels from ``src/repro_torch/csrc``
+  2. build       — compile the seven CUDA kernels from ``src/repro_torch/csrc``
                    (one nvcc per source, in parallel); ptxas must report
                    no spill
   3. kernels     — each kernel against its plain PyTorch version on the card,
@@ -32,7 +32,12 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    on a layer view of the full 48-layer stacked cache (the
                    other layers untouched), 12 steps chained from the
                    scan's final state, two launches bitwise equal, and at
-                   edge shapes
+                   edge shapes; the flash backward kernel (through the
+                   autograd Function, as a loss reaches it) against autograd
+                   of the plain version: f32 at d 32 to 256, groups 1 to 4,
+                   ragged lengths, window, q_offset (rows with no key get
+                   zero gradient), dv != d; bf16 at the SFT shape; two
+                   launches bitwise equal; softcap under autograd refused
   4. timing      — each kernel, its plain version and one PyTorch library
                    call computing the same function (device time: CUDA
                    graph replays between CUDA events), beside the least time
@@ -42,7 +47,9 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    gather plus SDPA, for top-k the same work as the
                    wrapper's one launch (normalize the raw queries, the
                    product, torch.topk); no single PyTorch call computes
-                   the SSD scan or the SSD decode step
+                   the SSD scan or the SSD decode step; the flash backward
+                   at the SFT shape beside its plain version's autograd and
+                   SDPA's backward (those two as eager calls)
   5. tiny        — ``ScopeEngine.serve`` on scope-tiny with seeded weights,
                    once on the card (kernels) and once on the CPU (plain
                    versions): equal token streams and decisions
@@ -92,6 +99,19 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    x decode steps, finite logits; the gate's wall and
                    device time per request, the stream's wall and idle
                    share, peak memory
+ 13. tiny train  — scope-tiny from the same seeded port params on the card
+                   and on the CPU: ten SFT steps (losses within 1e-4), then
+                   a greedy GRPO step on each (equal rollouts, rewards and
+                   advantages; loss, pg and kl within 2e-5)
+ 14. full train  — scope-qwen3-4b at full width from seeded random weights:
+                   three SFT steps of 64 sequences (72 forward and 36
+                   backward flash launches a step: one checkpoint a layer)
+                   and one GRPO step (16 tasks x group 4, 12 new tokens);
+                   loss, reward, format rate, step wall and device time,
+                   peak memory
+ 15. CLIs        — ``python -m repro_torch.launch.train`` on scope-tiny,
+                   then ``python -m repro_torch.launch.serve --checkpoint``
+                   on what it saved, both on the card
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.  Details go to
@@ -130,6 +150,9 @@ TPU_KERNELS = {
     "ssd_scan": "src/repro/kernels/ssd_scan.py:80",
     "ssd_decode_step": "src/repro/kernels/ops.py:308 (plain XLA, no Pallas "
                        "kernel)",
+    "flash_attention_bwd": "src/repro/kernels/ref.py:18 (no Pallas kernel: "
+                           "XLA's gradient of ref.attention, which "
+                           "src/repro/kernels/ops.py:40 sends training to)",
 }
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in TPU_KERNELS}
 TO_PORT = []            # every TPU kernel of the repository has a port
@@ -269,7 +292,7 @@ def bound(nbytes: float, flops: float, dtype: str):
 # ---------------------------------------------------------------------------
 # phase 3/4: kernels against plain versions, and their times
 # ---------------------------------------------------------------------------
-def kernel_checks(torch, L: int):
+def kernel_checks(torch, L: int, s_train: int):
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import topk_retrieval as TK
@@ -305,6 +328,8 @@ def kernel_checks(torch, L: int):
         check(finite and bad <= tol, f"{name}: err {bad} > {tol} or non-finite")
         if main:
             errs[main] = err
+
+    compare.errs = errs
 
     S = L + NEW_TOKENS
     # flash: (b, hq, hkv, sq, sk, d, dv), kwargs, dtype, the kernel whose
@@ -590,7 +615,80 @@ def kernel_checks(torch, L: int):
     compare("ssd strided y", y, yp, F32_TOL)
     compare("ssd strided state", st, sp, F32_TOL)
     step_checks(torch, gen, L, main_chunk, compare)
+    bwd_checks(torch, rnd, compare, s_train)
     return errs
+
+
+def bwd_checks(torch, rnd, compare, s_train: int):
+    """The flash backward kernel against autograd of the plain version on
+    the card, through ``flash_attention`` as a loss reaches it (q, k, v the
+    model's transposed views requiring grad, so the call goes through the
+    autograd Function: the forward kernel, then the backward kernel).  dq,
+    dk and dv each within tol x max(1, max|want|): gradients reach ~10,
+    where one bf16 step is 0.06.  The main path's shape is the SFT batch:
+    64 sequences of ``s_train`` tokens, 32/8 heads of 128, bf16, causal."""
+    from repro_torch.kernels import flash_attention as FA
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [
+        ("bwd main", (64, 32, 8, s_train, s_train, 128, 128), {}, bf,
+         "flash_attention_bwd"),
+        ("bwd f32 d=32 g=2", (2, 4, 2, 17, 17, 32, 32), {}, f32, None),
+        ("bwd f32 d=64 g=4 window", (2, 8, 2, 40, 40, 64, 64),
+         dict(window=7), f32, None),
+        ("bwd f32 d=128 g=1 q_offset", (1, 8, 8, 33, 50, 128, 128),
+         dict(q_offset=17), f32, None),
+        ("bwd f32 d=128 g=4 ragged", (3, 32, 8, 61, 61, 128, 128), {}, f32,
+         None),
+        ("bwd f32 dv!=d masked rows", (1, 4, 1, 20, 20, 64, 32),
+         dict(q_offset=-5), f32, None),
+        ("bwd f32 d=256 non-causal window offset", (2, 4, 2, 33, 50, 256,
+                                                    256),
+         dict(causal=False, window=9, q_offset=20), f32, None),
+        ("bwd bf16 g=1", (2, 8, 8, 45, 45, 128, 128), {}, bf, None),
+        ("bwd bf16 window q_offset", (2, 8, 2, 40, 70, 64, 64),
+         dict(window=16, q_offset=30), bf, None),
+    ]
+    for name, (b, hq, hkv, sq, sk, d, dv), kw, dt, main in cases:
+        q = rnd(b, sq, hq, d, dt=dt).transpose(1, 2).requires_grad_(True)
+        k = rnd(b, sk, hkv, d, dt=dt).transpose(1, 2).requires_grad_(True)
+        v = rnd(b, sk, hkv, dv, dt=dt).transpose(1, 2).requires_grad_(True)
+        dout = rnd(b, hq, sq, dv, dt=dt)
+        before = (FA.launches, FA.bwd_launches)
+        got = torch.autograd.grad(FA.flash_attention(q, k, v, **kw),
+                                  (q, k, v), dout)
+        check((FA.launches, FA.bwd_launches) == (before[0] + 1,
+                                                 before[1] + 1),
+              f"{name}: the forward and backward kernels did not run once "
+              "each")
+        want = torch.autograd.grad(FA.flash_attention_plain(q, k, v, **kw),
+                                   (q, k, v), dout)
+        tol = F32_TOL if dt == f32 else BF16_TOL
+        for part, g, w in zip(("dq", "dk", "dv"), got, want, strict=True):
+            check(g.shape == w.shape and g.dtype == w.dtype,
+                  f"{name} {part}: {g.shape} {g.dtype} != {w.shape} "
+                  f"{w.dtype}")
+            compare(f"{name} {part}", g, w, tol, None, scale="max")
+        if main:
+            errs_main = max((g.float() - w.float()).abs().max().item()
+                            for g, w in zip(got, want, strict=True))
+            compare.errs[main] = errs_main
+            again = torch.autograd.grad(FA.flash_attention(q, k, v, **kw),
+                                        (q, k, v), dout)
+            check(all(torch.equal(a, c) for a, c in zip(got, again,
+                                                        strict=True)),
+                  f"{name}: two launches differ")
+            print(f"   {name}: two launches bitwise equal")
+        if kw.get("q_offset", 0) < 0:
+            check(bool((got[0][:, :, :-kw["q_offset"]] == 0).all()),
+                  f"{name}: rows with no key got a gradient")
+    q = rnd(1, 2, 8, 32).requires_grad_(True)
+    try:
+        FA.flash_attention(q, q, q, softcap=30.0)
+    except ValueError as e:
+        print(f"   bwd softcap: refused ({e})")
+    else:
+        raise SmokeFailure("flash_attention with softcap under autograd "
+                           "was not refused")
 
 
 def step_checks(torch, gen, L: int, main_chunk: int, compare):
@@ -719,7 +817,7 @@ def paged_layout(torch, gen, b, hkv, S, d, dv, page, dt, spare: int = 5):
     return kc, vc, kp, vp, table.reshape(b, n_w).to(torch.int32).contiguous()
 
 
-def kernel_timings(torch, L: int, retriever, query_embs):
+def kernel_timings(torch, L: int, retriever, query_embs, s_train: int):
     """Each kernel at its main-path shape: kernel, plain version, library."""
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as DA
@@ -901,6 +999,7 @@ def kernel_timings(torch, L: int, retriever, query_embs):
     out["ssd_decode_step"]["bound_ms"], out["ssd_decode_step"]["bound_by"] = \
         bound(*step_work(b, h, p, n, A.element_size()), "float32")
     del cache
+    out["flash_attention_bwd"] = bwd_timing(torch, gen, s_train)
     for name, t in out.items():
         lib = ("none" if t["library_ms"] is None
                else f"{t['library_ms']:.5f}")
@@ -909,6 +1008,56 @@ def kernel_timings(torch, L: int, retriever, query_embs):
               f" bound_ms {t['bound_ms']:.6f} ({t['bound_by']}); eager "
               f"wrapper call {t['eager_ms']:.5f} ms")
     return out
+
+
+def bwd_timing(torch, gen, s: int):
+    """The flash backward kernel at the SFT step's shape (64 sequences of
+    ``s`` tokens, 32/8 heads of 128, bf16, causal, q, k, v the model's
+    views): the kernel's wrapper (three launches) in CUDA-graph replays;
+    the plain version's backward (autograd of ``flash_attention_plain``)
+    and, as a yardstick only, the backward of
+    ``F.scaled_dot_product_attention`` on the same inputs, each timed as
+    eager calls between CUDA events (autograd's backward is not captured
+    in a graph)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    dev, bf = "cuda", torch.bfloat16
+    b, hq, hkv, d = 64, 32, 8, 128
+
+    def view(h):
+        return torch.randn(b, s, h, d, generator=gen, device=dev).to(bf) \
+            .transpose(1, 2).requires_grad_(True)
+
+    q, k, v = view(hq), view(hkv), view(hkv)
+    dout = torch.randn(b, hq, s, d, generator=gen, device=dev).to(bf)
+    with torch.no_grad():
+        out = FA.flash_attention_cuda(q, k, v)
+    plain_out = FA.flash_attention_plain(q, k, v)
+    sdpa_out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+    t = dict(
+        ms=device_ms(torch, lambda: FA.flash_attention_bwd_cuda(
+            q, k, v, out, dout), 20),
+        plain_ms=eager_ms(torch, lambda: torch.autograd.grad(
+            plain_out, (q, k, v), dout, retain_graph=True), 10),
+        library_ms=eager_ms(torch, lambda: torch.autograd.grad(
+            sdpa_out, (q, k, v), dout, retain_graph=True), 20),
+        eager_ms=eager_ms(torch, lambda: FA.flash_attention_bwd_cuda(
+            q, k, v, out, dout), 20),
+        shape=f"q ({b},{hq},{s},{d}) kv ({b},{hkv},{s},{d}) bf16 causal, "
+              "views of (b, s, h, d); out, dO (b, hq, s, d)",
+        library_call="backward of scaled_dot_product_attention (GQA, "
+                     "causal), eager; plain_ms also eager")
+    # q, k, v, o and dO read once, dq, dk, dv written once; per causal
+    # (query, key) pair and q-head the scores (2d), dP (2dv), dV (2dv), dK
+    # (2d) and dQ (2d)
+    pairs = s * (s + 1) // 2
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                  + 2 * out.numel())
+    t["bound_ms"], t["bound_by"] = bound(
+        nbytes, pairs * b * hq * (6 * d + 4 * d), "bfloat16")
+    del plain_out, sdpa_out
+    return t
 
 
 def step_work(b, h, p, n, a_bytes):
@@ -1876,23 +2025,272 @@ def full_tiers(torch, world, data, anchors, lib, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 13-15: training (SFT and GRPO through the flash forward and
+# backward kernels) and the train / serve CLIs
+# ---------------------------------------------------------------------------
+SFT_STEPS_TINY, SFT_STEPS_FULL, SFT_BATCH = 10, 3, 64
+
+
+class StepProbe:
+    """While installed: each ``grpo_step``'s batch (tokens, mask,
+    advantages, old and reference log-probs) and loss."""
+
+    def __enter__(self):
+        from repro_torch.training import grpo
+        self.steps = []
+        self._saved = grpo.grpo_step
+        saved, steps = self._saved, self.steps
+
+        def grpo_step(params, cfg, opt_state, batch, *args):
+            out = saved(params, cfg, opt_state, batch, *args)
+            steps.append({"batch": {k: v.cpu() for k, v in batch.items()},
+                          "loss": float(out[2]),
+                          "metrics": {k: float(v) for k, v in
+                                      out[3].items()}})
+            return out
+
+        grpo.grpo_step = grpo_step
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.training import grpo
+        grpo.grpo_step = self._saved
+        return False
+
+
+def grpo_trainer(torch, cfg, params, device, *, tasks, group, temperature,
+                 seed=0):
+    """A GRPO trainer on a fresh world (``World.embed`` draws from the
+    world's generator, so two trainers compared build two worlds)."""
+    from repro_torch.core.retrieval import AnchorRetriever
+    from repro_torch.training.grpo import GRPOConfig, GRPOTrainer
+    world, data, anchors, lib = build_world()
+    return GRPOTrainer(
+        cfg, params, data, lib, AnchorRetriever(anchors, device=device),
+        gcfg=GRPOConfig(group_size=group, tasks_per_step=tasks,
+                        temperature=temperature, max_new_tokens=NEW_TOKENS),
+        seed=seed, generator=torch.Generator(device=device).manual_seed(seed))
+
+
+def tiny_train_card_vs_cpu(torch, ds):
+    """scope-tiny from the same seeded port params on the card and on the
+    CPU: ten SFT steps (losses within 1e-4, the first within 2e-5), then
+    one greedy GRPO step on each (equal rollout tokens, advantages and
+    rewards; loss, pg and kl within 2e-5)."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.configs.scope_estimator import TINY
+    from repro_torch.models.model import init_params
+    from repro_torch.training.sft import train_sft
+
+    cpu_params = init_params(TINY, seed=0, device="cpu")
+    trained, losses, counts = {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        kernels.reset_launch_counts()
+        trained[dev], losses[dev] = train_sft(
+            _to(cpu_params, dev), TINY, ds, steps=SFT_STEPS_TINY,
+            batch_size=32)
+        counts[dev] = kernels.launch_counts()
+    err = max(abs(a - b) for a, b in zip(losses["cpu"], losses["cuda"],
+                                         strict=True))
+    check(abs(losses["cpu"][0] - losses["cuda"][0]) <= F32_TOL,
+          f"tiny sft: first loss {losses['cpu'][0]} vs {losses['cuda'][0]}")
+    check(err <= 1e-4, f"tiny sft: losses differ by {err}")
+    L = TINY.num_layers
+    check(counts["cuda"]["flash_attention"] == 2 * L * SFT_STEPS_TINY
+          and counts["cuda"]["flash_attention_bwd"] == L * SFT_STEPS_TINY,
+          f"tiny sft launches {counts['cuda']}")
+    print(f"   sft {SFT_STEPS_TINY} steps: losses {losses['cuda'][0]:.6f} -> "
+          f"{losses['cuda'][-1]:.6f}, card vs cpu max_abs_err {err:.3g}; "
+          f"card launches {counts['cuda']}")
+
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        trainer = grpo_trainer(torch, TINY, _to(trained["cpu"], dev), dev,
+                               tasks=4, group=2, temperature=0.0)
+        with StepProbe() as probe:
+            info = trainer.rollout_step()
+        runs[dev] = (info, probe.steps[0])
+    (ia, sa), (ib, sb) = runs["cpu"], runs["cuda"]
+    check(torch.equal(sa["batch"]["tokens"], sb["batch"]["tokens"]),
+          "tiny grpo: greedy rollouts differ")
+    check(torch.equal(sa["batch"]["adv"], sb["batch"]["adv"])
+          and ia["reward"] == ib["reward"]
+          and ia["format_rate"] == ib["format_rate"],
+          "tiny grpo: rewards or advantages differ")
+    grpo_err = max(abs(sa["loss"] - sb["loss"]),
+                   *(abs(sa["metrics"][k] - sb["metrics"][k])
+                     for k in ("pg", "kl")))
+    check(grpo_err <= F32_TOL, f"tiny grpo: loss/pg/kl differ by {grpo_err}")
+    print(f"   greedy grpo step: {tuple(sb['batch']['tokens'].shape)} rollout "
+          f"tokens equal, reward {ib['reward']:.4f} format_rate "
+          f"{ib['format_rate']:.3f}, loss {sb['loss']:.6g} (max_abs_err "
+          f"{grpo_err:.3g})")
+    return {"sft_losses": losses, "sft_max_abs_err": err,
+            "grpo_max_abs_err": grpo_err, "grpo_cuda": ib,
+            "launches": counts["cuda"]}
+
+
+def profiled_ms(torch, fn, top: int = 8):
+    """(result, device ms summed over every kernel the profiler saw, or None
+    when CUPTI reports no device activity, and the ``top`` kernels by
+    device time as (name, ms, launches))."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    us = sum(e.self_device_time_total for e in events)
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)[:top]
+    return out, (us / 1e3 if us > 0 else None), [
+        (e.key[:90], round(e.self_device_time_total / 1e3, 3), e.count)
+        for e in ranked]
+
+
+def full_train(torch, ds):
+    """scope-qwen3-4b at full width from seeded random weights: three SFT
+    steps of 64 sequences (launches: 2 x 36 forward flash calls a step, one
+    a layer in the forward and one in its checkpoint's recompute, and 36
+    backward calls), then one GRPO step (16 tasks x group 4, 12 new tokens,
+    temperature 1): loss, reward, format rate, step wall and device time,
+    peak memory."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.configs.scope_estimator import CONFIG
+    from repro_torch.data.pipeline import batches
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.sft import sft_step
+
+    params, n_params = full_params(torch, CONFIG, 3.9e9)
+    L = CONFIG.num_layers
+    opt_cfg = AdamWConfig(lr=1e-5, warmup_steps=2, total_steps=100)
+    opt_state = adamw_init(params)
+    it = batches(ds, SFT_BATCH, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    steps = []
+    for i in range(SFT_STEPS_FULL):
+        batch = next(it)
+        t0 = time.perf_counter()
+        if i == SFT_STEPS_FULL - 1:        # the last step under the profiler
+            out, dev_ms, sft_top = profiled_ms(
+                torch, lambda b=batch, p=params, s=opt_state: sft_step(
+                    p, CONFIG, s, b, opt_cfg))
+        else:
+            out = sft_step(params, CONFIG, opt_state, batch, opt_cfg)
+            torch.cuda.synchronize()
+            dev_ms = None
+        wall = time.perf_counter() - t0
+        params, opt_state, loss, metrics = out
+        steps.append({"loss": float(loss), "acc": float(metrics["acc"]),
+                      "wall_s": wall, "device_ms": dev_ms})
+        print(f"   sft step {i + 1}: loss {float(loss):.4f} acc "
+              f"{float(metrics['acc']):.4f} wall {wall:.3f} s"
+              + ("" if dev_ms is None else f" device {dev_ms:.1f} ms"))
+    sft_counts = kernels.launch_counts()
+    sft_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = dict(NO_LAUNCHES, flash_attention=2 * L * SFT_STEPS_FULL,
+                flash_attention_bwd=L * SFT_STEPS_FULL)
+    check(sft_counts == want, f"sft launches {sft_counts} != {want}")
+    check(all(np.isfinite(s["loss"]) for s in steps), "non-finite SFT loss")
+    check(all(bool(torch.isfinite(t).all()) for t in _leaves(params)),
+          "non-finite params after SFT")
+    del out, opt_state                   # the moments: 30 GiB
+    torch.cuda.empty_cache()
+    print(f"   sft batch {tuple(batch['tokens'].shape)}; launches "
+          f"{sft_counts}; peak {sft_peak:.2f} GiB; top device work of the "
+          f"profiled step (name, ms, calls): {sft_top}")
+
+    trainer = grpo_trainer(torch, CONFIG, params, "cuda", tasks=16, group=4,
+                           temperature=1.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with StepProbe() as probe:
+        info, grpo_dev_ms, grpo_top = profiled_ms(torch,
+                                                  trainer.rollout_step)
+    grpo_counts = kernels.launch_counts()
+    grpo_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    info2 = trainer.rollout_step()                  # unprofiled, for wall
+    torch.cuda.synchronize()
+    grpo_wall = time.perf_counter() - t0
+    grpo_peak = max(grpo_peak, torch.cuda.max_memory_allocated() / 2 ** 30)
+    tokens = probe.steps[0]["batch"]["tokens"]
+    check(tuple(tokens.shape) == (64, tokens.shape[1])
+          and np.isfinite([info["loss"], info["kl"], info2["loss"]]).all(),
+          f"grpo step malformed: {tuple(tokens.shape)} {info}")
+    # one prefill and 12 decode steps of the rollouts, two no-grad
+    # forwards (old and reference log-probs), the loss's forward and its
+    # recompute: 36 x 5 forward flash calls, 36 backward calls
+    check(grpo_counts["flash_attention"] == 5 * L
+          and grpo_counts["flash_attention_bwd"] == L
+          and grpo_counts["decode_attention"] == L * NEW_TOKENS,
+          f"grpo launches {grpo_counts}")
+    print(f"   grpo step: rollouts {tuple(tokens.shape)}, reward "
+          f"{info['reward']:.4f} format_rate {info['format_rate']:.3f} loss "
+          f"{info['loss']:.6g} kl {info['kl']:.3g}; device "
+          f"{grpo_dev_ms} ms (profiled), wall {grpo_wall:.3f} s (second "
+          f"step, unprofiled); launches {grpo_counts}; peak "
+          f"{grpo_peak:.2f} GiB; top device work (name, ms, calls): "
+          f"{grpo_top}")
+    del trainer, params
+    torch.cuda.empty_cache()
+    return {"config": CONFIG.name, "params": n_params,
+            "sft_batch": list(batch["tokens"].shape), "sft_steps": steps,
+            "sft_launches": sft_counts, "sft_peak_gib": sft_peak,
+            "sft_top": sft_top, "grpo_top": grpo_top,
+            "grpo": info, "grpo_second": info2,
+            "grpo_rollouts": list(tokens.shape),
+            "grpo_device_ms": grpo_dev_ms, "grpo_wall_s": grpo_wall,
+            "grpo_launches": grpo_counts, "grpo_peak_gib": grpo_peak}
+
+
+def clis():
+    """``python -m repro_torch.launch.train`` on scope-tiny (the card by
+    default), then ``python -m repro_torch.launch.serve --checkpoint`` on
+    what it saved: both exit 0; the serve report is the reference's JSON."""
+    import os
+    ck = OUT_DIR / "cli_scope_tiny"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = {}
+    for name, args in (
+            ("train", ["repro_torch.launch.train", "--size", "tiny",
+                       "--queries", "200", "--anchors", "80", "--sft-steps",
+                       "40", "--sft-examples", "1200", "--grpo-steps", "2",
+                       "--out", str(ck)]),
+            ("serve", ["repro_torch.launch.serve", "--checkpoint", str(ck),
+                       "--queries", "8"])):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", *args], env=env,
+                             capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        print("\n".join(f"   {name}| {line}" for line in
+                        out.stdout.strip().splitlines()[-6:]))
+        check(out.returncode == 0, f"{name} CLI exit {out.returncode}: "
+              f"{out.stderr[-2000:]}")
+        runs[name] = {"wall_s": wall, "stdout_tail": out.stdout[-2000:]}
+    report = json.loads(out.stdout[out.stdout.index("{"):])
+    check(report["cache"]["misses"] == 8 * 7
+          and 0.0 <= report["accuracy"] <= 1.0,
+          f"serve CLI report malformed: {report}")
+    return runs
+
+
 def _to(tree, dev):
-    if isinstance(tree, dict):
-        return {k: _to(v, dev) for k, v in tree.items()}
-    if isinstance(tree, tuple):
-        return tuple(_to(v, dev) for v in tree)
-    return tree.to(dev)
+    """A copy of ``tree`` on ``dev`` (training writes params in place)."""
+    from repro_torch.io import tree_map
+    return tree_map(lambda t: t.to(dev, copy=True), tree)
 
 
 def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, tuple):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
+    from repro_torch.io import flatten
+    return flatten(tree).values()
 
 
 def main() -> int:
@@ -1953,16 +2351,26 @@ def main() -> int:
     check(all(len(p) == L for p in st.prompts), "prompts are not constant")
     print(f"   {len(qids)} queries x {len(data.models)} models, "
           f"{N_ANCHORS} anchors, prompt length {L}")
+    # the SFT examples of the training phases, from a world of their own
+    # (building them draws from the world's generator)
+    from repro_torch.training.sft import build_sft_dataset
+    _, sft_data, sft_anchors, sft_lib = build_world()
+    sft_ds = build_sft_dataset(sft_data, sft_lib,
+                               AnchorRetriever(sft_anchors, device="cpu"),
+                               max_examples=320, seed=0)
+    s_train = sft_ds["tokens"].shape[1]
+    print(f"   SFT examples {sft_ds['tokens'].shape}")
     done(t)
 
     t = phase("kernels")
-    errs = kernel_checks(torch, L)
+    errs = kernel_checks(torch, L, s_train)
     done(t)
 
     t = phase("timing")
     embs = np.stack([data.queries[q].embedding for q in qids]).astype(
         np.float32)
-    timing = kernel_timings(torch, L, AnchorRetriever(anchors), embs)
+    timing = kernel_timings(torch, L, AnchorRetriever(anchors), embs,
+                            s_train)
     done(t)
 
     t = phase("tiny: card vs cpu")
@@ -2015,15 +2423,30 @@ def main() -> int:
     torch.cuda.empty_cache()
     done(t)
 
+    t = phase("tiny train: card vs cpu, SFT and a greedy GRPO step")
+    report["tiny_train"] = tiny_train_card_vs_cpu(torch, sft_ds)
+    done(t)
+
+    t = phase("full-width train: scope-qwen3-4b, SFT and GRPO steps")
+    report["train"] = full_train(torch, sft_ds)
+    done(t)
+
+    t = phase("CLIs: repro_torch.launch.train, then .serve --checkpoint")
+    report["clis"] = clis()
+    done(t)
+
     # launches: each kernel's count on its own path's run — the batch serve
     # for the three kernels of that path, the paged stream for the paged
-    # one, the mamba2-1.3b serve for the SSD scan and decode step
+    # one, the mamba2-1.3b serve for the SSD scan and decode step, the
+    # full-width SFT steps for the flash backward
     launches = dict(report["full"]["launches"],
                     paged_decode_attention=report["stream"]["paged"][
                         "launches"]["paged_decode_attention"],
                     ssd_scan=report["ssm"]["launches"]["ssd_scan"],
                     ssd_decode_step=report["ssm"]["launches"][
-                        "ssd_decode_step"])
+                        "ssd_decode_step"],
+                    flash_attention_bwd=report["train"]["sft_launches"][
+                        "flash_attention_bwd"])
     kernel_rows = []
     for name in TPU_KERNELS:
         tm = timing[name]

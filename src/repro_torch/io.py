@@ -10,6 +10,11 @@ Three ways in, all numpy-only (no JAX import):
   tier0_params_from_numpy(tree, device) — the tier-0 head's flat param dict
       (``repro.models.tier0.init_tier0`` or a trained head's ``params``).
 
+``flatten`` / ``unflatten`` are the checkpoint's key-path flattening in
+the reference's leaf order (dict keys sorted, tuples in order), shared
+with ``training.checkpoint`` and the optimizer; ``tree_map`` maps the
+leaves of such a tree.
+
 The port keeps the JAX layout leaf for leaf (weights stored (in, out) and
 applied as ``x @ W``), so the bridge is a copy with dtypes preserved.
 bfloat16 leaves arrive as ml_dtypes arrays (or, from an ``.npz``, as raw
@@ -30,7 +35,8 @@ from repro_torch.models.common import dtype_of
 _SEP = "|"
 
 
-def _to_tensor(arr: np.ndarray, device) -> torch.Tensor:
+def to_tensor(arr: np.ndarray, device) -> torch.Tensor:
+    """A numpy leaf as a tensor on ``device``, bfloat16 bit for bit."""
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16" or (arr.dtype.kind == "V"
                                         and arr.dtype.itemsize == 2):
@@ -68,16 +74,40 @@ def params_from_numpy(tree: Any, cfg: ModelConfig,
             return {k: conv(v) for k, v in node.items()}
         if isinstance(node, (tuple, list)):
             return tuple(conv(v) for v in node)
-        return _to_tensor(node, dev)
+        return to_tensor(node, dev)
 
     params = conv(tree)
     _check(params, cfg)
     return params
 
 
-def _unflatten(flat: Dict[str, np.ndarray]) -> Dict:
+def flatten(tree: Any, prefix: str = "") -> Dict[str, Any]:
+    """Nested dicts / tuples -> ``{"k:a|i:0|k:b": leaf}`` in the reference's
+    leaf order (``jax.tree.leaves``: dict keys sorted, tuples in order)."""
+    if isinstance(tree, dict):
+        items = [(f"k:{k}", tree[k]) for k in sorted(tree)]
+    elif isinstance(tree, (tuple, list)):
+        items = [(f"i:{i}", v) for i, v in enumerate(tree)]
+    else:
+        return {prefix: tree}
+    out: Dict[str, Any] = {}
+    for key, sub in items:
+        out.update(flatten(sub, f"{prefix}{_SEP}{key}" if prefix else key))
+    return out
+
+
+def tree_map(fn, tree: Any) -> Any:
+    """``fn`` applied to every leaf of nested dicts / tuples."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def unflatten(flat: Dict[str, Any]) -> Dict:
     """``k:a|i:0|k:b`` keyed leaves -> nested dicts (``i:`` levels become
-    tuples), the inverse of the JAX checkpoint's key-path flattening."""
+    tuples), the inverse of ``flatten``."""
     root: Dict = {}
     for key, arr in flat.items():
         node = root
@@ -106,7 +136,7 @@ def load_checkpoint(npz_path: str, cfg: ModelConfig,
         npz_path = npz_path + ".npz"
     with np.load(npz_path, allow_pickle=False) as data:
         flat = {k: data[k] for k in data.files}
-    return params_from_numpy(_unflatten(flat), cfg, device)
+    return params_from_numpy(unflatten(flat), cfg, device)
 
 
 def tier0_params_from_numpy(tree: Dict[str, Any], device: DeviceLike = None,

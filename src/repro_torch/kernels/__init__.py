@@ -2,6 +2,8 @@
 
   topk_retrieval         — anchor retrieval  (replaces kernels/topk_retrieval.py)
   flash_attention        — prefill attention (replaces kernels/flash_attention.py)
+  flash_attention_bwd    — its gradient, for training (XLA's gradient of
+                           ref.attention in the reference)
   decode_attention       — decode attention, dense cache
                            (replaces kernels/decode_attention.py::decode_attention)
   paged_decode_attention — decode attention, block-paged cache (replaces
@@ -12,7 +14,7 @@
                            (the reference's plain-XLA ref.ssd_decode_step)
 
 Each kernel's wrapper keeps a count of its launches in a module attribute;
-the helpers below read and reset all six at once.
+the helpers below read and reset all seven at once.
 """
 from typing import Dict
 
@@ -22,6 +24,7 @@ from repro_torch.kernels import (decode_attention, flash_attention,
 # kernel -> (module, counter attribute)
 _COUNTERS = {"topk_retrieval": (topk_retrieval, "launches"),
              "flash_attention": (flash_attention, "launches"),
+             "flash_attention_bwd": (flash_attention, "bwd_launches"),
              "decode_attention": (decode_attention, "launches"),
              "paged_decode_attention": (decode_attention, "paged_launches"),
              "ssd_scan": (ssd_scan, "launches"),

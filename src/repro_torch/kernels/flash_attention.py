@@ -11,9 +11,18 @@ online softmax in registers and read strided q/k/v views directly, so the
 model passes its transposed projections without a copy.  See the source
 for the design.
 
+The gradient is the CUDA kernel ``csrc/flash_attention_bwd.cu`` (three
+grid launches a call: the rows' log-sum-exp and delta, dK/dV by key tile,
+dQ by query tile), wired in by ``FlashAttention``, an autograd Function
+whose forward is the forward kernel.
+
 ``flash_attention`` dispatches on the tensor's device: a CPU tensor goes to
-``flash_attention_plain``, a CUDA tensor launches the kernel (or raises on
-what the kernel does not take).  ``launches`` counts kernel launches.
+``flash_attention_plain`` (whose autograd is the plain version of both
+directions); on a CUDA tensor, a call that autograd records (grad enabled,
+an input that requires grad) goes through ``FlashAttention``, any other
+launches the forward kernel; either raises on what the kernels do not
+take.  ``launches`` counts forward launches, ``bwd_launches`` backward
+calls.
 """
 from __future__ import annotations
 
@@ -28,11 +37,16 @@ HEAD_DIMS = (32, 64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
+bwd_launches = 0
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
              + [ctypes.c_longlong] * 9
              + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
                 ctypes.c_int, ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                 + [ctypes.c_longlong] * 15
+                 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                    ctypes.c_void_p])
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -45,9 +59,35 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, scale=scale,
                                      q_offset=q_offset)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if softcap > 0.0:
+            raise ValueError("flash_attention: no backward kernel for "
+                             "softcap > 0 (no training path uses it)")
+        return FlashAttention.apply(q, k, v, causal, window, scale, q_offset)
     return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                 softcap=softcap, scale=scale,
                                 q_offset=q_offset)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Autograd over the two CUDA kernels: the forward kernel, and the
+    backward kernel on the saved q, k, v and output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, q_offset):
+        out = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                   scale=scale, q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.mask = dict(causal=causal, window=window, scale=scale,
+                        q_offset=q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, dout, **ctx.mask)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
@@ -117,3 +157,43 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     build.check(err, "flash_attention")
     launches += 1
     return out
+
+
+def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal: bool = True,
+                             window: int = 0, scale: Optional[float] = None,
+                             q_offset: int = 0):
+    """(dq, dk, dv) of ``flash_attention(q, k, v)`` whose output is ``out``
+    for the upstream gradient ``dout`` (b, hq, sq, dv); each in its input's
+    shape and dtype, contiguous.  Softcap is not taken."""
+    global bwd_launches
+    if any(t.device != q.device for t in (k, v, out, dout)) \
+            or q.device.type != "cuda":
+        raise ValueError("flash_attention backward needs CUDA tensors on one "
+                         "device")
+    check_args(q, k, v)
+    b, hq, sq, d = q.shape
+    hkv, sk, dv = k.shape[1], k.shape[2], v.shape[3]
+    for name, t in (("out", out), ("dout", dout)):
+        if tuple(t.shape) != (b, hq, sq, dv) or t.dtype != q.dtype \
+                or t.stride(3) != 1:
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} must be "
+                             f"({b}, {hq}, {sq}, {dv}) {q.dtype}, contiguous "
+                             "in its last dim")
+    scale = scale if scale is not None else d ** -0.5
+    dq = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, hkv, sk, d), dtype=q.dtype, device=q.device)
+    dvv = torch.empty((b, hkv, sk, dv), dtype=q.dtype, device=q.device)
+    stats = torch.empty((2, b, hq, sq), dtype=torch.float32, device=q.device)
+    fn = build.load("flash_attention_bwd", "repro_flash_attention_bwd",
+                    _BWD_ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(),
+             stats[0].data_ptr(), stats[1].data_ptr(),
+             DTYPES[q.dtype], b, hq, hkv, sq, sk, d, dv,
+             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+             *out.stride()[:3], *dout.stride()[:3],
+             int(causal), int(window), float(scale), int(q_offset),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "flash_attention_bwd")
+    bwd_launches += 1
+    return dq, dk, dvv

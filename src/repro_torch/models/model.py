@@ -2,6 +2,8 @@
 the pure-SSM Mamba2 stack.
 
   init_params(cfg, *, seed, device)          -> params dict
+  forward_train(params, cfg, batch)          -> (logits (b, s, V), aux)
+  loss_fn(params, cfg, batch)                -> (loss, metrics)
   prefill(params, cfg, batch)                -> (logits (b, s, V), caches)
   decode_step(params, cfg, token, caches, pos, paged=None)
                                              -> (logits (b, 1, V), caches)
@@ -71,6 +73,52 @@ def _cos_sin(cfg: ModelConfig, pos: torch.Tensor):
     if cfg.is_attention_free() and cfg.shared_attn_every == 0:
         return None, None
     return rope_mod.rope_cos_sin(pos, cfg.resolved_head_dim, cfg.rope_theta)
+
+
+def forward_train(params, cfg: ModelConfig, batch: Dict, *,
+                  remat: bool = True):
+    """Full causal forward over ``batch["tokens"]`` (b, s) with no caches:
+    (logits (b, s, V) in the model dtype, aux).  Each layer is one
+    checkpoint when ``remat`` (the reference's default); ``aux`` (the MoE
+    router loss in the reference) is 0 for the dense stack.  On the card the
+    attention runs the flash forward and backward kernels."""
+    if cfg.has_ssm():
+        raise NotImplementedError(
+            f"{cfg.name!r}: training an SSM stack is not ported (the SSD "
+            "scan kernel has no backward)")
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    h = _embed(params, cfg, tokens)
+    cos, sin = _cos_sin(cfg, torch.arange(s, device=tokens.device)
+                        .expand(b, s))
+    for seg, (unit, count) in zip(params["segments"], tf.build_plan(cfg),
+                                  strict=True):
+        h, _ = tf.segment_full(seg, cfg, unit, count, h, cos, sin,
+                               remat=remat, want_cache=False)
+    return _logits(params, cfg, h), torch.zeros((), device=tokens.device)
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict, *, remat: bool = True):
+    """Masked next-token cross-entropy in float32 over the full vocabulary:
+    (loss, {"ce", "aux", "acc"}).  ``batch["labels"]`` (b, s), -100 = ignore;
+    without labels, position t predicts token t + 1 and the last position
+    is ignored."""
+    logits, aux = forward_train(params, cfg, batch, remat=remat)
+    tokens = batch["tokens"]
+    labels = batch.get("labels")
+    if labels is None:
+        labels = torch.cat([tokens[:, 1:],
+                            torch.full_like(tokens[:, :1], -100)], dim=1)
+    mask = labels >= 0
+    safe = torch.where(mask, labels, 0).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    maskf = mask.float()
+    denom = torch.clamp(mask.sum(), min=1).float()
+    ce = torch.sum(nll * maskf) / denom
+    acc = torch.sum((torch.argmax(logits, -1) == safe).float() * maskf) / denom
+    # the reference adds router_aux_coef * aux, and aux is 0 here
+    return ce, {"ce": ce, "aux": aux, "acc": acc}
 
 
 def prefill(params, cfg: ModelConfig, batch: Dict):

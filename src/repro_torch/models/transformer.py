@@ -3,15 +3,19 @@ stacked layers.
 
 As in the JAX package, layers are grouped into homogeneous segments whose
 parameters are stacked on a leading layer axis; where JAX scans the layer
-body, the port runs a Python loop over the stack (layer ``i`` reads the
-views ``leaf[i]``).  An ``attn`` layer caches {"k", "v"}, a ``mamba`` layer
-{"conv", "ssm"}, each leaf stacked per segment.
+body, the port runs a Python loop over the stack.  The full-sequence pass
+unbinds each stacked leaf once (layer ``i`` reads the ``i``-th view), so
+under autograd the gradient of a stack is stacked once, not summed from a
+zero-filled stack per layer; decode reads the views ``leaf[i]``.  An
+``attn`` layer caches {"k", "v"}, a ``mamba`` layer {"conv", "ssm"}, each
+leaf stacked per segment.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -62,6 +66,16 @@ def stack_trees(trees: List[Dict]) -> Dict:
     return torch.stack(trees)
 
 
+def unbind_tree(tree: Dict) -> List[Dict]:
+    """A stacked dict as per-layer dicts of views, each leaf unbound
+    once."""
+    if isinstance(tree, dict):
+        per_key = {k: unbind_tree(v) for k, v in tree.items()}
+        return [dict(zip(per_key, layer, strict=True)) for layer in
+                zip(*per_key.values(), strict=True)]
+    return list(torch.unbind(tree, 0))
+
+
 def layer_view(tree: Dict, i: int) -> Dict:
     """Layer ``i`` of a stacked dict, as views (no copy)."""
     if isinstance(tree, dict):
@@ -103,17 +117,39 @@ def block_decode(p: Dict, cfg: ModelConfig, kind: str, h: torch.Tensor,
     return h + mlp_mod.mlp_forward(p["mlp"], cfg, x2)
 
 
+def _block_h(p: Dict, cfg: ModelConfig, kind: str, h: torch.Tensor, cos,
+             sin) -> torch.Tensor:
+    return block_full(p, cfg, kind, h, cos, sin)[0]
+
+
 def segment_full(seg: Dict, cfg: ModelConfig, unit: Tuple[str, ...],
-                 count: int, h: torch.Tensor, cos, sin):
+                 count: int, h: torch.Tensor, cos, sin, *,
+                 remat: bool = True, want_cache: bool = True):
     """Run ``count`` stacked units.  Returns (h, {"<j>": cache}) with each
     cache leaf stacked on a leading count axis: k/v (count, b, hkv, s, hd),
-    conv (count, b, width - 1, conv_dim), ssm (count, b, heads, p, n)."""
+    conv (count, b, width - 1, conv_dim), ssm (count, b, heads, p, n); the
+    dict is empty when ``want_cache`` is False.
+
+    With ``remat`` and autograd recording, each block is one
+    ``torch.utils.checkpoint`` (non-reentrant): the backward recomputes the
+    block from its input instead of keeping its internals, as the
+    reference's ``jax.checkpoint`` of the layer body."""
+    layers = {str(j): unbind_tree(seg[str(j)]) for j in range(len(unit))}
     per_layer = {str(j): [] for j in range(len(unit))}
+    checkpoint = remat and torch.is_grad_enabled()
     for i in range(count):
         for j, kind in enumerate(unit):
-            h, cache = block_full(layer_view(seg[str(j)], i), cfg, kind, h,
-                                  cos, sin)
-            per_layer[str(j)].append(cache)
+            p = layers[str(j)][i]
+            if want_cache:
+                h, cache = block_full(p, cfg, kind, h, cos, sin)
+                per_layer[str(j)].append(cache)
+            elif checkpoint:
+                h = torch.utils.checkpoint.checkpoint(
+                    _block_h, p, cfg, kind, h, cos, sin, use_reentrant=False)
+            else:
+                h = _block_h(p, cfg, kind, h, cos, sin)
+    if not want_cache:
+        return h, {}
     return h, {j: stack_trees(kvs) for j, kvs in per_layer.items()}
 
 

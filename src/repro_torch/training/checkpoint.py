@@ -1,0 +1,46 @@
+"""Param checkpoints in the reference's format: flattened key-path ``.npz``
+archives (``k:<name>|i:<idx>`` keys, no pickle), numpy only.
+
+The port of ``repro/training/checkpoint.py``: an archive written here
+loads in the reference's ``checkpoint.load`` and the reverse.  bfloat16
+leaves are stored as the raw 2-byte records the reference's ``np.savez``
+writes for ml_dtypes bfloat16 (``|V2``), and read back bit for bit.
+"""
+from __future__ import annotations
+
+import os
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.io import flatten, to_tensor, unflatten
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.dtype("V2"))
+    return t.numpy()
+
+
+def save(path: str, tree: Any) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, **{k: _to_numpy(v) for k, v in flatten(tree).items()})
+
+
+def load(path: str, template: Any) -> Any:
+    """Restore into the structure, dtypes and devices of ``template``
+    (shapes must match)."""
+    if not path.endswith(".npz"):
+        path = path + ".npz"
+    want = flatten(template)
+    out = {}
+    with np.load(path, allow_pickle=False) as data:
+        for key, leaf in want.items():
+            t = to_tensor(data[key], leaf.device)
+            if tuple(t.shape) != tuple(leaf.shape):
+                raise ValueError(f"shape mismatch at {key}: "
+                                 f"{tuple(t.shape)} vs {tuple(leaf.shape)}")
+            out[key] = t.to(leaf.dtype)
+    return unflatten(out)

@@ -1,20 +1,29 @@
-"""AdamW with gradient clipping and LR schedules, over a dict of tensors.
+"""AdamW with gradient clipping and LR schedules, over a tree of tensors.
 
 The port of ``repro/training/optimizer.py``: the reference's warmup +
 cosine (or constant) schedule, global-norm clipping and decoupled weight
-decay, written out functionally in float32 so one update matches the
-reference's.  ``adamw_update`` runs under ``torch.no_grad`` and returns new
-tensors; it never mutates ``params`` or the state.
+decay, written out in float32 so one update matches the reference's.  A
+tree is a dict of tensors, or nested dicts and tuples of them (the model's
+params); leaves go in the reference's order (``io.flatten``).
+
+``value_and_grad`` differentiates a loss at a tree of plain tensors.
+``adamw_update`` runs under ``torch.no_grad`` and updates ``params`` and the
+state's ``mu``/``nu`` IN PLACE, leaf by leaf (the reference returns new
+trees): at full width, old and new moments side by side and a float32 copy
+of every gradient would not fit the card.  It returns the same ``params``
+object and a state holding the same moment trees.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, NamedTuple, Tuple
+from typing import Any, NamedTuple, Tuple
 
 import torch
 
-Tree = Dict[str, torch.Tensor]
+from repro_torch.io import flatten, tree_map, unflatten
+
+Tree = Any      # a dict of tensors, or nested dicts / tuples of them
 
 
 class AdamWState(NamedTuple):
@@ -51,27 +60,39 @@ def lr_at(cfg: AdamWConfig, step) -> torch.Tensor:
 
 
 def global_norm(tree: Tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, leaves in sorted key order
-    (the reference's pytree order)."""
-    return torch.sqrt(sum(torch.sum(torch.square(tree[k].float()))
-                          for k in sorted(tree)))
+    """sqrt of the sum of squares of every leaf, summed leaf by leaf in the
+    reference's leaf order."""
+    return torch.sqrt(sum(torch.sum(torch.square(leaf.float()))
+                          for leaf in flatten(tree).values()))
+
+
+def value_and_grad(loss, params):
+    """``loss(leaves) -> (value, aux)`` differentiated at ``params``: leaves
+    that require grad are made for this call only, so the params stay plain
+    tensors (the sampler writes caches in place beside them).  Returns
+    (value, aux, grads) with grads in the params' structure and dtypes."""
+    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    value, aux = loss(leaves)
+    flat = flatten(leaves)
+    grads = torch.autograd.grad(value, list(flat.values()))
+    return (value.detach(), {k: v.detach() for k, v in aux.items()},
+            unflatten(dict(zip(flat, grads, strict=True))))
 
 
 def adamw_init(params: Tree) -> AdamWState:
-    return AdamWState(
-        step=0,
-        mu={k: torch.zeros_like(p, dtype=torch.float32)
-            for k, p in params.items()},
-        nu={k: torch.zeros_like(p, dtype=torch.float32)
-            for k, p in params.items()})
+    def zeros(t):
+        return torch.zeros_like(t, dtype=torch.float32)
+    return AdamWState(step=0, mu=tree_map(zeros, params),
+                      nu=tree_map(zeros, params))
 
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, grads: Tree, state: AdamWState,
                  params: Tree) -> Tuple[Tree, AdamWState]:
+    """One AdamW step, in place: ``params``, ``state.mu`` and ``state.nu``
+    are overwritten leaf by leaf; ``grads`` is read only."""
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
-    grads = {k: g.float() * scale for k, g in grads.items()}
 
     step = state.step + 1
     # float32 scalars computed on the host, applied as Python floats (each
@@ -81,17 +102,21 @@ def adamw_update(cfg: AdamWConfig, grads: Tree, state: AdamWState,
     b1c = float(1.0 - torch.tensor(cfg.b1, dtype=torch.float32) ** step_f)
     b2c = float(1.0 - torch.tensor(cfg.b2, dtype=torch.float32) ** step_f)
 
-    mu = {k: cfg.b1 * state.mu[k] + (1 - cfg.b1) * g
-          for k, g in grads.items()}
-    nu = {k: cfg.b2 * state.nu[k] + (1 - cfg.b2) * g * g
-          for k, g in grads.items()}
-
-    def upd(p, m, v):
-        mh = m / b1c
-        vh = v / b2c
-        delta = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay \
-            * p.float()
-        return (p.float() - lr * delta).to(p.dtype)
-
-    new_params = {k: upd(p, mu[k], nu[k]) for k, p in params.items()}
-    return new_params, AdamWState(step=step, mu=mu, nu=nu)
+    g_leaves, p_leaves = flatten(grads), flatten(params)
+    mu_leaves, nu_leaves = flatten(state.mu), flatten(state.nu)
+    if not (g_leaves.keys() == p_leaves.keys() == mu_leaves.keys()
+            == nu_leaves.keys()):
+        raise ValueError("grads, params and the AdamW state differ in "
+                         "structure")
+    for key, p in p_leaves.items():
+        g = g_leaves[key].float() * scale.to(p.device)
+        m, v = mu_leaves[key], nu_leaves[key]
+        # m = b1 m + (1 - b1) g ; v = b2 v + (1 - b2) g g, the reference's
+        # float32 expressions evaluated in its order
+        m.mul_(cfg.b1).add_(g * (1 - cfg.b1))
+        v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
+        del g
+        delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) \
+            + cfg.weight_decay * p.float()
+        p.copy_(p.float() - lr * delta)
+    return params, AdamWState(step=step, mu=state.mu, nu=state.nu)

@@ -24,10 +24,11 @@ from repro_torch.core.fingerprint import FingerprintLibrary
 from repro_torch.core.retrieval import AnchorRetriever
 from repro_torch.data import tokenizer as tok
 from repro_torch.data.datasets import ScopeData
+from repro_torch.data.pipeline import to_tensors
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import tier0 as T0
 from repro_torch.training.optimizer import (
-    AdamWConfig, AdamWState, adamw_init, adamw_update)
+    AdamWConfig, AdamWState, adamw_init, adamw_update, value_and_grad)
 
 LEN_LOSS_WEIGHT = 0.5
 
@@ -99,25 +100,13 @@ def _tier0_loss(params: Tree, batch: Tree) -> torch.Tensor:
 def tier0_step(params: Tree, opt_state: AdamWState, batch: Tree,
                opt_cfg: AdamWConfig
                ) -> Tuple[Tree, AdamWState, torch.Tensor]:
-    """One AdamW step on ``batch`` (tensors on the params' device);
-    returns the new params and state and the loss before the step."""
-    leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
-    loss = _tier0_loss(leaves, batch)
-    grads = torch.autograd.grad(loss, list(leaves.values()))
-    params, opt_state = adamw_update(
-        opt_cfg, dict(zip(leaves, grads, strict=True)), opt_state, params)
-    return params, opt_state, loss.detach()
-
-
-def _to_device(arrays: Dict[str, np.ndarray], dev: torch.device) -> Tree:
-    """Dataset columns as tensors: int columns as int64 (indices)."""
-    out = {}
-    for k, v in arrays.items():
-        t = torch.from_numpy(np.ascontiguousarray(v))
-        if t.dtype == torch.int32:
-            t = t.long()
-        out[k] = t.to(dev)
-    return out
+    """One AdamW step on ``batch`` (tensors on the params' device), the
+    params and state updated in place; returns them and the loss before
+    the step."""
+    loss, _, grads = value_and_grad(
+        lambda p: (_tier0_loss(p, batch), {}), params)
+    params, opt_state = adamw_update(opt_cfg, grads, opt_state, params)
+    return params, opt_state, loss
 
 
 def fit_temperature(p_logit: np.ndarray, q: np.ndarray,
@@ -179,14 +168,15 @@ def train_tier0(dataset: Dict[str, np.ndarray], *,
     n_val = min(max(1, int(n * val_frac)), n - 1) if n > 1 else 0
     n_train = n - n_val
     dev = resolve_device(device)
-    train = _to_device({k: v[:n_train] for k, v in dataset.items()}, dev)
+    train = to_tensors({k: v[:n_train] for k, v in dataset.items()}, dev)
     val = {k: v[n_train:] for k, v in dataset.items()}
 
     if init is None:
         params = T0.init_tier0(torch.Generator(device=dev).manual_seed(seed),
                                cfg, dev)
     else:
-        params = {k: v.to(dev) for k, v in init.items()}
+        # a copy: the update writes the params in place
+        params = {k: v.to(dev, copy=True) for k, v in init.items()}
     opt_cfg = opt_cfg or AdamWConfig(lr=3e-3, warmup_steps=20,
                                      total_steps=steps)
     opt_state = adamw_init(params)

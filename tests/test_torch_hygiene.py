@@ -41,7 +41,12 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.serving.engine, repro_torch.models.ssm, "
             "repro_torch.kernels.ssd_scan, repro_torch.configs.mamba2_1_3b, "
             "repro_torch.models.tier0, repro_torch.serving.feedback, "
-            "repro_torch.training.optimizer, repro_torch.training.tier0\n"
+            "repro_torch.training.optimizer, repro_torch.training.tier0, "
+            "repro_torch.training.sft, repro_torch.training.grpo, "
+            "repro_torch.training.checkpoint, repro_torch.data.pipeline, "
+            "repro_torch.core.rewards, repro_torch.core.baselines, "
+            "repro_torch.core.evaluation, repro_torch.launch.train, "
+            "repro_torch.launch.serve\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -83,6 +88,14 @@ def test_entry_points_default_to_the_card(monkeypatch):
         io.tier0_params_from_numpy({k: v.numpy() for k, v in head.items()})
     with pytest.raises(RuntimeError, match="CUDA"):
         T0train.train_tier0({"q": torch.zeros(4).numpy()}, steps=1)
+    from repro_torch.core.baselines import LinearSVMRouter, MLPRouter
+    from repro_torch.data.pipeline import batches
+    with pytest.raises(RuntimeError, match="CUDA"):
+        next(batches({"tokens": torch.zeros(4, 2).numpy()}, 2))
+    for router in (MLPRouter(steps=1), LinearSVMRouter(steps=1)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            router.fit(torch.zeros(4, 3).numpy(), torch.zeros(4).long()
+                       .numpy(), 2)
 
 
 def test_resolve_device_turns_tf32_off(monkeypatch):

@@ -483,6 +483,161 @@ def test_decode_emulation_row_bits_independent_of_layout(dtype):
 
 
 # nq, na, d, k  (tests/test_kernels.py, plus the SCOPE shape)
+# ---------------------------------------------------------------------------
+# The flash backward kernel's arithmetic (csrc/flash_attention_bwd.cu), on
+# the CPU
+# ---------------------------------------------------------------------------
+BWD_TILE = 16
+
+
+def _bwd_interval(qi, sq, sk, causal, window, q_offset):
+    """Query row qi's key interval [lo, hi), as key_interval in the kernel
+    (empty past the sequence)."""
+    if qi >= sq:
+        return 0, 0
+    qpos = qi + q_offset
+    hi = min(qpos + 1, sk) if causal else sk
+    lo = max(qpos - window + 1, 0) if window > 0 else 0
+    return lo, hi
+
+
+def _bwd_tile(qs, gs, ks, vs, rows, k0, lse, delta, iv):
+    """P and dS of a (rows) x (keys k0 .. k0 + 16) tile: tile_grads."""
+    nk = ks.shape[0]
+    p = torch.zeros(len(rows), nk)
+    ds = torch.zeros(len(rows), nk)
+    for a, qi in enumerate(rows):
+        lo, hi = iv[qi]
+        for j in range(nk):
+            if lo <= k0 + j < hi:
+                p[a, j] = torch.exp(qs[a] @ ks[j] - lse[a])
+                ds[a, j] = p[a, j] * (gs[a] @ vs[j] - delta[a])
+    return p, ds
+
+
+def _emulate_flash_bwd(q, k, v, o, g, *, causal=True, window=0, q_offset=0,
+                       scale=None):
+    """The backward kernel's three passes in float32: (stats) each row's
+    log-sum-exp by an online max/sum over 16-key tiles of the rows' union
+    interval, delta = sum(o * dO) as 8 strided partial sums in a butterfly;
+    (dkdv) per (batch, kv-head, 16-key tile), the group's q-heads in order,
+    the rows rlo .. rhi that may see the tile 16 at a time, dV += P^T dO and
+    dK += dS^T (scale q), row by row; (dq) per (batch, q-head, 16-row tile)
+    the key tiles of its union interval, dQ += dS K, times the scale."""
+    b, hq, sq, d = q.shape
+    hkv, sk, dv = k.shape[1], k.shape[2], v.shape[3]
+    group = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    q, k, v, o, g = (t.float() for t in (q, k, v, o, g))
+    iv = {qi: _bwd_interval(qi, sq, sk, causal, window, q_offset)
+          for qi in range(sq + BWD_TILE)}
+    lse = torch.zeros(b, hq, sq)
+    delta = torch.zeros(b, hq, sq)
+    for bi in range(b):
+        for h in range(hq):
+            kk = k[bi, h // group]
+            for q0 in range(0, sq, BWD_TILE):
+                rows = range(q0, q0 + BWD_TILE)
+                valid = [iv[r] for r in rows if iv[r][0] < iv[r][1]]
+                klo = min((lo for lo, _ in valid), default=sk)
+                khi = max((hi for _, hi in valid), default=0)
+                m = {r: torch.tensor(-1e30) for r in rows}
+                l_ = {r: torch.tensor(0.0) for r in rows}
+                for k0 in range(klo, khi, BWD_TILE):
+                    for r in rows:
+                        lo, hi = iv[r]
+                        for j in range(max(lo - k0, 0),
+                                       min(hi - k0, BWD_TILE)):
+                            s_ = (q[bi, h, r] * scale) @ kk[k0 + j]
+                            mn = torch.maximum(m[r], s_)
+                            l_[r] = l_[r] * torch.exp(m[r] - mn) \
+                                + torch.exp(s_ - mn)
+                            m[r] = mn
+                for r in rows:
+                    if r < sq:
+                        lse[bi, h, r] = m[r] + torch.log(l_[r]) \
+                            if l_[r] > 0 else 0.0
+                        part = [torch.sum(o[bi, h, r, c::8] * g[bi, h, r, c::8])
+                                for c in range(8)]
+                        for step in (1, 2, 4):
+                            part = [part[c] + part[c ^ step] for c in range(8)]
+                        delta[bi, h, r] = part[0]
+    dq = torch.zeros(b, hq, sq, d)
+    dk = torch.zeros(b, hkv, sk, d)
+    dvv = torch.zeros(b, hkv, sk, dv)
+    for bi in range(b):
+        for kvh in range(hkv):
+            for k0 in range(0, sk, BWD_TILE):
+                k1 = min(k0 + BWD_TILE, sk)
+                ks, vs = k[bi, kvh, k0:k1], v[bi, kvh, k0:k1]
+                rlo = max(k0 - q_offset, 0) if causal else 0
+                rhi = min(sq, k1 + window - 1 - q_offset) if window > 0 \
+                    else sq
+                for gi in range(group):
+                    h = kvh * group + gi
+                    for r0 in range(rlo, rhi, BWD_TILE):
+                        rows = [r for r in range(r0, r0 + BWD_TILE) if r < sq]
+                        qs = q[bi, h, rows] * scale
+                        gs = g[bi, h, rows]
+                        p, ds = _bwd_tile(qs, gs, ks, vs, rows, k0,
+                                          lse[bi, h, rows],
+                                          delta[bi, h, rows], iv)
+                        for a in range(len(rows)):
+                            dvv[bi, kvh, k0:k1] += p[a][:, None] * gs[a]
+                            dk[bi, kvh, k0:k1] += ds[a][:, None] * qs[a]
+    for bi in range(b):
+        for h in range(hq):
+            kk, vv = k[bi, h // group], v[bi, h // group]
+            for q0 in range(0, sq, BWD_TILE):
+                rows = [r for r in range(q0, q0 + BWD_TILE) if r < sq]
+                valid = [iv[r] for r in rows if iv[r][0] < iv[r][1]]
+                klo = min((lo for lo, _ in valid), default=sk)
+                khi = max((hi for _, hi in valid), default=0)
+                qs, gs = q[bi, h, rows] * scale, g[bi, h, rows]
+                acc = torch.zeros(len(rows), d)
+                for k0 in range(klo, khi, BWD_TILE):
+                    ks = kk[k0:k0 + BWD_TILE]
+                    _, ds = _bwd_tile(qs, gs, ks, vv[k0:k0 + BWD_TILE], rows,
+                                      k0, lse[bi, h, rows],
+                                      delta[bi, h, rows], iv)
+                    for j in range(ks.shape[0]):
+                        acc += ds[:, j:j + 1] * ks[j]
+                dq[bi, h, rows] = acc * scale
+    return dq, dk, dvv
+
+
+# b, hq, hkv, sq, sk, d, dv, kwargs: GQA groups 1 / 2 / 4, ragged lengths
+# (17, 33, 50: tiles of 16 with a partial last), window, positive and
+# negative q_offset (rows with no key), dv != d, non-causal
+BWD_EMU_CASES = [
+    (1, 4, 2, 17, 17, 32, 32, {}),
+    (1, 4, 1, 33, 33, 32, 16, dict(window=7)),
+    (1, 2, 2, 20, 37, 32, 32, dict(q_offset=17)),
+    (1, 2, 1, 20, 20, 16, 16, dict(q_offset=-5)),
+    (1, 2, 1, 33, 50, 16, 16, dict(causal=False, window=9, q_offset=20)),
+]
+
+
+@pytest.mark.parametrize("case", BWD_EMU_CASES)
+def test_flash_backward_kernel_arithmetic_matches_autograd(case):
+    """The emulated kernel (its tiles, key and row ranges, summation
+    orders) against autograd of the plain version, f32 within 2e-5; a row
+    with no valid key gets zero gradient."""
+    b, hq, hkv, sq, sk, d, dv, kw = case
+    q, k, v = (torch.tensor(x, requires_grad=True) for x in
+               _qkv(sq + d, b, hq, hkv, sq, sk, d, dv))
+    g = torch.tensor(_normal(sq * 3 + dv, b, hq, sq, dv))
+    out = FA.flash_attention_plain(q, k, v, **kw)
+    want = torch.autograd.grad(out, (q, k, v), g)
+    got = _emulate_flash_bwd(q.detach(), k.detach(), v.detach(),
+                             out.detach(), g, **kw)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want, strict=True):
+        np.testing.assert_allclose(a.numpy(), w.numpy(), rtol=0,
+                                   atol=F32_TOL, err_msg=name)
+    if kw.get("q_offset", 0) < 0:
+        assert bool((got[0][:, :, :-kw["q_offset"]] == 0).all())
+
+
 TOPK_CASES = [(16, 64, 8, 3), (37, 301, 24, 5), (128, 250, 32, 5),
               (5, 1000, 16, 10), (8, 250, 32, 5)]
 

@@ -34,6 +34,7 @@ from repro_torch.core.fingerprint import FingerprintLibrary, build_anchor_set
 from repro_torch.core.retrieval import AnchorRetriever
 from repro_torch.core.status import STATUS_DEGRADED, STATUS_OK
 from repro_torch.data.datasets import build_scope_data, stratified_anchors
+from repro_torch.data.pipeline import to_tensors
 from repro_torch.data.worldsim import World
 from repro_torch.models import tier0 as TT0
 from repro_torch.serving import faults as TF
@@ -397,7 +398,7 @@ def test_tier0_step_loss_and_update_match_reference(setup):
     tparams = io.tier0_params_from_numpy(jax.tree.map(np.asarray, jparams),
                                          device="cpu")
     tp, ts, tloss = TTr.tier0_step(
-        tparams, TOpt.adamw_init(tparams), TTr._to_device(mb, "cpu"),
+        tparams, TOpt.adamw_init(tparams), to_tensors(mb, "cpu"),
         TOpt.AdamWConfig(**vars(cfg)))
     assert float(tloss) == pytest.approx(float(jloss), abs=F32_TOL)
     assert ts.step == 1
