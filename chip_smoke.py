@@ -36,8 +36,13 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    autograd Function, as a loss reaches it) against autograd
                    of the plain version: f32 at d 32 to 256, groups 1 to 4,
                    ragged lengths, window, q_offset (rows with no key get
-                   zero gradient), dv != d; bf16 at the SFT shape; two
-                   launches bitwise equal; softcap under autograd refused
+                   zero gradient), dv != d, softcap; bf16 on tensor cores
+                   at the SFT shape and at 300 tokens, groups 1 / 3 / 8,
+                   d 32 to 256, dv != d, windows with either sign of
+                   q_offset, non-causal sk != sq, softcap; the saved
+                   log-sum-exp against the plain one (+inf on rows with
+                   no key), the forward's bits equal with and without it;
+                   two launches bitwise equal
   4. timing      — each kernel, its plain version and one PyTorch library
                    call computing the same function (device time: CUDA
                    graph replays between CUDA events), beside the least time
@@ -49,7 +54,10 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    product, torch.topk); no single PyTorch call computes
                    the SSD scan or the SSD decode step; the flash backward
                    at the SFT shape beside its plain version's autograd and
-                   SDPA's backward (those two as eager calls)
+                   SDPA's backward, all three by the profiler's sum of
+                   device time (and eager), the kernel also in graph
+                   replays; the flash forward with and without its
+                   log-sum-exp output
   5. tiny        — ``ScopeEngine.serve`` on scope-tiny with seeded weights,
                    once on the card (kernels) and once on the CPU (plain
                    versions): equal token streams and decisions
@@ -623,10 +631,16 @@ def bwd_checks(torch, rnd, compare, s_train: int):
     """The flash backward kernel against autograd of the plain version on
     the card, through ``flash_attention`` as a loss reaches it (q, k, v the
     model's transposed views requiring grad, so the call goes through the
-    autograd Function: the forward kernel, then the backward kernel).  dq,
-    dk and dv each within tol x max(1, max|want|): gradients reach ~10,
-    where one bf16 step is 0.06.  The main path's shape is the SFT batch:
-    64 sequences of ``s_train`` tokens, 32/8 heads of 128, bf16, causal."""
+    autograd Function: the forward kernel saving each row's log-sum-exp,
+    then the backward kernel).  dq, dk and dv each within tol x max(1,
+    max|want|): gradients reach ~10, where one bf16 step is 0.06.  The main
+    path's shape is the SFT batch: 64 sequences of ``s_train`` tokens, 32/8
+    heads of 128, bf16, causal.  bf16 runs the tensor-core kernels (every
+    mask and shape they take: several key and row tiles, groups 1 to 8, d
+    32 to 256, dv != d, windows with either sign of q_offset, non-causal sk
+    != sq, softcap), f32 the FMA kernels.  On the main case also: the saved
+    log-sum-exp against the plain one, the forward's bits without and with
+    it, and two launches bitwise equal."""
     from repro_torch.kernels import flash_attention as FA
     bf, f32 = torch.bfloat16, torch.float32
     cases = [
@@ -644,9 +658,29 @@ def bwd_checks(torch, rnd, compare, s_train: int):
         ("bwd f32 d=256 non-causal window offset", (2, 4, 2, 33, 50, 256,
                                                     256),
          dict(causal=False, window=9, q_offset=20), f32, None),
+        ("bwd f32 window+softcap", (2, 8, 2, 40, 40, 64, 64),
+         dict(window=16, softcap=30.0), f32, None),
         ("bwd bf16 g=1", (2, 8, 8, 45, 45, 128, 128), {}, bf, None),
         ("bwd bf16 window q_offset", (2, 8, 2, 40, 70, 64, 64),
          dict(window=16, q_offset=30), bf, None),
+        # several 64-key dK/dV blocks, 32-row steps and 32-key dQ tiles,
+        # a partial last of each
+        ("bwd bf16 s=300 ragged", (2, 8, 2, 300, 300, 128, 128), {}, bf,
+         None),
+        ("bwd bf16 group 8", (2, 16, 2, s_train, s_train, 128, 128), {}, bf,
+         None),
+        ("bwd bf16 group 3", (2, 6, 2, 70, 70, 64, 64), {}, bf, None),
+        ("bwd bf16 d=32", (2, 8, 2, 70, 70, 32, 32), {}, bf, None),
+        # d + dv > 256: dK/dV columns split over 8 warps
+        ("bwd bf16 d=256", (1, 4, 2, 100, 100, 256, 256), {}, bf, None),
+        ("bwd bf16 dv!=d", (1, 8, 4, 40, 40, 64, 32), {}, bf, None),
+        ("bwd bf16 d=32 dv=256", (1, 4, 1, 40, 40, 32, 256), {}, bf, None),
+        ("bwd bf16 window negative q_offset", (2, 8, 2, 90, 90, 64, 64),
+         dict(window=20, q_offset=-5), bf, None),
+        ("bwd bf16 sk!=sq non-causal", (2, 4, 2, 33, 100, 64, 64),
+         dict(causal=False), bf, None),
+        ("bwd bf16 softcap", (2, 8, 2, s_train, s_train, 128, 128),
+         dict(softcap=30.0), bf, None),
     ]
     for name, (b, hq, hkv, sq, sk, d, dv), kw, dt, main in cases:
         q = rnd(b, sq, hq, d, dt=dt).transpose(1, 2).requires_grad_(True)
@@ -668,27 +702,38 @@ def bwd_checks(torch, rnd, compare, s_train: int):
                   f"{name} {part}: {g.shape} {g.dtype} != {w.shape} "
                   f"{w.dtype}")
             compare(f"{name} {part}", g, w, tol, None, scale="max")
-        if main:
-            errs_main = max((g.float() - w.float()).abs().max().item()
-                            for g, w in zip(got, want, strict=True))
-            compare.errs[main] = errs_main
-            again = torch.autograd.grad(FA.flash_attention(q, k, v, **kw),
-                                        (q, k, v), dout)
-            check(all(torch.equal(a, c) for a, c in zip(got, again,
-                                                        strict=True)),
-                  f"{name}: two launches differ")
-            print(f"   {name}: two launches bitwise equal")
         if kw.get("q_offset", 0) < 0:
             check(bool((got[0][:, :, :-kw["q_offset"]] == 0).all()),
                   f"{name}: rows with no key got a gradient")
-    q = rnd(1, 2, 8, 32).requires_grad_(True)
-    try:
-        FA.flash_attention(q, q, q, softcap=30.0)
-    except ValueError as e:
-        print(f"   bwd softcap: refused ({e})")
-    else:
-        raise SmokeFailure("flash_attention with softcap under autograd "
-                           "was not refused")
+        if not (main or "masked" in name):
+            continue
+        # the saved log-sum-exp: within 2e-5 x max(1, |want|) of the plain
+        # one on every row with a key, +inf on a row without
+        with torch.no_grad():
+            out, lse = FA.flash_attention_cuda(q, k, v, return_lse=True,
+                                               **kw)
+            lse_want = FA.flash_lse_plain(q, k, v, **kw)
+        empty = torch.isinf(lse_want)
+        check(torch.equal(torch.isinf(lse), empty)
+              and bool((lse[empty] > 0).all()),
+              f"{name}: rows with no key do not save +inf")
+        compare(f"{name} saved lse", lse[~empty], lse_want[~empty], F32_TOL,
+                None, scale="each")
+        if not main:
+            continue
+        compare.errs[main] = max((g.float() - w.float()).abs().max().item()
+                                 for g, w in zip(got, want, strict=True))
+        # the serve path's call (no log-sum-exp) writes the same output
+        check(torch.equal(out, FA.flash_attention_cuda(q.detach(), k.detach(),
+                                                       v.detach(), **kw)),
+              f"{name}: the forward's output differs with the lse saved")
+        again = torch.autograd.grad(FA.flash_attention(q, k, v, **kw),
+                                    (q, k, v), dout)
+        check(all(torch.equal(a, c) for a, c in zip(got, again,
+                                                    strict=True)),
+              f"{name}: two launches differ")
+        print(f"   {name}: two launches bitwise equal; forward bits equal "
+              "with and without the saved lse")
 
 
 def step_checks(torch, gen, L: int, main_chunk: int, compare):
@@ -850,6 +895,12 @@ def kernel_timings(torch, L: int, retriever, query_embs, s_train: int):
               f"views of (b, s, h, d)")
     out["flash_attention"]["bound_ms"], out["flash_attention"]["bound_by"] = \
         bound(nbytes, 2 * 2 * d * pairs * b * hq, "bfloat16")
+    # the same call saving each row's log-sum-exp, as training's forward
+    # does (the serve path saves none)
+    out["flash_attention"]["lse_ms"] = device_ms(
+        torch, lambda: FA.flash_attention_cuda(q, k, v, return_lse=True), 50)
+    print(f"   flash_attention: {out['flash_attention']['ms']:.5f} ms, with "
+          f"the lse saved {out['flash_attention']['lse_ms']:.5f} ms")
     # the same batch at 128-token prompts, off the main path: 4 key tiles a
     # row tile instead of 2
     q2, k2, v2 = (torch.randn(b, 128, h, d, generator=gen, device=dev)
@@ -1010,15 +1061,45 @@ def kernel_timings(torch, L: int, retriever, query_embs, s_train: int):
     return out
 
 
+def kernels_ms(torch, fn, iters: int, warmup: int = 3, by_kernel=False):
+    """Device time per call of ``fn``: the CUDA time of every kernel (and
+    memset / copy) the profiler sees over ``iters`` calls, summed, over
+    ``iters``.  The gaps between kernels, where the host is launching the
+    next one, are not in it, so an eager call with many small kernels is
+    timed as a CUDA-graph replay of the same kernels would be, minus the
+    graph's own small gaps.  With ``by_kernel`` also {kernel name: ms per
+    call}."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    us = sum(e.self_device_time_total for e in events)
+    check(us > 0, "the profiler saw no device time")
+    if not by_kernel:
+        return us / 1e3 / iters
+    return us / 1e3 / iters, {e.key.split("(")[0][:60]:
+                              e.self_device_time_total / 1e3 / iters
+                              for e in events}
+
+
 def bwd_timing(torch, gen, s: int):
     """The flash backward kernel at the SFT step's shape (64 sequences of
     ``s`` tokens, 32/8 heads of 128, bf16, causal, q, k, v the model's
-    views): the kernel's wrapper (three launches) in CUDA-graph replays;
-    the plain version's backward (autograd of ``flash_attention_plain``)
-    and, as a yardstick only, the backward of
-    ``F.scaled_dot_product_attention`` on the same inputs, each timed as
-    eager calls between CUDA events (autograd's backward is not captured
-    in a graph)."""
+    views), beside the plain version's backward (autograd of
+    ``flash_attention_plain``) and, as a yardstick only, the backward of
+    ``F.scaled_dot_product_attention`` on the same inputs.  All three are
+    timed the same way, by device time: the CUDA time of their kernels
+    summed from ``torch.profiler`` (``kernels_ms``; autograd's backward is
+    not captured in a graph).  ``ms`` is the kernel's wrapper in CUDA-graph
+    replays, as every other kernel's, ``prof_ms`` the same call by the
+    profiler's sum; the eager times of all three stand beside them.  The
+    forward kernel at this shape is timed without and with its log-sum-exp
+    output (graph replays)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     dev, bf = "cuda", torch.bfloat16
@@ -1031,29 +1112,60 @@ def bwd_timing(torch, gen, s: int):
     q, k, v = view(hq), view(hkv), view(hkv)
     dout = torch.randn(b, hq, s, d, generator=gen, device=dev).to(bf)
     with torch.no_grad():
-        out = FA.flash_attention_cuda(q, k, v)
+        out, lse = FA.flash_attention_cuda(q, k, v, return_lse=True)
     plain_out = FA.flash_attention_plain(q, k, v)
     sdpa_out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                               enable_gqa=True)
+
+    def kernel():
+        return FA.flash_attention_bwd_cuda(q, k, v, out, dout, lse)
+
+    def plain():
+        return torch.autograd.grad(plain_out, (q, k, v), dout,
+                                   retain_graph=True)
+
+    def sdpa():
+        return torch.autograd.grad(sdpa_out, (q, k, v), dout,
+                                   retain_graph=True)
+
+    with torch.no_grad():
+        fwd = dict(
+            fwd_ms=device_ms(torch, lambda: FA.flash_attention_cuda(q, k, v),
+                             50),
+            fwd_lse_ms=device_ms(torch, lambda: FA.flash_attention_cuda(
+                q, k, v, return_lse=True), 50))
+    prof_ms, split = kernels_ms(torch, kernel, 20, by_kernel=True)
     t = dict(
-        ms=device_ms(torch, lambda: FA.flash_attention_bwd_cuda(
-            q, k, v, out, dout), 20),
-        plain_ms=eager_ms(torch, lambda: torch.autograd.grad(
-            plain_out, (q, k, v), dout, retain_graph=True), 10),
-        library_ms=eager_ms(torch, lambda: torch.autograd.grad(
-            sdpa_out, (q, k, v), dout, retain_graph=True), 20),
-        eager_ms=eager_ms(torch, lambda: FA.flash_attention_bwd_cuda(
-            q, k, v, out, dout), 20),
+        ms=device_ms(torch, kernel, 20),
+        prof_ms=prof_ms, split_ms=split,
+        plain_ms=kernels_ms(torch, plain, 10),
+        library_ms=kernels_ms(torch, sdpa, 20),
+        eager_ms=eager_ms(torch, kernel, 20),
+        plain_eager_ms=eager_ms(torch, plain, 10),
+        library_eager_ms=eager_ms(torch, sdpa, 20),
+        **fwd,
         shape=f"q ({b},{hq},{s},{d}) kv ({b},{hkv},{s},{d}) bf16 causal, "
-              "views of (b, s, h, d); out, dO (b, hq, s, d)",
+              "views of (b, s, h, d); out, dO (b, hq, s, d); lse (b, hq, s) "
+              "f32",
         library_call="backward of scaled_dot_product_attention (GQA, "
-                     "causal), eager; plain_ms also eager")
-    # q, k, v, o and dO read once, dq, dk, dv written once; per causal
+                     "causal); plain_ms and library_ms are profiler sums of "
+                     "device time, as prof_ms")
+    print(f"   flash_attention_bwd device ms, profiler sums: kernel "
+          f"{t['prof_ms']:.5f} plain {t['plain_ms']:.5f} SDPA backward "
+          f"{t['library_ms']:.5f}; kernel graph replays {t['ms']:.5f}; "
+          f"eager: kernel {t['eager_ms']:.5f} plain "
+          f"{t['plain_eager_ms']:.5f} SDPA backward "
+          f"{t['library_eager_ms']:.5f}")
+    print("   flash_attention_bwd by launch (profiler, ms a call): "
+          + ", ".join(f"{k} {v:.5f}" for k, v in split.items()))
+    print(f"   flash forward at the SFT shape: {t['fwd_ms']:.5f} ms, with "
+          f"the lse saved {t['fwd_lse_ms']:.5f} ms")
+    # q, k, v, o, dO and lse read once, dq, dk, dv written once; per causal
     # (query, key) pair and q-head the scores (2d), dP (2dv), dV (2dv), dK
     # (2d) and dQ (2d)
     pairs = s * (s + 1) // 2
     nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
-                  + 2 * out.numel())
+                  + 2 * out.numel()) + 4 * lse.numel()
     t["bound_ms"], t["bound_by"] = bound(
         nbytes, pairs * b * hq * (6 * d + 4 * d), "bfloat16")
     del plain_out, sdpa_out

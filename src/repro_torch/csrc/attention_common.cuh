@@ -25,6 +25,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 
 namespace repro {
 
@@ -86,13 +87,15 @@ struct DenseKeys {
 // [key_lo, key_hi): union of the rows' intervals (what the block streams).
 // kp/vp: K/V bases of this (batch, kv-head); key j starts at
 // kp + keys.k(j) and vp + keys.v(j).
+// lse: per-row pointer (or nullptr) for the row's log-sum-exp m + ln l of
+// its scaled (softcapped) scores, +inf for a row with no key; or nullptr.
 template <typename T, int D, int DV, int R, typename Keys>
 __device__ void attend_rows(const float* __restrict__ qs,
                             const int* __restrict__ lo, const int* __restrict__ hi,
                             T* const* __restrict__ out, int key_lo, int key_hi,
                             const T* __restrict__ kp, const T* __restrict__ vp,
                             const Keys keys, float softcap, float* ks,
-                            float* vs) {
+                            float* vs, float* const* lse = nullptr) {
   static_assert(DV % 32 == 0, "DV must be a multiple of 32");
   constexpr int C = DV / 32;  // output columns per lane
   const int warp = threadIdx.x >> 5;
@@ -158,6 +161,8 @@ __device__ void attend_rows(const float* __restrict__ qs,
   for (int r = 0; r < R; ++r) {
     T* o = out[r * WARPS + warp];
     if (o == nullptr) continue;
+    if (lse != nullptr && lse[r * WARPS + warp] != nullptr && lane == 0)
+      *lse[r * WARPS + warp] = l[r] == 0.f ? INFINITY : m[r] + logf(l[r]);
     const float denom = l[r] == 0.f ? 1.f : l[r];
 #pragma unroll
     for (int c = 0; c < C; ++c) o[c * 32 + lane] = from_f32<T>(acc[r][c] / denom);
@@ -192,13 +197,13 @@ cudaError_t dispatch_head_dims(int d, int dv, F&& f) {
 // needs more than the default 48 KB, then launch and report the launch error.
 template <typename Kernel, typename Params>
 cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
-                   const Params& p) {
+                   const Params& p, int threads = THREADS) {
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (e != cudaSuccess) return e;
   }
-  kernel<<<grid, THREADS, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 

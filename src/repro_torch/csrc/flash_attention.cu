@@ -43,14 +43,17 @@
 // keeps the 2e-5 parity with the f32 reference that tensor cores (bf16 or
 // TF32) cannot.
 //
+// Either kernel also writes each row's log-sum-exp when given an ``lse``
+// buffer (training's forward, which the backward reads instead of
+// recomputing it); the serve path passes none and writes the same output.
+//
 // Inputs may be strided views (last dim contiguous): the model passes the
 // (b, s, h, d) projections transposed without a copy.  The bf16 kernel
 // also needs every stride a multiple of 8 elements and 16-byte aligned
 // bases (the wrapper checks both).
 #include <initializer_list>
 
-#include "attention_common.cuh"
-#include "mma_bf16.cuh"
+#include "flash_common.cuh"
 
 namespace repro {
 
@@ -59,6 +62,7 @@ struct FlashParams {
   const void* k;
   const void* v;
   void* out;  // (b, hq, sq, dv), contiguous
+  float* lse;  // (b, hq, sq) f32, or null: each row's log-sum-exp
   int hq, group, sq, sk;
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
   int causal, window, q_offset;
@@ -76,6 +80,7 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(const FlashParams p) {
   float* vs = ks + BK * (D + 1);
   __shared__ int lo[FLASH_ROWS], hi[FLASH_ROWS];
   __shared__ T* out[FLASH_ROWS];
+  __shared__ float* lse[FLASH_ROWS];
   __shared__ int key_range[2];
 
   const int b = blockIdx.x / p.hq, h = blockIdx.x % p.hq;
@@ -92,16 +97,17 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(const FlashParams p) {
     const int r = threadIdx.x, qi = q0 + r;
     int rlo = 0, rhi = 0;
     T* o = nullptr;
+    float* ls = nullptr;
     if (qi < p.sq) {
-      const int qpos = qi + p.q_offset;
-      rhi = p.causal ? min(qpos + 1, p.sk) : p.sk;
-      rlo = p.window > 0 ? max(qpos - p.window + 1, 0) : 0;
-      o = static_cast<T*>(p.out) +
-          ((static_cast<long long>(b) * p.hq + h) * p.sq + qi) * DV;
+      row_interval(p, qi, rlo, rhi);
+      const long long row = (static_cast<long long>(b) * p.hq + h) * p.sq + qi;
+      o = static_cast<T*>(p.out) + row * DV;
+      if (p.lse != nullptr) ls = p.lse + row;
     }
     lo[r] = rlo;
     hi[r] = rhi;
     out[r] = o;
+    lse[r] = ls;
   }
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -121,7 +127,7 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(const FlashParams p) {
       qs, lo, hi, out, key_range[0], key_range[1],
       static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh,
       static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh,
-      DenseKeys{p.k_ss, p.v_ss}, p.softcap, ks, vs);
+      DenseKeys{p.k_ss, p.v_ss}, p.softcap, ks, vs, lse);
 }
 
 // ---------------------------------------------------------------------------
@@ -138,62 +144,6 @@ struct MmaTile {
       (size_t(M) * QS + size_t(STAGES) * BK * (KS + VS)) *
       sizeof(__nv_bfloat16);
 };
-
-constexpr float LOG2E = 1.4426950408889634f;
-
-// 2^x, one MUFU instruction (relative error ~2^-22); 2^(-huge) = +0
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Key interval [lo, hi) of query position qi: the one mask of every row.
-__device__ __forceinline__ void row_interval(const FlashParams& p, int qi,
-                                             int& lo, int& hi) {
-  const int qpos = qi + p.q_offset;
-  hi = p.causal ? min(qpos + 1, p.sk) : p.sk;
-  lo = p.window > 0 ? max(qpos - p.window + 1, 0) : 0;
-}
-
-// Union of the non-empty key intervals of positions [p0, p1].  lo(q) and
-// hi(q) never decrease with q, and the positions with a non-empty interval
-// form one run (causal: q + q_offset >= 0; window: q + q_offset <= sk +
-// window - 2), so the union runs from the run's first lo to its last hi.
-// Empty: lo = sk, hi = 0.
-__device__ __forceinline__ void key_span(const FlashParams& p, int p0, int p1,
-                                         int& lo, int& hi) {
-  if (p.causal) p0 = max(p0, -p.q_offset);
-  if (p.window > 0) p1 = min(p1, p.sk + p.window - 2 - p.q_offset);
-  lo = p.sk;
-  hi = 0;
-  if (p0 > p1) return;
-  int unused;
-  row_interval(p, p0, lo, unused);
-  row_interval(p, p1, unused, hi);
-}
-
-// ROWS x W bf16 rows (W / 8 16-byte chunks each) into shared memory at row
-// stride S; row j comes from base + (first + j) * ss.  Rows in [end, zend)
-// are zero-filled, rows at or past zend left as they are.  A thread copies
-// one chunk column of every (THREADS / chunks)-th row.
-template <int ROWS, int W, int S>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* base,
-                                          long long ss, int first, int end,
-                                          int zend) {
-  constexpr int C = W / 8, STEP = THREADS / C;
-  static_assert(THREADS % C == 0 && ROWS % STEP == 0, "tile shape");
-  const int j = threadIdx.x / C, c = threadIdx.x % C;
-  const __nv_bfloat16* src = base + (first + j) * ss + c * 8;
-#pragma unroll
-  for (int i = 0; i < ROWS / STEP; ++i) {
-    const int row = first + j + i * STEP;
-    if (row < zend)
-      cp_async16(dst + (j + i * STEP) * S + c * 8,
-                 row < end ? src + i * STEP * ss : base, row < end);
-  }
-}
 
 template <int D, int DV>
 // up to head dim 128, 4 blocks a SM: at most 128 registers a thread
@@ -412,7 +362,16 @@ __global__ void __launch_bounds__(THREADS, (D > 128 || DV > 128) ? 1 : 4)
     lt += __shfl_xor_sync(FULL_MASK, lt, 1);
     lt += __shfl_xor_sync(FULL_MASK, lt, 2);
     const float inv = 1.f / (lt == 0.f ? 1.f : lt);
-    bf16* orow = qs + (wr0 + (lane >> 2) + 8 * h) * QS + (lane & 3) * 2;
+    const int r = wr0 + (lane >> 2) + 8 * h;
+    // the row's log-sum-exp in the scaled (or softcapped) domain of its
+    // exponent: ln sum exp(x) = m + ln l for the scores x = scale s (or the
+    // softcapped s), so 2^(x log2 e - lse log2 e) is the row's softmax; a
+    // row with no key writes +inf, which makes every such term 0
+    if (p.lse != nullptr && (lane & 3) == 0 && r < nrows)
+      p.lse[(static_cast<long long>(b) * p.hq + kvh * p.group + row_g[r]) *
+                p.sq + row_qi[r]] =
+          lt == 0.f ? INFINITY : (capped ? m[h] : m[h] * p.scale) + logf(lt);
+    bf16* orow = qs + r * QS + (lane & 3) * 2;
 #pragma unroll
     for (int j = 0; j < OT; ++j)
       *reinterpret_cast<uint32_t*>(orow + j * 8) =
@@ -457,7 +416,8 @@ struct FlashLaunch {
 }  // namespace repro
 
 extern "C" int repro_flash_attention(
-    const void* q, const void* k, const void* v, void* out, int dtype, int b,
+    const void* q, const void* k, const void* v, void* out, float* lse,
+    int dtype, int b,
     int hq, int hkv, int sq, int sk, int d, int dv, long long q_sb,
     long long q_sh, long long q_ss, long long k_sb, long long k_sh,
     long long k_ss, long long v_sb, long long v_sh, long long v_ss, int causal,
@@ -472,7 +432,7 @@ extern "C" int repro_flash_attention(
         return cudaErrorInvalidValue;
   }
   repro::FlashLaunch f;
-  f.p = repro::FlashParams{q, k, v, out, hq, hq / hkv, sq, sk,
+  f.p = repro::FlashParams{q, k, v, out, lse, hq, hq / hkv, sq, sk,
                            q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
                            causal, window, q_offset, softcap, scale};
   f.batch = b;

@@ -11,10 +11,12 @@ online softmax in registers and read strided q/k/v views directly, so the
 model passes its transposed projections without a copy.  See the source
 for the design.
 
-The gradient is the CUDA kernel ``csrc/flash_attention_bwd.cu`` (three
-grid launches a call: the rows' log-sum-exp and delta, dK/dV by key tile,
-dQ by query tile), wired in by ``FlashAttention``, an autograd Function
-whose forward is the forward kernel.
+The gradient is the CUDA kernel ``csrc/flash_attention_bwd.cu`` (two grid
+launches a call: dQ by 64 position-major rows of a GQA group, which also
+writes each row's delta = rowsum(dO * O), then dK/dV by 64 keys; bf16 on
+tensor cores, f32 on FMAs), wired in by ``FlashAttention``, an autograd
+Function whose forward is the forward kernel asked to save each row's
+log-sum-exp, which the backward reads instead of recomputing it.
 
 ``flash_attention`` dispatches on the tensor's device: a CPU tensor goes to
 ``flash_attention_plain`` (whose autograd is the plain version of both
@@ -22,7 +24,8 @@ directions); on a CUDA tensor, a call that autograd records (grad enabled,
 an input that requires grad) goes through ``FlashAttention``, any other
 launches the forward kernel; either raises on what the kernels do not
 take.  ``launches`` counts forward launches, ``bwd_launches`` backward
-calls.
+calls.  Calls outside autograd (the serve path, rollouts, no-grad
+forwards) pass no log-sum-exp buffer, and the kernel writes none.
 """
 from __future__ import annotations
 
@@ -39,14 +42,14 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0
 bwd_launches = 0
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
              + [ctypes.c_longlong] * 9
              + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
                 ctypes.c_int, ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
                  + [ctypes.c_longlong] * 15
-                 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                    ctypes.c_void_p])
+                 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                    ctypes.c_int, ctypes.c_void_p])
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -61,33 +64,35 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                      q_offset=q_offset)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        if softcap > 0.0:
-            raise ValueError("flash_attention: no backward kernel for "
-                             "softcap > 0 (no training path uses it)")
-        return FlashAttention.apply(q, k, v, causal, window, scale, q_offset)
+        return FlashAttention.apply(q, k, v, causal, window, softcap, scale,
+                                    q_offset)
     return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                 softcap=softcap, scale=scale,
                                 q_offset=q_offset)
 
 
 class FlashAttention(torch.autograd.Function):
-    """Autograd over the two CUDA kernels: the forward kernel, and the
-    backward kernel on the saved q, k, v and output."""
+    """Autograd over the two CUDA kernels: the forward kernel, which also
+    writes each row's log-sum-exp, and the backward kernel on the saved q,
+    k, v, output and log-sum-exp."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, scale, q_offset):
-        out = flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                   scale=scale, q_offset=q_offset)
-        ctx.save_for_backward(q, k, v, out)
-        ctx.mask = dict(causal=causal, window=window, scale=scale,
-                        q_offset=q_offset)
+    def forward(ctx, q, k, v, causal, window, softcap, scale, q_offset):
+        mask = dict(causal=causal, window=window, softcap=softcap,
+                    scale=scale, q_offset=q_offset)
+        out, lse = flash_attention_cuda(q, k, v, return_lse=True, **mask)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = mask
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, dout, **ctx.mask)
-        return dq, dk, dv, None, None, None, None
+        q, k, v, out, lse = ctx.saved_tensors
+        if not _rows_fit(dout):
+            dout = dout.contiguous()
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, dout, lse,
+                                              **ctx.mask)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
@@ -101,6 +106,25 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
                               window=window, q_offset=q_offset,
                               device=q.device)
     return out.masked_fill(~mask.any(dim=-1)[:, None], 0.0)
+
+
+def flash_lse_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, scale: Optional[float] = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """(b, hq, sq) f32: each row's log-sum-exp over its valid keys of the
+    scaled (then softcapped) scores, the forward kernel's ``lse`` output;
+    +inf for a row with no valid key."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    kf = k.float().repeat_interleave(hq // hkv, dim=1)
+    x = (q.float() * scale) @ kf.transpose(-1, -2)
+    if softcap > 0.0:
+        x = ref.softcap_fn(x, softcap)
+    mask = ref.attention_mask(sq, sk, causal=causal, window=window,
+                              q_offset=q_offset, device=q.device)
+    lse = torch.logsumexp(x.masked_fill(~mask, float("-inf")), dim=-1)
+    return lse.masked_fill(~mask.any(dim=-1), float("inf"))
 
 
 def check_args(q, k, v) -> None:
@@ -126,17 +150,27 @@ def check_args(q, k, v) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"{name} must be contiguous in its last dim")
-        # the bf16 kernel copies every row in 16-byte pieces
-        if t.dtype == torch.bfloat16 and (
-                any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16):
+        if not _rows_fit(t):
             raise ValueError(f"bf16 {name} needs strides {t.stride()} that "
                              "are multiples of 8 elements and a 16-byte "
                              "aligned base")
 
 
+def _rows_fit(t: torch.Tensor) -> bool:
+    """Whether the kernels can read ``t``'s rows: a contiguous last dim and,
+    in bf16 (copied in 16-byte pieces), strides that are multiples of 8
+    elements and a 16-byte aligned base."""
+    return t.stride(3) == 1 and not (
+        t.dtype == torch.bfloat16
+        and (any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16))
+
+
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                          softcap: float = 0.0, scale: Optional[float] = None,
-                         q_offset: int = 0) -> torch.Tensor:
+                         q_offset: int = 0, return_lse: bool = False):
+    """The forward kernel's output; with ``return_lse`` also each row's
+    log-sum-exp (b, hq, sq) f32 (``flash_lse_plain``), which only then is
+    written."""
     global launches
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention kernel needs CUDA tensors on one "
@@ -146,8 +180,11 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     hkv, sk, dv = k.shape[1], k.shape[2], v.shape[3]
     scale = scale if scale is not None else d ** -0.5
     out = torch.empty((b, hq, sq, dv), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     fn = build.load("flash_attention", "repro_flash_attention", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             None if lse is None else lse.data_ptr(),
              DTYPES[q.dtype], b, hq, hkv, sq, sk, d, dv,
              q.stride(0), q.stride(1), q.stride(2),
              k.stride(0), k.stride(1), k.stride(2),
@@ -156,17 +193,19 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
              int(q_offset), torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
-def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal: bool = True,
-                             window: int = 0, scale: Optional[float] = None,
+def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *, causal: bool = True,
+                             window: int = 0, softcap: float = 0.0,
+                             scale: Optional[float] = None,
                              q_offset: int = 0):
     """(dq, dk, dv) of ``flash_attention(q, k, v)`` whose output is ``out``
-    for the upstream gradient ``dout`` (b, hq, sq, dv); each in its input's
-    shape and dtype, contiguous.  Softcap is not taken."""
+    and log-sum-exp ``lse`` (the forward kernel's, ``return_lse=True``) for
+    the upstream gradient ``dout`` (b, hq, sq, dv); each in its input's
+    shape and dtype, contiguous."""
     global bwd_launches
-    if any(t.device != q.device for t in (k, v, out, dout)) \
+    if any(t.device != q.device for t in (k, v, out, dout, lse)) \
             or q.device.type != "cuda":
         raise ValueError("flash_attention backward needs CUDA tensors on one "
                          "device")
@@ -175,25 +214,29 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal: bool = True,
     hkv, sk, dv = k.shape[1], k.shape[2], v.shape[3]
     for name, t in (("out", out), ("dout", dout)):
         if tuple(t.shape) != (b, hq, sq, dv) or t.dtype != q.dtype \
-                or t.stride(3) != 1:
-            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} must be "
-                             f"({b}, {hq}, {sq}, {dv}) {q.dtype}, contiguous "
-                             "in its last dim")
+                or not _rows_fit(t):
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} strides "
+                             f"{t.stride()} must be ({b}, {hq}, {sq}, {dv}) "
+                             f"{q.dtype}, laid out as check_args asks of q")
+    if tuple(lse.shape) != (b, hq, sq) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous():
+        raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype} must be "
+                         f"({b}, {hq}, {sq}) float32, contiguous")
     scale = scale if scale is not None else d ** -0.5
     dq = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, hkv, sk, d), dtype=q.dtype, device=q.device)
     dvv = torch.empty((b, hkv, sk, dv), dtype=q.dtype, device=q.device)
-    stats = torch.empty((2, b, hq, sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     fn = build.load("flash_attention_bwd", "repro_flash_attention_bwd",
                     _BWD_ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(),
-             stats[0].data_ptr(), stats[1].data_ptr(),
+             lse.data_ptr(), delta.data_ptr(),
              DTYPES[q.dtype], b, hq, hkv, sq, sk, d, dv,
              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
              *out.stride()[:3], *dout.stride()[:3],
-             int(causal), int(window), float(scale), int(q_offset),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             int(causal), int(window), float(softcap), float(scale),
+             int(q_offset), torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention_bwd")
     bwd_launches += 1
     return dq, dk, dvv

@@ -146,13 +146,15 @@ LOG2E = 1.4426950408889634
 
 
 def _emulate_bf16_flash(q, k, v, *, causal=True, window=0, softcap=0.0,
-                        q_offset=0, block_k=32):
+                        q_offset=0, block_k=32, return_lse=False):
     """The numerics of ``flash_mma_kernel`` (``csrc/flash_attention.cu``),
     test-only: bf16 q, k, v; S = q.k^T summed in f32 and scaled after the
     product, inside the exponent (2^(s c - m c), c = scale log2 e, or
     log2 e after a softcap); an online softmax in f32 over 32-key tiles
     with the TPU kernel's guards; P rounded to bf16 before P.V, which sums
-    in f32; l sums the unrounded P."""
+    in f32; l sums the unrounded P.  With ``return_lse`` also the saved
+    log-sum-exp, scale m + ln l (m + ln l after a softcap), +inf where l is
+    0."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -181,7 +183,11 @@ def _emulate_bf16_flash(q, k, v, *, causal=True, window=0, softcap=0.0,
         l = l * alpha + p.sum(-1, keepdim=True)
         acc = acc * alpha + p.bfloat16().float() @ vf[:, :, t0:t0 + block_k]
         m = m_new
-    return (acc / torch.where(l == 0.0, 1.0, l)).bfloat16()
+    out = (acc / torch.where(l == 0.0, 1.0, l)).bfloat16()
+    if not return_lse:
+        return out
+    lse = (m if softcap > 0.0 else m * scale) + torch.log(l)
+    return out, torch.where(l == 0.0, float("inf"), lse)[..., 0]
 
 
 @pytest.mark.parametrize("kw", [{}, dict(window=16, softcap=30.0),
@@ -482,162 +488,186 @@ def test_decode_emulation_row_bits_independent_of_layout(dtype):
                                atol=tol, rtol=tol)
 
 
-# nq, na, d, k  (tests/test_kernels.py, plus the SCOPE shape)
 # ---------------------------------------------------------------------------
 # The flash backward kernel's arithmetic (csrc/flash_attention_bwd.cu), on
 # the CPU
 # ---------------------------------------------------------------------------
-BWD_TILE = 16
+BWD_KEYS = 64    # keys of a dK/dV block
+BWD_ROWS = 32    # position-major rows of a dK/dV step
+DQ_ROWS = 64     # position-major rows of a dQ block
+DQ_KEYS = 32     # keys of a dQ tile
 
 
-def _bwd_interval(qi, sq, sk, causal, window, q_offset):
-    """Query row qi's key interval [lo, hi), as key_interval in the kernel
-    (empty past the sequence)."""
-    if qi >= sq:
-        return 0, 0
-    qpos = qi + q_offset
-    hi = min(qpos + 1, sk) if causal else sk
-    lo = max(qpos - window + 1, 0) if window > 0 else 0
-    return lo, hi
+def _group_rows(t, bi, kvh, group):
+    """(b, hq, sq, w) -> the (sq * group, w) rows of kv-head kvh's group,
+    position-major: row qi * group + head-in-group."""
+    return t[bi, kvh * group:(kvh + 1) * group].transpose(0, 1).reshape(
+        -1, t.shape[-1])
 
 
-def _bwd_tile(qs, gs, ks, vs, rows, k0, lse, delta, iv):
-    """P and dS of a (rows) x (keys k0 .. k0 + 16) tile: tile_grads."""
-    nk = ks.shape[0]
-    p = torch.zeros(len(rows), nk)
-    ds = torch.zeros(len(rows), nk)
-    for a, qi in enumerate(rows):
-        lo, hi = iv[qi]
-        for j in range(nk):
-            if lo <= k0 + j < hi:
-                p[a, j] = torch.exp(qs[a] @ ks[j] - lse[a])
-                ds[a, j] = p[a, j] * (gs[a] @ vs[j] - delta[a])
-    return p, ds
-
-
-def _emulate_flash_bwd(q, k, v, o, g, *, causal=True, window=0, q_offset=0,
-                       scale=None):
-    """The backward kernel's three passes in float32: (stats) each row's
-    log-sum-exp by an online max/sum over 16-key tiles of the rows' union
-    interval, delta = sum(o * dO) as 8 strided partial sums in a butterfly;
-    (dkdv) per (batch, kv-head, 16-key tile), the group's q-heads in order,
-    the rows rlo .. rhi that may see the tile 16 at a time, dV += P^T dO and
-    dK += dS^T (scale q), row by row; (dq) per (batch, q-head, 16-row tile)
-    the key tiles of its union interval, dQ += dS K, times the scale."""
+def _emulate_flash_bwd(q, k, v, o, g, lse, *, causal=True, window=0,
+                       softcap=0.0, q_offset=0, scale=None, bf16=False):
+    """The tensor-core backward kernel's tiles and orders, test-only, on
+    the forward's log-sum-exp ``lse``: delta = rowsum(dO * O) as two
+    partial sums of alternate 8-element chunks; per (batch, kv-head) the
+    group's rows position-major; dK/dV per 64-key block over the rows that
+    may see it, 32 at a time (S^T, dP^T, P = 2^(x c - lse log2 e), dS = P
+    (dP - delta) (1 - t^2 after a softcap)); dQ per 64-row block, counted
+    back from the last row, over 32-key tiles of the block's keys; dK and
+    dQ times the scale at the end.  With ``bf16`` the mma operands P and dS
+    are rounded to bf16 and so are the outputs, as on the card; without,
+    the same arithmetic in f32."""
     b, hq, sq, d = q.shape
     hkv, sk, dv = k.shape[1], k.shape[2], v.shape[3]
     group = hq // hkv
     scale = scale if scale is not None else d ** -0.5
+
+    def rnd(t):
+        return t.bfloat16().float() if bf16 else t
+
     q, k, v, o, g = (t.float() for t in (q, k, v, o, g))
-    iv = {qi: _bwd_interval(qi, sq, sk, causal, window, q_offset)
-          for qi in range(sq + BWD_TILE)}
-    lse = torch.zeros(b, hq, sq)
-    delta = torch.zeros(b, hq, sq)
-    for bi in range(b):
-        for h in range(hq):
-            kk = k[bi, h // group]
-            for q0 in range(0, sq, BWD_TILE):
-                rows = range(q0, q0 + BWD_TILE)
-                valid = [iv[r] for r in rows if iv[r][0] < iv[r][1]]
-                klo = min((lo for lo, _ in valid), default=sk)
-                khi = max((hi for _, hi in valid), default=0)
-                m = {r: torch.tensor(-1e30) for r in rows}
-                l_ = {r: torch.tensor(0.0) for r in rows}
-                for k0 in range(klo, khi, BWD_TILE):
-                    for r in rows:
-                        lo, hi = iv[r]
-                        for j in range(max(lo - k0, 0),
-                                       min(hi - k0, BWD_TILE)):
-                            s_ = (q[bi, h, r] * scale) @ kk[k0 + j]
-                            mn = torch.maximum(m[r], s_)
-                            l_[r] = l_[r] * torch.exp(m[r] - mn) \
-                                + torch.exp(s_ - mn)
-                            m[r] = mn
-                for r in rows:
-                    if r < sq:
-                        lse[bi, h, r] = m[r] + torch.log(l_[r]) \
-                            if l_[r] > 0 else 0.0
-                        part = [torch.sum(o[bi, h, r, c::8] * g[bi, h, r, c::8])
-                                for c in range(8)]
-                        for step in (1, 2, 4):
-                            part = [part[c] + part[c ^ step] for c in range(8)]
-                        delta[bi, h, r] = part[0]
+    prod = (o * g).reshape(b, hq, sq, dv // 8, 8)
+    delta = prod[..., 0::2, :].sum((-1, -2)) + prod[..., 1::2, :].sum((-1, -2))
+    mask = tref.attention_mask(sq, sk, causal=causal, window=window,
+                               q_offset=q_offset, device=q.device)
+    c = LOG2E if softcap > 0.0 else scale * LOG2E
+
+    def tile(qr, gr, kt, vt, lr, dr, m):
+        """P and dS of rows x keys, 0 outside each row's keys."""
+        x, f = qr @ kt.T, 1.0
+        if softcap > 0.0:
+            t = torch.tanh(x * (scale / softcap))
+            x, f = softcap * t, 1.0 - t * t
+        p = torch.where(m, torch.exp2(x * c - lr[:, None] * LOG2E), 0.0)
+        ds = torch.where(m, p * (gr @ vt.T - dr[:, None]) * f, 0.0)
+        return p, ds
+
     dq = torch.zeros(b, hq, sq, d)
     dk = torch.zeros(b, hkv, sk, d)
     dvv = torch.zeros(b, hkv, sk, dv)
+    nrows = sq * group
+    row_qi = torch.arange(nrows) // group
     for bi in range(b):
         for kvh in range(hkv):
-            for k0 in range(0, sk, BWD_TILE):
-                k1 = min(k0 + BWD_TILE, sk)
-                ks, vs = k[bi, kvh, k0:k1], v[bi, kvh, k0:k1]
-                rlo = max(k0 - q_offset, 0) if causal else 0
-                rhi = min(sq, k1 + window - 1 - q_offset) if window > 0 \
-                    else sq
-                for gi in range(group):
-                    h = kvh * group + gi
-                    for r0 in range(rlo, rhi, BWD_TILE):
-                        rows = [r for r in range(r0, r0 + BWD_TILE) if r < sq]
-                        qs = q[bi, h, rows] * scale
-                        gs = g[bi, h, rows]
-                        p, ds = _bwd_tile(qs, gs, ks, vs, rows, k0,
-                                          lse[bi, h, rows],
-                                          delta[bi, h, rows], iv)
-                        for a in range(len(rows)):
-                            dvv[bi, kvh, k0:k1] += p[a][:, None] * gs[a]
-                            dk[bi, kvh, k0:k1] += ds[a][:, None] * qs[a]
-    for bi in range(b):
-        for h in range(hq):
-            kk, vv = k[bi, h // group], v[bi, h // group]
-            for q0 in range(0, sq, BWD_TILE):
-                rows = [r for r in range(q0, q0 + BWD_TILE) if r < sq]
-                valid = [iv[r] for r in rows if iv[r][0] < iv[r][1]]
-                klo = min((lo for lo, _ in valid), default=sk)
-                khi = max((hi for _, hi in valid), default=0)
-                qs, gs = q[bi, h, rows] * scale, g[bi, h, rows]
-                acc = torch.zeros(len(rows), d)
-                for k0 in range(klo, khi, BWD_TILE):
-                    ks = kk[k0:k0 + BWD_TILE]
-                    _, ds = _bwd_tile(qs, gs, ks, vv[k0:k0 + BWD_TILE], rows,
-                                      k0, lse[bi, h, rows],
-                                      delta[bi, h, rows], iv)
-                    for j in range(ks.shape[0]):
-                        acc += ds[:, j:j + 1] * ks[j]
-                dq[bi, h, rows] = acc * scale
+            Q, G = _group_rows(q, bi, kvh, group), _group_rows(g, bi, kvh,
+                                                                group)
+            L = _group_rows(lse[..., None], bi, kvh, group)[:, 0]
+            Dl = _group_rows(delta[..., None], bi, kvh, group)[:, 0]
+            Mr = mask[row_qi]
+            K, V = k[bi, kvh], v[bi, kvh]
+            for k0 in range(0, sk, BWD_KEYS):
+                k1 = min(k0 + BWD_KEYS, sk)
+                qlo = max(k0 - q_offset, 0) if causal else 0
+                qhi = (min(sq, k1 + window - 1 - q_offset) if window > 0
+                       else sq)
+                r_lo, r_hi = qlo * group, max(qhi, qlo) * group
+                for r0 in range(r_lo, r_hi, BWD_ROWS):
+                    rs = slice(r0, min(r0 + BWD_ROWS, r_hi))
+                    p, ds = tile(Q[rs], G[rs], K[k0:k1], V[k0:k1], L[rs],
+                                 Dl[rs], Mr[rs, k0:k1])
+                    dvv[bi, kvh, k0:k1] += rnd(p).T @ G[rs]
+                    dk[bi, kvh, k0:k1] += rnd(ds).T @ Q[rs]
+            dq_rows = torch.zeros(nrows, d)
+            for row_end in range(nrows, 0, -DQ_ROWS):
+                rs = slice(max(row_end - DQ_ROWS, 0), row_end)
+                seen = Mr[rs].any(0).nonzero()
+                if not len(seen):
+                    continue
+                klo, khi = int(seen[0]), int(seen[-1]) + 1
+                for t0 in range(klo // DQ_KEYS * DQ_KEYS, khi, DQ_KEYS):
+                    t1 = min(t0 + DQ_KEYS, sk)
+                    _, ds = tile(Q[rs], G[rs], K[t0:t1], V[t0:t1], L[rs],
+                                 Dl[rs], Mr[rs, t0:t1])
+                    dq_rows[rs] += rnd(ds) @ K[t0:t1]
+            dq[bi, kvh * group:(kvh + 1) * group] = (
+                dq_rows * scale).reshape(sq, group, d).transpose(0, 1)
+    dk *= scale
+    if bf16:
+        return dq.bfloat16(), dk.bfloat16(), dvv.bfloat16()
     return dq, dk, dvv
 
 
-# b, hq, hkv, sq, sk, d, dv, kwargs: GQA groups 1 / 2 / 4, ragged lengths
-# (17, 33, 50: tiles of 16 with a partial last), window, positive and
-# negative q_offset (rows with no key), dv != d, non-causal
+# b, hq, hkv, sq, sk, d, dv, kwargs: GQA groups 1 / 2 / 4 / 8, ragged
+# lengths (17, 33, 50, 150: a partial last 32-row step, 32-key tile and
+# 64-key block; 150 keys take three 64-key blocks), window, positive and
+# negative q_offset (rows with no key), dv != d, non-causal, softcap
 BWD_EMU_CASES = [
     (1, 4, 2, 17, 17, 32, 32, {}),
     (1, 4, 1, 33, 33, 32, 16, dict(window=7)),
     (1, 2, 2, 20, 37, 32, 32, dict(q_offset=17)),
     (1, 2, 1, 20, 20, 16, 16, dict(q_offset=-5)),
     (1, 2, 1, 33, 50, 16, 16, dict(causal=False, window=9, q_offset=20)),
+    (1, 4, 2, 150, 150, 32, 32, {}),
+    (1, 8, 1, 40, 40, 32, 32, {}),
+    (1, 4, 2, 70, 70, 32, 32, dict(window=24, softcap=20.0)),
 ]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", BWD_EMU_CASES)
-def test_flash_backward_kernel_arithmetic_matches_autograd(case):
+def test_flash_backward_kernel_arithmetic_matches_autograd(case, dtype):
     """The emulated kernel (its tiles, key and row ranges, summation
-    orders) against autograd of the plain version, f32 within 2e-5; a row
-    with no valid key gets zero gradient."""
+    orders, on the emulated forward's log-sum-exp) against autograd of the
+    plain version: in f32 within 2e-5, with the bf16 roundings on bf16
+    inputs within 3e-2 x max(1, max|want|); a row with no valid key gets
+    zero gradient."""
     b, hq, hkv, sq, sk, d, dv, kw = case
-    q, k, v = (torch.tensor(x, requires_grad=True) for x in
+    q, k, v = (torch.tensor(x).to(dtype).requires_grad_(True) for x in
                _qkv(sq + d, b, hq, hkv, sq, sk, d, dv))
-    g = torch.tensor(_normal(sq * 3 + dv, b, hq, sq, dv))
+    g = torch.tensor(_normal(sq * 3 + dv, b, hq, sq, dv)).to(dtype)
     out = FA.flash_attention_plain(q, k, v, **kw)
     want = torch.autograd.grad(out, (q, k, v), g)
+    _, lse = _emulate_bf16_flash(q.detach(), k.detach(), v.detach(),
+                                 return_lse=True, **kw)
     got = _emulate_flash_bwd(q.detach(), k.detach(), v.detach(),
-                             out.detach(), g, **kw)
+                             out.detach(), g, lse, bf16=dtype != torch.float32,
+                             **kw)
     for name, a, w in zip(("dq", "dk", "dv"), got, want, strict=True):
-        np.testing.assert_allclose(a.numpy(), w.numpy(), rtol=0,
-                                   atol=F32_TOL, err_msg=name)
+        assert a.dtype == w.dtype, name
+        tol = (F32_TOL if dtype == torch.float32
+               else BF16_TOL * max(1.0, w.float().abs().max().item()))
+        np.testing.assert_allclose(a.float().numpy(), w.float().numpy(),
+                                   rtol=0, atol=tol, err_msg=name)
     if kw.get("q_offset", 0) < 0:
         assert bool((got[0][:, :, :-kw["q_offset"]] == 0).all())
 
 
+@pytest.mark.parametrize("kw", [{}, dict(window=16, softcap=30.0),
+                                dict(q_offset=-5),
+                                dict(causal=False, q_offset=20)],
+                         ids=["causal", "window+softcap", "q_offset=-5",
+                              "non-causal"])
+def test_emulated_forward_lse_matches_logsumexp(kw):
+    """The log-sum-exp the forward kernel saves (emulated: scale m + ln l
+    from its online softmax) against torch.logsumexp of the plain
+    version's scaled, masked (softcapped) scores, within 2e-5 x max(1,
+    |want|); +inf on a row with no key, where the plain one is -inf."""
+    q, k, v = _qkv(33, 2, 8, 2, 49, 70, 64)
+    tq, tk, tv = (torch.tensor(x) for x in (q, k, v))
+    _, got = _emulate_bf16_flash(tq, tk, tv, return_lse=True, **kw)
+    cap, scale = kw.get("softcap", 0.0), 64 ** -0.5
+    x = (tq * scale) @ tk.repeat_interleave(4, dim=1).transpose(-1, -2)
+    if cap > 0.0:
+        x = cap * torch.tanh(x / cap)
+    mask = tref.attention_mask(49, 70, causal=kw.get("causal", True),
+                               window=kw.get("window", 0),
+                               q_offset=kw.get("q_offset", 0),
+                               device="cpu")
+    want = torch.logsumexp(x.masked_fill(~mask, float("-inf")), dim=-1)
+    empty = torch.isinf(want)
+    assert bool(empty.any()) == (kw.get("q_offset", 0) < 0)
+    assert bool(torch.isposinf(got[empty]).all())
+    assert bool(torch.isfinite(got[~empty]).all())
+    np.testing.assert_array_less(
+        ((got - want)[~empty].abs() / want[~empty].abs().clamp(min=1.0))
+        .numpy(), F32_TOL)
+    np.testing.assert_allclose(
+        FA.flash_lse_plain(tq, tk, tv, **kw).numpy(),
+        torch.where(empty, float("inf"), want).numpy(), rtol=0, atol=1e-5)
+
+
+# nq, na, d, k  (tests/test_kernels.py, plus the SCOPE shape)
 TOPK_CASES = [(16, 64, 8, 3), (37, 301, 24, 5), (128, 250, 32, 5),
               (5, 1000, 16, 10), (8, 250, 32, 5)]
 

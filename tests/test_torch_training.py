@@ -176,7 +176,8 @@ def test_ssm_training_is_refused():
 # The plain flash backward (what the CUDA backward kernel is held to)
 # ---------------------------------------------------------------------------
 # b, hq, hkv, sq, sk, d, dv, kwargs; q_offset >= 0 so every row has a key
-# (a row with none gives 0 in the port and the mean of v in ref.attention)
+# (a row with none gives 0 in the port and the mean of v in ref.attention);
+# softcap as the reference takes it (ref.attention's cap tanh(x / cap))
 BWD_CASES = [
     (2, 4, 2, 17, 17, 32, 32, {}),
     (1, 8, 2, 40, 40, 64, 64, dict(window=7)),
@@ -184,6 +185,9 @@ BWD_CASES = [
     (2, 4, 1, 20, 20, 64, 32, {}),
     (1, 4, 2, 33, 50, 32, 32, dict(causal=False, window=9, q_offset=20)),
     (1, 6, 2, 25, 25, 32, 32, dict(window=4, q_offset=3)),
+    (2, 4, 2, 17, 17, 32, 32, dict(softcap=20.0)),
+    (1, 8, 2, 40, 40, 64, 64, dict(window=7, softcap=2.0)),
+    (1, 4, 2, 33, 50, 32, 32, dict(causal=False, q_offset=20, softcap=5.0)),
 ]
 
 
@@ -209,7 +213,7 @@ def test_flash_backward_plain_matches_jax_grad(case):
 def test_flash_backward_wrapper_needs_cuda():
     x = torch.zeros(1, 2, 4, 32)
     with pytest.raises(ValueError, match="CUDA"):
-        FA.flash_attention_bwd_cuda(x, x, x, x, x)
+        FA.flash_attention_bwd_cuda(x, x, x, x, x, torch.zeros(1, 2, 4))
 
 
 # ---------------------------------------------------------------------------
