@@ -42,7 +42,13 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    q_offset, non-causal sk != sq, softcap; the saved
                    log-sum-exp against the plain one (+inf on rows with
                    no key), the forward's bits equal with and without it;
-                   two launches bitwise equal
+                   two launches bitwise equal; zamba2-7b's shapes: flash
+                   and both decode kernels at head dim 112, group 1, in
+                   bf16 and f32 (its prefill and last decode step, ragged
+                   tiles and lengths, window and softcap, masked rows),
+                   the SSD scan at 112 heads of 64, state 64, chunk 49,
+                   and the SSD step in place on its 81-layer stacked
+                   cache, two launches bitwise equal
   4. timing      — each kernel, its plain version and one PyTorch library
                    call computing the same function (device time: CUDA
                    graph replays between CUDA events), beside the least time
@@ -57,7 +63,9 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    SDPA's backward, all three by the profiler's sum of
                    device time (and eager), the kernel also in graph
                    replays; the flash forward with and without its
-                   log-sum-exp output
+                   log-sum-exp output; flash, dense decode, the SSD scan
+                   and step again at zamba2-7b's shapes (SDPA beside the
+                   attention kernels)
   5. tiny        — ``ScopeEngine.serve`` on scope-tiny with seeded weights,
                    once on the card (kernels) and once on the CPU (plain
                    versions): equal token streams and decisions
@@ -87,7 +95,20 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    step launches per decode step, no attention kernel,
                    finite logits, prefill and decode times, idle share, peak
                    memory
- 11. tiny tiers  — scope-tiny with seeded weights and a seeded tier-0 head,
+ 11. tiny hybrid — ``ScopeEngine.serve`` on a small zamba2 hybrid
+                   (zamba2-7b's ``reduced(num_layers=5, d_model=448)``: two
+                   units of two mambas and the tied shared attention block,
+                   then a mamba; heads of 112, f32) with seeded weights, on
+                   the card (flash, decode and SSD kernels) and on the CPU:
+                   equal token streams and decisions
+ 12. full hybrid — ``ScopeEngine.serve`` on zamba2-7b at full width and
+                   depth (81 mamba layers, d 3584, the shared attention +
+                   MLP block after every 6th, 13 occurrences; 6.64 B random
+                   seeded params, bf16): 8 test queries x 7 models, launches
+                   flash 13, decode 13 x 12, SSD scan 81, SSD step 81 x 12
+                   a cold serve, finite logits, prefill and decode times,
+                   idle share, peak memory; the weights freed after
+ 13. tiny tiers  — scope-tiny with seeded weights and a seeded tier-0 head,
                    on the card and on the CPU: ``predict_stream`` over paged
                    slot refill with the gate at a midpoint between two
                    adjacent head confidences (equal answered and escalated
@@ -97,7 +118,7 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    ``hot_swap`` at a tick boundary to a second seeded
                    estimator, whose post-swap ticks equal a fresh engine's
                    on the new weights bit for bit on the card
- 12. full tiers  — phase 8's paged refill ``serve_stream`` on scope-qwen3-4b
+ 14. full tiers  — phase 8's paged refill ``serve_stream`` on scope-qwen3-4b
                    at full width with the tier-0 gate on at the median head
                    confidence, ``drift_detect`` on, a ``model_drift`` fault
                    armed and one ``hot_swap`` after the fifth tick to a
@@ -107,17 +128,17 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    x decode steps, finite logits; the gate's wall and
                    device time per request, the stream's wall and idle
                    share, peak memory
- 13. tiny train  — scope-tiny from the same seeded port params on the card
+ 15. tiny train  — scope-tiny from the same seeded port params on the card
                    and on the CPU: ten SFT steps (losses within 1e-4), then
                    a greedy GRPO step on each (equal rollouts, rewards and
                    advantages; loss, pg and kl within 2e-5)
- 14. full train  — scope-qwen3-4b at full width from seeded random weights:
+ 16. full train  — scope-qwen3-4b at full width from seeded random weights:
                    three SFT steps of 64 sequences (72 forward and 36
                    backward flash launches a step: one checkpoint a layer)
                    and one GRPO step (16 tasks x group 4, 12 new tokens);
                    loss, reward, format rate, step wall and device time,
                    peak memory
- 15. CLIs        — ``python -m repro_torch.launch.train`` on scope-tiny,
+ 17. CLIs        — ``python -m repro_torch.launch.train`` on scope-tiny,
                    then ``python -m repro_torch.launch.serve --checkpoint``
                    on what it saved, both on the card
 
@@ -129,6 +150,7 @@ code 1.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -163,6 +185,12 @@ TPU_KERNELS = {
                            "src/repro/kernels/ops.py:40 sends training to)",
 }
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in TPU_KERNELS}
+# the kernels of the zamba2-7b serve, whose rows of the kernels line carry
+# this suffix: its shapes (head dim 112, g = 1; 112 SSM heads, state 64)
+# and launches are its own
+HYBRID = "@zamba2-7b"
+HYBRID_KERNELS = ("flash_attention", "decode_attention", "ssd_scan",
+                  "ssd_decode_step")
 TO_PORT = []            # every TPU kernel of the repository has a port
 NO_LAUNCHES = {name: 0 for name in TPU_KERNELS}
 
@@ -198,6 +226,13 @@ SSD_CASES = [
     ("ssd h 6 chunk 100 nc 2", (1, 200, 6, 16, 8, 100), "float32", 0.1, None,
      False),
 ]
+# zamba2-7b's prefill: 112 heads of 64, state 64 (its own generator, see
+# kernel_checks)
+HYBRID_SSD_CASES = [
+    ("ssd zamba2", (56, 0, 112, 64, 64, 0), "bfloat16", 1.0,
+     "ssd_scan" + HYBRID, True),
+    ("ssd zamba2 f32", (56, 0, 112, 64, 64, 0), "float32", 1.0, None, True),
+]
 # the SSD decode step's edge shapes: (b, h, p, n), chained steps
 STEP_CASES = [((1, 3, 16, 8), 4), ((2, 5, 16, 16), 4), ((1, 64, 64, 128), 3)]
 
@@ -218,6 +253,15 @@ def phase(name: str):
 
 def done(t0: float) -> None:
     print(f"   ({time.perf_counter() - t0:.2f} s)", flush=True)
+
+
+def release(torch) -> None:
+    """Free what a phase left behind before the next one measures its peak:
+    reference cycles first (an engine and its caches can sit in one until
+    the collector happens to run, holding device memory into a later
+    phase's peak), then the allocator's cached blocks."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def nvidia_smi() -> str:
@@ -248,12 +292,19 @@ def eager_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+_SIDE = []                  # device_ms's side stream, made at first use
+
+
 def device_ms(torch, fn, iters: int, replays: int = 5) -> float:
     """Device time per call of ``fn``: ``iters`` calls captured in one CUDA
     graph, replayed ``replays`` times between CUDA events, so no host
     overhead sits between the launches.  Inputs stay warm in L2, as on the
-    main path, where the projections just wrote them."""
-    side = torch.cuda.Stream()
+    main path, where the projections just wrote them.  The warm-up runs on
+    one side stream for every call: cuBLAS keeps a workspace (tens of MiB)
+    for each stream it has run on, as long as the process lives."""
+    if not _SIDE:
+        _SIDE.append(torch.cuda.Stream())
+    side = _SIDE[0]
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):           # warm-up off the capture
         for _ in range(3):
@@ -393,26 +444,29 @@ def kernel_checks(torch, L: int, s_train: int):
         ("flash bf16 d=256 s=200", (1, 4, 2, 200, 200, 256, 256), {}, bf,
          None, "model"),
     ]
-    for name, (b, hq, hkv, sq, sk, d, dv), kw, dt, main, layout in \
-            flash_cases:
-        if layout == "model":
-            q = rnd(b, sq, hq, d, dt=dt).transpose(1, 2)
-            k = rnd(b, sk, hkv, d, dt=dt).transpose(1, 2)
-            v = rnd(b, sk, hkv, dv, dt=dt).transpose(1, 2)
-        else:
-            q, k, v = rnd(b, hq, sq, d, dt=dt), rnd(b, hkv, sk, d, dt=dt), \
-                rnd(b, hkv, sk, dv, dt=dt)
-        got = FA.flash_attention_cuda(q, k, v, **kw)
-        compare(name, got, FA.flash_attention_plain(q, k, v, **kw),
-                F32_TOL if dt == f32 else BF16_TOL, main)
-        if "masked" in name:
-            check(bool((got[:, :, :5] == 0).all()), f"{name}: masked rows "
-                  "not 0")
-        if main:
-            # no atomics, no split over keys: the same bits every launch
-            check(torch.equal(got, FA.flash_attention_cuda(q, k, v, **kw)),
-                  f"{name}: two launches differ")
-            print(f"   {name}: two launches bitwise equal")
+    def run_flash(cases, rnd):
+        for name, (b, hq, hkv, sq, sk, d, dv), kw, dt, main, layout in \
+                cases:
+            if layout == "model":
+                q = rnd(b, sq, hq, d, dt=dt).transpose(1, 2)
+                k = rnd(b, sk, hkv, d, dt=dt).transpose(1, 2)
+                v = rnd(b, sk, hkv, dv, dt=dt).transpose(1, 2)
+            else:
+                q, k, v = (rnd(b, hq, sq, d, dt=dt), rnd(b, hkv, sk, d, dt=dt),
+                           rnd(b, hkv, sk, dv, dt=dt))
+            got = FA.flash_attention_cuda(q, k, v, **kw)
+            compare(name, got, FA.flash_attention_plain(q, k, v, **kw),
+                    F32_TOL if dt == f32 else BF16_TOL, main)
+            if "masked" in name:
+                check(bool((got[:, :, :5] == 0).all()), f"{name}: masked rows "
+                      "not 0")
+            if main:
+                # no atomics, no split over keys: the same bits every launch
+                check(torch.equal(got, FA.flash_attention_cuda(q, k, v, **kw)),
+                      f"{name}: two launches differ")
+                print(f"   {name}: two launches bitwise equal")
+
+    run_flash(flash_cases, rnd)
     x = rnd(3, 21, 4, 32)
     kt, vt = rnd(3, 21, 2, 32).transpose(1, 2), rnd(3, 21, 2, 32).transpose(1, 2)
     compare("flash strided views", FA.flash_attention_cuda(x.transpose(1, 2),
@@ -454,48 +508,52 @@ def kernel_checks(torch, L: int, s_train: int):
         ("decode d=256 f32", (2, 4, 4, 300, 256, 256), [300, 190], {},
          torch.float32, None),
     ]
-    for name, (b, hq, hkv, S_, d, dv), lens, kw, dt, main in decode_cases:
-        q = rnd(b, hq, 1, d, dt=dt)
-        kc, vc = rnd(b, hkv, S_, d, dt=dt), rnd(b, hkv, S_, dv, dt=dt)
-        if lens is None:
-            lens_t = torch.randint(L + 1, S_ + 1, (b,), generator=gen,
-                                   device=dev, dtype=torch.int32)
-        else:
-            lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
-        got = DA.decode_attention_cuda(q, kc, vc, lens_t, **kw)
-        # over ~4000 keys an output is ~0.03: the long cases are held
-        # relative to max|want|, so a skipped stage of keys would not pass
-        compare(name, got, DA.decode_attention_plain(q, kc, vc, lens_t, **kw),
-                F32_TOL if dt == torch.float32 else BF16_TOL, main,
-                scale="rel" if "long" in name else "abs")
-        if lens is not None and 0 in lens:
-            check(bool((got[lens.index(0)] == 0).all()), f"{name}: empty row "
-                  "not 0")
-        if not main:
-            continue
-        # no atomics: the same bits every launch
-        check(torch.equal(got, DA.decode_attention_cuda(q, kc, vc, lens_t)),
-              f"{name}: two launches differ")
-        # a row's bits depend on its keys and length, not on the cache's
-        # depth: the same keys in a cache 37 deeper, garbage behind them
-        deep_k, deep_v = rnd(b, hkv, S_ + 37, d, dt=dt), \
-            rnd(b, hkv, S_ + 37, dv, dt=dt)
-        deep_k[:, :, :S_], deep_v[:, :, :S_] = kc, vc
-        check(torch.equal(got, DA.decode_attention_cuda(q, deep_k, deep_v,
-                                                        lens_t)),
-              f"{name}: depth {S_} and {S_ + 37} differ")
-        # rows that do not start on 16 bytes (a view of a wider cache) are
-        # copied element by element into the same layout: the same bits
-        wide_k, wide_v = rnd(b, hkv, S_, d + 4, dt=dt), \
-            rnd(b, hkv, S_, dv + 4, dt=dt)
-        wide_k[..., :d], wide_v[..., :dv] = kc, vc
-        check(torch.equal(got, DA.decode_attention_cuda(
-            q, wide_k[..., :d], wide_v[..., :dv], lens_t)),
-            f"{name}: a view with row stride {d + 4} differs")
-        print(f"   {name}: two launches bitwise equal; depth {S_} and "
-              f"{S_ + 37} bitwise equal; row stride {d + 4} view bitwise "
-              "equal")
+    def run_decode(cases, rnd, gen):
+        for name, (b, hq, hkv, S_, d, dv), lens, kw, dt, main in cases:
+            q = rnd(b, hq, 1, d, dt=dt)
+            kc, vc = rnd(b, hkv, S_, d, dt=dt), rnd(b, hkv, S_, dv, dt=dt)
+            if lens is None:
+                lens_t = torch.randint(L + 1, S_ + 1, (b,), generator=gen,
+                                       device=dev, dtype=torch.int32)
+            else:
+                lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+            got = DA.decode_attention_cuda(q, kc, vc, lens_t, **kw)
+            # over ~4000 keys an output is ~0.03: the long cases are held
+            # relative to max|want|, so a skipped stage of keys would not pass
+            compare(name, got,
+                    DA.decode_attention_plain(q, kc, vc, lens_t, **kw),
+                    F32_TOL if dt == torch.float32 else BF16_TOL, main,
+                    scale="rel" if "long" in name else "abs")
+            if lens is not None and 0 in lens:
+                check(bool((got[lens.index(0)] == 0).all()),
+                      f"{name}: empty row not 0")
+            if not main:
+                continue
+            # no atomics: the same bits every launch
+            check(torch.equal(got,
+                              DA.decode_attention_cuda(q, kc, vc, lens_t)),
+                  f"{name}: two launches differ")
+            # a row's bits depend on its keys and length, not on the cache's
+            # depth: the same keys in a cache 37 deeper, garbage behind them
+            deep_k, deep_v = rnd(b, hkv, S_ + 37, d, dt=dt), \
+                rnd(b, hkv, S_ + 37, dv, dt=dt)
+            deep_k[:, :, :S_], deep_v[:, :, :S_] = kc, vc
+            check(torch.equal(got, DA.decode_attention_cuda(q, deep_k, deep_v,
+                                                            lens_t)),
+                  f"{name}: depth {S_} and {S_ + 37} differ")
+            # rows that do not start on 16 bytes (a view of a wider cache) are
+            # copied element by element into the same layout: the same bits
+            wide_k, wide_v = rnd(b, hkv, S_, d + 4, dt=dt), \
+                rnd(b, hkv, S_, dv + 4, dt=dt)
+            wide_k[..., :d], wide_v[..., :dv] = kc, vc
+            check(torch.equal(got, DA.decode_attention_cuda(
+                q, wide_k[..., :d], wide_v[..., :dv], lens_t)),
+                f"{name}: a view with row stride {d + 4} differs")
+            print(f"   {name}: two launches bitwise equal; depth {S_} and "
+                  f"{S_ + 37} bitwise equal; row stride {d + 4} view bitwise "
+                  "equal")
 
+    run_decode(decode_cases, rnd, gen)
     for name, (nq, na, d, k), main in [
             ("topk main", (N_QUERIES, N_ANCHORS, 32, K_ANCHORS),
              "topk_retrieval"),
@@ -545,42 +603,46 @@ def kernel_checks(torch, L: int, s_train: int):
         ("paged d=256 f32", (2, 4, 4, 300, 256, 256, 16, [300, 190], 0.0,
                              torch.float32), None),
     ]
-    for name, (b, hq, hkv, S_, d, dv, page, lens, cap, dt), main in \
-            paged_cases:
-        q = rnd(b, hq, 1, d, dt=dt)
-        kc, vc, kp, vp, table = paged_layout(torch, gen, b, hkv, S_, d, dv,
-                                             page, dt)
-        if lens is None:
-            lens_t = torch.randint(L + 1, S_ + 1, (b,), generator=gen,
-                                   device=dev, dtype=torch.int32)
-        else:
-            lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
-        kw = dict(page_size=page, kv_cap=S_, softcap=cap)
-        got = DA.paged_decode_attention_cuda(q, kp, vp, lens_t, table, **kw)
-        compare(name, got, DA.paged_decode_attention_plain(
-            q, kp, vp, lens_t, table, **kw),
-            F32_TOL if dt == torch.float32 else BF16_TOL, main,
-            scale="rel" if "long" in name else "abs")
-        # the dense kernel on the same logical cache: same chunks, same bits
-        dense = DA.decode_attention_cuda(q, kc, vc, lens_t, softcap=cap)
-        check(torch.equal(got, dense), f"{name}: paged and dense kernels "
-              "differ on the same logical cache")
-        if lens is not None and 0 in lens:
-            check(bool((got[lens.index(0)] == 0).all()), "empty row not 0")
-        # poison the trash page and every unreferenced page: not one bit
-        # of the output may move
-        unref = torch.ones(kp.shape[0], dtype=torch.bool, device=dev)
-        unref[table.reshape(-1).long()] = False
-        kp2, vp2 = kp.clone(), vp.clone()
-        kp2[unref], vp2[unref] = 1e9, 1e9
-        poisoned = DA.paged_decode_attention_cuda(q, kp2, vp2, lens_t, table,
-                                                  **kw)
-        check(torch.equal(poisoned, got), f"{name}: poisoned pages leak")
-        if main:
-            check(torch.equal(got, DA.paged_decode_attention_cuda(
-                q, kp, vp, lens_t, table, **kw)),
-                f"{name}: two launches differ")
-            print(f"   {name}: two launches bitwise equal")
+    def run_paged(cases, rnd, gen):
+        for name, (b, hq, hkv, S_, d, dv, page, lens, cap, dt), main in \
+                cases:
+            q = rnd(b, hq, 1, d, dt=dt)
+            kc, vc, kp, vp, table = paged_layout(torch, gen, b, hkv, S_, d, dv,
+                                                 page, dt)
+            if lens is None:
+                lens_t = torch.randint(L + 1, S_ + 1, (b,), generator=gen,
+                                       device=dev, dtype=torch.int32)
+            else:
+                lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+            kw = dict(page_size=page, kv_cap=S_, softcap=cap)
+            got = DA.paged_decode_attention_cuda(q, kp, vp, lens_t, table,
+                                                 **kw)
+            compare(name, got, DA.paged_decode_attention_plain(
+                q, kp, vp, lens_t, table, **kw),
+                F32_TOL if dt == torch.float32 else BF16_TOL, main,
+                scale="rel" if "long" in name else "abs")
+            # the dense kernel on the same logical cache: same chunks, same
+            # bits
+            dense = DA.decode_attention_cuda(q, kc, vc, lens_t, softcap=cap)
+            check(torch.equal(got, dense), f"{name}: paged and dense kernels "
+                  "differ on the same logical cache")
+            if lens is not None and 0 in lens:
+                check(bool((got[lens.index(0)] == 0).all()), "empty row not 0")
+            # poison the trash page and every unreferenced page: not one bit
+            # of the output may move
+            unref = torch.ones(kp.shape[0], dtype=torch.bool, device=dev)
+            unref[table.reshape(-1).long()] = False
+            kp2, vp2 = kp.clone(), vp.clone()
+            kp2[unref], vp2[unref] = 1e9, 1e9
+            poisoned = DA.paged_decode_attention_cuda(q, kp2, vp2, lens_t,
+                                                      table, **kw)
+            check(torch.equal(poisoned, got), f"{name}: poisoned pages leak")
+            if main:
+                check(torch.equal(got, DA.paged_decode_attention_cuda(
+                    q, kp, vp, lens_t, table, **kw)),
+                    f"{name}: two launches differ")
+                print(f"   {name}: two launches bitwise equal")
+    run_paged(paged_cases, rnd, gen)
     print("   paged == dense kernel bit for bit; poisoned pages inert")
 
     # SSD scan: the main path's shape (mamba2-1.3b's prefill of 56 prompts
@@ -596,20 +658,27 @@ def kernel_checks(torch, L: int, s_train: int):
     from repro_torch.kernels import ssd_scan as SS
     from repro_torch.models.ssm import _largest_chunk
     main_chunk = _largest_chunk(L, 128)
-    for name, (b, l, h, p, n, chunk), dtn, dts, main, strided in SSD_CASES:
-        dt = getattr(torch, dtn)
-        l, chunk = l or L, chunk or main_chunk
-        x, dtv, A, B, C = ssd_inputs(torch, gen, b, l, h, p, n, dts, dt,
-                                     conv_layout=strided)
-        got = SS.ssd_scan_cuda(x, dtv, A, B, C, chunk=chunk)
-        plain = ref.ssd(x, dtv, A, B, C, chunk=chunk)
-        yw, sw = ref.ssd(*(t.double() for t in (x, dtv, A, B, C)),
-                         chunk=chunk)
-        y_tol = F32_TOL if dt == torch.float32 else BF16_TOL
-        for side, (y, st) in (("kernel", got), ("plain", plain)):
-            compare(f"{name} {side} y", y, yw, y_tol,
-                    main if side == "kernel" else None, scale="each")
-            compare(f"{name} {side} state", st, sw, F32_TOL, scale="each")
+    def run_ssd(cases, gen):
+        for name, (b, l, h, p, n, chunk), dtn, dts, main, strided in cases:
+            dt = getattr(torch, dtn)
+            l, chunk = l or L, chunk or main_chunk
+            x, dtv, A, B, C = ssd_inputs(torch, gen, b, l, h, p, n, dts, dt,
+                                         conv_layout=strided)
+            got = SS.ssd_scan_cuda(x, dtv, A, B, C, chunk=chunk)
+            plain = ref.ssd(x, dtv, A, B, C, chunk=chunk)
+            yw, sw = ref.ssd(*(t.double() for t in (x, dtv, A, B, C)),
+                             chunk=chunk)
+            y_tol = F32_TOL if dt == torch.float32 else BF16_TOL
+            for side, (y, st) in (("kernel", got), ("plain", plain)):
+                compare(f"{name} {side} y", y, yw, y_tol,
+                        main if side == "kernel" else None, scale="each")
+                compare(f"{name} {side} state", st, sw, F32_TOL, scale="each")
+            if main:
+                y2, s2 = SS.ssd_scan_cuda(x, dtv, A, B, C, chunk=chunk)
+                check(torch.equal(got[0], y2) and torch.equal(got[1], s2),
+                      f"{name}: two launches differ")
+                print(f"   {name}: two launches bitwise equal")
+    run_ssd(SSD_CASES, gen)
     # B and C strided too (at an f32 model dtype mamba_full passes them as
     # slices of the conv output; at bf16 they are float32 copies)
     wide = rnd(2, 49, 3 * 16 + 40)
@@ -622,8 +691,63 @@ def kernel_checks(torch, L: int, s_train: int):
     yp, sp = ref.ssd(x, dtv, A, B, C, chunk=7)
     compare("ssd strided y", y, yp, F32_TOL)
     compare("ssd strided state", st, sp, F32_TOL)
-    step_checks(torch, gen, L, main_chunk, compare)
+    step_checks(torch, gen, L, main_chunk, compare,
+                [("step main", (56, 64, 64, 128, 48, 17), "ssd_decode_step")])
     bwd_checks(torch, rnd, compare, s_train)
+
+    # zamba2-7b's kernels at its shapes, on inputs of a generator of their
+    # own (rnd draws from it too), so the cases above keep their inputs
+    gen = torch.Generator(device=dev).manual_seed(112)
+    hybrid_flash = [
+        # zamba2-7b's shared attention: 32 heads of 112, group 1, its
+        # prefill of 56 prompts of L tokens in bf16 (the serve's) and f32,
+        # then a ragged tile (70 tokens), window and softcap, fully masked
+        # rows, sk != sq with an offset, 200 tokens
+        ("flash d112 main", (56, 32, 32, L, L, 112, 112), {}, bf,
+         "flash_attention" + HYBRID, "model"),
+        ("flash d112 main f32", (56, 32, 32, L, L, 112, 112), {}, f32,
+         "flash_attention" + HYBRID + " f32", "model"),
+        ("flash d112 ragged window+softcap", (2, 4, 4, 70, 70, 112, 112),
+         dict(window=16, softcap=30.0), bf, None, "model"),
+        ("flash d112 f32 ragged window+softcap", (2, 4, 4, 70, 70, 112, 112),
+         dict(window=16, softcap=30.0), f32, None, "model"),
+        ("flash d112 fully masked rows", (1, 4, 4, 20, 20, 112, 112),
+         dict(q_offset=-5), bf, None, "model"),
+        ("flash d112 sk!=sq window offset", (2, 4, 4, 70, 130, 112, 112),
+         dict(causal=False, window=40, q_offset=60), bf, None, "heads"),
+        ("flash d112 s=200", (2, 8, 8, 200, 200, 112, 112), {}, bf, None,
+         "model"),
+    ]
+    hybrid_decode = [
+        # zamba2-7b's decode: 32 kv-heads of 112, group 1, the serve's
+        # last step over ragged lengths in bf16 and f32, then a window and
+        # softcap, several chunks a warp, an empty row
+        ("decode d112 main", (56, 32, 32, S, 112, 112), None, {}, bf,
+         "decode_attention" + HYBRID),
+        ("decode d112 main f32", (56, 32, 32, S, 112, 112), None, {},
+         torch.float32, "decode_attention" + HYBRID + " f32"),
+        ("decode d112 window+softcap f32", (3, 4, 4, 70, 112, 112),
+         [10, 70, 33], dict(window=16, softcap=50.0), torch.float32, None),
+        ("decode d112 300 keys bf16", (2, 4, 4, 300, 112, 112), [300, 190],
+         {}, bf, None),
+        ("decode d112 empty row f32", (2, 4, 4, 40, 112, 112), [0, 40], {},
+         torch.float32, None),
+    ]
+    hybrid_paged = [
+        # head dim 112 (the body the dense kernel runs; zamba2 itself never
+        # pages, its mamba states have no paged layout)
+        ("paged d112 bf16", (4, 32, 32, kv_cap, 112, 112, PAGE, None, 0.0,
+                             bf), None),
+        ("paged d112 f32 ragged", (3, 4, 4, 70, 112, 112, 16, [10, 70, 33],
+                                   0.0, torch.float32), None),
+    ]
+    run_flash(hybrid_flash, rnd)
+    run_decode(hybrid_decode, rnd, gen)
+    run_paged(hybrid_paged, rnd, gen)
+    run_ssd(HYBRID_SSD_CASES, gen)
+    step_checks(torch, gen, L, main_chunk, compare,
+                [("step zamba2", (56, 112, 64, 64, 81, 40),
+                  "ssd_decode_step" + HYBRID)], edges=False)
     return errs
 
 
@@ -736,19 +860,22 @@ def bwd_checks(torch, rnd, compare, s_train: int):
               "with and without the saved lse")
 
 
-def step_checks(torch, gen, L: int, main_chunk: int, compare):
-    """The SSD decode step, in place.  The main path's shape: mamba2-1.3b's
-    decode of 56 rows on a (56, 64, 64, 128) f32 layer view of the full
-    48-layer stacked cache, every other layer poisoned to 1e9 and checked
-    untouched, 12 chained steps from the scan's final state on the main
-    prompt, x, B and C slices of a conv-output row whose batch dim is the
-    fastest and A in bf16, as mamba_decode passes them.  Kernel and f32
-    plain version are
-    each held element by element to the chain run in float64 from the same
-    state, within 2e-5 x max(1, |witness|) (y of every step and the final
-    state); two launches on the same inputs are bitwise equal.  Then edge
-    shapes (n 8 and 16, p 16, b 1, A in f32) with contiguous inputs, and
-    one small one in the conv-output layout."""
+def step_checks(torch, gen, L: int, main_chunk: int, compare, stacked,
+                edges: bool = True):
+    """The SSD decode step, in place.  Each of ``stacked`` — name, (b, h,
+    p, n, depth, layer), the kernel whose max_abs_err it gives — is a main
+    path's shape: mamba2-1.3b's decode of 56 rows on a (56, 64, 64, 128)
+    f32 layer view of the full 48-layer stacked cache, or zamba2-7b's on a
+    (56, 112, 64, 64) view of its 81-layer one, every other layer poisoned
+    to 1e9 and checked untouched, 12 chained steps from the scan's final
+    state on the main prompt, x, B and C slices of a conv-output row whose
+    batch dim is the fastest and A in bf16, as mamba_decode passes them.
+    Kernel and f32 plain version are each held element by element to the
+    chain run in float64 from the same state, within 2e-5 x max(1,
+    |witness|) (y of every step and the final state); two launches on the
+    same inputs are bitwise equal.  Then, with ``edges``, edge shapes (n 8
+    and 16, p 16, b 1, A in f32) with contiguous inputs, and one small one
+    in the conv-output layout."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_decode_step as SD
     from repro_torch.kernels import ssd_scan as SS
@@ -787,28 +914,30 @@ def step_checks(torch, gen, L: int, main_chunk: int, compare):
                     main if side == "kernel" else None, scale="each")
             compare(f"{name} {side} state", st, wit, F32_TOL, scale="each")
 
-    b, h, p, n, depth, layer, poison = 56, 64, 64, 128, 48, 17, 1e9
-    x, dtv, A, B, C = ssd_inputs(torch, gen, b, L, h, p, n, 1.0,
-                                 torch.bfloat16, conv_layout=True)
-    _, s0 = SS.ssd_scan_cuda(x, dtv, A, B, C, chunk=main_chunk)
-    cache = torch.full((depth, b, h, p, n), poison, device="cuda")
-    cache[layer] = s0
-    chain("step main", cache[layer], A, NEW_TOKENS, main="ssd_decode_step",
-          conv=True)
-    check(bool((cache[:layer] == poison).all())
-          and bool((cache[layer + 1:] == poison).all()),
-          "step main: a layer other than the stepped one changed")
-    print(f"   step main: the other {depth - 1} layers of the stacked cache "
-          "untouched")
-    del cache
-    x, dt, B, C = step_inputs(b, h, p, n, conv=True)
-    s1, s2 = s0.clone(), s0.clone()
-    y1, _ = SD.ssd_decode_step_cuda(s1, x, dt, A, B, C)
-    y2, _ = SD.ssd_decode_step_cuda(s2, x, dt, A, B, C)
-    torch.cuda.synchronize()
-    check(torch.equal(y1, y2) and torch.equal(s1, s2),
-          "step main: two launches differ")
-    print("   step main: two launches bitwise equal")
+    poison = 1e9
+    for name, (b, h, p, n, depth, layer), main in stacked:
+        x, dtv, A, B, C = ssd_inputs(torch, gen, b, L, h, p, n, 1.0,
+                                     torch.bfloat16, conv_layout=True)
+        _, s0 = SS.ssd_scan_cuda(x, dtv, A, B, C, chunk=main_chunk)
+        cache = torch.full((depth, b, h, p, n), poison, device="cuda")
+        cache[layer] = s0
+        chain(name, cache[layer], A, NEW_TOKENS, main=main, conv=True)
+        check(bool((cache[:layer] == poison).all())
+              and bool((cache[layer + 1:] == poison).all()),
+              f"{name}: a layer other than the stepped one changed")
+        print(f"   {name}: the other {depth - 1} layers of the stacked "
+              "cache untouched")
+        del cache
+        x, dt, B, C = step_inputs(b, h, p, n, conv=True)
+        s1, s2 = s0.clone(), s0.clone()
+        y1, _ = SD.ssd_decode_step_cuda(s1, x, dt, A, B, C)
+        y2, _ = SD.ssd_decode_step_cuda(s2, x, dt, A, B, C)
+        torch.cuda.synchronize()
+        check(torch.equal(y1, y2) and torch.equal(s1, s2),
+              f"{name}: two launches differ")
+        print(f"   {name}: two launches bitwise equal")
+    if not edges:
+        return
     for (b, h, p, n), steps in STEP_CASES:
         A = -torch.exp(rnd(h) * 0.3)
         chain(f"step b {b} h {h} p {p} n {n}", rnd(b, h, p, n) * 0.5, A,
@@ -1050,6 +1179,72 @@ def kernel_timings(torch, L: int, retriever, query_embs, s_train: int):
     out["ssd_decode_step"]["bound_ms"], out["ssd_decode_step"]["bound_by"] = \
         bound(*step_work(b, h, p, n, A.element_size()), "float32")
     del cache
+
+    # zamba2-7b's serve: flash and dense decode at head dim 112, group 1
+    # (32 q-heads on 32 kv-heads), and the SSD scan and step at its 112
+    # heads of 64, state 64; the same harness, bounds and yardsticks
+    b, hq, d, S = 56, 32, 112, L + NEW_TOKENS
+    q, k, v = (torch.randn(b, L, hq, d, generator=gen, device=dev).to(bf)
+               .transpose(1, 2) for _ in range(3))
+    row = "flash_attention" + HYBRID
+    out[row] = dict(
+        times(torch, lambda: FA.flash_attention_cuda(q, k, v),
+              lambda: FA.flash_attention_plain(q, k, v),
+              lambda: F.scaled_dot_product_attention(q, k, v,
+                                                     is_causal=True), 50),
+        shape=f"q, k, v ({b},{hq},{L},{d}) bf16 causal, views of (b, s, "
+              "h, d)")
+    out[row]["bound_ms"], out[row]["bound_by"] = bound(
+        2 * 4 * q.numel(), 2 * 2 * d * (L * (L + 1) // 2) * b * hq,
+        "bfloat16")
+    qd = torch.randn(b, hq, 1, d, generator=gen, device=dev).to(bf)
+    kc, vc = (torch.randn(b, hq, S, d, generator=gen, device=dev).to(bf)
+              for _ in range(2))
+    lens = torch.full((b,), S, dtype=torch.int32, device=dev)
+    mask = (torch.arange(S, device=dev)[None] < lens[:, None])[:, None, None]
+    valid = int(lens.sum())
+    row = "decode_attention" + HYBRID
+    out[row] = dict(
+        times(torch, lambda: DA.decode_attention_cuda(qd, kc, vc, lens),
+              lambda: DA.decode_attention_plain(qd, kc, vc, lens),
+              lambda: F.scaled_dot_product_attention(qd, kc, vc,
+                                                     attn_mask=mask), 200),
+        shape=f"q ({b},{hq},1,{d}) cache ({b},{hq},{S},{d}) bf16 "
+              f"cache_len {S}", launch_floor_ms=floor_ms)
+    out[row]["bound_ms"], out[row]["bound_by"] = bound(
+        2 * (2 * qd.numel() + 2 * valid * hq * d) + 4 * b,
+        2 * 2 * d * valid * hq, "bfloat16")
+    del q, k, v, kc, vc
+    b, h, p, n = 56, 112, 64, 64
+    x, dtv, A, B, C = ssd_inputs(torch, gen, b, L, h, p, n, 1.0, bf,
+                                 conv_layout=True)
+    row = "ssd_scan" + HYBRID
+    out[row] = dict(
+        times(torch, lambda: SS.ssd_scan_cuda(x, dtv, A, B, C, chunk=chunk),
+              lambda: ref.ssd(x, dtv, A, B, C, chunk=chunk), None, 50),
+        shape=f"x ({b},{L},{h},{p}) bf16 conv-output slice dt ({b},{L},{h}) "
+              f"A ({h},) bf16 B, C ({b},{L},{n}) f32 chunk {chunk}",
+        library_call="none: no single PyTorch call computes the SSD scan")
+    out[row]["bound_ms"], out[row]["bound_by"] = bound(
+        *ssd_work(b, L, h, p, n, chunk, x.element_size(), A.element_size()),
+        "float32")
+    cache = torch.randn(2, b, h, p, n, generator=gen, device=dev) * 0.1
+    st = cache[1]
+    conv = torch.randn(h * p + 2 * n, b, generator=gen, device=dev).t() * 0.5
+    xs, Bs, Cs = (conv[:, :h * p].reshape(b, h, p), conv[:, h * p:h * p + n],
+                  conv[:, h * p + n:])
+    dts = F.softplus(torch.randn(b, h, generator=gen, device=dev))
+    row = "ssd_decode_step" + HYBRID
+    out[row] = dict(
+        times(torch, lambda: SD.ssd_decode_step_cuda(st, xs, dts, A, Bs, Cs),
+              lambda: ref.ssd_decode_step(st, xs, dts, A, Bs, Cs), None, 200),
+        shape=f"state ({b},{h},{p},{n}) f32 layer view, x ({b},{h},{p}) dt "
+              f"({b},{h}) B, C ({b},{n}) f32 conv-output slices, A ({h},) "
+              "bf16, in place",
+        library_call="none: no single PyTorch call computes the SSD step")
+    out[row]["bound_ms"], out[row]["bound_by"] = bound(
+        *step_work(b, h, p, n, A.element_size()), "float32")
+    del cache, x, dtv, B, C
     out["flash_attention_bwd"] = bwd_timing(torch, gen, s_train)
     for name, t in out.items():
         lib = ("none" if t["library_ms"] is None
@@ -1200,7 +1395,7 @@ def ssd_work(b, l, h, p, n, chunk, x_bytes, a_bytes):
 
 
 # ---------------------------------------------------------------------------
-# phases 5/6 and 9/10: the main path through ScopeEngine.serve
+# phases 5/6, 9/10 and 11/12: the main path through ScopeEngine.serve
 # ---------------------------------------------------------------------------
 def build_world():
     from repro_torch.core.fingerprint import (FingerprintLibrary,
@@ -1237,6 +1432,35 @@ def tiny_ssm_config():
     from repro_torch.configs import get_config
     return dataclasses.replace(get_config("mamba2-1.3b").reduced(),
                                shared_attn_every=0)
+
+
+def tiny_hybrid_config():
+    """The small zamba2 hybrid of the CPU tests: zamba2-7b's
+    ``reduced(num_layers=5, d_model=448)`` (two units of two mambas and the
+    shared block, then one mamba; 4 heads of 112, group 1; f32)."""
+    from repro_torch.configs import get_config
+    return get_config("zamba2-7b").reduced(num_layers=5, d_model=448)
+
+
+def layer_counts(cfg):
+    """(attention layer runs, mamba layer runs) of one pass through
+    ``cfg``'s stack: a shared block counts at each occurrence."""
+    from repro_torch.models.transformer import build_plan
+    runs = [kind for unit, count in build_plan(cfg) for kind in unit * count]
+    return (sum(k in ("attn", "shared_attn") for k in runs),
+            runs.count("mamba"))
+
+
+def path_launches(cfg, retrievals: int):
+    """Each kernel's launches in ``retrievals`` retrievals, one prefill and
+    the decode steps of one ``NEW_TOKENS`` generation through ``cfg``:
+    flash and dense decode a layer of attention, the SSD scan and step a
+    mamba layer."""
+    n_attn, n_mamba = layer_counts(cfg)
+    return dict(NO_LAUNCHES, topk_retrieval=retrievals,
+                flash_attention=n_attn,
+                decode_attention=n_attn * NEW_TOKENS, ssd_scan=n_mamba,
+                ssd_decode_step=n_mamba * NEW_TOKENS)
 
 
 def tiny_card_vs_cpu(torch, cfg, world, data, anchors, lib, qids):
@@ -1292,8 +1516,7 @@ def tiny_card_vs_cpu(torch, cfg, world, data, anchors, lib, qids):
         print(f"   {policy.name}: {len(b.decisions)} decisions equal, "
               f"p_hat max_abs_err {p_err:.3g}")
     result["launches"] = launches = kernels.launch_counts()
-    ran = ({"ssd_scan", "ssd_decode_step"} if cfg.is_attention_free()
-           else {"flash_attention", "decode_attention"})
+    ran = {k for k, n in path_launches(cfg, 1).items() if n}
     check(all((launches[k] > 0) == (k in ran) for k in
               ("flash_attention", "decode_attention", "ssd_scan",
                "ssd_decode_step")),
@@ -1350,18 +1573,13 @@ def full_width(torch, cfg, world, data, anchors, lib, qids, params,
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     pairs = len(qids) * len(data.models)
-    L = cfg.num_layers
     print(f"   launches {counts}")
     # three retrievals: two serves and the budget probe; one prefill and
     # 12 decode steps of every layer, for the one cold serve: flash and
-    # decode attention on an attention stack, one SSD scan a layer of the
-    # prefill and one SSD decode step a layer and step on an SSM one
-    if cfg.is_attention_free():
-        want = dict(NO_LAUNCHES, topk_retrieval=3, ssd_scan=L,
-                    ssd_decode_step=L * NEW_TOKENS)
-    else:
-        want = dict(NO_LAUNCHES, topk_retrieval=3, flash_attention=L,
-                    decode_attention=L * NEW_TOKENS)
+    # decode attention an attention layer (each occurrence of a shared
+    # block), one SSD scan a mamba layer of the prefill and one SSD decode
+    # step a mamba layer and step
+    want = path_launches(cfg, 3)
     check(counts == want, f"launch counts {counts} != {want}")
     check(rep_a.cache_misses == pairs and rep_b.cache_hits == pairs,
           f"cache accounting {rep_a.cache_misses}/{rep_b.cache_hits}")
@@ -1751,7 +1969,7 @@ def device_busy(torch, params, cfg, prompts, steps: int = 4):
 
 
 # ---------------------------------------------------------------------------
-# phases 11/12: two-tier routing (the tier-0 gate) and drift-aware
+# phases 13/14: two-tier routing (the tier-0 gate) and drift-aware
 # self-healing (outcome monitor, model_drift fault, live hot-swap)
 # ---------------------------------------------------------------------------
 class GateProbe:
@@ -2138,7 +2356,7 @@ def full_tiers(torch, world, data, anchors, lib, smi):
 
 
 # ---------------------------------------------------------------------------
-# phases 13-15: training (SFT and GRPO through the flash forward and
+# phases 15-17: training (SFT and GRPO through the flash forward and
 # backward kernels) and the train / serve CLIs
 # ---------------------------------------------------------------------------
 SFT_STEPS_TINY, SFT_STEPS_FULL, SFT_BATCH = 10, 3, 64
@@ -2311,7 +2529,7 @@ def full_train(torch, ds):
     check(all(bool(torch.isfinite(t).all()) for t in _leaves(params)),
           "non-finite params after SFT")
     del out, opt_state                   # the moments: 30 GiB
-    torch.cuda.empty_cache()
+    release(torch)
     print(f"   sft batch {tuple(batch['tokens'].shape)}; launches "
           f"{sft_counts}; peak {sft_peak:.2f} GiB; top device work of the "
           f"profiled step (name, ms, calls): {sft_top}")
@@ -2352,7 +2570,7 @@ def full_train(torch, ds):
           f"{grpo_peak:.2f} GiB; top device work (name, ms, calls): "
           f"{grpo_top}")
     del trainer, params
-    torch.cuda.empty_cache()
+    release(torch)
     return {"config": CONFIG.name, "params": n_params,
             "sft_batch": list(batch["tokens"].shape), "sft_steps": steps,
             "sft_launches": sft_counts, "sft_peak_gib": sft_peak,
@@ -2506,7 +2724,7 @@ def main() -> int:
     t = phase("full-width stream: scope-qwen3-4b, paged and dense refill")
     report["stream"] = full_stream(torch, world, data, anchors, lib, params)
     del params
-    torch.cuda.empty_cache()
+    release(torch)
     done(t)
 
     t = phase("tiny ssm: card vs cpu")
@@ -2521,7 +2739,21 @@ def main() -> int:
     report["ssm"] = full_width(torch, ssm_cfg, world, data, anchors, lib,
                                qids, params, n_params)
     del params
-    torch.cuda.empty_cache()
+    release(torch)
+    done(t)
+
+    t = phase("tiny hybrid: card vs cpu")
+    report["tiny_hybrid"] = tiny_card_vs_cpu(torch, tiny_hybrid_config(),
+                                             world, data, anchors, lib, qids)
+    done(t)
+
+    t = phase("full width: zamba2-7b")
+    hybrid_cfg = get_config("zamba2-7b")
+    params, n_params = full_params(torch, hybrid_cfg, 6.5e9)
+    report["hybrid"] = full_width(torch, hybrid_cfg, world, data, anchors,
+                                  lib, qids, params, n_params)
+    del params
+    release(torch)
     done(t)
 
     t = phase("tiny tiers: card vs cpu, tier-0 gate, fallback, hot_swap")
@@ -2532,11 +2764,12 @@ def main() -> int:
     t = phase("full-width tiers: scope-qwen3-4b, gated paged stream, drift, "
               "hot_swap")
     report["tiers"] = full_tiers(torch, world, data, anchors, lib, smi)
-    torch.cuda.empty_cache()
+    release(torch)
     done(t)
 
     t = phase("tiny train: card vs cpu, SFT and a greedy GRPO step")
     report["tiny_train"] = tiny_train_card_vs_cpu(torch, sft_ds)
+    release(torch)
     done(t)
 
     t = phase("full-width train: scope-qwen3-4b, SFT and GRPO steps")
@@ -2559,13 +2792,18 @@ def main() -> int:
                         "ssd_decode_step"],
                     flash_attention_bwd=report["train"]["sft_launches"][
                         "flash_attention_bwd"])
+    # and the zamba2-7b serve's own path: its attention kernels at head dim
+    # 112 and its SSD kernels at its shapes, each a row of its own
+    for name in HYBRID_KERNELS:
+        launches[f"{name}{HYBRID}"] = report["hybrid"]["launches"][name]
     kernel_rows = []
-    for name in TPU_KERNELS:
-        tm = timing[name]
+    for row in [*TPU_KERNELS, *(f"{n}{HYBRID}" for n in HYBRID_KERNELS)]:
+        name = row.removesuffix(HYBRID)
+        tm = timing[row]
         kernel_rows.append({
-            "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": TPU_KERNELS[name], "launches": launches[name],
-            "max_abs_err": errs[name], "ms": tm["ms"],
+            "name": row, "route": "cuda", "source": SOURCES[name],
+            "replaces": TPU_KERNELS[name], "launches": launches[row],
+            "max_abs_err": errs[row], "ms": tm["ms"],
             "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
             "bound_by": tm["bound_by"], "library_ms": tm["library_ms"]})
     report["kernels"] = kernel_rows

@@ -1,10 +1,12 @@
-"""Model configuration: the dense and SSM subset of ``repro.configs.base``.
+"""Model configuration: the dense, SSM and hybrid subset of
+``repro.configs.base``.
 
 Only the fields the ported configs set or rely on are kept — the SCOPE
-estimator configs (``configs/scope_estimator``) and the pure-SSM Mamba2
-backbone (``configs/mamba2_1_3b``) — with the JAX package's defaults, so a
-config built here describes the same network as its JAX twin.  Other
-families (sliding windows, softcaps, MoE, MLA, the zamba2 hybrid,
+estimator configs (``configs/scope_estimator``), the pure-SSM Mamba2
+backbone (``configs/mamba2_1_3b``) and the zamba2 hybrid
+(``configs/zamba2_7b``: Mamba2 layers with a tied shared attention block)
+— with the JAX package's defaults, so a config built here describes the
+same network as its JAX twin.  Other families (softcaps, MoE, MLA,
 encoder-decoder, multimodal) arrive with their own port slices.
 """
 from __future__ import annotations
@@ -21,7 +23,7 @@ VALID_BLOCK_KINDS = ("attn", "mamba")
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str                      # dense | ssm
+    arch_type: str                      # dense | ssm | hybrid
     source: str = ""                    # paper / model card citation
 
     # Core transformer dims
@@ -38,6 +40,7 @@ class ModelConfig:
 
     # Attention options
     rope_theta: float = 10000.0
+    sliding_window: int = 4096          # used by attn_local blocks
     qk_norm: bool = False
 
     # SSM (Mamba2 / SSD)
@@ -53,7 +56,12 @@ class ModelConfig:
     rmsnorm_eps: float = 1e-6
     tie_embeddings: bool = True
     dtype: str = "bfloat16"
-    supports_long_context: bool = False
+    force_window: int = 0               # >0: every attn layer windowed
+                                        # (the long-context variant)
+
+    # Long-context policy
+    supports_long_context: bool = False     # may lower long_500k
+    long_context_window: int = 4096         # window used by the long variant
 
     def __post_init__(self):
         for k in self.block_pattern:
@@ -84,20 +92,22 @@ class ModelConfig:
     def has_ssm(self) -> bool:
         return any(k.startswith("mamba") for k in self.layer_kinds())
 
-    def reduced(self) -> "ModelConfig":
+    def reduced(self, *, num_layers: int = 2, d_model: int = 256,
+                num_heads: int = 4, vocab_size: int = 512) -> "ModelConfig":
         """A smoke-test variant of the same family (CPU-runnable): the JAX
-        ``reduced()`` at its defaults (2 layers, d_model 256, 4 heads, 512
-        ids) on the fields the port has.  As there, an SSM config comes back
-        with ``shared_attn_every=2`` (zamba2's layout, not ported): replace
-        it with 0 for a pure-SSM variant."""
+        ``reduced()`` on the fields the port has.  As there, an SSM config
+        comes back with ``shared_attn_every=2`` (zamba2's hybrid layout):
+        replace it with 0 for a pure-SSM variant."""
         changes = {
-            "num_layers": 2,
-            "d_model": 256,
-            "num_heads": 4,
-            "num_kv_heads": max(1, min(self.num_kv_heads, 4)),
-            "head_dim": 64,
-            "d_ff": 1024,
-            "vocab_size": 512,
+            "num_layers": num_layers,
+            "d_model": d_model,
+            "num_heads": num_heads,
+            "num_kv_heads": max(1, min(self.num_kv_heads, num_heads)),
+            "head_dim": max(32, d_model // num_heads),
+            "d_ff": d_model * 4,
+            "vocab_size": vocab_size,
+            "sliding_window": 64,
+            "long_context_window": 64,
             "dtype": "float32",
         }
         if self.has_ssm():

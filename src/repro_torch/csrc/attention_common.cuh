@@ -20,7 +20,8 @@
 //
 // Plain CUDA cores (fmaf), no tensor cores, TMA or wgmma: the f32 path
 // keeps the 2e-5 parity that tensor cores cannot.  Registers per lane:
-// R * DV / 32 accumulators.
+// R * ceil(DV / 32) accumulators; where 32 does not divide DV (zamba2's
+// 112) only the first DV % 32 lanes own a column of the last group.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -96,10 +97,13 @@ __device__ void attend_rows(const float* __restrict__ qs,
                             const T* __restrict__ kp, const T* __restrict__ vp,
                             const Keys keys, float softcap, float* ks,
                             float* vs, float* const* lse = nullptr) {
-  static_assert(DV % 32 == 0, "DV must be a multiple of 32");
-  constexpr int C = DV / 32;  // output columns per lane
+  static_assert(DV % 16 == 0, "DV must be a multiple of 16");
+  constexpr int C = (DV + 31) / 32;  // output columns per lane
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  // whether this lane owns column (C - 1) * 32 + lane: always where 32
+  // divides DV
+  const bool owns_last = DV % 32 == 0 || lane < DV % 32;
 
   float m[R], l[R], acc[R][C];
 #pragma unroll
@@ -151,7 +155,9 @@ __device__ void attend_rows(const float* __restrict__ qs,
         const float pj = __shfl_sync(FULL_MASK, p, j);
         const float* vr = vs + j * DV + lane;
 #pragma unroll
-        for (int c = 0; c < C; ++c) acc[r][c] = fmaf(pj, vr[c * 32], acc[r][c]);
+        for (int c = 0; c < C; ++c)
+          if (c < C - 1 || owns_last)
+            acc[r][c] = fmaf(pj, vr[c * 32], acc[r][c]);
       }
       m[r] = m_new;
     }
@@ -165,7 +171,9 @@ __device__ void attend_rows(const float* __restrict__ qs,
       *lse[r * WARPS + warp] = l[r] == 0.f ? INFINITY : m[r] + logf(l[r]);
     const float denom = l[r] == 0.f ? 1.f : l[r];
 #pragma unroll
-    for (int c = 0; c < C; ++c) o[c * 32 + lane] = from_f32<T>(acc[r][c] / denom);
+    for (int c = 0; c < C; ++c)
+      if (c < C - 1 || owns_last)
+        o[c * 32 + lane] = from_f32<T>(acc[r][c] / denom);
   }
 }
 
@@ -182,8 +190,16 @@ cudaError_t dispatch_dv(int dv, F&& f) {
   }
 }
 
-template <typename F>
+// Any pair of 32, 64, 128 and 256, and d = dv = one of SQUARE: the head
+// dims a kernel takes only with dv = d, which each kernel lists for itself
+// (the forward flash and both decode kernels take zamba2's 112; the flash
+// backward, not on that path, is not instantiated at 112).
+template <int... SQUARE, typename F>
 cudaError_t dispatch_head_dims(int d, int dv, F&& f) {
+  cudaError_t err = cudaErrorInvalidValue;
+  if (((d == SQUARE && dv == SQUARE &&
+        (err = f.template operator()<SQUARE, SQUARE>(), true)) || ...))
+    return err;
   switch (d) {
     case 32: return dispatch_dv<32>(dv, f);
     case 64: return dispatch_dv<64>(dv, f);

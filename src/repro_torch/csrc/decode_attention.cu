@@ -18,7 +18,10 @@
 // (decode_common.cuh): every valid key of a 64-key stage in flight at once
 // as 16-byte cp.async, split by logical position over the 4 warps, scored
 // in registers, one combine.  The paged kernel runs the same body, so on
-// the same logical cache the two agree bit for bit.
+// the same logical cache the two agree bit for bit.  Head dims: any (d,
+// dv) pair of 32, 64, 128 and 256, and d = dv = 112 (zamba2-7b's shared
+// attention, group 1, whose rows of 14 or 28 16-byte pieces leave a few
+// lanes idle: DecodeGeom).
 #include "decode_common.cuh"
 
 namespace repro {
@@ -92,5 +95,5 @@ extern "C" int repro_decode_attention(
   f.batch = b;
   f.dtype = dtype;
   f.stream = static_cast<cudaStream_t>(stream);
-  return repro::dispatch_head_dims(d, dv, f);
+  return repro::dispatch_head_dims<112>(d, dv, f);
 }

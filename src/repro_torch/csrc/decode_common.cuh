@@ -32,8 +32,9 @@
 //    with one key's score.  The online softmax (m, l, acc) runs per warp
 //    over its own chunks in f32, with the TPU kernel's guards (m_safe,
 //    alpha = 0 on the first key, masked keys p = 0); P goes through a
-//    warp-private shared buffer to P.V, where each lane owns dv / 32 output
-//    columns.  Plain FMAs: at ~g FLOP/B tensor cores would change nothing.
+//    warp-private shared buffer to P.V, where each lane owns ceil(dv / 32)
+//    output columns (DecodeGeom: at d 112 some lanes sit out, see there).
+//    Plain FMAs: at ~g FLOP/B tensor cores would change nothing.
 //  * One combine: the warps' (m, l, acc) meet in shared memory behind one
 //    barrier and merge in warp order; a warp without a valid key is
 //    skipped, so an empty chunk is an exact no-op.  l == 0 -> 1, so a row
@@ -106,16 +107,31 @@ struct PagedRows {
   }
 };
 
+constexpr int pow2_ceil(int x) {
+  int p = 1;
+  while (p < x) p <<= 1;
+  return p;
+}
+
+// Lane geometry.  A K row of PK 16-byte pieces is read by LK lanes, PK
+// rounded up to a power of two so that the reduce-scatter's butterfly holds:
+// where PK is not one (d 112: 14 pieces in bf16, 28 in f32) the lanes past
+// PK read nothing and add 0.  Each lane owns EV = ceil(dv / 32) output
+// columns; where 32 does not divide dv (112: 4 columns) the first LV = dv /
+// EV lanes own them and the rest sit out P.V.  For every power-of-two head
+// dim PK = LK * PL and LV = 32, the geometry the kernels had before.
 template <typename T, int D, int DV>
 struct DecodeGeom {
   static constexpr int VEC = 16 / sizeof(T);   // elements in 16 bytes
   static constexpr int PK = D / VEC;           // 16-byte pieces of a K row
-  static constexpr int LK = PK < 32 ? PK : 32; // lanes that share a K row
-  static constexpr int PL = PK / LK;           // pieces a lane reads of it
+  static constexpr int PKP = pow2_ceil(PK);    // ... rounded to a power of 2
+  static constexpr int LK = PKP < 32 ? PKP : 32; // lanes that share a K row
+  static constexpr int PL = PKP / LK;          // pieces a lane reads of it
   static constexpr int KW = 32 / LK;           // K rows a warp reads at once
   static constexpr int NI = DEC_CHUNK / KW;    // rounds a chunk (= LK / 2)
   static constexpr int QE = PL * VEC;          // q elements a lane holds
-  static constexpr int EV = DV / 32;           // output columns a lane owns
+  static constexpr int EV = (DV + 31) / 32;    // output columns a lane owns
+  static constexpr int LV = DV / EV;           // lanes that own columns
   static constexpr int BUF = DEC_CHUNK * (D + DV);   // elements a buffer
   // the batch decode grid (56 x 8 blocks of bf16 d 128) runs in one wave
   // only at 4 blocks a SM, so bf16 heads up to 128 are held to 128
@@ -124,6 +140,8 @@ struct DecodeGeom {
   static constexpr int MIN_BLOCKS = sizeof(T) == 2 && D <= 128 && DV <= 128
                                         ? 4 : 1;
   static_assert(NI * 2 == LK, "the reduce-scatter needs NI = LK / 2");
+  static_assert(D % 16 == 0 && DV % 16 == 0 && LV * EV == DV,
+                "head dims must be multiples of 16");
 };
 
 // Dynamic shared memory of one block: each warp's K/V buffer, the row
@@ -183,6 +201,7 @@ __device__ __forceinline__ void copy_chunk(T* dst, const T* __restrict__ src,
                                            const long long* offs, int lane,
                                            bool vec16) {
   constexpr int VEC = 16 / sizeof(T), P = W / VEC;
+  static_assert(DEC_CHUNK * P % 32 == 0, "a chunk is whole passes of 32");
 #pragma unroll
   for (int t = 0; t < DEC_CHUNK * P / 32; ++t) {
     const int e = lane + 32 * t;
@@ -245,8 +264,9 @@ __device__ __forceinline__ void issue_chunk(T* kb, long long* offs, int c,
 }
 
 // The pass's q-heads [h0, h0 + nh) as this lane reads them (the elements
-// of its pieces of d), in f32 times the scale; 0 past the group.
-template <typename T, int QE, int VEC, int LK, int H>
+// of its pieces of d), in f32 times the scale; 0 past the group and past
+// the row's PK pieces.
+template <typename T, int QE, int VEC, int LK, int PK, int H>
 __device__ __forceinline__ void load_q(float (&qr)[H][QE],
                                        const T* __restrict__ q,
                                        long long q_sh, int h0, int nh, int r,
@@ -255,8 +275,10 @@ __device__ __forceinline__ void load_q(float (&qr)[H][QE],
   for (int h = 0; h < H; ++h) {
 #pragma unroll
     for (int x = 0; x < QE; ++x) {
-      const int col = (r + (x / VEC) * LK) * VEC + x % VEC;
-      qr[h][x] = h < nh ? to_f32(q[(h0 + h) * q_sh + col]) * scale : 0.f;
+      const int piece = r + (x / VEC) * LK;
+      const int col = piece * VEC + x % VEC;
+      qr[h][x] = h < nh && piece < PK
+                     ? to_f32(q[(h0 + h) * q_sh + col]) * scale : 0.f;
     }
   }
 }
@@ -308,7 +330,8 @@ __device__ __forceinline__ void decode_block(
                             vec16);
     // q's loads fly beside the chunk's copy
     float qr[H][G::QE], m[H], l[H], acc[H][G::EV];
-    load_q<T, G::QE, G::VEC, G::LK, H>(qr, q, q_sh, h0, nh, r, scale);
+    load_q<T, G::QE, G::VEC, G::LK, G::PK, H>(qr, q, q_sh, h0, nh, r,
+                                              scale);
 #pragma unroll
     for (int h = 0; h < H; ++h) {
       m[h] = NEG_INF;
@@ -331,6 +354,7 @@ __device__ __forceinline__ void decode_block(
         for (int h = 0; h < H; ++h) part[it][h] = 0.f;
 #pragma unroll
         for (int pp = 0; pp < G::PL; ++pp) {
+          if (G::PK != G::PKP && r + pp * G::LK >= G::PK) continue;
           float kf[G::VEC];
           load_f32<T, G::VEC>(
               kb + (it * G::KW + kg) * D + (r + pp * G::LK) * G::VEC, kf);
@@ -372,17 +396,19 @@ __device__ __forceinline__ void decode_block(
         m[h] = m_new;
       }
       __syncwarp();
-      // P.V: this lane's dv / 32 columns of every key of the chunk
+      // P.V: this lane's EV columns of every key of the chunk
+      if (G::LV == 32 || lane < G::LV) {
 #pragma unroll
-      for (int j = 0; j < CH; ++j) {
-        float vf[G::EV];
-        load_f32<T, G::EV>(vb + j * DV + lane * G::EV, vf);
+        for (int j = 0; j < CH; ++j) {
+          float vf[G::EV];
+          load_f32<T, G::EV>(vb + j * DV + lane * G::EV, vf);
 #pragma unroll
-        for (int h = 0; h < H; ++h) {
-          const float pj = pw[h * CH + j];
+          for (int h = 0; h < H; ++h) {
+            const float pj = pw[h * CH + j];
 #pragma unroll
-          for (int e = 0; e < G::EV; ++e)
-            acc[h][e] = fmaf(pj, vf[e], acc[h][e]);
+            for (int e = 0; e < G::EV; ++e)
+              acc[h][e] = fmaf(pj, vf[e], acc[h][e]);
+          }
         }
       }
       __syncwarp();                   // the buffer and P are free again
@@ -395,9 +421,11 @@ __device__ __forceinline__ void decode_block(
     float* cw = comb + warp * H * (DV + 2);
 #pragma unroll
     for (int h = 0; h < H; ++h) {
+      if (G::LV == 32 || lane < G::LV) {
 #pragma unroll
-      for (int e = 0; e < G::EV; ++e)
-        cw[h * (DV + 2) + lane * G::EV + e] = acc[h][e];
+        for (int e = 0; e < G::EV; ++e)
+          cw[h * (DV + 2) + lane * G::EV + e] = acc[h][e];
+      }
       if (lane == 0) {
         cw[h * (DV + 2) + DV] = m[h];
         cw[h * (DV + 2) + DV + 1] = l[h];

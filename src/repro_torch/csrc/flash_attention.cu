@@ -47,6 +47,15 @@
 // buffer (training's forward, which the backward reads instead of
 // recomputing it); the serve path passes none and writes the same output.
 //
+// Head dims: any (d, dv) pair of 32, 64, 128 and 256, and d = dv = 112
+// (zamba2-7b's shared attention, 3584 / 32 heads, group 1).  A 112-wide
+// row is 14 16-byte chunks, which divide neither a warp nor the block's
+// 128 threads, so the copies walk the tile's chunks in row-major order with
+// a ragged last pass; its 7 k-steps and 14 n-tiles (7 ldmatrix.x4 pairs)
+// fit mma.m16n8k16 as they are, and the f32 kernel gives the first 16 lanes
+// a fourth output column.  Rows are read in place: nothing pads them to
+// 128.
+//
 // Inputs may be strided views (last dim contiguous): the model passes the
 // (b, s, h, d) projections transposed without a copy.  The bf16 kernel
 // also needs every stride a multiple of 8 elements and 16-byte aligned
@@ -195,14 +204,16 @@ __global__ void __launch_bounds__(THREADS, (D > 128 || DV > 128) ? 1 : 4)
   }
   __syncwarp();
   {
-    constexpr int QC = D / 8, STEP = 32 / QC;      // chunks a row, rows a pass
-    const int c = lane % QC;
+    // the warp's 16 rows of QC 16-byte chunks, lane l copying chunks l,
+    // l + 32, ... in row-major order (whole rows a pass where QC divides
+    // 32).  A row past nrows only feeds its own scores and output, never
+    // written: it is left as it is
+    constexpr int QC = D / 8;
 #pragma unroll
-    for (int i = 0; i < 16 / STEP; ++i) {
-      // a row past nrows only feeds its own scores and output, never
-      // written: it is left as it is
-      const int r = wr0 + lane / QC + i * STEP;
-      if (r < nrows)
+    for (int i = 0; i < (16 * QC + 31) / 32; ++i) {
+      const int e = lane + i * 32;
+      const int r = wr0 + e / QC, c = e % QC;
+      if (e < 16 * QC && r < nrows)
         cp_async16(qs + r * QS + c * 8,
                    qb + row_g[r] * p.q_sh + row_qi[r] * p.q_ss + c * 8, true);
     }
@@ -438,5 +449,5 @@ extern "C" int repro_flash_attention(
   f.batch = b;
   f.dtype = dtype;
   f.stream = static_cast<cudaStream_t>(stream);
-  return repro::dispatch_head_dims(d, dv, f);
+  return repro::dispatch_head_dims<112>(d, dv, f);
 }

@@ -48,23 +48,36 @@ __device__ __forceinline__ void key_span(const P& p, int p0, int p1, int& lo,
 
 // ROWS x W bf16 rows (W / 8 16-byte chunks each) into shared memory at row
 // stride S; row j comes from base + (first + j) * ss.  Rows in [end, zend)
-// are zero-filled, rows at or past zend left as they are.  Each of the NT
-// threads copies one chunk column of every (NT / chunks)-th row.
+// are zero-filled, rows at or past zend left as they are.  Where the NT
+// threads split evenly over the chunks, each copies one chunk column of
+// every (NT / chunks)-th row; otherwise (W = 112: 14 chunks a row) thread t
+// copies chunks t, t + NT, ... of the tile in row-major order.
 template <int ROWS, int W, int S, int NT = THREADS>
 __device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
                                           const __nv_bfloat16* base,
                                           long long ss, int first, int end,
                                           int zend) {
-  constexpr int C = W / 8, STEP = NT / C;
-  static_assert(NT % C == 0 && ROWS % STEP == 0, "tile shape");
-  const int j = threadIdx.x / C, c = threadIdx.x % C;
-  const __nv_bfloat16* src = base + (first + j) * ss + c * 8;
+  constexpr int C = W / 8;
+  if constexpr (NT % C == 0 && ROWS % (NT / C) == 0) {
+    constexpr int STEP = NT / C;
+    const int j = threadIdx.x / C, c = threadIdx.x % C;
+    const __nv_bfloat16* src = base + (first + j) * ss + c * 8;
 #pragma unroll
-  for (int i = 0; i < ROWS / STEP; ++i) {
-    const int row = first + j + i * STEP;
-    if (row < zend)
-      cp_async16(dst + (j + i * STEP) * S + c * 8,
-                 row < end ? src + i * STEP * ss : base, row < end);
+    for (int i = 0; i < ROWS / STEP; ++i) {
+      const int row = first + j + i * STEP;
+      if (row < zend)
+        cp_async16(dst + (j + i * STEP) * S + c * 8,
+                   row < end ? src + i * STEP * ss : base, row < end);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < (ROWS * C + NT - 1) / NT; ++i) {
+      const int e = threadIdx.x + i * NT;
+      const int j = e / C, c = e - j * C, row = first + j;
+      if (e < ROWS * C && row < zend)
+        cp_async16(dst + j * S + c * 8,
+                   row < end ? base + row * ss + c * 8 : base, row < end);
+    }
   }
 }
 

@@ -26,7 +26,7 @@
 // addressed one by one, so page sizes 8, 16, 32 and a clipped last page
 // (W * page > kv_cap) need nothing special.  The chunks follow logical
 // positions, so on the same logical cache the paged and the dense kernels
-// agree bit for bit.
+// agree bit for bit.  Head dims as the dense kernel's, 112 included.
 //
 // Table entries are NOT range-checked here — that would cost a host sync per
 // call.  repro_torch.serving.kv_pool.PagedKV keeps every entry of its host
@@ -112,5 +112,5 @@ extern "C" int repro_paged_decode_attention(
   f.batch = b;
   f.dtype = dtype;
   f.stream = static_cast<cudaStream_t>(stream);
-  return repro::dispatch_head_dims(d, dv, f);
+  return repro::dispatch_head_dims<112>(d, dv, f);
 }

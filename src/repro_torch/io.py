@@ -30,6 +30,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import tier0 as T0
+from repro_torch.models import transformer as tf
 from repro_torch.models.common import dtype_of
 
 _SEP = "|"
@@ -46,15 +47,19 @@ def to_tensor(arr: np.ndarray, device) -> torch.Tensor:
 
 
 def _check(params: Dict, cfg: ModelConfig) -> None:
-    """The bridged tree must describe ``cfg``'s tied dense or pure-SSM
-    network."""
+    """The bridged tree must describe ``cfg``'s tied dense, pure-SSM or
+    hybrid network: a ``shared_attn`` block exactly where ``cfg``'s plan
+    runs one, and a segment for each of its segments."""
     if "lm_head" in params or not cfg.tie_embeddings:
         raise NotImplementedError("untied LM heads are not ported yet")
-    if "shared_attn" in params or (cfg.has_ssm()
-                                   and cfg.shared_attn_every > 0):
-        raise NotImplementedError(
-            f"{cfg.name!r}: the zamba2 hybrid (a tied shared attention "
-            "block between mamba layers) is not ported yet")
+    plan = tf.build_plan(cfg)
+    hybrid = any("shared_attn" in unit for unit, _ in plan)
+    if ("shared_attn" in params) != hybrid:
+        raise ValueError(f"{cfg.name!r}: shared_attn block in the tree "
+                         f"{'shared_attn' in params}, in its plan {hybrid}")
+    if len(params["segments"]) != len(plan):
+        raise ValueError(f"{len(params['segments'])} segments, {cfg.name!r} "
+                         f"has {len(plan)}")
     want = (cfg.vocab_size, cfg.d_model)
     if tuple(params["embed"].shape) != want:
         raise ValueError(f"embed {tuple(params['embed'].shape)} != {want} "

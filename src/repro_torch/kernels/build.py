@@ -27,6 +27,11 @@ NVCC_PATHS = ("nvcc", "/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
+# every attention library takes any (d, dv) pair of these; a library may
+# also take d = dv of dims of its own (``dispatch_head_dims<...>`` in
+# ``csrc/attention_common.cuh``)
+PAIR_HEAD_DIMS = (32, 64, 128, 256)
+
 _FNS: Dict[str, "ctypes._CFuncPtr"] = {}      # C entry point by symbol
 
 
@@ -99,3 +104,16 @@ def check(err: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a launch."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def check_head_dims(d: int, dv: int, dims: Sequence[int], what: str) -> None:
+    """Raise ``ValueError`` unless ``what``, instantiated for ``dims``,
+    takes (d, dv): any pair of ``PAIR_HEAD_DIMS``, and d = dv of its other
+    dims."""
+    if d in dims and dv in dims and (
+            d == dv or (d in PAIR_HEAD_DIMS and dv in PAIR_HEAD_DIMS)):
+        return
+    extra = tuple(x for x in dims if x not in PAIR_HEAD_DIMS)
+    raise ValueError(
+        f"head dims d={d}, dv={dv}: {what} takes any (d, dv) pair of "
+        f"{PAIR_HEAD_DIMS}" + (f" and d = dv in {extra}" if extra else ""))

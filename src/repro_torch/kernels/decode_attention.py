@@ -29,7 +29,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = build.PAIR_HEAD_DIMS + (112,)   # both kernels; 112 with dv = d
 MAX_GROUP = 16              # grouped q-heads one block serves
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -114,9 +114,8 @@ def check_args(q, k_cache, v_cache, lens: torch.Tensor) -> None:
                          f"{tuple(k_cache.shape)} v {tuple(v_cache.shape)}")
     if hkv == 0 or hq % hkv or hq // hkv > MAX_GROUP:
         raise ValueError(f"hq {hq} / hkv {hkv}: need a group of 1..{MAX_GROUP}")
-    if d not in HEAD_DIMS or v_cache.shape[3] not in HEAD_DIMS:
-        raise ValueError(f"head dims d={d}, dv={v_cache.shape[3]}: the "
-                         f"kernel takes {HEAD_DIMS}")
+    build.check_head_dims(d, v_cache.shape[3], HEAD_DIMS,
+                          "the decode kernel")
     if b == 0 or S == 0:
         raise ValueError("empty batch or cache")
     if lens.shape != (b,) or lens.dtype != torch.int32:
@@ -218,9 +217,8 @@ def check_paged_args(q, k_pages, v_pages, lens: torch.Tensor, page_table,
                          f"page_size is {page_size}")
     if hkv == 0 or hq % hkv or hq // hkv > MAX_GROUP:
         raise ValueError(f"hq {hq} / hkv {hkv}: need a group of 1..{MAX_GROUP}")
-    if d not in HEAD_DIMS or v_pages.shape[3] not in HEAD_DIMS:
-        raise ValueError(f"head dims d={d}, dv={v_pages.shape[3]}: the "
-                         f"kernel takes {HEAD_DIMS}")
+    build.check_head_dims(d, v_pages.shape[3], HEAD_DIMS,
+                          "the paged decode kernel")
     if b == 0:
         raise ValueError("empty batch")
     if page_table.dtype != torch.int32 or page_table.dim() != 2 \

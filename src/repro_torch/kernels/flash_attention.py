@@ -36,7 +36,8 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-HEAD_DIMS = (32, 64, 128, 256)
+BWD_HEAD_DIMS = build.PAIR_HEAD_DIMS          # the backward kernel
+FWD_HEAD_DIMS = BWD_HEAD_DIMS + (112,)         # the forward: 112 with dv = d
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
@@ -127,8 +128,9 @@ def flash_lse_plain(q, k, v, *, causal: bool = True, window: int = 0,
     return lse.masked_fill(~mask.any(dim=-1), float("inf"))
 
 
-def check_args(q, k, v) -> None:
-    """Raise ``ValueError`` on any input the kernel does not take."""
+def check_args(q, k, v, *, backward: bool = False) -> None:
+    """Raise ``ValueError`` on any input the forward kernel (or, with
+    ``backward``, the backward kernel) does not take."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be 4-D (b, h, s, d)")
     b, hq, sq, d = q.shape
@@ -142,9 +144,9 @@ def check_args(q, k, v) -> None:
                          f"{tuple(k.shape)} v {tuple(v.shape)}")
     if hkv == 0 or hq % hkv:
         raise ValueError(f"hq {hq} is not a multiple of hkv {hkv}")
-    if d not in HEAD_DIMS or v.shape[3] not in HEAD_DIMS:
-        raise ValueError(f"head dims d={d}, dv={v.shape[3]}: the kernel "
-                         f"takes {HEAD_DIMS}")
+    build.check_head_dims(
+        d, v.shape[3], BWD_HEAD_DIMS if backward else FWD_HEAD_DIMS,
+        "the flash backward kernel" if backward else "the flash kernel")
     if b == 0 or sq == 0 or sk == 0:
         raise ValueError("empty batch or sequence")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -209,7 +211,7 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *, causal: bool = True,
             or q.device.type != "cuda":
         raise ValueError("flash_attention backward needs CUDA tensors on one "
                          "device")
-    check_args(q, k, v)
+    check_args(q, k, v, backward=True)
     b, hq, sq, d = q.shape
     hkv, sk, dv = k.shape[1], k.shape[2], v.shape[3]
     for name, t in (("out", out), ("dout", dout)):

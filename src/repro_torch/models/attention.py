@@ -1,9 +1,12 @@
-"""GQA attention block (RoPE, qk-norm, full causal window).
+"""GQA attention block (RoPE, qk-norm, causal, optionally windowed).
 
 Activations are (batch, seq, d_model); heads are split internally.  The
 full-sequence path (prefill) returns the layer's K/V; the single-token
 decode paths write the new K/V into the cache at each row's own slot, of a
-dense (b, hkv, S, hd) cache or of a block-paged one.
+dense (b, hkv, S, hd) cache or of a block-paged one.  A layer's window is
+``resolve_window``'s, as in the JAX package; the ring-buffer decode of a
+window-sized cache is not ported yet (it lands with the ``gemma2_*``
+configs).
 """
 from __future__ import annotations
 
@@ -15,6 +18,14 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import rope as rope_mod
 from repro_torch.models.common import dense_init, init_rmsnorm, rmsnorm
+
+
+def resolve_window(cfg: ModelConfig, kind: str) -> int:
+    if cfg.force_window > 0:
+        return cfg.force_window
+    if kind == "attn_local":
+        return cfg.sliding_window
+    return 0
 
 
 def init_gqa(generator: torch.Generator, cfg: ModelConfig, *, device,
@@ -44,36 +55,47 @@ def _gqa_qkv(p, cfg: ModelConfig, x, cos, sin):
     return q, k, v
 
 
-def gqa_full(p, cfg: ModelConfig, x, cos, sin
+def gqa_full(p, cfg: ModelConfig, x, cos, sin, *, kind: str = "attn"
              ) -> Tuple[torch.Tensor, Dict]:
-    """Full-sequence causal GQA.  Returns (y, {"k", "v"}) with the cache
-    slice as (b, hkv, s, hd) views (head-major, not copied)."""
+    """Full-sequence causal GQA over the layer's window.  Returns (y,
+    {"k", "v"}) with the cache slice as (b, hkv, s, hd) views (head-major,
+    not copied)."""
     b, s, _ = x.shape
     q, k, v = _gqa_qkv(p, cfg, x, cos, sin)
     qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    out = ops.flash_attention(qh, kh, vh, causal=True)
+    out = ops.flash_attention(qh, kh, vh, causal=True,
+                              window=resolve_window(cfg, kind))
     y = out.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.resolved_head_dim)
     return y @ p["wo"], {"k": kh, "v": vh}
 
 
 def gqa_decode(p, cfg: ModelConfig, x, cos, sin, cache: Dict,
-               pos: torch.Tensor) -> torch.Tensor:
+               pos: torch.Tensor, *, kind: str = "attn") -> torch.Tensor:
     """Single-token GQA decode.
 
     x: (b, 1, d); cache["k"/"v"]: (b, hkv, S, hd); pos: (b,) — per-row count
     of tokens already cached, so row i's new K/V land at slot ``pos[i]`` and
-    it attends ``pos[i] + 1`` entries.
+    it attends ``pos[i] + 1`` entries, the last ``window`` of them where the
+    layer has one.  A windowed layer whose cache has exactly ``window``
+    slots is the JAX package's ring-buffer mode, which raises
+    ``NotImplementedError`` here.
 
     The cache is updated IN PLACE (the JAX package builds a new array with
     ``.at[rows, :, slot].set``); callers that need the old cache copy it.
     """
+    window = resolve_window(cfg, kind)
+    if window > 0 and cache["k"].shape[2] == window:
+        raise NotImplementedError(
+            f"{cfg.name!r}: ring-buffer decode of a {window}-slot windowed "
+            "cache is not ported yet (ROADMAP Queue 1 item 18, with the "
+            "gemma2 configs)")
     b = x.shape[0]
     q, k, v = _gqa_qkv(p, cfg, x, cos, sin)
     rows = torch.arange(b, device=x.device)
     cache["k"][rows, :, pos] = k[:, 0].to(cache["k"].dtype)
     cache["v"][rows, :, pos] = v[:, 0].to(cache["v"].dtype)
     out = ops.decode_attention(q.transpose(1, 2), cache["k"], cache["v"],
-                               pos + 1)
+                               pos + 1, window=window)
     y = out.transpose(1, 2).reshape(b, 1, cfg.num_heads * cfg.resolved_head_dim)
     return y @ p["wo"]
 

@@ -1,5 +1,5 @@
-"""Top-level model API of the estimator backbones: the dense GQA stack and
-the pure-SSM Mamba2 stack.
+"""Top-level model API of the estimator backbones: the dense GQA stack, the
+pure-SSM Mamba2 stack and the zamba2 hybrid.
 
   init_params(cfg, *, seed, device)          -> params dict
   forward_train(params, cfg, batch)          -> (logits (b, s, V), aux)
@@ -10,10 +10,12 @@ the pure-SSM Mamba2 stack.
   init_cache(cfg, batch_size, max_len, device) -> zeroed caches
 
 The params dict has the JAX pytree's layout: ``embed`` (V, d),
-``final_norm.scale`` (d,), and ``segments``, a tuple with one dict per
-segment of (L, ...) stacked layer leaves.  Caches are a tuple with one dict
-per segment, ``{"<j>": {"k", "v"}}`` of shape (L, b, hkv, S, hd) for an
-attention layer, ``{"<j>": {"conv", "ssm"}}`` of shape (L, b, width - 1,
+``final_norm.scale`` (d,), ``segments``, a tuple with one dict per segment
+of (L, ...) stacked layer leaves, and for the hybrid ``shared_attn``, the
+one unstacked attention + MLP block every ``shared_attn`` position runs.
+Caches are a tuple with one dict per segment, ``{"<j>": {"k", "v"}}`` of
+shape (L, b, hkv, S, hd) for an attention layer (a shared block's: one per
+occurrence), ``{"<j>": {"conv", "ssm"}}`` of shape (L, b, width - 1,
 d_inner + 2 n) in the model dtype and (L, b, heads, head_dim, n) in float32
 for a mamba layer.
 """
@@ -25,8 +27,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.io import tree_map
 from repro_torch.models import rope as rope_mod
 from repro_torch.models import transformer as tf
+from repro_torch.models.attention import resolve_window
 from repro_torch.models.common import (
     dtype_of, embed_init, init_rmsnorm, rmsnorm)
 
@@ -38,23 +42,29 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     leaf of rank >= 2 to ``cfg.dtype`` after stacking, so the embedding and
     every per-layer leaf (projections, norm scales, and a mamba layer's conv
     weights and bias, ``A_log``, ``D`` and ``dt_bias``) are made in
-    ``cfg.dtype``; the final norm scale stays float32.  Untied heads are not
-    supported."""
+    ``cfg.dtype``; the final norm scale and the unstacked shared block's
+    norm scales stay float32.  Untied heads are not supported."""
     if not cfg.tie_embeddings:
         raise NotImplementedError("untied LM heads are not ported yet")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = dtype_of(cfg.dtype)
-    segments = tuple(
-        {str(j): tf.stack_trees([tf.init_block(gen, cfg, kind, device=dev,
-                                               dtype=dt)
-                                 for _ in range(count)])
-         for j, kind in enumerate(unit)}
-        for unit, count in tf.build_plan(cfg))
-    return {"embed": embed_init((cfg.vocab_size, cfg.d_model), gen,
-                                device=dev, dtype=dt),
-            "final_norm": init_rmsnorm(cfg.d_model, device=dev),
-            "segments": segments}
+    plan = tf.build_plan(cfg)
+    segments = tuple(tf.init_segment(gen, cfg, unit, count, device=dev,
+                                     dtype=dt)
+                     for unit, count in plan)
+    shared = None
+    if any("shared_attn" in unit for unit, _ in plan):
+        shared = tree_map(
+            lambda t: t.to(dt) if t.dim() >= 2 else t,
+            tf.init_block(gen, cfg, "attn", device=dev, dtype=torch.float32))
+    params = {"embed": embed_init((cfg.vocab_size, cfg.d_model), gen,
+                                  device=dev, dtype=dt),
+              "final_norm": init_rmsnorm(cfg.d_model, device=dev),
+              "segments": segments}
+    if shared is not None:
+        params["shared_attn"] = shared
+    return params
 
 
 def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -68,8 +78,9 @@ def _logits(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 
 
 def _cos_sin(cfg: ModelConfig, pos: torch.Tensor):
-    """RoPE tables at ``pos``; none for an attention-free stack (whose
-    ``resolved_head_dim`` would divide by its zero heads)."""
+    """RoPE tables at ``pos``; none for a stack with no attention at all
+    (whose ``resolved_head_dim`` would divide by its zero heads): the
+    hybrid's layer kinds are all ``mamba``, but its shared block rotates."""
     if cfg.is_attention_free() and cfg.shared_attn_every == 0:
         return None, None
     return rope_mod.rope_cos_sin(pos, cfg.resolved_head_dim, cfg.rope_theta)
@@ -93,8 +104,9 @@ def forward_train(params, cfg: ModelConfig, batch: Dict, *,
                         .expand(b, s))
     for seg, (unit, count) in zip(params["segments"], tf.build_plan(cfg),
                                   strict=True):
-        h, _ = tf.segment_full(seg, cfg, unit, count, h, cos, sin,
-                               remat=remat, want_cache=False)
+        h, _ = tf.segment_full(seg, params.get("shared_attn"), cfg, unit,
+                               count, h, cos, sin, remat=remat,
+                               want_cache=False)
     return _logits(params, cfg, h), torch.zeros((), device=tokens.device)
 
 
@@ -133,7 +145,8 @@ def prefill(params, cfg: ModelConfig, batch: Dict):
     caches = []
     for seg, (unit, count) in zip(params["segments"], tf.build_plan(cfg),
                                   strict=True):
-        h, cache = tf.segment_full(seg, cfg, unit, count, h, cos, sin)
+        h, cache = tf.segment_full(seg, params.get("shared_attn"), cfg,
+                                   unit, count, h, cos, sin)
         caches.append(cache)
     return _logits(params, cfg, h), tuple(caches)
 
@@ -153,14 +166,16 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches,
     cos, sin = _cos_sin(cfg, pos[:, None])
     for seg, cache, (unit, count) in zip(params["segments"], caches,
                                          tf.build_plan(cfg), strict=True):
-        h = tf.segment_decode(seg, cfg, unit, count, h, cos, sin, cache, pos,
-                              paged)
+        h = tf.segment_decode(seg, params.get("shared_attn"), cfg, unit,
+                              count, h, cos, sin, cache, pos, paged)
     return _logits(params, cfg, h), caches
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
                device: DeviceLike = None):
-    """Zeroed caches shaped for ``decode_step``."""
+    """Zeroed caches shaped for ``decode_step``.  As in the JAX package, a
+    windowed attention layer's K/V get ``min(max_len, window)`` slots (at
+    exactly ``window`` slots its decode is the ring buffer, which raises)."""
     dev = resolve_device(device)
     dt = dtype_of(cfg.dtype)
 
@@ -172,12 +187,15 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
                               conv_dim), dt),
                     "ssm": ((count, batch_size, cfg.resolved_ssm_heads,
                              cfg.ssm_head_dim, cfg.ssm_state), torch.float32)}
-        shape = (count, batch_size, cfg.num_kv_heads, max_len,
-                 cfg.resolved_head_dim)
+        w = resolve_window(cfg, kind)
+        shape = (count, batch_size, cfg.num_kv_heads,
+                 min(max_len, w) if w > 0 else max_len, cfg.resolved_head_dim)
         return {"k": (shape, dt), "v": (shape, dt)}
 
     return tuple(
         {str(j): {name: torch.zeros(shape, dtype=dtype, device=dev)
-                  for name, (shape, dtype) in spec(kind, count).items()}
+                  for name, (shape, dtype) in spec(
+                      "attn" if kind == "shared_attn" else kind,
+                      count).items()}
          for j, kind in enumerate(unit)}
         for unit, count in tf.build_plan(cfg))

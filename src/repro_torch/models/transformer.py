@@ -1,14 +1,20 @@
-"""Decoder stack: the ``attn`` and ``mamba`` block kinds and a loop over
-stacked layers.
+"""Decoder stack: the ``attn`` and ``mamba`` block kinds, the zamba2
+hybrid's ``shared_attn``, and a loop over stacked layers.
 
-As in the JAX package, layers are grouped into homogeneous segments whose
-parameters are stacked on a leading layer axis; where JAX scans the layer
-body, the port runs a Python loop over the stack.  The full-sequence pass
-unbinds each stacked leaf once (layer ``i`` reads the ``i``-th view), so
-under autograd the gradient of a stack is stacked once, not summed from a
-zero-filled stack per layer; decode reads the views ``leaf[i]``.  An
+As in the JAX package, layers are grouped into segments of a repeated unit
+whose parameters are stacked on a leading layer axis; where JAX scans the
+unit body, the port runs a Python loop over the stack.  The full-sequence
+pass unbinds each stacked leaf once (layer ``i`` reads the ``i``-th view),
+so under autograd the gradient of a stack is stacked once, not summed from
+a zero-filled stack per layer; decode reads the views ``leaf[i]``.  An
 ``attn`` layer caches {"k", "v"}, a ``mamba`` layer {"conv", "ssm"}, each
 leaf stacked per segment.
+
+zamba2's unit is ``("mamba",) * k + ("shared_attn",)``: the ``shared_attn``
+position holds no parameters of its own but runs the model-level
+``params["shared_attn"]`` attention block (one tied set at every
+occurrence), while its K/V caches are per occurrence, stacked under the
+unit's key like any other layer's.
 """
 from __future__ import annotations
 
@@ -25,12 +31,18 @@ from repro_torch.models.common import init_rmsnorm, rmsnorm
 
 
 def build_plan(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
-    """[(unit_kinds, count), ...]: consecutive identical kinds grouped."""
+    """[(unit_kinds, count), ...]: for an SSM stack with shared attention,
+    ``shared_attn_every`` mambas and the shared block as one unit, then the
+    remaining mambas; otherwise consecutive identical kinds grouped."""
     if cfg.has_ssm() and cfg.shared_attn_every > 0:
-        raise NotImplementedError(
-            f"{cfg.name!r}: SSM with a shared attention block every "
-            f"{cfg.shared_attn_every} layers (the zamba2 hybrid) is not "
-            "ported yet; a pure-SSM config sets shared_attn_every=0")
+        every = cfg.shared_attn_every
+        full, rem = divmod(cfg.num_layers, every)
+        plan = []
+        if full:
+            plan.append((("mamba",) * every + ("shared_attn",), full))
+        if rem:
+            plan.append((("mamba",), rem))
+        return plan
     kinds = cfg.layer_kinds()
     plan = []
     i = 0
@@ -56,6 +68,17 @@ def init_block(generator: torch.Generator, cfg: ModelConfig, kind: str, *,
                                       dtype=dtype),
             "mlp": mlp_mod.init_mlp(generator, cfg, device=device,
                                     dtype=dtype)}
+
+
+def init_segment(generator: torch.Generator, cfg: ModelConfig,
+                 unit: Tuple[str, ...], count: int, *, device, dtype) -> Dict:
+    """Stacked per-unit params ``{"<j>": (count, ...) leaves}``;
+    ``shared_attn`` positions hold none (the tied set lives at model
+    level)."""
+    return {str(j): stack_trees([init_block(generator, cfg, kind,
+                                            device=device, dtype=dtype)
+                                 for _ in range(count)])
+            for j, kind in enumerate(unit) if kind != "shared_attn"}
 
 
 def stack_trees(trees: List[Dict]) -> Dict:
@@ -90,7 +113,7 @@ def block_full(p: Dict, cfg: ModelConfig, kind: str, h: torch.Tensor, cos,
                                       rmsnorm(p["norm"], h, cfg.rmsnorm_eps))
         return h + y, cache
     x = rmsnorm(p["attn_norm"], h, cfg.rmsnorm_eps)
-    y, kv = attn_mod.gqa_full(p["attn"], cfg, x, cos, sin)
+    y, kv = attn_mod.gqa_full(p["attn"], cfg, x, cos, sin, kind=kind)
     h = h + y
     x2 = rmsnorm(p["mlp_norm"], h, cfg.rmsnorm_eps)
     return h + mlp_mod.mlp_forward(p["mlp"], cfg, x2), kv
@@ -107,7 +130,8 @@ def block_decode(p: Dict, cfg: ModelConfig, kind: str, h: torch.Tensor,
             p["mamba"], cfg, rmsnorm(p["norm"], h, cfg.rmsnorm_eps), cache)
     x = rmsnorm(p["attn_norm"], h, cfg.rmsnorm_eps)
     if paged is None:
-        y = attn_mod.gqa_decode(p["attn"], cfg, x, cos, sin, cache, pos)
+        y = attn_mod.gqa_decode(p["attn"], cfg, x, cos, sin, cache, pos,
+                                kind=kind)
     else:
         spec, table = paged
         y = attn_mod.gqa_decode_paged(p["attn"], cfg, x, cos, sin, cache,
@@ -122,42 +146,50 @@ def _block_h(p: Dict, cfg: ModelConfig, kind: str, h: torch.Tensor, cos,
     return block_full(p, cfg, kind, h, cos, sin)[0]
 
 
-def segment_full(seg: Dict, cfg: ModelConfig, unit: Tuple[str, ...],
+def segment_full(seg: Dict, shared, cfg: ModelConfig, unit: Tuple[str, ...],
                  count: int, h: torch.Tensor, cos, sin, *,
                  remat: bool = True, want_cache: bool = True):
-    """Run ``count`` stacked units.  Returns (h, {"<j>": cache}) with each
-    cache leaf stacked on a leading count axis: k/v (count, b, hkv, s, hd),
-    conv (count, b, width - 1, conv_dim), ssm (count, b, heads, p, n); the
-    dict is empty when ``want_cache`` is False.
+    """Run ``count`` stacked units; ``shared`` is the model-level
+    ``shared_attn`` block (None without one).  Returns (h, {"<j>": cache})
+    with each cache leaf stacked on a leading count axis: k/v (count, b,
+    hkv, s, hd), conv (count, b, width - 1, conv_dim), ssm (count, b,
+    heads, p, n); the dict is empty when ``want_cache`` is False.
 
     With ``remat`` and autograd recording, each block is one
     ``torch.utils.checkpoint`` (non-reentrant): the backward recomputes the
     block from its input instead of keeping its internals, as the
     reference's ``jax.checkpoint`` of the layer body."""
-    layers = {str(j): unbind_tree(seg[str(j)]) for j in range(len(unit))}
+    layers = {str(j): unbind_tree(seg[str(j)])
+              for j, kind in enumerate(unit) if kind != "shared_attn"}
     per_layer = {str(j): [] for j in range(len(unit))}
     checkpoint = remat and torch.is_grad_enabled()
     for i in range(count):
         for j, kind in enumerate(unit):
-            p = layers[str(j)][i]
+            p, kk = ((shared, "attn") if kind == "shared_attn"
+                     else (layers[str(j)][i], kind))
             if want_cache:
-                h, cache = block_full(p, cfg, kind, h, cos, sin)
+                h, cache = block_full(p, cfg, kk, h, cos, sin)
                 per_layer[str(j)].append(cache)
             elif checkpoint:
                 h = torch.utils.checkpoint.checkpoint(
-                    _block_h, p, cfg, kind, h, cos, sin, use_reentrant=False)
+                    _block_h, p, cfg, kk, h, cos, sin, use_reentrant=False)
             else:
-                h = _block_h(p, cfg, kind, h, cos, sin)
+                h = _block_h(p, cfg, kk, h, cos, sin)
     if not want_cache:
         return h, {}
     return h, {j: stack_trees(kvs) for j, kvs in per_layer.items()}
 
 
-def segment_decode(seg: Dict, cfg: ModelConfig, unit: Tuple[str, ...],
-                   count: int, h: torch.Tensor, cos, sin, caches: Dict,
-                   pos: torch.Tensor, paged=None) -> torch.Tensor:
+def segment_decode(seg: Dict, shared, cfg: ModelConfig,
+                   unit: Tuple[str, ...], count: int, h: torch.Tensor, cos,
+                   sin, caches: Dict, pos: torch.Tensor,
+                   paged=None) -> torch.Tensor:
+    """One decode step through ``count`` stacked units, each layer's cache
+    (the shared block's too: one per occurrence) written in place."""
     for i in range(count):
         for j, kind in enumerate(unit):
-            h = block_decode(layer_view(seg[str(j)], i), cfg, kind, h, cos,
-                             sin, layer_view(caches[str(j)], i), pos, paged)
+            p, kk = ((shared, "attn") if kind == "shared_attn"
+                     else (layer_view(seg[str(j)], i), kind))
+            h = block_decode(p, cfg, kk, h, cos, sin,
+                             layer_view(caches[str(j)], i), pos, paged)
     return h

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import resolve_window
 from repro_torch.models.common import dtype_of
 
 
@@ -56,19 +57,25 @@ def kv_bytes_per_token(cfg: ModelConfig) -> int:
     """KV bytes one cached token costs across every attention layer."""
     itemsize = torch.empty((), dtype=dtype_of(cfg.dtype)).element_size()
     per_layer = 2 * cfg.num_kv_heads * cfg.resolved_head_dim * itemsize
-    return per_layer * len(cfg.layer_kinds())
+    return per_layer * sum(1 for k in cfg.layer_kinds() if k == "attn")
 
 
 def check_paged_support(cfg: ModelConfig) -> None:
     """Paged KV covers full-window GQA attention stacks only: SSM/conv
-    states have no paged layout.  Loud failure beats decoding from the
-    wrong cache lines."""
+    states have no paged layout, and windowed ring buffers already cap
+    their own memory.  Loud failure beats decoding from the wrong cache
+    lines."""
     for kind in cfg.layer_kinds():
         if kind != "attn":
             raise ValueError(
                 "paged KV requires an attention-only GQA backbone: "
                 f"{cfg.name!r} has a {kind!r} layer (SSM/MLA states have "
                 "no paged layout)")
+        if resolve_window(cfg, kind) > 0:
+            raise ValueError(
+                "paged KV does not support sliding-window layers: "
+                f"{cfg.name!r} layer kind {kind!r} resolves a window — "
+                "ring buffers already bound their memory at O(window)")
 
 
 class PagedSpec(NamedTuple):

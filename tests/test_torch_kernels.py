@@ -56,7 +56,15 @@ ATTN_CASES = [
 ]
 
 
-@pytest.mark.parametrize("case", ATTN_CASES)
+# zamba2-7b's shared attention: head dim 112, one q-head a kv-head (g = 1),
+# its 49-token prompts, then a windowed, softcapped ragged case
+D112_CASES = [
+    (2, 4, 4, 49, 49, 112, True, 0, 0.0),
+    (1, 4, 4, 70, 70, 112, True, 16, 30.0),
+]
+
+
+@pytest.mark.parametrize("case", ATTN_CASES + D112_CASES)
 def test_flash_plain_matches_jax_ref(case):
     b, hq, hkv, sq, sk, d, causal, window, cap = case
     (jq, jk, jv), (tq, tk, tv) = _both(*_qkv(0, b, hq, hkv, sq, sk, d))
@@ -69,7 +77,7 @@ def test_flash_plain_matches_jax_ref(case):
 
 
 @pytest.mark.parametrize("case", [ATTN_CASES[0], ATTN_CASES[3],
-                                  ATTN_CASES[4]])
+                                  ATTN_CASES[4]] + D112_CASES)
 def test_flash_plain_matches_pallas_interpret(case):
     b, hq, hkv, sq, sk, d, causal, window, cap = case
     (jq, jk, jv), (tq, tk, tv) = _both(*_qkv(1, b, hq, hkv, sq, sk, d))
@@ -198,8 +206,19 @@ def test_bf16_tensor_core_numerics_within_budget_of_pallas(kw):
     its other reorderings stay within the bf16 tolerance of the Pallas
     kernel (interpret mode) at the main path's head geometry (d 128, group
     4, 49 tokens) and of the port's plain version."""
-    q, k, v = _qkv(21, 2, 8, 2, 49, 49, 128)
-    (jq, jk, jv), (tq, tk, tv) = _both(q, k, v, dtype=torch.bfloat16)
+    _check_bf16_flash(_qkv(21, 2, 8, 2, 49, 49, 128), kw)
+
+
+@pytest.mark.parametrize("kw", [{}, dict(window=16, softcap=30.0),
+                                dict(q_offset=-5)],
+                         ids=["causal", "window+softcap", "q_offset=-5"])
+def test_bf16_tensor_core_numerics_within_budget_of_pallas_at_d112(kw):
+    """The same at zamba2-7b's head geometry (d 112, group 1, 49 tokens)."""
+    _check_bf16_flash(_qkv(22, 2, 4, 4, 49, 49, 112), kw)
+
+
+def _check_bf16_flash(qkv, kw):
+    (jq, jk, jv), (tq, tk, tv) = _both(*qkv, dtype=torch.bfloat16)
     got = _emulate_bf16_flash(tq, tk, tv, **kw)
     pallas = fa_pallas(jq, jk, jv, interpret=True, **kw)
     np.testing.assert_allclose(got.float().numpy(),
@@ -223,7 +242,15 @@ DECODE_CASES = [
 ]
 
 
-@pytest.mark.parametrize("case", DECODE_CASES)
+# zamba2-7b's decode: d 112, g 1, its 61-key cache with ragged lengths,
+# then a window and softcap
+D112_DECODE_CASES = [
+    (2, 4, 4, 61, 112, (61, 49), 0, 0.0),
+    (2, 2, 2, 40, 112, (33, 40), 8, 30.0),
+]
+
+
+@pytest.mark.parametrize("case", DECODE_CASES + D112_DECODE_CASES)
 def test_decode_plain_matches_jax(case):
     b, hq, hkv, S, d, clen, window, cap = case
     q, kc, vc = _qkv(6, b, hq, hkv, 1, S, d)
@@ -391,7 +418,7 @@ def _paged_copy(kc, vc, page, n_spare=5, seed=0):
 EMULATED_DECODE_CASES = DECODE_CASES + [
     (2, 8, 2, 61, 128, (61, 49), 0, 0.0),
     (2, 4, 2, 32, 32, (0, 17), 0, 0.0),
-]
+] + D112_DECODE_CASES
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -428,6 +455,7 @@ EMULATED_PAGED_CASES = [
     (1, 8, 4, 64, 64, 8, (40,), 50.0),
     (3, 4, 2, 96, 32, 32, (10, 77, 96), 0.0),
     (2, 8, 2, 61, 128, 16, (61, 50), 0.0),
+    (2, 4, 4, 61, 112, 16, (61, 50), 0.0),
 ]
 
 
@@ -770,6 +798,37 @@ def test_flash_check_args_accepts_model_layout_and_f32_odd_strides():
     FA.check_args(q, kv, kv)
     odd = _t(1, 2, 8, 36)[..., 1:33]
     FA.check_args(odd, odd, odd)
+
+
+def test_flash_forward_takes_d112_and_backward_refuses_it():
+    """d = dv = 112 (zamba2-7b) is a forward head dim, in the model's bf16
+    layout too; 112 paired with another dv is not, and the backward kernel,
+    which is not built for it, refuses 112 by name."""
+    bf = torch.bfloat16
+    q = _t(2, 49, 32, 112, dtype=bf).transpose(1, 2)
+    FA.check_args(q, q, q)
+    FA.check_args(_t(1, 4, 8, 112), _t(1, 4, 8, 112), _t(1, 4, 8, 112))
+    for d, dv in ((112, 128), (128, 112), (112, 64)):
+        with pytest.raises(ValueError, match="head dims"):
+            FA.check_args(_t(1, 2, 8, d), _t(1, 2, 8, d), _t(1, 2, 8, dv))
+    with pytest.raises(ValueError, match="flash backward kernel"):
+        FA.check_args(q, q, q, backward=True)
+    FA.check_args(_t(1, 2, 8, 128), _t(1, 2, 8, 128), _t(1, 2, 8, 64),
+                  backward=True)
+
+
+def test_decode_kernels_take_d112_only_with_dv_112():
+    lens = torch.tensor([3, 4], dtype=torch.int32)
+    q, kc = _t(2, 4, 1, 112), _t(2, 4, 16, 112)
+    DA.check_args(q, kc, kc, lens)
+    table = torch.zeros((2, 2), dtype=torch.int32)
+    DA.check_paged_args(q, _t(5, 4, 8, 112), _t(5, 4, 8, 112), lens, table,
+                        8, 16)
+    with pytest.raises(ValueError, match="head dims"):
+        DA.check_args(q, kc, _t(2, 4, 16, 64), lens)
+    with pytest.raises(ValueError, match="paged decode kernel"):
+        DA.check_paged_args(q, _t(5, 4, 8, 112), _t(5, 4, 8, 128), lens,
+                            table, 8, 16)
 
 
 def test_decode_check_args_rejects():

@@ -31,7 +31,7 @@ from repro.serving import kv_pool as JK
 from repro.serving import sampler as JS
 from repro_torch import api as tapi
 from repro_torch import io
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, zamba2_7b
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.estimator import ReasoningEstimator as TEstimator
 from repro_torch.core.fingerprint import FingerprintLibrary, build_anchor_set
@@ -442,8 +442,8 @@ def _port_cfg(jcfg) -> ModelConfig:
 @pytest.fixture(scope="module")
 def ssm_pair():
     """The pure-SSM small config (``mamba2-1.3b.reduced()`` is the zamba2
-    hybrid's layout, so shared attention is switched off) and bridged
-    random weights."""
+    hybrid's layout, which ``test_torch_hybrid.py`` covers, so shared
+    attention is switched off) and bridged random weights."""
     jcfg = dataclasses.replace(jget_config("mamba2-1.3b").reduced(),
                                shared_attn_every=0)
     tcfg = dataclasses.replace(get_config("mamba2-1.3b").reduced(),
@@ -464,7 +464,8 @@ def _flat(tree, prefix=""):
     return {prefix: tree}
 
 
-@pytest.mark.parametrize("name", ["mamba2-1.3b", "scope-qwen3-4b"])
+@pytest.mark.parametrize("name", ["mamba2-1.3b", "scope-qwen3-4b",
+                                  "zamba2-7b"])
 def test_configs_and_reduced_variants_match_jax(name):
     for cfg, jcfg in ((get_config(name), jget_config(name)),
                       (get_config(name).reduced(),
@@ -480,8 +481,9 @@ def test_mamba2_config_and_registry():
     assert TT.build_plan(cfg) == [(("mamba",), 48)]
     for name in ("scope-qwen3-4b", "scope-tiny"):
         assert get_config(name).name == name
+    assert get_config("zamba2-7b") is zamba2_7b.CONFIG
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("zamba2-7b")
+        get_config("gemma2-9b")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -578,24 +580,6 @@ def test_pad_caches_passes_state_leaves_through(ssm_pair):
     grown = TS._pad_caches(caches, 10, 3)
     for name in ("conv", "ssm"):
         assert grown[0]["0"][name] is caches[0]["0"][name]
-
-
-def test_hybrid_config_raises_not_implemented(ssm_pair):
-    """zamba2's layout (shared attention between mamba layers) must not be
-    built or bridged as something else."""
-    jcfg, tcfg, _, _ = ssm_pair
-    hybrid = dataclasses.replace(tcfg, shared_attn_every=2)
-    with pytest.raises(NotImplementedError, match="zamba2"):
-        TT.build_plan(hybrid)
-    with pytest.raises(NotImplementedError, match="zamba2"):
-        TM.init_params(hybrid, seed=0, device="cpu")
-    jhybrid = dataclasses.replace(jcfg, shared_attn_every=2)
-    tree = jax.tree.map(np.asarray, JM.init_params(jax.random.PRNGKey(1),
-                                                   jhybrid))
-    assert "shared_attn" in tree
-    for cfg in (hybrid, tcfg):
-        with pytest.raises(NotImplementedError, match="zamba2"):
-            io.params_from_numpy(tree, cfg, "cpu")
 
 
 # ---------------------------------------------------------------------------
