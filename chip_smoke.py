@@ -6,7 +6,7 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each of which must pass (any failure exits non-zero with no result):
 
   1. device      — the card's name and power limit, torch and CUDA versions
-  2. build       — compile the seven CUDA kernels from ``src/repro_torch/csrc``
+  2. build       — compile the eight CUDA kernels from ``src/repro_torch/csrc``
                    (one nvcc per source, in parallel); ptxas must report
                    no spill
   3. kernels     — each kernel against its plain PyTorch version on the card,
@@ -48,7 +48,22 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    tiles and lengths, window and softcap, masked rows),
                    the SSD scan at 112 heads of 64, state 64, chunk 49,
                    and the SSD step in place on its 81-layer stacked
-                   cache, two launches bitwise equal
+                   cache, two launches bitwise equal, and the flash
+                   backward at head dim 112, group 1, in bf16 and f32
+                   (the SFT shape, ragged tiles, window and softcap,
+                   masked rows, 200 tokens, non-causal sk != sq); the SSD
+                   scan backward (through the autograd Function, as a loss
+                   reaches it, on a generator of its own) and its plain
+                   version against the plain version run in float64, f32
+                   within 2e-5 and bf16 x within 3e-2 x max(1, max|want|):
+                   mamba2-1.3b's and zamba2-7b's SFT shapes, chunk 1,
+                   chunk = l, several chunks, the small configs' chunk 3,
+                   a chunk of 128 or 100 walked in pieces, heads the group
+                   of 4 does not divide, x a strided slice of the conv
+                   output, a final-state gradient; two launches bitwise
+                   equal, the forward's bits equal with and without the
+                   saved states, and the autograd path's bits equal to the
+                   wrapper's
   4. timing      — each kernel, its plain version and one PyTorch library
                    call computing the same function (device time: CUDA
                    graph replays between CUDA events), beside the least time
@@ -65,7 +80,11 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    replays; the flash forward with and without its
                    log-sum-exp output; flash, dense decode, the SSD scan
                    and step again at zamba2-7b's shapes (SDPA beside the
-                   attention kernels)
+                   attention kernels), and the flash backward at its head
+                   dim 112 beside SDPA's backward; the SSD scan backward at
+                   both SFT shapes (64 x 57 tokens; 64 heads of 64, state
+                   128, and 112 heads, state 64) beside its plain version
+                   (no single PyTorch call computes it)
   5. tiny        — ``ScopeEngine.serve`` on scope-tiny with seeded weights,
                    once on the card (kernels) and once on the CPU (plain
                    versions): equal token streams and decisions
@@ -138,7 +157,25 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    and one GRPO step (16 tasks x group 4, 12 new tokens);
                    loss, reward, format rate, step wall and device time,
                    peak memory
- 17. CLIs        — ``python -m repro_torch.launch.train`` on scope-tiny,
+ 17. tiny ssm train    — the small pure-SSM config of phase 9 from the same
+                   seeded port params on the card and on the CPU: the loss
+                   and every gradient leaf of one SFT batch (loss within
+                   2e-5, each leaf within 1e-4 of its largest magnitude),
+                   then ten SFT steps (losses within 1e-4); launches (two
+                   SSD scans and one SSD backward a mamba layer a step,
+                   one checkpoint a layer)
+ 18. tiny hybrid train — the same on phase 11's small zamba2 hybrid (its
+                   tied block: two flash forwards and one flash backward
+                   at head dim 112 an occurrence)
+ 19. full ssm train — mamba2-1.3b at full width and depth from seeded
+                   random weights: three SFT steps of 64 sequences (2 x 48
+                   SSD scan and 48 SSD backward launches a step); losses,
+                   step wall and device time, peak memory
+ 20. full hybrid train — zamba2-7b at full width and 12 of its 81 mamba
+                   layers (2 shared-block occurrences, ~1.26 B params; at
+                   full depth its AdamW state alone needs ~80 GB): three
+                   SFT steps of 64 sequences; the same readings
+ 21. CLIs        — ``python -m repro_torch.launch.train`` on scope-tiny,
                    then ``python -m repro_torch.launch.serve --checkpoint``
                    on what it saved, both on the card
 
@@ -183,6 +220,9 @@ TPU_KERNELS = {
     "flash_attention_bwd": "src/repro/kernels/ref.py:18 (no Pallas kernel: "
                            "XLA's gradient of ref.attention, which "
                            "src/repro/kernels/ops.py:40 sends training to)",
+    "ssd_scan_bwd": "src/repro/kernels/ref.py:76 (no Pallas kernel: XLA's "
+                    "gradient of ref.ssd, reached from "
+                    "src/repro/models/ssm.py:75)",
 }
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in TPU_KERNELS}
 # the kernels of the zamba2-7b serve, whose rows of the kernels line carry
@@ -191,6 +231,9 @@ SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in TPU_KERNELS}
 HYBRID = "@zamba2-7b"
 HYBRID_KERNELS = ("flash_attention", "decode_attention", "ssd_scan",
                   "ssd_decode_step")
+# and of the zamba2-7b SFT steps (phase 20), at head dim 112 and its SSD
+# shapes
+HYBRID_TRAIN_KERNELS = ("flash_attention_bwd", "ssd_scan_bwd")
 TO_PORT = []            # every TPU kernel of the repository has a port
 NO_LAUNCHES = {name: 0 for name in TPU_KERNELS}
 
@@ -235,6 +278,43 @@ HYBRID_SSD_CASES = [
 ]
 # the SSD decode step's edge shapes: (b, h, p, n), chained steps
 STEP_CASES = [((1, 3, 16, 8), 4), ((2, 5, 16, 16), 4), ((1, 64, 64, 128), 3)]
+# SSD scan backward checks: name, (b, l, h, p, n, chunk; l 0 = the SFT
+# length, chunk 0 = the model's chunk of it), x / A dtype, dt scale, x as
+# a strided slice of the conv output, a final-state gradient, the row whose
+# max_abs_err it gives (its own generator, see ssd_bwd_checks)
+SSD_BWD_CASES = [
+    ("ssd bwd main", (64, 0, 64, 64, 128, 0), "bfloat16", 1.0, True, False,
+     "ssd_scan_bwd"),
+    ("ssd bwd main f32", (64, 0, 64, 64, 128, 0), "float32", 1.0, True,
+     False, None),
+    ("ssd bwd zamba2", (64, 0, 112, 64, 64, 0), "bfloat16", 1.0, True, False,
+     "ssd_scan_bwd" + HYBRID),
+    ("ssd bwd zamba2 f32", (64, 0, 112, 64, 64, 0), "float32", 1.0, True,
+     False, None),
+    ("ssd bwd chunk 1", (2, 5, 3, 16, 8, 1), "float32", 0.1, False, True,
+     None),
+    ("ssd bwd chunk = l", (2, 40, 3, 16, 8, 40), "float32", 0.1, False,
+     False, None),
+    ("ssd bwd chunk = l dstate", (2, 40, 3, 16, 8, 40), "float32", 0.1,
+     False, True, None),
+    ("ssd bwd chunk 16 nc 4", (2, 64, 5, 32, 16, 16), "float32", 0.1, False,
+     True, None),
+    # the small configs' SFT chunk: 19 chunks of 3
+    ("ssd bwd chunk 3 nc 19", (4, 57, 16, 32, 16, 3), "float32", 1.0, True,
+     False, None),
+    ("ssd bwd chunk 128 nc 2", (1, 256, 4, 16, 8, 128), "float32", 0.1,
+     False, True, None),
+    ("ssd bwd chunk 100 nc 2", (1, 200, 6, 16, 8, 100), "float32", 0.1,
+     False, False, None),
+    ("ssd bwd h 5 p 12 n 6", (2, 49, 5, 12, 6, 7), "float32", 0.1, False,
+     True, None),
+    ("ssd bwd h 3 bf16 dstate", (3, 0, 3, 64, 128, 0), "bfloat16", 1.0, True,
+     True, None),
+    ("ssd bwd h 1", (2, 0, 1, 64, 128, 0), "float32", 1.0, False, False,
+     None),
+    ("ssd bwd full head nc 2 dstate", (2, 114, 64, 64, 128, 57), "float32",
+     1.0, True, True, None),
+]
 
 
 class SmokeFailure(RuntimeError):
@@ -748,10 +828,105 @@ def kernel_checks(torch, L: int, s_train: int):
     step_checks(torch, gen, L, main_chunk, compare,
                 [("step zamba2", (56, 112, 64, 64, 81, 40),
                   "ssd_decode_step" + HYBRID)], edges=False)
+    # zamba2-7b's tied block trains: the flash backward at head dim 112,
+    # group 1 (its SFT shape, ragged tiles, window and softcap, masked
+    # rows, several tiles, non-causal sk != sq)
+    bwd_checks(torch, rnd, compare, s_train, [
+        ("bwd d112 main", (64, 32, 32, s_train, s_train, 112, 112), {}, bf,
+         "flash_attention_bwd" + HYBRID),
+        ("bwd d112 f32", (2, 32, 32, s_train, s_train, 112, 112), {}, f32,
+         None),
+        ("bwd d112 ragged window+softcap", (2, 4, 4, 70, 70, 112, 112),
+         dict(window=16, softcap=30.0), bf, None),
+        ("bwd d112 f32 ragged window+softcap", (2, 4, 4, 70, 70, 112, 112),
+         dict(window=16, softcap=30.0), f32, None),
+        ("bwd d112 masked rows", (1, 4, 4, 20, 20, 112, 112),
+         dict(q_offset=-5), bf, None),
+        ("bwd d112 f32 masked rows", (1, 4, 4, 20, 20, 112, 112),
+         dict(q_offset=-5), f32, None),
+        ("bwd d112 s=200", (2, 8, 8, 200, 200, 112, 112), {}, bf, None),
+        ("bwd d112 sk!=sq non-causal", (2, 4, 4, 33, 100, 112, 112),
+         dict(causal=False), bf, None),
+    ])
+    ssd_bwd_checks(torch, compare, s_train)
     return errs
 
 
-def bwd_checks(torch, rnd, compare, s_train: int):
+def ssd_bwd_checks(torch, compare, s_train: int):
+    """The SSD scan backward kernel, through ``ssd_scan`` as a loss reaches
+    it (x, dt, A, B, C requiring grad, so the call goes through the autograd
+    Function ``SSDScan``: the scan saving its entering states, then the
+    backward kernel), on inputs of a generator of its own.  Each of dx,
+    d(dt), dA, dB and dC, and its plain version's (``ssd_scan_bwd_plain``),
+    is held to the plain version run in float64 on the same values within
+    tol x max(1, max|want|): 2e-5 with x in f32, 3e-2 with x in bf16 (dx
+    and dA are bf16 there, and gradients reach ~1000).  The main path's
+    shapes are the SFT batches of mamba2-1.3b (64 x ``s_train`` tokens, 64
+    heads of 64, state 128) and zamba2-7b (112 heads, state 64), x the
+    conv output's strided slice.  Every case also: one scan and one
+    backward launch, two backward launches bitwise equal and equal to the
+    autograd path's, the forward's y and final state bitwise equal with and
+    without the saved states."""
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.models.ssm import _largest_chunk
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    main_chunk = _largest_chunk(s_train, 128)
+    parts = ("dx", "ddt", "dA", "dB", "dC")
+    for name, (b, l, h, p, n, chunk), dtn, dts, conv, with_ds, main \
+            in SSD_BWD_CASES:
+        dt_ = getattr(torch, dtn)
+        l, chunk = l or s_train, chunk or main_chunk
+        x, dtv, A, B, C = ssd_inputs(torch, gen, b, l, h, p, n, dts, dt_,
+                                     conv_layout=conv)
+        dy = torch.randn(b, l, h, p, generator=gen, device="cuda").to(dt_)
+        ds = (torch.randn(b, h, p, n, generator=gen, device="cuda")
+              if with_ds else None)
+        leaves = [t.detach().requires_grad_(True) for t in (x, dtv, A, B, C)]
+        before = (SS.launches, SS.bwd_launches)
+        y, st = SS.ssd_scan(*leaves, chunk=chunk)
+        outs, gouts = ([y, st], [dy, ds]) if with_ds else ([y], [dy])
+        got = torch.autograd.grad(outs, leaves, gouts)
+        check((SS.launches, SS.bwd_launches) == (before[0] + 1,
+                                                 before[1] + 1),
+              f"{name}: the scan and backward kernels did not run once each")
+        wit = SS.ssd_scan_bwd_plain(
+            *(t.double() for t in (x, dtv, A, B, C, dy)),
+            None if ds is None else ds.double(), chunk=chunk)
+        plain = SS.ssd_scan_bwd_plain(x, dtv, A, B, C, dy, ds, chunk=chunk)
+        tol = F32_TOL if dt_ == torch.float32 else BF16_TOL
+        for part, g, pl, w, inp in zip(parts, got, plain, wit,
+                                       (x, dtv, A, B, C), strict=True):
+            check(g.shape == inp.shape and g.dtype == inp.dtype
+                  and pl.dtype == inp.dtype,
+                  f"{name} {part}: {g.shape} {g.dtype} != {inp.shape} "
+                  f"{inp.dtype}")
+            compare(f"{name} {part} kernel", g, w, tol, scale="max")
+            compare(f"{name} {part} plain", pl, w, tol, scale="max")
+        if main:
+            compare.errs[main] = max(
+                (g.double() - w).abs().max().item()
+                for g, w in zip(got, wit, strict=True))
+        with torch.no_grad():
+            y0, s0 = SS.ssd_scan_cuda(x, dtv, A, B, C, chunk=chunk)
+            y1, s1, states = SS.ssd_scan_cuda(x, dtv, A, B, C, chunk=chunk,
+                                              save_states=True)
+            one = SS.ssd_scan_bwd_cuda(x, dtv, A, B, C, dy, ds, states,
+                                       chunk=chunk)
+            two = SS.ssd_scan_bwd_cuda(x, dtv, A, B, C, dy, ds, states,
+                                       chunk=chunk)
+        torch.cuda.synchronize()
+        check(torch.equal(y0, y1) and torch.equal(s0, s1),
+              f"{name}: the forward's bits differ with the states saved")
+        check(all(torch.equal(a, c) and torch.equal(a, g)
+                  for a, c, g in zip(one, two, got, strict=True)),
+              f"{name}: two backward launches differ, or differ from the "
+              "autograd path")
+        print(f"   {name}: two launches bitwise equal, = the autograd path; "
+              f"forward bits equal with and without the saved states "
+              f"({0 if states is None else states.shape[1]} saved)")
+
+
+def bwd_checks(torch, rnd, compare, s_train: int, cases=None):
     """The flash backward kernel against autograd of the plain version on
     the card, through ``flash_attention`` as a loss reaches it (q, k, v the
     model's transposed views requiring grad, so the call goes through the
@@ -764,10 +939,11 @@ def bwd_checks(torch, rnd, compare, s_train: int):
     32 to 256, dv != d, windows with either sign of q_offset, non-causal sk
     != sq, softcap), f32 the FMA kernels.  On the main case also: the saved
     log-sum-exp against the plain one, the forward's bits without and with
-    it, and two launches bitwise equal."""
+    it, and two launches bitwise equal.  ``cases`` replaces those cases
+    (zamba2-7b's head dim 112)."""
     from repro_torch.kernels import flash_attention as FA
     bf, f32 = torch.bfloat16, torch.float32
-    cases = [
+    cases = cases or [
         ("bwd main", (64, 32, 8, s_train, s_train, 128, 128), {}, bf,
          "flash_attention_bwd"),
         ("bwd f32 d=32 g=2", (2, 4, 2, 17, 17, 32, 32), {}, f32, None),
@@ -1246,6 +1422,14 @@ def kernel_timings(torch, L: int, retriever, query_embs, s_train: int):
         *step_work(b, h, p, n, A.element_size()), "float32")
     del cache, x, dtv, B, C
     out["flash_attention_bwd"] = bwd_timing(torch, gen, s_train)
+    # zamba2-7b's SFT: the flash backward at its tied block's 32 heads of
+    # 112, group 1, and the SSD scan backward at both SFT shapes
+    row = "flash_attention_bwd" + HYBRID
+    out[row] = bwd_timing(torch, gen, s_train, hq=32, hkv=32, d=112,
+                          label=row)
+    out["ssd_scan_bwd"] = ssd_bwd_timing(torch, gen, s_train, h=64, n=128)
+    out["ssd_scan_bwd" + HYBRID] = ssd_bwd_timing(torch, gen, s_train,
+                                                  h=112, n=64)
     for name, t in out.items():
         lib = ("none" if t["library_ms"] is None
                else f"{t['library_ms']:.5f}")
@@ -1282,10 +1466,11 @@ def kernels_ms(torch, fn, iters: int, warmup: int = 3, by_kernel=False):
                               for e in events}
 
 
-def bwd_timing(torch, gen, s: int):
-    """The flash backward kernel at the SFT step's shape (64 sequences of
-    ``s`` tokens, 32/8 heads of 128, bf16, causal, q, k, v the model's
-    views), beside the plain version's backward (autograd of
+def bwd_timing(torch, gen, s: int, hq: int = 32, hkv: int = 8,
+               d: int = 128, label: str = "flash_attention_bwd"):
+    """The flash backward kernel at an SFT step's shape (64 sequences of
+    ``s`` tokens, bf16, causal, q, k, v the model's views; scope-qwen3-4b's
+    32/8 heads of 128 by default, zamba2-7b's 32/32 of 112), beside the plain version's backward (autograd of
     ``flash_attention_plain``) and, as a yardstick only, the backward of
     ``F.scaled_dot_product_attention`` on the same inputs.  All three are
     timed the same way, by device time: the CUDA time of their kernels
@@ -1298,7 +1483,7 @@ def bwd_timing(torch, gen, s: int):
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     dev, bf = "cuda", torch.bfloat16
-    b, hq, hkv, d = 64, 32, 8, 128
+    b = 64
 
     def view(h):
         return torch.randn(b, s, h, d, generator=gen, device=dev).to(bf) \
@@ -1345,13 +1530,13 @@ def bwd_timing(torch, gen, s: int):
         library_call="backward of scaled_dot_product_attention (GQA, "
                      "causal); plain_ms and library_ms are profiler sums of "
                      "device time, as prof_ms")
-    print(f"   flash_attention_bwd device ms, profiler sums: kernel "
+    print(f"   {label} device ms, profiler sums: kernel "
           f"{t['prof_ms']:.5f} plain {t['plain_ms']:.5f} SDPA backward "
           f"{t['library_ms']:.5f}; kernel graph replays {t['ms']:.5f}; "
           f"eager: kernel {t['eager_ms']:.5f} plain "
           f"{t['plain_eager_ms']:.5f} SDPA backward "
           f"{t['library_eager_ms']:.5f}")
-    print("   flash_attention_bwd by launch (profiler, ms a call): "
+    print(f"   {label} by launch (profiler, ms a call): "
           + ", ".join(f"{k} {v:.5f}" for k, v in split.items()))
     print(f"   flash forward at the SFT shape: {t['fwd_ms']:.5f} ms, with "
           f"the lse saved {t['fwd_lse_ms']:.5f} ms")
@@ -1365,6 +1550,59 @@ def bwd_timing(torch, gen, s: int):
         nbytes, pairs * b * hq * (6 * d + 4 * d), "bfloat16")
     del plain_out, sdpa_out
     return t
+
+
+def ssd_bwd_timing(torch, gen, s: int, h: int, n: int, p: int = 64):
+    """The SSD scan backward kernel at an SFT step's shape (64 sequences of
+    ``s`` tokens, ``h`` heads of ``p``, state ``n``; x the conv output's
+    strided bf16 slice, dy bf16, no final-state gradient, as a mamba layer's
+    backward gets them) beside its plain version, both in CUDA-graph
+    replays; no single PyTorch call computes it."""
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.models.ssm import _largest_chunk
+    b, bf = 64, torch.bfloat16
+    chunk = _largest_chunk(s, 128)
+    x, dtv, A, B, C = ssd_inputs(torch, gen, b, s, h, p, n, 1.0, bf,
+                                 conv_layout=True)
+    dy = torch.randn(b, s, h, p, generator=gen, device="cuda").to(bf)
+    with torch.no_grad():
+        _, _, states = SS.ssd_scan_cuda(x, dtv, A, B, C, chunk=chunk,
+                                        save_states=True)
+    t = dict(
+        times(torch, lambda: SS.ssd_scan_bwd_cuda(x, dtv, A, B, C, dy, None,
+                                                  states, chunk=chunk),
+              lambda: SS.ssd_scan_bwd_plain(x, dtv, A, B, C, dy,
+                                            chunk=chunk), None, 20),
+        shape=f"x ({b},{s},{h},{p}) bf16 conv-output slice dy bf16 dt "
+              f"({b},{s},{h}) A ({h},) bf16 B, C ({b},{s},{n}) f32 chunk "
+              f"{chunk}, no final-state gradient",
+        library_call="none: no single PyTorch call computes the SSD scan "
+                     "backward")
+    t["bound_ms"], t["bound_by"] = bound(
+        *ssd_bwd_work(b, s, h, p, n, chunk, x.element_size(),
+                      A.element_size()), "float32")
+    return t
+
+
+def ssd_bwd_work(b, l, h, p, n, chunk, x_bytes, a_bytes):
+    """(bytes, f32 FLOPs) the SSD scan backward needs with no final-state
+    gradient: x, dy, dt, A, B, C and, from the second chunk on, the saved
+    entering states read once, dx, d(dt), dA, dB and dC written once.  Per
+    (row, chunk) the causal scores C[s].B[t] and the products dC = dG B and
+    dB = dG^T C over the T (T + 1) / 2 pairs t <= s (2 n each: B and C are
+    one group every head shares); per (row, head, chunk) dW = dy.xd and
+    dxd = (G L)^T dy (2 p a pair each); per (row, head) of a chunk that a
+    later one follows, the state's dxd and dB terms (2 T p n each), and of
+    a chunk after the first the entering state's dC and dS_in (2 T p n
+    each)."""
+    nc = l // chunk
+    nbytes = (3 * x_bytes * b * l * h * p + 2 * 4 * b * l * h
+              + 2 * a_bytes * h + 4 * 4 * b * l * n
+              + 4 * b * (nc - 1) * h * p * n)
+    pairs = chunk * (chunk + 1) // 2
+    flops = (b * nc * 3 * 2 * pairs * n + b * h * nc * 2 * 2 * pairs * p
+             + b * h * (nc - 1) * 2 * 2 * 2 * chunk * p * n)
+    return nbytes, flops
 
 
 def step_work(b, h, p, n, a_bytes):
@@ -2403,37 +2641,57 @@ def grpo_trainer(torch, cfg, params, device, *, tasks, group, temperature,
         seed=seed, generator=torch.Generator(device=device).manual_seed(seed))
 
 
-def tiny_train_card_vs_cpu(torch, ds):
-    """scope-tiny from the same seeded port params on the card and on the
-    CPU: ten SFT steps (losses within 1e-4, the first within 2e-5), then
-    one greedy GRPO step on each (equal rollout tokens, advantages and
-    rewards; loss, pg and kl within 2e-5)."""
-    import numpy as np
+def train_launches(cfg, steps: int):
+    """Each kernel's launches in ``steps`` SFT steps of ``cfg`` with one
+    checkpoint a layer: a forward and its recompute a layer (two scans a
+    mamba layer, two flash forwards a shared-block occurrence) and one
+    backward."""
+    n_attn, n_mamba = layer_counts(cfg)
+    return dict(NO_LAUNCHES, flash_attention=2 * n_attn * steps,
+                flash_attention_bwd=n_attn * steps,
+                ssd_scan=2 * n_mamba * steps, ssd_scan_bwd=n_mamba * steps)
+
+
+def sft_card_vs_cpu(torch, cfg, ds, cpu_params):
+    """Ten SFT steps of ``cfg`` from ``cpu_params`` on the card and on the
+    CPU: losses within 1e-4, the first within 2e-5; the card's launches
+    those of ``train_launches``.  Returns (trained params by device, losses
+    by device, the largest loss difference, the card's launches)."""
     from repro_torch import kernels
-    from repro_torch.configs.scope_estimator import TINY
-    from repro_torch.models.model import init_params
     from repro_torch.training.sft import train_sft
 
-    cpu_params = init_params(TINY, seed=0, device="cpu")
     trained, losses, counts = {}, {}, {}
     for dev in ("cpu", "cuda"):
         kernels.reset_launch_counts()
         trained[dev], losses[dev] = train_sft(
-            _to(cpu_params, dev), TINY, ds, steps=SFT_STEPS_TINY,
+            _to(cpu_params, dev), cfg, ds, steps=SFT_STEPS_TINY,
             batch_size=32)
         counts[dev] = kernels.launch_counts()
     err = max(abs(a - b) for a, b in zip(losses["cpu"], losses["cuda"],
                                          strict=True))
     check(abs(losses["cpu"][0] - losses["cuda"][0]) <= F32_TOL,
-          f"tiny sft: first loss {losses['cpu'][0]} vs {losses['cuda'][0]}")
-    check(err <= 1e-4, f"tiny sft: losses differ by {err}")
-    L = TINY.num_layers
-    check(counts["cuda"]["flash_attention"] == 2 * L * SFT_STEPS_TINY
-          and counts["cuda"]["flash_attention_bwd"] == L * SFT_STEPS_TINY,
-          f"tiny sft launches {counts['cuda']}")
+          f"{cfg.name} sft: first loss {losses['cpu'][0]} vs "
+          f"{losses['cuda'][0]}")
+    check(err <= 1e-4, f"{cfg.name} sft: losses differ by {err}")
+    want = train_launches(cfg, SFT_STEPS_TINY)
+    check(counts["cuda"] == want,
+          f"{cfg.name} sft launches {counts['cuda']} != {want}")
     print(f"   sft {SFT_STEPS_TINY} steps: losses {losses['cuda'][0]:.6f} -> "
           f"{losses['cuda'][-1]:.6f}, card vs cpu max_abs_err {err:.3g}; "
           f"card launches {counts['cuda']}")
+    return trained, losses, err, counts["cuda"]
+
+
+def tiny_train_card_vs_cpu(torch, ds):
+    """scope-tiny from the same seeded port params on the card and on the
+    CPU: ten SFT steps (``sft_card_vs_cpu``), then one greedy GRPO step on
+    each (equal rollout tokens, advantages and rewards; loss, pg and kl
+    within 2e-5)."""
+    from repro_torch.configs.scope_estimator import TINY
+    from repro_torch.models.model import init_params
+
+    trained, losses, err, sft_counts = sft_card_vs_cpu(
+        torch, TINY, ds, init_params(TINY, seed=0, device="cpu"))
 
     runs = {}
     for dev in ("cpu", "cuda"):
@@ -2459,7 +2717,7 @@ def tiny_train_card_vs_cpu(torch, ds):
           f"{grpo_err:.3g})")
     return {"sft_losses": losses, "sft_max_abs_err": err,
             "grpo_max_abs_err": grpo_err, "grpo_cuda": ib,
-            "launches": counts["cuda"]}
+            "launches": sft_counts}
 
 
 def profiled_ms(torch, fn, top: int = 8):
@@ -2479,22 +2737,18 @@ def profiled_ms(torch, fn, top: int = 8):
         for e in ranked]
 
 
-def full_train(torch, ds):
-    """scope-qwen3-4b at full width from seeded random weights: three SFT
-    steps of 64 sequences (launches: 2 x 36 forward flash calls a step, one
-    a layer in the forward and one in its checkpoint's recompute, and 36
-    backward calls), then one GRPO step (16 tasks x group 4, 12 new tokens,
-    temperature 1): loss, reward, format rate, step wall and device time,
-    peak memory."""
+def sft_steps(torch, cfg, params, ds):
+    """``SFT_STEPS_FULL`` SFT steps of ``SFT_BATCH`` sequences on ``cfg``'s
+    ``params`` (trained in place; AdamW, lr 1e-5), the last one under the
+    profiler: each step's loss, accuracy, wall and device time, the
+    launches (``train_launches``: one checkpoint a layer), peak memory,
+    finite losses and params.  The optimizer state is freed on return."""
     import numpy as np
     from repro_torch import kernels
-    from repro_torch.configs.scope_estimator import CONFIG
     from repro_torch.data.pipeline import batches
     from repro_torch.training.optimizer import AdamWConfig, adamw_init
     from repro_torch.training.sft import sft_step
 
-    params, n_params = full_params(torch, CONFIG, 3.9e9)
-    L = CONFIG.num_layers
     opt_cfg = AdamWConfig(lr=1e-5, warmup_steps=2, total_steps=100)
     opt_state = adamw_init(params)
     it = batches(ds, SFT_BATCH, seed=0, device="cuda")
@@ -2506,11 +2760,11 @@ def full_train(torch, ds):
         batch = next(it)
         t0 = time.perf_counter()
         if i == SFT_STEPS_FULL - 1:        # the last step under the profiler
-            out, dev_ms, sft_top = profiled_ms(
+            out, dev_ms, top = profiled_ms(
                 torch, lambda b=batch, p=params, s=opt_state: sft_step(
-                    p, CONFIG, s, b, opt_cfg))
+                    p, cfg, s, b, opt_cfg))
         else:
-            out = sft_step(params, CONFIG, opt_state, batch, opt_cfg)
+            out = sft_step(params, cfg, opt_state, batch, opt_cfg)
             torch.cuda.synchronize()
             dev_ms = None
         wall = time.perf_counter() - t0
@@ -2520,19 +2774,37 @@ def full_train(torch, ds):
         print(f"   sft step {i + 1}: loss {float(loss):.4f} acc "
               f"{float(metrics['acc']):.4f} wall {wall:.3f} s"
               + ("" if dev_ms is None else f" device {dev_ms:.1f} ms"))
-    sft_counts = kernels.launch_counts()
-    sft_peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    want = dict(NO_LAUNCHES, flash_attention=2 * L * SFT_STEPS_FULL,
-                flash_attention_bwd=L * SFT_STEPS_FULL)
-    check(sft_counts == want, f"sft launches {sft_counts} != {want}")
-    check(all(np.isfinite(s["loss"]) for s in steps), "non-finite SFT loss")
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = train_launches(cfg, SFT_STEPS_FULL)
+    check(counts == want, f"{cfg.name} sft launches {counts} != {want}")
+    check(all(np.isfinite(st["loss"]) for st in steps),
+          f"{cfg.name}: non-finite SFT loss")
     check(all(bool(torch.isfinite(t).all()) for t in _leaves(params)),
-          "non-finite params after SFT")
-    del out, opt_state                   # the moments: 30 GiB
+          f"{cfg.name}: non-finite params after SFT")
+    del out, opt_state                   # the moments (30 GiB for qwen)
     release(torch)
-    print(f"   sft batch {tuple(batch['tokens'].shape)}; launches "
-          f"{sft_counts}; peak {sft_peak:.2f} GiB; top device work of the "
-          f"profiled step (name, ms, calls): {sft_top}")
+    print(f"   sft batch {tuple(batch['tokens'].shape)}; launches {counts}; "
+          f"peak {peak:.2f} GiB; top device work of the profiled step "
+          f"(name, ms, calls): {top}")
+    return {"sft_batch": list(batch["tokens"].shape), "sft_steps": steps,
+            "sft_launches": counts, "sft_peak_gib": peak, "sft_top": top}
+
+
+def full_train(torch, ds):
+    """scope-qwen3-4b at full width from seeded random weights: three SFT
+    steps of 64 sequences (``sft_steps``; launches: 2 x 36 forward flash
+    calls a step, one a layer in the forward and one in its checkpoint's
+    recompute, and 36 backward calls), then one GRPO step (16 tasks x group
+    4, 12 new tokens, temperature 1): loss, reward, format rate, step wall
+    and device time, peak memory."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.configs.scope_estimator import CONFIG
+
+    params, n_params = full_params(torch, CONFIG, 3.9e9)
+    L = CONFIG.num_layers
+    sft = sft_steps(torch, CONFIG, params, ds)
 
     trainer = grpo_trainer(torch, CONFIG, params, "cuda", tasks=16, group=4,
                            temperature=1.0)
@@ -2571,14 +2843,68 @@ def full_train(torch, ds):
           f"{grpo_top}")
     del trainer, params
     release(torch)
-    return {"config": CONFIG.name, "params": n_params,
-            "sft_batch": list(batch["tokens"].shape), "sft_steps": steps,
-            "sft_launches": sft_counts, "sft_peak_gib": sft_peak,
-            "sft_top": sft_top, "grpo_top": grpo_top,
+    return {"config": CONFIG.name, "params": n_params, **sft,
+            "grpo_top": grpo_top,
             "grpo": info, "grpo_second": info2,
             "grpo_rollouts": list(tokens.shape),
             "grpo_device_ms": grpo_dev_ms, "grpo_wall_s": grpo_wall,
             "grpo_launches": grpo_counts, "grpo_peak_gib": grpo_peak}
+
+
+def tiny_ssm_train_card_vs_cpu(torch, cfg, ds):
+    """The small SSM or hybrid ``cfg`` (f32) from the same seeded port
+    params on the card and on the CPU: the loss and every gradient leaf of
+    one SFT batch (loss within 2e-5, each leaf within 1e-4 of that leaf's
+    largest magnitude: the two backward passes sum in other orders), then
+    ten SFT steps (losses within 1e-4, the first within 2e-5); the card's
+    launches.  At 57 tokens the small configs' chunk is 3: the backward
+    runs 19 chunks with the state terms."""
+    from repro_torch import kernels
+    from repro_torch.data.pipeline import batches
+    from repro_torch.io import flatten
+    from repro_torch.models import model as M
+    from repro_torch.training.optimizer import value_and_grad
+
+    cpu_params = M.init_params(cfg, seed=0, device="cpu")
+    batch = next(batches(ds, 32, seed=0, device="cpu"))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        b = {k: v.to(dev) for k, v in batch.items()}
+        kernels.reset_launch_counts()
+        loss, _, grads = value_and_grad(lambda p, b=b: M.loss_fn(p, cfg, b),
+                                        _to(cpu_params, dev))
+        runs[dev] = (float(loss), flatten(grads), kernels.launch_counts())
+    (lc, gc, _), (lg, gg, counts) = runs["cpu"], runs["cuda"]
+    check(abs(lc - lg) <= F32_TOL, f"{cfg.name}: loss {lc} vs {lg}")
+    check(list(gc) == list(gg), f"{cfg.name}: gradient trees differ")
+    worst = 0.0
+    for key, w in gc.items():
+        top = max(w.abs().max().item(), 1e-30)
+        err = (gg[key].cpu().float() - w.float()).abs().max().item() / top
+        check(err <= 1e-4 and top > 1e-30,
+              f"{cfg.name} grad {key}: err {err} x max|want|, max {top}")
+        worst = max(worst, err)
+    want = train_launches(cfg, 1)
+    check(counts == want, f"{cfg.name} loss launches {counts} != {want}")
+    print(f"   loss {lg:.6f} (cpu {lc:.6f}); {len(gc)} gradient leaves, "
+          f"worst err {worst:.3g} x the leaf's max; launches {counts}")
+
+    _, losses, err, counts = sft_card_vs_cpu(torch, cfg, ds, cpu_params)
+    return {"loss": lg, "grad_worst_rel": worst, "sft_losses": losses,
+            "sft_max_abs_err": err, "launches": counts}
+
+
+def full_ssm_train(torch, cfg, ds, min_params: float):
+    """``cfg`` at full width from seeded random weights: ``sft_steps``
+    (one checkpoint a layer, so two scans and one SSD backward a mamba
+    layer a step, and for a hybrid two flash forwards and one backward at
+    each shared-block occurrence); the weights freed after."""
+    params, n_params = full_params(torch, cfg, min_params)
+    sft = sft_steps(torch, cfg, params, ds)
+    del params
+    release(torch)
+    return {"config": cfg.name, "num_layers": cfg.num_layers,
+            "params": n_params, **sft}
 
 
 def clis():
@@ -2776,6 +3102,37 @@ def main() -> int:
     report["train"] = full_train(torch, sft_ds)
     done(t)
 
+    t = phase("tiny ssm train: card vs cpu, loss, gradients, ten SFT steps")
+    report["tiny_ssm_train"] = tiny_ssm_train_card_vs_cpu(
+        torch, tiny_ssm_config(), sft_ds)
+    release(torch)
+    done(t)
+
+    t = phase("tiny hybrid train: card vs cpu, loss, gradients, ten SFT "
+              "steps")
+    report["tiny_hybrid_train"] = tiny_ssm_train_card_vs_cpu(
+        torch, tiny_hybrid_config(), sft_ds)
+    release(torch)
+    done(t)
+
+    t = phase("full-width train: mamba2-1.3b, SFT steps")
+    report["ssm_train"] = full_ssm_train(torch, ssm_cfg, sft_ds, 1.3e9)
+    done(t)
+
+    t = phase("full-width train: zamba2-7b, 12 mamba layers, SFT steps")
+    import dataclasses
+    cut_cfg = dataclasses.replace(hybrid_cfg, num_layers=12)
+    n_attn, n_mamba = layer_counts(cut_cfg)
+    print(f"   cut: zamba2-7b at full width (d {cut_cfg.d_model}, "
+          f"{cut_cfg.resolved_ssm_heads} SSM heads of {cut_cfg.ssm_head_dim}, "
+          f"state {cut_cfg.ssm_state}, the tied block's {cut_cfg.num_heads} "
+          f"heads of {cut_cfg.resolved_head_dim}) and {n_mamba} of its "
+          f"{hybrid_cfg.num_layers} mamba layers ({n_attn} of 13 shared-block "
+          "occurrences): at full depth its weights, gradients and AdamW "
+          "moments alone need ~80 GB")
+    report["hybrid_train"] = full_ssm_train(torch, cut_cfg, sft_ds, 1.2e9)
+    done(t)
+
     t = phase("CLIs: repro_torch.launch.train, then .serve --checkpoint")
     report["clis"] = clis()
     done(t)
@@ -2791,13 +3148,20 @@ def main() -> int:
                     ssd_decode_step=report["ssm"]["launches"][
                         "ssd_decode_step"],
                     flash_attention_bwd=report["train"]["sft_launches"][
-                        "flash_attention_bwd"])
+                        "flash_attention_bwd"],
+                    ssd_scan_bwd=report["ssm_train"]["sft_launches"][
+                        "ssd_scan_bwd"])
     # and the zamba2-7b serve's own path: its attention kernels at head dim
     # 112 and its SSD kernels at its shapes, each a row of its own
     for name in HYBRID_KERNELS:
         launches[f"{name}{HYBRID}"] = report["hybrid"]["launches"][name]
+    # and its SFT steps' backward kernels
+    for name in HYBRID_TRAIN_KERNELS:
+        launches[f"{name}{HYBRID}"] = report["hybrid_train"][
+            "sft_launches"][name]
     kernel_rows = []
-    for row in [*TPU_KERNELS, *(f"{n}{HYBRID}" for n in HYBRID_KERNELS)]:
+    for row in [*TPU_KERNELS, *(f"{n}{HYBRID}" for n in
+                                (*HYBRID_KERNELS, *HYBRID_TRAIN_KERNELS))]:
         name = row.removesuffix(HYBRID)
         tm = timing[row]
         kernel_rows.append({

@@ -192,8 +192,8 @@ cudaError_t dispatch_dv(int dv, F&& f) {
 
 // Any pair of 32, 64, 128 and 256, and d = dv = one of SQUARE: the head
 // dims a kernel takes only with dv = d, which each kernel lists for itself
-// (the forward flash and both decode kernels take zamba2's 112; the flash
-// backward, not on that path, is not instantiated at 112).
+// (the flash kernels, forward and backward, and both decode kernels take
+// zamba2's 112).
 template <int... SQUARE, typename F>
 cudaError_t dispatch_head_dims(int d, int dv, F&& f) {
   cudaError_t err = cudaErrorInvalidValue;

@@ -10,6 +10,13 @@
 // q-heads of a group), causal with q_offset of either sign, a sliding
 // window, softcap (the gradient through cap tanh(x / cap) is dS (1 - t^2)),
 // dv != d, f32 and bf16 inputs, strided views with a contiguous last dim.
+// Head dims: any pair of 32, 64, 128 and 256, and d = dv = 112 (zamba2-7b's
+// tied attention block): a 112-wide row is 14 16-byte chunks and 7 mma
+// k-steps, so the row loaders take a ragged last pass (load_rows,
+// flash_common.cuh; the dQ kernel's own Q / dO rows), the f32 kernels'
+// accumulator tiles are 16 columns wide (Owned), and every mma loop runs
+// over 16-column slices one at a time (ldmatrix x4 pairs 8-wide n-tiles,
+// never k-steps), so the odd count of k-steps needs no pairing.
 // A query row with no valid key gets zero gradient, as the forward writes
 // it zero output.  Each row's log-sum-exp comes from the forward (its
 // ``lse`` output), so no launch recomputes it.
@@ -105,13 +112,18 @@ __device__ __forceinline__ void load_rows_f32(float* dst, const T* src,
   }
 }
 
+constexpr int gcd(int a, int b) { return b == 0 ? a : gcd(b, a % b); }
+
 // Which entries of a (ROWS x N) accumulator tile a thread owns: W threads
 // across a row, RP rows a pass; thread t owns rows t / W + RP * r (r < R)
 // at columns t % W + W * c (c < C), so every address is a base plus a
-// compile-time offset and a warp reads consecutive columns of one row.
+// compile-time offset and a warp reads consecutive columns of one row.  W
+// is the largest width that divides both N and the thread count: N itself
+// up to 128 for the power-of-two dims, 16 for zamba2's 112 (7 columns a
+// thread), so every thread owns entries and none owns one twice.
 template <int N, int ROWS>
 struct Owned {
-  static constexpr int W = N < THREADS ? N : THREADS;
+  static constexpr int W = gcd(N, THREADS);
   static constexpr int RP = THREADS / W;
   static constexpr int R = ROWS / RP;
   static constexpr int C = N / W;
@@ -471,19 +483,21 @@ __global__ void __launch_bounds__(THREADS, (D > 128 || DV > 128) ? 1 : 3)
   }
   __syncwarp();
   {
-    constexpr int QC = D / 8, QSTEP = 32 / QC;
-    constexpr int GC = DV / 8, GSTEP = 32 / GC;
+    // the warp's 16 rows in row-major order of their 16-byte chunks, 32 a
+    // pass; the last pass is ragged where 32 does not divide them (d = 112:
+    // 14 chunks a row)
+    constexpr int QC = D / 8, GC = DV / 8;
 #pragma unroll
-    for (int i = 0; i < 16 / QSTEP; ++i) {
-      const int r = wr0 + lane / QC + i * QSTEP, c = lane % QC;
-      if (r < nrows)
+    for (int i = 0; i < (16 * QC + 31) / 32; ++i) {
+      const int e = lane + 32 * i, r = wr0 + e / QC, c = e % QC;
+      if (e < 16 * QC && r < nrows)
         cp_async16(qs + r * QS + c * 8,
                    qb + row_g[r] * p.q_sh + row_qi[r] * p.q_ss + c * 8, true);
     }
 #pragma unroll
-    for (int i = 0; i < 16 / GSTEP; ++i) {
-      const int r = wr0 + lane / GC + i * GSTEP, c = lane % GC;
-      if (r < nrows)
+    for (int i = 0; i < (16 * GC + 31) / 32; ++i) {
+      const int e = lane + 32 * i, r = wr0 + e / GC, c = e % GC;
+      if (e < 16 * GC && r < nrows)
         cp_async16(gs + r * GS + c * 8,
                    gb + row_g[r] * p.g_sh + row_qi[r] * p.g_ss + c * 8, true);
     }
@@ -996,5 +1010,5 @@ extern "C" int repro_flash_attention_bwd(
   f.batch = b;
   f.dtype = dtype;
   f.stream = static_cast<cudaStream_t>(stream);
-  return repro::dispatch_head_dims(d, dv_dim, f);
+  return repro::dispatch_head_dims<112>(d, dv_dim, f);
 }

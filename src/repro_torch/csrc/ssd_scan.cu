@@ -45,7 +45,11 @@
 //   - the state goes to device memory once a head, in 16-byte stores; from
 //     the second piece on it is kept in shared memory between pieces, and
 //     y adds (exp(a_cum) C) . h^T, tiled like the scores (the main shape
-//     never does).
+//     never does);
+//   - optionally (``states``, for the backward kernel ssd_scan_bwd.cu) the
+//     state entering every piece but the first goes to device memory too,
+//     written where it is kept between pieces; the serve path passes none,
+//     and y and the final state keep their bits either way.
 // A chunk longer than MAX_PIECE is walked in pieces of at most MAX_PIECE
 // positions (two of 64 at T = 128): the same recurrence, cut finer, so
 // that shared memory stays under 227 KB.  Summation orders, which
@@ -85,6 +89,8 @@ struct SsdParams {
   const float* C;      // (b, l, n), strided, last dim contiguous
   void* y;             // (b, l, h, p), contiguous, x's type
   float* state;        // (b, h, p, n), contiguous
+  float* states;       // (b, pieces - 1, h, p, n), contiguous, or null: the
+                       // state entering piece q + 1 at q
   int a_bf16;
   int bc_vec;          // B and C rows 16-byte aligned: cp.async them
   int x_vec;           // x rows 16-byte aligned, p a multiple of 16 bytes
@@ -572,6 +578,18 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_kernel(const SsdParams p) {
               make_float4(h[i][u][0], h[i][u][1], h[i][u][2], h[i][u][3]);
           if (!last) {
             *reinterpret_cast<float4*>(hs + j * NS + k) = v;
+            if (p.states != nullptr && j < p.P) {
+              float* sv = p.states + ((static_cast<long long>(bi) *
+                                           (pieces - 1) + q) * p.H + hi) *
+                                         p.P * p.N;
+              if (p.N % 4 == 0) {
+                *reinterpret_cast<float4*>(sv + j * p.N + k) = v;
+              } else {
+#pragma unroll
+                for (int w = 0; w < 4; ++w)
+                  if (k + w < p.N) sv[j * p.N + k + w] = h[i][u][w];
+              }
+            }
           } else if (j < p.P) {
             if (p.N % 4 == 0) {
               *reinterpret_cast<float4*>(st + j * p.N + k) = v;
@@ -618,10 +636,11 @@ inline bool aligned16(const void* ptr, long long sb, long long sl) {
 
 extern "C" int repro_ssd_scan(
     const void* x, const void* dt, const void* A, const void* B, const void* C,
-    void* y, void* state, int x_dtype, int a_dtype, int b, int l, int h, int p,
-    int n, int chunk, long long x_sb, long long x_sl, long long x_sh,
-    long long dt_sb, long long dt_sl, long long dt_sh, long long b_sb,
-    long long b_sl, long long c_sb, long long c_sl, void* stream) {
+    void* y, void* state, void* states, int x_dtype, int a_dtype, int b,
+    int l, int h, int p, int n, int chunk, long long x_sb, long long x_sl,
+    long long x_sh, long long dt_sb, long long dt_sl, long long dt_sh,
+    long long b_sb, long long b_sl, long long c_sb, long long c_sl,
+    void* stream) {
   using namespace repro_ssd;
   if (b <= 0 || l <= 0 || h <= 0 || chunk <= 0 || chunk > MAX_CHUNK ||
       l % chunk != 0 || p <= 0 || n <= 0 || !state_fits(p, n) ||
@@ -634,7 +653,8 @@ extern "C" int repro_ssd_scan(
                     x_sb % ve == 0 && x_sl % ve == 0 && x_sh % ve == 0;
   SsdParams prm{x, static_cast<const float*>(dt), A,
                 static_cast<const float*>(B), static_cast<const float*>(C), y,
-                static_cast<float*>(state), a_dtype == DTYPE_BF16, bc_vec,
+                static_cast<float*>(state), static_cast<float*>(states),
+                a_dtype == DTYPE_BF16, bc_vec,
                 x_vec, h, l, p, n, chunk, piece_len(chunk), pieces_of(chunk),
                 x_sb, x_sl, x_sh, dt_sb, dt_sl, dt_sh, b_sb, b_sl, c_sb, c_sl};
   const size_t smem = set_layout(prm, ve) * sizeof(float);

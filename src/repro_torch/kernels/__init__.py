@@ -10,11 +10,13 @@
                            kernels/decode_attention.py::paged_decode_attention)
   ssd_scan               — Mamba2 SSD chunk scan of the prefill
                            (replaces kernels/ssd_scan.py)
+  ssd_scan_bwd           — its gradient, for training (XLA's gradient of
+                           ref.ssd in the reference)
   ssd_decode_step        — Mamba2 SSD decode step, state updated in place
                            (the reference's plain-XLA ref.ssd_decode_step)
 
 Each kernel's wrapper keeps a count of its launches in a module attribute;
-the helpers below read and reset all seven at once.
+the helpers below read and reset all eight at once.
 """
 from typing import Dict
 
@@ -28,6 +30,7 @@ _COUNTERS = {"topk_retrieval": (topk_retrieval, "launches"),
              "decode_attention": (decode_attention, "launches"),
              "paged_decode_attention": (decode_attention, "paged_launches"),
              "ssd_scan": (ssd_scan, "launches"),
+             "ssd_scan_bwd": (ssd_scan, "bwd_launches"),
              "ssd_decode_step": (ssd_decode_step, "launches")}
 
 

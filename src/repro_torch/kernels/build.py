@@ -22,7 +22,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 KERNELS = ("topk_retrieval", "flash_attention", "flash_attention_bwd",
            "decode_attention", "paged_decode_attention", "ssd_scan",
-           "ssd_decode_step")
+           "ssd_scan_bwd", "ssd_decode_step")
 NVCC_PATHS = ("nvcc", "/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

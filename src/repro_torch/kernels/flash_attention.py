@@ -36,8 +36,8 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-BWD_HEAD_DIMS = build.PAIR_HEAD_DIMS          # the backward kernel
-FWD_HEAD_DIMS = BWD_HEAD_DIMS + (112,)         # the forward: 112 with dv = d
+# both kernels: any pair of PAIR_HEAD_DIMS, and 112 with dv = d (zamba2-7b)
+FWD_HEAD_DIMS = BWD_HEAD_DIMS = build.PAIR_HEAD_DIMS + (112,)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0

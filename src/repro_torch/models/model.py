@@ -91,12 +91,11 @@ def forward_train(params, cfg: ModelConfig, batch: Dict, *,
     """Full causal forward over ``batch["tokens"]`` (b, s) with no caches:
     (logits (b, s, V) in the model dtype, aux).  Each layer is one
     checkpoint when ``remat`` (the reference's default); ``aux`` (the MoE
-    router loss in the reference) is 0 for the dense stack.  On the card the
-    attention runs the flash forward and backward kernels."""
-    if cfg.has_ssm():
-        raise NotImplementedError(
-            f"{cfg.name!r}: training an SSM stack is not ported (the SSD "
-            "scan kernel has no backward)")
+    router loss in the reference) is 0 for every stack, dense, pure-SSM and
+    hybrid.  On the card the attention (the hybrid's tied block included)
+    runs the flash forward and backward kernels, and a mamba layer's SSD
+    runs the scan kernel forward and ``csrc/ssd_scan_bwd.cu`` backward
+    (``kernels.ssd_scan.SSDScan``)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     h = _embed(params, cfg, tokens)

@@ -164,14 +164,6 @@ def test_stacked_leaf_gradient_is_stacked_once(bridged):
     assert all(bool(wq[i].abs().sum() > 0) for i in range(TINY.num_layers))
 
 
-def test_ssm_training_is_refused():
-    from repro_torch.configs import get_config
-    cfg = dataclasses.replace(get_config("mamba2-1.3b").reduced(),
-                              shared_attn_every=0)
-    with pytest.raises(NotImplementedError, match="SSM"):
-        TM.forward_train({}, cfg, {"tokens": torch.zeros(1, 4).long()})
-
-
 # ---------------------------------------------------------------------------
 # The plain flash backward (what the CUDA backward kernel is held to)
 # ---------------------------------------------------------------------------
