@@ -60,7 +60,9 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    chunk = l, several chunks, the small configs' chunk 3,
                    a chunk of 128 or 100 walked in pieces, heads the group
                    of 4 does not divide, x a strided slice of the conv
-                   output, a final-state gradient; two launches bitwise
+                   output, a final-state gradient; for the bf16 body 9
+                   heads, a chunk of 33 (a partial 16-row tile), x rows
+                   not 16-byte aligned (p 12) and pieces of 64; two launches bitwise
                    equal, the forward's bits equal with and without the
                    saved states, and the autograd path's bits equal to the
                    wrapper's
@@ -84,7 +86,8 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    dim 112 beside SDPA's backward; the SSD scan backward at
                    both SFT shapes (64 x 57 tokens; 64 heads of 64, state
                    128, and 112 heads, state 64) beside its plain version
-                   (no single PyTorch call computes it)
+                   (no single PyTorch call computes it), in graph replays
+                   and by the profiler's sum of device time
   5. tiny        — ``ScopeEngine.serve`` on scope-tiny with seeded weights,
                    once on the card (kernels) and once on the CPU (plain
                    versions): equal token streams and decisions
@@ -168,9 +171,12 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    tied block: two flash forwards and one flash backward
                    at head dim 112 an occurrence)
  19. full ssm train — mamba2-1.3b at full width and depth from seeded
-                   random weights: three SFT steps of 64 sequences (2 x 48
-                   SSD scan and 48 SSD backward launches a step); losses,
-                   step wall and device time, peak memory
+                   random weights: every gradient leaf of one batch with
+                   the SSD backward kernel against its plain version
+                   (within 0.1 of the leaf's max in the bf16 model, the
+                   share of differing signs), then three SFT steps of 64
+                   sequences (2 x 48 SSD scan and 48 SSD backward launches
+                   a step); losses, step wall and device time, peak memory
  20. full hybrid train — zamba2-7b at full width and 12 of its 81 mamba
                    layers (2 shared-block occurrences, ~1.26 B params; at
                    full depth its AdamW state alone needs ~80 GB): three
@@ -203,6 +209,10 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 F32_TOL, BF16_TOL, TOPK_TOL = 2e-5, 3e-2, 1e-5
+# the SSD backward's float32 outputs (d(dt), dB, dC) with x in bf16: the
+# hi + lo splits keep them near f32 (~2e-3 of their maxima without the lo
+# parts)
+SPLIT_TOL = 1e-4
 N_QUERIES, K_ANCHORS, N_ANCHORS, NEW_TOKENS = 8, 5, 250, 12
 
 # the streaming phases: 16 test queries x 7 models in ragged ticks, slot
@@ -314,6 +324,20 @@ SSD_BWD_CASES = [
      None),
     ("ssd bwd full head nc 2 dstate", (2, 114, 64, 64, 128, 57), "float32",
      1.0, True, True, None),
+    # the bf16 body's edges, drawn after the cases above: 9 heads (a last
+    # group of one head, one round of its two lanes), a chunk of 33 that
+    # pads to a partial 16-row tile (three t tiles; two chunks, so every
+    # state term), x rows that are not 16-byte aligned (p 12, n 6: staged
+    # element by element), and a chunk of 128 in pieces of 64 (a block
+    # walking several pieces)
+    ("ssd bwd h 9 bf16", (2, 0, 9, 64, 128, 0), "bfloat16", 1.0, True, False,
+     None),
+    ("ssd bwd chunk 33 nc 2 bf16 dstate", (2, 66, 5, 64, 64, 33), "bfloat16",
+     1.0, False, True, None),
+    ("ssd bwd h 5 p 12 n 6 bf16", (2, 49, 5, 12, 6, 7), "bfloat16", 0.1,
+     False, True, None),
+    ("ssd bwd chunk 128 nc 2 bf16 dstate", (1, 256, 6, 64, 128, 128),
+     "bfloat16", 1.0, True, True, None),
 ]
 
 
@@ -860,7 +884,9 @@ def ssd_bwd_checks(torch, compare, s_train: int):
     d(dt), dA, dB and dC, and its plain version's (``ssd_scan_bwd_plain``),
     is held to the plain version run in float64 on the same values within
     tol x max(1, max|want|): 2e-5 with x in f32, 3e-2 with x in bf16 (dx
-    and dA are bf16 there, and gradients reach ~1000).  The main path's
+    and dA are bf16 there, and gradients reach ~1000), where the kernel's
+    float32 outputs d(dt), dB and dC are held within ``SPLIT_TOL``, the
+    limit of its split arithmetic's CPU emulation.  The main path's
     shapes are the SFT batches of mamba2-1.3b (64 x ``s_train`` tokens, 64
     heads of 64, state 128) and zamba2-7b (112 heads, state 64), x the
     conv output's strided slice.  Every case also: one scan and one
@@ -900,7 +926,9 @@ def ssd_bwd_checks(torch, compare, s_train: int):
                   and pl.dtype == inp.dtype,
                   f"{name} {part}: {g.shape} {g.dtype} != {inp.shape} "
                   f"{inp.dtype}")
-            compare(f"{name} {part} kernel", g, w, tol, scale="max")
+            compare(f"{name} {part} kernel", g, w,
+                    SPLIT_TOL if tol == BF16_TOL and g.dtype == torch.float32
+                    else tol, scale="max")
             compare(f"{name} {part} plain", pl, w, tol, scale="max")
         if main:
             compare.errs[main] = max(
@@ -1557,7 +1585,9 @@ def ssd_bwd_timing(torch, gen, s: int, h: int, n: int, p: int = 64):
     ``s`` tokens, ``h`` heads of ``p``, state ``n``; x the conv output's
     strided bf16 slice, dy bf16, no final-state gradient, as a mamba layer's
     backward gets them) beside its plain version, both in CUDA-graph
-    replays; no single PyTorch call computes it."""
+    replays (``ms``, ``plain_ms``); ``prof_ms`` is the kernel's wrapper by
+    the profiler's sum of device time (``kernels_ms``), split by launch in
+    ``split_ms``; no single PyTorch call computes it."""
     from repro_torch.kernels import ssd_scan as SS
     from repro_torch.models.ssm import _largest_chunk
     b, bf = 64, torch.bfloat16
@@ -1578,9 +1608,16 @@ def ssd_bwd_timing(torch, gen, s: int, h: int, n: int, p: int = 64):
               f"{chunk}, no final-state gradient",
         library_call="none: no single PyTorch call computes the SSD scan "
                      "backward")
+    t["prof_ms"], t["split_ms"] = kernels_ms(
+        torch, lambda: SS.ssd_scan_bwd_cuda(x, dtv, A, B, C, dy, None, states,
+                                            chunk=chunk), 20, by_kernel=True)
     t["bound_ms"], t["bound_by"] = bound(
         *ssd_bwd_work(b, s, h, p, n, chunk, x.element_size(),
                       A.element_size()), "float32")
+    print(f"   ssd_scan_bwd h {h} n {n} device ms: graph replays "
+          f"{t['ms']:.5f}, profiler sum {t['prof_ms']:.5f} ("
+          + ", ".join(f"{k} {v:.5f}" for k, v in t["split_ms"].items())
+          + ")")
     return t
 
 
@@ -2894,17 +2931,73 @@ def tiny_ssm_train_card_vs_cpu(torch, cfg, ds):
             "sft_max_abs_err": err, "launches": counts}
 
 
+def grads_vs_plain(torch, cfg, params, ds):
+    """Every gradient leaf of one SFT batch of ``cfg`` with the SSD scan
+    backward kernel against the same loss with its plain version
+    (``ssd_scan_bwd_plain``, float32 on the card): the worst leaf's max
+    |diff| over its max |plain|, and the share of elements whose signs
+    differ, which AdamW's first, sign-like steps follow.  Both run in the
+    bf16 model, whose rounding sets the difference (~3e-2 of a leaf's max
+    at mamba2-1.3b): held within 0.1."""
+    from repro_torch import io
+    from repro_torch.data.pipeline import batches
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.models.model import loss_fn
+    from repro_torch.training.optimizer import value_and_grad
+
+    batch = next(batches(ds, SFT_BATCH, seed=0, device="cuda"))
+
+    def leaves():
+        return io.flatten(value_and_grad(lambda p: loss_fn(p, cfg, batch),
+                                         params)[2])
+
+    before = SS.bwd_launches
+    got = leaves()
+    check(SS.bwd_launches > before,
+          f"{cfg.name}: the kernel pass launched no SSD backward kernel")
+    kernel = SS.ssd_scan_bwd_cuda
+    SS.ssd_scan_bwd_cuda = lambda x, dt, A, B, C, dy, dstate, states, *, \
+        chunk: SS.ssd_scan_bwd_plain(x, dt, A, B, C, dy, dstate, chunk=chunk)
+    before = SS.bwd_launches
+    try:
+        want = leaves()
+    finally:
+        SS.ssd_scan_bwd_cuda = kernel
+    check(SS.bwd_launches == before,
+          f"{cfg.name}: the plain pass launched the SSD backward kernel")
+    worst, name, flips, total = 0.0, None, 0, 0
+    for key, w in want.items():
+        g, w = got[key].float(), w.float()
+        check(bool(torch.isfinite(g).all()), f"{cfg.name} {key}: non-finite")
+        rel = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        if rel >= worst:
+            worst, name = rel, key
+        flips += int(((g > 0) != (w > 0)).sum())
+        total += w.numel()
+    del got, want
+    release(torch)
+    print(f"   gradient leaves, SSD backward kernel vs plain (one batch): "
+          f"worst {worst:.3g} of its leaf's max ({name}); signs differing "
+          f"{flips / total:.3g} of {total} elements")
+    check(worst <= 0.1, f"{cfg.name}: leaf {name} {worst} > 0.1")
+    return {"worst_leaf": worst, "worst_leaf_name": name,
+            "sign_flip_share": flips / total}
+
+
 def full_ssm_train(torch, cfg, ds, min_params: float):
-    """``cfg`` at full width from seeded random weights: ``sft_steps``
-    (one checkpoint a layer, so two scans and one SSD backward a mamba
-    layer a step, and for a hybrid two flash forwards and one backward at
-    each shared-block occurrence); the weights freed after."""
+    """``cfg`` at full width from seeded random weights: its gradient
+    leaves with the SSD backward kernel against its plain version
+    (``grads_vs_plain``), then ``sft_steps`` (one checkpoint a layer, so
+    two scans and one SSD backward a mamba layer a step, and for a hybrid
+    two flash forwards and one backward at each shared-block occurrence);
+    the weights freed after."""
     params, n_params = full_params(torch, cfg, min_params)
+    vs_plain = grads_vs_plain(torch, cfg, params, ds)
     sft = sft_steps(torch, cfg, params, ds)
     del params
     release(torch)
     return {"config": cfg.name, "num_layers": cfg.num_layers,
-            "params": n_params, **sft}
+            "params": n_params, "grads_vs_plain": vs_plain, **sft}
 
 
 def clis():

@@ -14,13 +14,23 @@ walked in pieces of at most ``MAX_PIECE`` positions.  x, dt, B and C are
 read in their model layouts through strides, so the model passes its
 projection slices without a copy.  See the source for the design.
 
-The gradient is the CUDA kernel ``csrc/ssd_scan_bwd.cu`` (per (row, group
-of heads) the chunk-reverse recurrence on f32 FMAs, then a second launch
-that sums the dB, dC and dA partials in a fixed order), wired in by
+The gradient is the CUDA kernel ``csrc/ssd_scan_bwd.cu``, wired in by
 ``SSDScan``, an autograd Function whose forward is the scan kernel asked
 to save the state entering every piece but the first, which the backward
-reads instead of recomputing it.  ``ssd_scan_bwd_plain`` is its plain
-version.
+reads instead of recomputing it.  With x in bfloat16 (the training type)
+it runs on tensor cores in three launches: the causal scores once per
+(row, piece) in three bf16 products of split f32 values; one block of 4
+warps per (row, group of ``BWD_HEADS`` heads), three blocks an SM, with x
+and dy staged by 16-byte ``cp.async``, the products x dy^T and (G L)^T dy
+(the weights split in bf16 hi + lo) on ``mma.sync`` and everything
+elementwise on the accumulators in registers, writing each group's dG; and
+a reduce that sums dG over the groups and forms dC = dG B and dB = dG^T C
+once a row.  ``_emulate_bf16_bwd`` in ``tests/test_torch_ssm_training.py``
+repeats that arithmetic on the CPU.  With x in float32 (the parity checks,
+held to a float64 witness at 2e-5) it keeps f32 FMA tiles in the first
+body, then the same reduce.  The bound at the SFT shapes is bytes; see the
+source for what set the kernel's time.  No float atomics: two calls give
+the same bits.  ``ssd_scan_bwd_plain`` is its plain version.
 
 ``ssd_scan`` (``ops.ssd``) dispatches on the tensor's device: a CPU tensor
 goes to the plain version ``ref.ssd`` (whose autograd is the CPU
@@ -44,9 +54,13 @@ MAX_PIECE = 64          # positions of a chunk staged at once
 GROUP = 4               # heads a block
 # dynamic shared memory a block may use on the H100 (227 KB)
 MAX_SMEM_BYTES = 232448
+SM_SMEM_BYTES = 233472  # an SM's shared memory (228 KB), 1 KB kept a block
 THREADS = 256
 STATE_TILES = 2         # 4 x 4 state tiles a thread holds in registers
-BWD_THREADS = 512       # threads of a backward block
+BWD_HEADS = 4           # heads a backward block (``HEADS`` in the source)
+BWD_THREADS = 512       # threads of a backward block, float32 x
+BWD_LANES = 2           # heads a bf16 backward block works on at once
+BWD_KC = 32             # state columns of a bf16 state-term unit
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
@@ -54,7 +68,7 @@ bwd_launches = 0
 
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
              + [ctypes.c_longlong] * 10 + [ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 9
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 9
                  + [ctypes.c_longlong] * 10 + [ctypes.c_void_p])
 
 
@@ -75,15 +89,53 @@ def pieces(l: int, chunk: int) -> int:
     return (l // chunk) * -(-chunk // MAX_PIECE)
 
 
-def bwd_smem_bytes(chunk: int, p: int, n: int, has_state: bool) -> int:
-    """Dynamic shared memory of one backward block (mirrors ``set_layout``
-    in ``csrc/ssd_scan_bwd.cu``), for a piece of T4 positions (rounded up
-    to 4), p4 and n4 rounded up to 4: B and C (T4 x n4 each), the scores,
-    the group's dG and a head's weights (T4 x T4 each), the row and column
-    sums of M by tile (T4 x T4 / 4 each), x dt, dy and dxd (T4 x p4 each), a
-    partial-sum table (T4 x max(p4, n4) / 4), seven vectors of T4 and a
-    float a warp, a_cum in float64; with state terms the head's dS (p4 x
-    n4)."""
+def _round16(v: int) -> int:
+    return (v + 15) // 16 * 16
+
+
+def bwd_tiles(chunk: int) -> int:
+    """Causal 16 x 16 tiles of a piece (the piece rounded up to 16): the
+    floats of a backward dG or scores partial are 256 a tile."""
+    nt = _round16(piece_len(chunk)) // 16
+    return nt * (nt + 1) // 2
+
+
+def bwd_smem_bytes(chunk: int, p: int, n: int, has_state: bool,
+                   dtype: torch.dtype = torch.float32) -> int:
+    """Dynamic shared memory of one backward block, for x in ``dtype``.
+
+    float32 x (mirrors ``set_layout`` in ``csrc/ssd_scan_bwd.cu``), for a
+    piece of T4 positions (rounded up to 4), p4 and n4 rounded up to 4: B
+    and C (T4 x n4 each), the scores, the group's dG and a head's weights
+    (T4 x T4 each), the row and column sums of M by tile (T4 x T4 / 4
+    each), x dt, dy and dxd (T4 x p4 each), a partial-sum table (T4 x
+    max(p4, n4) / 4), seven vectors of T4 and a float a warp, a_cum in
+    float64; with state terms the head's dS (p4 x n4).
+
+    bfloat16 x (mirrors ``set_layout_mma``), in 16-byte-aligned parts, for
+    a piece of T16 positions (rounded up to 16), p16 and n16 rounded up to
+    16: x and dy of ``BWD_LANES`` heads (T16 rows of p16 + 8 bf16) in one
+    buffer; each lane's dG (the
+    causal tiles, 256 floats each); per head of the block a_cum (float64),
+    four vectors (T16 floats each), M's column sums by t tile (T16 / 16 x T16)
+    and dA; with state terms per head a vector (T16), a table by state
+    column chunk (n16 / 32 x T16) and one by dS unit (p16 / 16 x n16 /
+    32)."""
+    if dtype == torch.bfloat16:
+        t16, p16, n16 = _round16(piece_len(chunk)), _round16(p), _round16(n)
+        nt, tiles = t16 // 16, bwd_tiles(chunk)
+        nkc = -(-n16 // BWD_KC)
+        vec = _round16(BWD_HEADS * t16 * 4)
+
+        size = (2 * _round16(BWD_LANES * t16 * (p16 + 8) * 2)
+                + _round16(BWD_LANES * tiles * 256 * 4)
+                + _round16(BWD_HEADS * t16 * 8) + 4 * vec
+                + _round16(BWD_HEADS * nt * t16 * 4)
+                + _round16(BWD_HEADS * 4))
+        if has_state:
+            size += (vec + _round16(BWD_HEADS * nkc * t16 * 4)
+                     + _round16(BWD_HEADS * (p16 // 16) * nkc * 4))
+        return size
     t4, p4, n4 = _round4(piece_len(chunk)), _round4(p), _round4(n)
     floats = (2 * t4 * n4 + 3 * t4 * t4 + 2 * t4 * (t4 // 4)
               + 3 * t4 * p4 + t4 * max(p4, n4) // 4 + 7 * t4
@@ -286,7 +338,7 @@ def check_args(x, dt, A, B, C, chunk: int, *, backward: bool = False) -> None:
         raise ValueError("A must be contiguous")
     if not backward:
         return
-    need = bwd_smem_bytes(chunk, p, n, True)
+    need = bwd_smem_bytes(chunk, p, n, True, x.dtype)
     if need > MAX_SMEM_BYTES:
         raise ValueError(f"chunk {chunk}, head dim {p}, state {n}: the "
                          f"backward kernel needs {need} bytes of shared "
@@ -356,14 +408,18 @@ def ssd_scan_bwd_cuda(x, dt, A, B, C, dy, dstate, states, *, chunk: int):
         raise ValueError(f"dstate {tuple(dstate.shape)} {dstate.dtype} "
                          f"must be {(b, h, p, n)} float32")
     has_state = npieces > 1 or dstate is not None
-    groups = -(-h // GROUP)
+    groups = -(-h // BWD_HEADS)
     f32 = dict(dtype=torch.float32, device=dev)
     dS = None
     if has_state:
         dS = (dstate.contiguous().clone() if dstate is not None
               else torch.zeros((b, h, p, n), **f32))
-    part = torch.zeros if has_state else torch.empty
-    dBp, dCp = (part((b, groups, l, n), **f32) for _ in range(2))
+    tiles = bwd_tiles(chunk) * 256
+    Gp = (torch.empty((b, npieces, tiles), **f32)
+          if x.dtype == torch.bfloat16 else None)
+    dGp = torch.empty((b, groups, npieces, tiles), **f32)
+    dBs, dCs = ((torch.zeros((b, groups, l, n), **f32) for _ in range(2))
+                if has_state else (None, None))
     dAp = torch.empty((b, h), **f32)
     dx = torch.empty((b, l, h, p), dtype=x.dtype, device=dev)
     ddt = torch.empty((b, l, h), **f32)
@@ -375,7 +431,9 @@ def ssd_scan_bwd_cuda(x, dt, A, B, C, dy, dstate, states, *, chunk: int):
              C.data_ptr(), dy.data_ptr(),
              None if states is None else states.data_ptr(),
              None if dS is None else dS.data_ptr(), dx.data_ptr(),
-             ddt.data_ptr(), dBp.data_ptr(), dCp.data_ptr(), dAp.data_ptr(),
+             ddt.data_ptr(), None if Gp is None else Gp.data_ptr(),
+             dGp.data_ptr(), None if dBs is None else dBs.data_ptr(),
+             None if dCs is None else dCs.data_ptr(), dAp.data_ptr(),
              dB.data_ptr(), dC.data_ptr(), dA.data_ptr(),
              DTYPES[x.dtype], DTYPES[A.dtype], b, l, h, p, n, int(chunk),
              int(has_state), x.stride(0), x.stride(1), x.stride(2),

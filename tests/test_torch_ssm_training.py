@@ -7,9 +7,12 @@ bridged weights.
 
 Tolerances: the plain SSD backward within 2e-5 x max(1, max|want|) of each
 gradient (float32 on both sides, sums in other orders; a_cum in float64 on
-the port's side); loss within 2e-5; each gradient leaf within 1e-4 of that
-leaf's largest magnitude; ten SFT steps' losses within 1e-4, as in
-``test_torch_training.py``.
+the port's side); the emulated arithmetic of the kernel's bf16 body within
+3e-2 x max(1, max|want|) of the plain version in float64, the gate the
+kernel meets on the card, for dx and dA (bf16), and within 1e-4 for the
+float32 gradients; loss within 2e-5; each
+gradient leaf within 1e-4 of that leaf's largest magnitude; ten SFT steps'
+losses within 1e-4, as in ``test_torch_training.py``.
 """
 import dataclasses
 
@@ -187,6 +190,126 @@ def test_ssd_backward_shared_memory(shape, ok):
         pass
     with pytest.raises(ValueError):
         SS.check_args(*args, backward=True)
+
+
+@pytest.mark.parametrize("shape", [
+    (57, 57, 64, 128), (57, 57, 64, 64), (256, 128, 64, 128), (49, 7, 12, 6),
+    (66, 33, 64, 64), (64, 64, 256, 16),
+])
+def test_ssd_backward_shared_memory_bf16(shape):
+    """The bf16 body's layout takes every shape the float32 body takes, and
+    p 256 at a chunk of 64 besides; state terms add to it; at both SFT
+    shapes it leaves room for the three blocks an SM the body is built
+    for."""
+    l, chunk, p, n = shape
+    bf = torch.bfloat16
+    x = torch.zeros(1, l, 2, p, dtype=bf)
+    SS.check_args(x, torch.zeros(1, l, 2), torch.zeros(2, dtype=bf),
+                  torch.zeros(1, l, n), torch.zeros(1, l, n), chunk,
+                  backward=True)
+    assert SS.bwd_smem_bytes(chunk, p, n, False, bf) < SS.bwd_smem_bytes(
+        chunk, p, n, True, bf) <= SS.MAX_SMEM_BYTES
+    if (l, chunk, p) == (57, 57, 64):
+        assert 3 * (SS.bwd_smem_bytes(chunk, p, n, False, bf) + 1024) \
+            <= SS.SM_SMEM_BYTES
+
+
+# ---------------------------------------------------------------------------
+# The bf16 body's arithmetic, emulated
+# ---------------------------------------------------------------------------
+LOG2E = 1.4426950408889634
+
+
+def _split(v):
+    """f32 values -> (hi, lo): hi = bf16(v), lo = bf16(v - hi), as f32."""
+    hi = v.to(torch.bfloat16).float()
+    return hi, (v - hi).to(torch.bfloat16).float()
+
+
+def _mma(eq, *ops):
+    """An einsum of bf16-exact operands as the tensor cores form it: exact
+    products, summed in float64 and rounded once to f32 (the mma's f32 sums
+    differ from that by a few ulp)."""
+    return torch.einsum(eq, *(o.double() for o in ops)).float()
+
+
+def _emulate_bf16_bwd(x, dt, A, B, C, dy):
+    """(dx, d(dt), dA, dB, dC) as ``csrc/ssd_scan_bwd.cu``'s bf16 body forms
+    them for one chunk of at most 64 positions and no state term (the SFT
+    shapes): the scores G^T = B C^T in three products of the f32 values
+    split in bf16 hi + lo (lo.hi + hi.lo + hi.hi); dW^T = x dy^T exact, times
+    dt[t] after the product; L = exp2 of the difference of a_cum log2(e)
+    rounded to f32 (a_cum summed in float64); the weights G L split in hi +
+    lo as the A operand of dxd = (G L)^T dy (two products); dG summed over
+    the heads, M's row sums minus column sums, the reverse running sum in
+    float64; dC = dG B and dB = dG^T C in f32."""
+    b, l, h, p = x.shape
+    assert l <= 64
+    xf, dyf, Af = x.float(), dy.float(), A.float()
+    Bh, Bl = _split(B)
+    Ch, Cl = _split(C)
+    GT = (_mma("btn,bsn->bts", Bl, Ch) + _mma("btn,bsn->bts", Bh, Cl)
+          + _mma("btn,bsn->bts", Bh, Ch))                        # (b, t, s)
+    acum = torch.cumsum(dt.double() * Af.double(), dim=1)        # (b, l, h)
+    acl = (acum * LOG2E).float()
+    causal = torch.tril(torch.ones(l, l, dtype=torch.bool)).T    # t <= s
+    L = torch.where(causal[None, :, :, None],
+                    torch.exp2(acl[:, None, :, :] - acl[:, :, None, :]),
+                    torch.zeros(()))                             # (b, t, s, h)
+    dWT = _mma("bthp,bshp->btsh", xf, dyf) * dt[:, :, None, :]
+    WkT = GT[..., None] * L
+    dGT = (dWT * L).sum(-1)
+    M = dWT * WkT
+    dacum = M.sum(1) - M.sum(2)                                  # (b, l, h)
+    Wh, Wl = _split(WkT)
+    dxd = _mma("btsh,bshp->bthp", Wl, dyf) + _mma("btsh,bshp->bthp", Wh, dyf)
+    da = torch.flip(torch.cumsum(torch.flip(dacum.double(), [1]), 1),
+                    [1]).float()
+    ddt = Af * da + (dxd * xf).sum(-1)
+    dx = (dxd * dt[..., None]).to(x.dtype)
+    dA = (da * dt).sum((0, 1)).to(A.dtype)
+    dC = torch.einsum("bts,btn->bsn", dGT, B)
+    dB = torch.einsum("bts,bsn->btn", dGT, C)
+    return dx, ddt, dA, dB, dC
+
+
+def test_split_bf16_arithmetic_within_the_bf16_gate():
+    """mamba2-1.3b's SFT shape (57 positions, one chunk; 64 heads of 64,
+    state 128) cut to two rows, x and dy in bf16, dt, B and C as the model's
+    random weights give them: every gradient of the emulated bf16 body
+    within 3e-2 x max(1, max|want|) of the plain version in float64, the
+    float32 ones (d(dt), dB, dC) within 1e-4 x max(1, max|want|) (weights
+    without their lo part put d(dt) at ~2e-3), and the split scores within
+    2^-14 of sum |C||B| of the exact ones."""
+    r = np.random.default_rng(22)
+    b, l, h, p, n = 2, 57, 64, 64, 128
+    bf = torch.bfloat16
+    x = torch.from_numpy(r.standard_normal((b, l, h, p)) * 0.5).float().to(bf)
+    dt = torch.nn.functional.softplus(
+        torch.from_numpy(r.standard_normal((b, l, h))).float())
+    A = (-torch.exp(torch.from_numpy(r.standard_normal(h) * 0.3))).float() \
+        .to(bf)
+    B, C = (torch.from_numpy(r.standard_normal((b, l, n)) * 0.5).float()
+            for _ in range(2))
+    dy = torch.from_numpy(r.standard_normal((b, l, h, p))).float().to(bf)
+    Bh, Bl = _split(B)
+    Ch, Cl = _split(C)
+    got_g = (_mma("btn,bsn->bts", Bl, Ch) + _mma("btn,bsn->bts", Bh, Cl)
+             + _mma("btn,bsn->bts", Bh, Ch)).double()
+    exact = torch.einsum("btn,bsn->bts", B.double(), C.double())
+    size = torch.einsum("btn,bsn->bts", B.double().abs(), C.double().abs())
+    assert bool(((got_g - exact).abs() <= 2.0 ** -14 * size).all())
+    got = _emulate_bf16_bwd(x, dt, A, B, C, dy)
+    want = SS.ssd_scan_bwd_plain(*(t.double() for t in (x, dt, A, B, C, dy)),
+                                 chunk=l)
+    for name, g, w, inp in zip(("dx", "ddt", "dA", "dB", "dC"), got, want,
+                               (x, dt, A, B, C), strict=True):
+        assert g.dtype == inp.dtype and g.shape == inp.shape, name
+        w = w.double()
+        tol = (3e-2 if inp.dtype == bf else 1e-4) * max(1.0,
+                                                        float(w.abs().max()))
+        err = float((g.double() - w).abs().max())
+        assert err <= tol, f"{name}: {err} > {tol}"
 
 
 # ---------------------------------------------------------------------------
