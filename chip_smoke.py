@@ -65,7 +65,15 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    not 16-byte aligned (p 12) and pieces of 64; two launches bitwise
                    equal, the forward's bits equal with and without the
                    saved states, and the autograd path's bits equal to the
-                   wrapper's
+                   wrapper's; the dense families' shapes (a generator of
+                   their own): flash, dense and paged decode at GQA group
+                   12 (starcoder2-3b) in bf16 and f32, decode and paged
+                   decode at group 2 (internlm2-1.8b), flash and decode at
+                   gemma2-9b's heads of 256 with softcap 50 and windows
+                   shorter than the keys, and the ring-buffer decode's call
+                   (a window-sized cache, no window mask, min(pos + 1,
+                   window) slots) against its plain version and the
+                   windowed history, two launches bitwise equal
   4. timing      — each kernel, its plain version and one PyTorch library
                    call computing the same function (device time: CUDA
                    graph replays between CUDA events), beside the least time
@@ -87,7 +95,13 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    both SFT shapes (64 x 57 tokens; 64 heads of 64, state
                    128, and 112 heads, state 64) beside its plain version
                    (no single PyTorch call computes it), in graph replays
-                   and by the profiler's sum of device time
+                   and by the profiler's sum of device time; flash and
+                   dense decode at gemma2-9b's serve shapes (softcap 50:
+                   the yardstick is flex_attention under torch.compile
+                   with a tanh score_mod, first held to the plain version)
+                   and at starcoder2-3b's (group 12), and dense decode at
+                   internlm2-1.8b's (group 2), all from one table of
+                   attention shapes
   5. tiny        — ``ScopeEngine.serve`` on scope-tiny with seeded weights,
                    once on the card (kernels) and once on the CPU (plain
                    versions): equal token streams and decisions
@@ -130,6 +144,20 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    flash 13, decode 13 x 12, SSD scan 81, SSD step 81 x 12
                    a cold serve, finite logits, prefill and decode times,
                    idle share, peak memory; the weights freed after
+ 12a. tiny dense — ``ScopeEngine.serve`` on two small dense configs with
+                   seeded weights, on the card and on the CPU (equal token
+                   streams and decisions): starcoder2-3b at GQA group 12
+                   and gemma2-9b at heads of 256 with a window of 16 under
+                   the prompts (softcaps, post-norms, scaled embeddings);
+                   then the small gemma2 windowed at 4 on every layer, 12
+                   decode steps from position 0 over ring caches of 4
+                   slots (logits within 2e-5, greedy tokens equal)
+ 12b. full dense — ``ScopeEngine.serve`` on gemma2-9b, gemma2-2b,
+                   starcoder2-3b and internlm2-1.8b at full width and depth
+                   (random seeded weights, bf16), one phase each as phase
+                   12: flash one launch a layer, decode a layer and step,
+                   finite logits, prefill and decode times, idle share,
+                   peak memory; the weights freed after each
  13. tiny tiers  — scope-tiny with seeded weights and a seeded tier-0 head,
                    on the card and on the CPU: ``predict_stream`` over paged
                    slot refill with the gate at a midpoint between two
@@ -195,6 +223,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -244,6 +273,17 @@ HYBRID_KERNELS = ("flash_attention", "decode_attention", "ssd_scan",
 # and of the zamba2-7b SFT steps (phase 20), at head dim 112 and its SSD
 # shapes
 HYBRID_TRAIN_KERNELS = ("flash_attention_bwd", "ssd_scan_bwd")
+# the dense families' full-width serves (phase 12b): rows of the kernels
+# line named <kernel>@<config> carry that config's shapes and launches
+# (gemma2-9b: heads of 256, softcap 50, windows on its local layers;
+# starcoder2-3b: GQA group 12; internlm2-1.8b: group 2)
+DENSE_ROWS = (("flash_attention", "@gemma2-9b"),
+              ("decode_attention", "@gemma2-9b"),
+              ("flash_attention", "@starcoder2-3b"),
+              ("decode_attention", "@starcoder2-3b"),
+              ("decode_attention", "@internlm2-1.8b"))
+DENSE_FULL = {"gemma2-9b": 9.0e9, "gemma2-2b": 2.5e9, "starcoder2-3b": 4.0e9,
+              "internlm2-1.8b": 1.6e9}       # config: least params it has
 TO_PORT = []            # every TPU kernel of the repository has a port
 NO_LAUNCHES = {name: 0 for name in TPU_KERNELS}
 
@@ -634,8 +674,8 @@ def kernel_checks(torch, L: int, s_train: int):
             if not main:
                 continue
             # no atomics: the same bits every launch
-            check(torch.equal(got,
-                              DA.decode_attention_cuda(q, kc, vc, lens_t)),
+            check(torch.equal(got, DA.decode_attention_cuda(q, kc, vc, lens_t,
+                                                            **kw)),
                   f"{name}: two launches differ")
             # a row's bits depend on its keys and length, not on the cache's
             # depth: the same keys in a cache 37 deeper, garbage behind them
@@ -643,7 +683,7 @@ def kernel_checks(torch, L: int, s_train: int):
                 rnd(b, hkv, S_ + 37, dv, dt=dt)
             deep_k[:, :, :S_], deep_v[:, :, :S_] = kc, vc
             check(torch.equal(got, DA.decode_attention_cuda(q, deep_k, deep_v,
-                                                            lens_t)),
+                                                            lens_t, **kw)),
                   f"{name}: depth {S_} and {S_ + 37} differ")
             # rows that do not start on 16 bytes (a view of a wider cache) are
             # copied element by element into the same layout: the same bits
@@ -651,7 +691,7 @@ def kernel_checks(torch, L: int, s_train: int):
                 rnd(b, hkv, S_, dv + 4, dt=dt)
             wide_k[..., :d], wide_v[..., :dv] = kc, vc
             check(torch.equal(got, DA.decode_attention_cuda(
-                q, wide_k[..., :d], wide_v[..., :dv], lens_t)),
+                q, wide_k[..., :d], wide_v[..., :dv], lens_t, **kw)),
                 f"{name}: a view with row stride {d + 4} differs")
             print(f"   {name}: two launches bitwise equal; depth {S_} and "
                   f"{S_ + 37} bitwise equal; row stride {d + 4} view bitwise "
@@ -873,7 +913,96 @@ def kernel_checks(torch, L: int, s_train: int):
          dict(causal=False), bf, None),
     ])
     ssd_bwd_checks(torch, compare, s_train)
+
+    # the dense families' kernels at their shapes, on inputs of a generator
+    # of their own (rnd draws from it too), so the cases above keep theirs:
+    # starcoder2-3b's GQA group 12 (24 heads on 2 kv-heads of 128; the
+    # decode body's 4-head passes three times over), internlm2-1.8b's
+    # group 2, gemma2-9b's heads of 256 with its softcap of 50 and windows
+    # shorter than the keys
+    gen = torch.Generator(device=dev).manual_seed(23)
+    run_flash([
+        ("flash g12 main", (56, 24, 2, L, L, 128, 128), {}, bf,
+         "flash_attention@starcoder2-3b", "model"),
+        ("flash g12 f32", (2, 24, 2, L, L, 128, 128), {}, f32, None,
+         "model"),
+        ("flash g12 s=200 window+softcap", (2, 24, 2, 200, 200, 128, 128),
+         dict(window=64, softcap=50.0), bf, None, "model"),
+        ("flash gemma2-9b main softcap", (56, 16, 8, L, L, 256, 256),
+         dict(softcap=50.0), bf, "flash_attention@gemma2-9b", "model"),
+        ("flash gemma2-9b local softcap", (56, 16, 8, L, L, 256, 256),
+         dict(window=4096, softcap=50.0), bf, None, "model"),
+        ("flash gemma2-9b window 16 softcap", (4, 16, 8, L, L, 256, 256),
+         dict(window=16, softcap=50.0), bf, None, "model"),
+        ("flash gemma2-9b f32 window 16 softcap", (2, 16, 8, L, L, 256, 256),
+         dict(window=16, softcap=50.0), f32, None, "model"),
+        ("flash gemma2-9b s=200 window 40 softcap", (2, 16, 8, 200, 200, 256,
+                                                     256),
+         dict(window=40, softcap=50.0), bf, None, "model"),
+    ], rnd)
+    run_decode([
+        ("decode g12 main", (56, 24, 2, S, 128, 128), None, {}, bf,
+         "decode_attention@starcoder2-3b"),
+        ("decode g12 f32 ragged", (3, 24, 2, 70, 128, 128), [10, 70, 33], {},
+         torch.float32, None),
+        ("decode g12 300 keys window+softcap", (2, 24, 2, 300, 128, 128),
+         [300, 190], dict(window=40, softcap=50.0), bf, None),
+        ("decode g2 main", (56, 16, 8, S, 128, 128), None, {}, bf,
+         "decode_attention@internlm2-1.8b"),
+        ("decode gemma2-9b main softcap", (56, 16, 8, S, 256, 256), None,
+         dict(softcap=50.0), bf, "decode_attention@gemma2-9b"),
+        ("decode gemma2-9b window 20 softcap f32", (3, 16, 8, 90, 256, 256),
+         [90, 33, 61], dict(window=20, softcap=50.0), torch.float32, None),
+        ("decode gemma2-9b 300 keys window 64 softcap",
+         (2, 16, 8, 300, 256, 256), [300, 190], dict(window=64,
+                                                     softcap=50.0), bf, None),
+    ], rnd, gen)
+    run_paged([
+        ("paged g12 bf16", (16, 24, 2, kv_cap, 128, 128, PAGE, None, 0.0, bf),
+         None),
+        ("paged g12 f32 ragged", (3, 24, 2, 70, 128, 128, 16, [10, 70, 33],
+                                  0.0, torch.float32), None),
+        ("paged g2 bf16", (16, 16, 8, kv_cap, 128, 128, PAGE, None, 0.0, bf),
+         None),
+    ], rnd, gen)
+    ring_checks(torch, rnd, compare)
     return errs
+
+
+def ring_checks(torch, rnd, compare):
+    """The ring-buffer decode's call: a windowed layer's cache of exactly
+    ``window`` slots, the key of position p in slot p % window, attended
+    with no window mask over ``min(pos + 1, window)`` slots.  Kernel against
+    its plain version, against the windowed plain attention over the whole
+    history (the same keys in position order), and two launches bitwise
+    equal; gemma2-9b's heads of 256 and softcap, rows short of the window,
+    at it, and past it."""
+    from repro_torch.kernels import decode_attention as DA
+    W, d, hq, hkv, cap = 16, 256, 16, 8, 50.0
+    pos = torch.tensor([3, 15, 16, 40], dtype=torch.int32, device="cuda")
+    b, depth = pos.numel(), int(pos.max()) + 1
+    for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        name = f"decode ring d256 softcap {str(dt)[6:]}"
+        full_k, full_v = rnd(b, hkv, depth, d, dt=dt), rnd(b, hkv, depth, d,
+                                                           dt=dt)
+        ring_k = torch.zeros(b, hkv, W, d, dtype=dt, device="cuda")
+        ring_v = torch.zeros_like(ring_k)
+        for i, p in enumerate(pos.tolist()):
+            keep = torch.arange(max(0, p - W + 1), p + 1, device="cuda")
+            ring_k[i, :, keep % W] = full_k[i, :, keep]
+            ring_v[i, :, keep % W] = full_v[i, :, keep]
+        q = rnd(b, hq, 1, d, dt=dt)
+        lens = torch.clamp(pos + 1, max=W)
+        got = DA.decode_attention_cuda(q, ring_k, ring_v, lens, softcap=cap)
+        compare(name, got, DA.decode_attention_plain(
+            q, ring_k, ring_v, lens, softcap=cap), tol)
+        compare(f"{name} vs the windowed history", got,
+                DA.decode_attention_plain(q, full_k, full_v, pos + 1,
+                                          window=W, softcap=cap), tol)
+        check(torch.equal(got, DA.decode_attention_cuda(
+            q, ring_k, ring_v, lens, softcap=cap)),
+            f"{name}: two launches differ")
+        print(f"   {name}: two launches bitwise equal")
 
 
 def ssd_bwd_checks(torch, compare, s_train: int):
@@ -1207,29 +1336,17 @@ def kernel_timings(torch, L: int, retriever, query_embs, s_train: int):
     bf = torch.bfloat16
     out = {}
 
-    # flash: the prefill of 56 prompts (b = 56, hq 32, hkv 8, s = L, d 128),
-    # q, k, v transposed views of the (b, s, h, d) projections, as gqa_full
-    # passes them
-    b, hq, hkv, s, d = 56, 32, 8, L, 128
-    q = torch.randn(b, s, hq, d, generator=gen, device=dev).to(bf) \
-        .transpose(1, 2)
-    k = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(bf) \
-        .transpose(1, 2)
-    v = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(bf) \
-        .transpose(1, 2)
-    pairs = s * (s + 1) // 2                         # causal (q, k) pairs
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())   # q, k, v, out
-    out["flash_attention"] = dict(
-        times(torch, lambda: FA.flash_attention_cuda(q, k, v),
-              lambda: FA.flash_attention_plain(q, k, v),
-              lambda: F.scaled_dot_product_attention(
-                  q, k, v, is_causal=True, enable_gqa=True), 50),
-        shape=f"q ({b},{hq},{s},{d}) kv ({b},{hkv},{s},{d}) bf16 causal, "
-              f"views of (b, s, h, d)")
-    out["flash_attention"]["bound_ms"], out["flash_attention"]["bound_by"] = \
-        bound(nbytes, 2 * 2 * d * pairs * b * hq, "bfloat16")
-    # the same call saving each row's log-sum-exp, as training's forward
-    # does (the serve path saves none)
+    # the launch floor: a one-element PyTorch op in the same graph harness,
+    # what any kernel of a few microseconds pays per launch besides its work
+    one = torch.zeros(1, device=dev)
+    floor_ms = device_ms(torch, lambda: one.add_(1.0), 200)
+    # flash and dense decode at every serve's attention shape, one table
+    out.update(attention_timings(torch, L, floor_ms))
+    b, hq, hkv, d = 56, 32, 8, 128          # scope-qwen3-4b's attention
+    # the main flash call saving each row's log-sum-exp, as training's
+    # forward does (the serve path saves none)
+    q, k, v = (torch.randn(b, L, h, d, generator=gen, device=dev).to(bf)
+               .transpose(1, 2) for h in (hq, hkv, hkv))
     out["flash_attention"]["lse_ms"] = device_ms(
         torch, lambda: FA.flash_attention_cuda(q, k, v, return_lse=True), 50)
     print(f"   flash_attention: {out['flash_attention']['ms']:.5f} ms, with "
@@ -1247,25 +1364,7 @@ def kernel_timings(torch, L: int, retriever, query_embs, s_train: int):
     print(f"   flash_attention at 128 tokens: "
           + " ".join(f"{key} {val:.5f}" for key, val in
                      out["flash_attention"]["at_128_tokens"].items()))
-
-    # decode: the last decode step (cache_len = L + 12 on every row)
-    S = L + NEW_TOKENS
-    qd = torch.randn(b, hq, 1, d, generator=gen, device=dev).to(bf)
-    kc = torch.randn(b, hkv, S, d, generator=gen, device=dev).to(bf)
-    vc = torch.randn(b, hkv, S, d, generator=gen, device=dev).to(bf)
-    lens = torch.full((b,), S, dtype=torch.int32, device=dev)
-    mask = (torch.arange(S, device=dev)[None] < lens[:, None])[:, None, None]
-    valid = int(lens.sum())
-    nbytes = 2 * (2 * qd.numel() + 2 * valid * hkv * d) + 4 * b
-    out["decode_attention"] = dict(
-        times(torch, lambda: DA.decode_attention_cuda(qd, kc, vc, lens),
-              lambda: DA.decode_attention_plain(qd, kc, vc, lens),
-              lambda: F.scaled_dot_product_attention(
-                  qd, kc, vc, attn_mask=mask, enable_gqa=True), 200),
-        shape=f"q ({b},{hq},1,{d}) cache ({b},{hkv},{S},{d}) bf16 "
-              f"cache_len {S}")
-    out["decode_attention"]["bound_ms"], out["decode_attention"]["bound_by"] = \
-        bound(nbytes, 2 * 2 * d * valid * hq, "bfloat16")
+    del q, k, v, q2, k2, v2
 
     # paged decode: the stream's last decode step (16 slots, cache_len =
     # kv_cap on every row, 16-token pages behind a permuted table); the
@@ -1334,12 +1433,7 @@ def kernel_timings(torch, L: int, retriever, query_embs, s_train: int):
         bound(nbytes, 2 * nq * n * dd, "float32")
     print(f"   dense decode kernel at the paged row's shape: "
           f"{out['paged_decode_attention']['dense_kernel_ms']:.5f} ms")
-    # the launch floor: a one-element PyTorch op in the same graph harness,
-    # what any kernel of a few microseconds pays per launch besides its work
-    one = torch.zeros(1, device=dev)
-    floor_ms = device_ms(torch, lambda: one.add_(1.0), 200)
-    for name in ("decode_attention", "paged_decode_attention"):
-        out[name]["launch_floor_ms"] = floor_ms
+    out["paged_decode_attention"]["launch_floor_ms"] = floor_ms
     print(f"   launch floor (one-element add_): {floor_ms:.5f} ms; decode "
           f"{out['decode_attention']['ms']:.5f} ms, paged decode "
           f"{out['paged_decode_attention']['ms']:.5f} ms")
@@ -1384,41 +1478,8 @@ def kernel_timings(torch, L: int, retriever, query_embs, s_train: int):
         bound(*step_work(b, h, p, n, A.element_size()), "float32")
     del cache
 
-    # zamba2-7b's serve: flash and dense decode at head dim 112, group 1
-    # (32 q-heads on 32 kv-heads), and the SSD scan and step at its 112
-    # heads of 64, state 64; the same harness, bounds and yardsticks
-    b, hq, d, S = 56, 32, 112, L + NEW_TOKENS
-    q, k, v = (torch.randn(b, L, hq, d, generator=gen, device=dev).to(bf)
-               .transpose(1, 2) for _ in range(3))
-    row = "flash_attention" + HYBRID
-    out[row] = dict(
-        times(torch, lambda: FA.flash_attention_cuda(q, k, v),
-              lambda: FA.flash_attention_plain(q, k, v),
-              lambda: F.scaled_dot_product_attention(q, k, v,
-                                                     is_causal=True), 50),
-        shape=f"q, k, v ({b},{hq},{L},{d}) bf16 causal, views of (b, s, "
-              "h, d)")
-    out[row]["bound_ms"], out[row]["bound_by"] = bound(
-        2 * 4 * q.numel(), 2 * 2 * d * (L * (L + 1) // 2) * b * hq,
-        "bfloat16")
-    qd = torch.randn(b, hq, 1, d, generator=gen, device=dev).to(bf)
-    kc, vc = (torch.randn(b, hq, S, d, generator=gen, device=dev).to(bf)
-              for _ in range(2))
-    lens = torch.full((b,), S, dtype=torch.int32, device=dev)
-    mask = (torch.arange(S, device=dev)[None] < lens[:, None])[:, None, None]
-    valid = int(lens.sum())
-    row = "decode_attention" + HYBRID
-    out[row] = dict(
-        times(torch, lambda: DA.decode_attention_cuda(qd, kc, vc, lens),
-              lambda: DA.decode_attention_plain(qd, kc, vc, lens),
-              lambda: F.scaled_dot_product_attention(qd, kc, vc,
-                                                     attn_mask=mask), 200),
-        shape=f"q ({b},{hq},1,{d}) cache ({b},{hq},{S},{d}) bf16 "
-              f"cache_len {S}", launch_floor_ms=floor_ms)
-    out[row]["bound_ms"], out[row]["bound_by"] = bound(
-        2 * (2 * qd.numel() + 2 * valid * hq * d) + 4 * b,
-        2 * 2 * d * valid * hq, "bfloat16")
-    del q, k, v, kc, vc
+    # zamba2-7b's serve: the SSD scan and step at its 112 heads of 64,
+    # state 64 (its attention rows are in attention_timings' table)
     b, h, p, n = 56, 112, 64, 64
     x, dtv, A, B, C = ssd_inputs(torch, gen, b, L, h, p, n, 1.0, bf,
                                  conv_layout=True)
@@ -1465,6 +1526,143 @@ def kernel_timings(torch, L: int, retriever, query_embs, s_train: int):
               f"plain_ms {t['plain_ms']:.5f} library_ms {lib}"
               f" bound_ms {t['bound_ms']:.6f} ({t['bound_by']}); eager "
               f"wrapper call {t['eager_ms']:.5f} ms")
+    return out
+
+
+# the serves' attention shapes (config suffix of the row, q-heads,
+# kv-heads, head dim, softcap, whether its flash row is timed): the main
+# path's scope-qwen3-4b, zamba2-7b's shared block (group 1, d 112),
+# gemma2-9b's global layer (its local layers' window of 4096 never bites on
+# L + 12 tokens), starcoder2-3b's group 12 and internlm2-1.8b's decode at
+# group 2
+ATTENTION_SHAPES = (("", 32, 8, 128, 0.0, True),
+                    (HYBRID, 32, 32, 112, 0.0, True),
+                    ("@gemma2-9b", 16, 8, 256, 50.0, True),
+                    ("@starcoder2-3b", 24, 2, 128, 0.0, True),
+                    ("@internlm2-1.8b", 16, 8, 128, 0.0, False))
+
+
+# flex_attention's tile options for a prefill at heads of 256: its default
+# tiles take ~1.3 ms at gemma2-9b's shape on the H100, these ~0.07 ms;
+# attention_timings times both and keeps the faster
+FLEX_PREFILL_OPTIONS = dict(BLOCK_M=64, BLOCK_N=32, num_warps=4, num_stages=2)
+
+
+def softcap_library(torch, cap: float, q, k, v, lens=None,
+                    kernel_options=None):
+    """The one PyTorch call that computes softcapped attention:
+    ``flex_attention`` under ``torch.compile``, with the score_mod cap *
+    tanh(s / cap) and a block mask, causal for a prefill or each row's
+    first ``lens[b]`` keys for a decode; q-heads grouped on k's heads.  The
+    port never calls it; it is the yardstick of the softcapped rows."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return cap * torch.tanh(score / cap)
+
+    if lens is None:
+        def mask_mod(b, h, q_idx, kv_idx):
+            return q_idx >= kv_idx
+    else:
+        def mask_mod(b, h, q_idx, kv_idx):
+            return kv_idx < lens[b]
+    block_mask = create_block_mask(mask_mod, B=None if lens is None else
+                                   q.shape[0], H=None, Q_LEN=q.shape[2],
+                                   KV_LEN=k.shape[2], device=q.device)
+    fn = torch.compile(flex_attention, dynamic=False)
+    return lambda: fn(q, k, v, score_mod=score_mod, block_mask=block_mask,
+                      enable_gqa=True, kernel_options=kernel_options)
+
+
+def attention_timings(torch, L: int, floor_ms: float):
+    """Flash and dense decode at every serve's attention shape
+    (ATTENTION_SHAPES): 56 prompts of L tokens and the last decode step at
+    L + 12 keys on every row, bf16, q, k, v the model's transposed (b, s,
+    h, d) views.  The yardstick is SDPA where there is no softcap and
+    ``softcap_library`` where there is one (for a prefill the faster of
+    its default tiles and FLEX_PREFILL_OPTIONS), held to the plain version
+    before it is timed."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+
+    dev, bf = "cuda", torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(24)
+    b, S = 56, L + NEW_TOKENS
+    out = {}
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(bf)
+
+    def yardstick(row, cap, library, plain):
+        if not cap:
+            return library
+        err = (library().float() - plain().float()).abs().max().item()
+        print(f"   {row}: flex_attention vs plain {err:.3e}")
+        check(err <= BF16_TOL, f"{row}: flex_attention differs from the "
+              f"plain version by {err:.3e} (tolerance {BF16_TOL})")
+        return library
+
+    for config, hq, hkv, d, cap, flash in ATTENTION_SHAPES:
+        kw = dict(softcap=cap) if cap else {}
+        note = f" softcap {cap:g}" if cap else ""
+        call = ("flex_attention (torch.compile), score_mod softcap * "
+                "tanh(s / softcap), {} block mask" if cap else
+                "scaled_dot_product_attention")
+        if flash:
+            q = randn(b, L, hq, d).transpose(1, 2)
+            k, v = (randn(b, L, hkv, d).transpose(1, 2) for _ in range(2))
+            row = "flash_attention" + config
+            plain = (lambda: FA.flash_attention_plain(q, k, v, **kw))
+            library = (softcap_library(torch, cap, q, k, v) if cap else
+                       lambda: F.scaled_dot_product_attention(
+                           q, k, v, is_causal=True, enable_gqa=True))
+            out[row] = dict(
+                times(torch, lambda: FA.flash_attention_cuda(q, k, v, **kw),
+                      plain, yardstick(row, cap, library, plain), 50),
+                shape=f"q ({b},{hq},{L},{d}) kv ({b},{hkv},{L},{d}) bf16 "
+                      f"causal{note}, views of (b, s, h, d)",
+                library_call=call.format("causal"))
+            if cap:
+                tuned = softcap_library(torch, cap, q, k, v,
+                                        kernel_options=FLEX_PREFILL_OPTIONS)
+                t = out[row]
+                t["library_default_ms"] = t["library_ms"]
+                t["library_tuned_ms"] = device_ms(
+                    torch, yardstick(row, cap, tuned, plain), 50)
+                print(f"   {row}: flex_attention default tiles "
+                      f"{t['library_default_ms']:.5f} ms, "
+                      f"{FLEX_PREFILL_OPTIONS} {t['library_tuned_ms']:.5f}")
+                if t["library_tuned_ms"] < t["library_ms"]:
+                    t["library_ms"] = t["library_tuned_ms"]
+                    t["library_call"] += f", {FLEX_PREFILL_OPTIONS}"
+            out[row]["bound_ms"], out[row]["bound_by"] = bound(
+                2 * (2 * q.numel() + k.numel() + v.numel()),
+                2 * 2 * d * (L * (L + 1) // 2) * b * hq, "bfloat16")
+            del q, k, v
+        qd = randn(b, hq, 1, d)
+        kc, vc = randn(b, hkv, S, d), randn(b, hkv, S, d)
+        lens = torch.full((b,), S, dtype=torch.int32, device=dev)
+        mask = (torch.arange(S, device=dev)[None] < lens[:, None])[:, None,
+                                                                   None]
+        valid = int(lens.sum())
+        row = "decode_attention" + config
+        plain = (lambda: DA.decode_attention_plain(qd, kc, vc, lens, **kw))
+        library = (softcap_library(torch, cap, qd, kc, vc, lens) if cap else
+                   lambda: F.scaled_dot_product_attention(
+                       qd, kc, vc, attn_mask=mask, enable_gqa=True))
+        out[row] = dict(
+            times(torch, lambda: DA.decode_attention_cuda(qd, kc, vc, lens,
+                                                          **kw),
+                  plain, yardstick(row, cap, library, plain), 200),
+            shape=f"q ({b},{hq},1,{d}) cache ({b},{hkv},{S},{d}) bf16 "
+                  f"cache_len {S}{note}", launch_floor_ms=floor_ms,
+            library_call=call.format("valid-length"))
+        out[row]["bound_ms"], out[row]["bound_by"] = bound(
+            2 * (2 * qd.numel() + 2 * valid * hkv * d) + 4 * b,
+            2 * 2 * d * valid * hq, "bfloat16")
+        del qd, kc, vc
     return out
 
 
@@ -1717,12 +1915,72 @@ def tiny_hybrid_config():
     return get_config("zamba2-7b").reduced(num_layers=5, d_model=448)
 
 
+def tiny_dense_configs():
+    """The small dense configs of the CPU tests' engines
+    (``tests/test_torch_dense_families.py``): starcoder2-3b's ``reduced(
+    d_model=768, num_heads=24)`` (24 heads of 32 on 2 kv-heads: GQA group
+    12) and gemma2-9b's ``reduced(d_model=512, num_heads=2)`` with one
+    kv-head and a window of 16 under the 49-token prompts (heads of 256,
+    softcaps 50 / 30, post-norms, scaled embeddings); two layers, f32."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return [get_config("starcoder2-3b").reduced(d_model=768, num_heads=24),
+            dataclasses.replace(get_config("gemma2-9b").reduced(
+                d_model=512, num_heads=2), num_kv_heads=1,
+                sliding_window=16)]
+
+
+def ring_card_vs_cpu(torch, cfg, steps: int = 12):
+    """The ring-buffer decode: ``cfg`` with every layer windowed at 4
+    (``force_window``), ``init_cache`` for ``steps`` tokens (caches of
+    exactly 4 slots) and ``steps`` teacher-forced ``decode_step`` calls from
+    position 0, on the card and on the CPU from the same seeded params:
+    logits within 2e-5, greedy tokens equal, one dense decode launch a
+    layer and step on the card."""
+    import dataclasses
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.models.model import decode_step, init_cache, init_params
+
+    cfg = dataclasses.replace(cfg, sliding_window=4, force_window=4)
+    cpu_params = init_params(cfg, seed=0, device="cpu")
+    toks = np.random.default_rng(12).integers(0, cfg.vocab_size, (3, steps))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        params = cpu_params if dev == "cpu" else _to(cpu_params, dev)
+        caches = init_cache(cfg, 3, steps, device=dev)
+        check({leaf.shape[3] for leaf in _leaves(caches)} == {4},
+              f"ring caches {[tuple(x.shape) for x in _leaves(caches)]}")
+        kernels.reset_launch_counts()
+        logits = []
+        for t in range(steps):
+            lg, caches = decode_step(
+                params, cfg, torch.tensor(toks[:, t:t + 1], device=dev),
+                caches, torch.full((3,), t, dtype=torch.int32, device=dev))
+            logits.append(lg[:, 0].float().cpu())
+        runs[dev] = (torch.stack(logits, 1), kernels.launch_counts())
+    (cpu, _), (card, counts) = runs["cpu"], runs["cuda"]
+    err = float((cpu - card).abs().max())
+    check(err <= F32_TOL, f"ring decode: logits differ by {err}")
+    check(torch.equal(cpu.argmax(-1), card.argmax(-1)),
+          "ring decode: greedy tokens differ")
+    want = layer_counts(cfg)[0] * steps
+    check(counts["decode_attention"] == want,
+          f"ring decode: {counts['decode_attention']} decode launches, "
+          f"want {want}")
+    print(f"   ring decode ({cfg.name}, window 4, {steps} steps): logits "
+          f"max_abs_err {err:.3g}, greedy tokens equal, {want} decode "
+          "launches")
+    return {"logits_max_abs_err": err, "decode_launches": want}
+
+
 def layer_counts(cfg):
     """(attention layer runs, mamba layer runs) of one pass through
     ``cfg``'s stack: a shared block counts at each occurrence."""
+    from repro_torch.configs.base import ATTN_KINDS
     from repro_torch.models.transformer import build_plan
     runs = [kind for unit, count in build_plan(cfg) for kind in unit * count]
-    return (sum(k in ("attn", "shared_attn") for k in runs),
+    return (sum(k in (*ATTN_KINDS, "shared_attn") for k in runs),
             runs.count("mamba"))
 
 
@@ -3043,6 +3301,13 @@ def _leaves(tree):
 
 
 def main() -> int:
+    # torch.compile (the softcapped rows' yardstick) keeps its caches in
+    # the checkout's build directory and compiles in this process
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                     ("TRITON_CACHE_DIR", "triton/cache"),
+                     ("TRITON_HOME", "triton")):
+        os.environ.setdefault(var, str(OUT_DIR / sub))
+    os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
     try:
         import torch
     except ImportError:
@@ -3175,6 +3440,25 @@ def main() -> int:
     release(torch)
     done(t)
 
+    t = phase("tiny dense families: card vs cpu")
+    report["tiny_dense"] = {cfg.name: tiny_card_vs_cpu(
+        torch, cfg, world, data, anchors, lib, qids)
+        for cfg in tiny_dense_configs()}
+    report["tiny_dense"]["ring"] = ring_card_vs_cpu(torch,
+                                                    tiny_dense_configs()[1])
+    done(t)
+
+    report["dense"] = {}
+    for name, least in DENSE_FULL.items():
+        t = phase(f"full width: {name}")
+        cfg = get_config(name)
+        params, n_params = full_params(torch, cfg, least)
+        report["dense"][name] = full_width(torch, cfg, world, data, anchors,
+                                           lib, qids, params, n_params)
+        del params
+        release(torch)
+        done(t)
+
     t = phase("tiny tiers: card vs cpu, tier-0 gate, fallback, hot_swap")
     report["tiny_tiers"] = tiny_tiers_card_vs_cpu(torch, world, data,
                                                   anchors, lib)
@@ -3252,10 +3536,15 @@ def main() -> int:
     for name in HYBRID_TRAIN_KERNELS:
         launches[f"{name}{HYBRID}"] = report["hybrid_train"][
             "sft_launches"][name]
+    # and the dense families' serves, each its own path
+    for name, config in DENSE_ROWS:
+        launches[name + config] = report["dense"][config[1:]]["launches"][
+            name]
     kernel_rows = []
     for row in [*TPU_KERNELS, *(f"{n}{HYBRID}" for n in
-                                (*HYBRID_KERNELS, *HYBRID_TRAIN_KERNELS))]:
-        name = row.removesuffix(HYBRID)
+                                (*HYBRID_KERNELS, *HYBRID_TRAIN_KERNELS)),
+                *(name + config for name, config in DENSE_ROWS)]:
+        name = row.split("@")[0]
         tm = timing[row]
         kernel_rows.append({
             "name": row, "route": "cuda", "source": SOURCES[name],

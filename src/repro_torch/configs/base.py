@@ -2,11 +2,14 @@
 ``repro.configs.base``.
 
 Only the fields the ported configs set or rely on are kept — the SCOPE
-estimator configs (``configs/scope_estimator``), the pure-SSM Mamba2
-backbone (``configs/mamba2_1_3b``) and the zamba2 hybrid
+estimator configs (``configs/scope_estimator``), the dense GQA stacks
+(``configs/starcoder2_3b``, ``configs/internlm2_1_8b``), gemma2's
+alternating local / global stacks with logit softcaps, sandwich norms and
+scaled embeddings (``configs/gemma2_2b``, ``configs/gemma2_9b``), the
+pure-SSM Mamba2 backbone (``configs/mamba2_1_3b``) and the zamba2 hybrid
 (``configs/zamba2_7b``: Mamba2 layers with a tied shared attention block)
 — with the JAX package's defaults, so a config built here describes the
-same network as its JAX twin.  Other families (softcaps, MoE, MLA,
+same network as its JAX twin.  Other families (MoE, MLA,
 encoder-decoder, multimodal) arrive with their own port slices.
 """
 from __future__ import annotations
@@ -15,9 +18,11 @@ import dataclasses
 import math
 from typing import Tuple
 
-# "attn" : global self-attention + MLP (the SCOPE estimator family)
-# "mamba": Mamba2 SSD block (attention-free)
-VALID_BLOCK_KINDS = ("attn", "mamba")
+# "attn"      : global self-attention + MLP (the SCOPE estimator family)
+# "attn_local": sliding-window self-attention + MLP (gemma2's local layers)
+# "mamba"     : Mamba2 SSD block (attention-free)
+VALID_BLOCK_KINDS = ("attn", "attn_local", "mamba")
+ATTN_KINDS = ("attn", "attn_local")     # the kinds with an attention layer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +46,9 @@ class ModelConfig:
     # Attention options
     rope_theta: float = 10000.0
     sliding_window: int = 4096          # used by attn_local blocks
+    logit_softcap: float = 0.0          # gemma2: 50.0 on attention logits
+    final_logit_softcap: float = 0.0    # gemma2: 30.0 on lm head
+    attn_scale: float = 0.0             # 0 -> 1/sqrt(head_dim)
     qk_norm: bool = False
 
     # SSM (Mamba2 / SSD)
@@ -56,6 +64,8 @@ class ModelConfig:
     rmsnorm_eps: float = 1e-6
     tie_embeddings: bool = True
     dtype: str = "bfloat16"
+    sandwich_norm: bool = False         # gemma2 post-norms
+    scale_embeddings: bool = False      # gemma2: embed * sqrt(d_model)
     force_window: int = 0               # >0: every attn layer windowed
                                         # (the long-context variant)
 
@@ -95,9 +105,11 @@ class ModelConfig:
     def reduced(self, *, num_layers: int = 2, d_model: int = 256,
                 num_heads: int = 4, vocab_size: int = 512) -> "ModelConfig":
         """A smoke-test variant of the same family (CPU-runnable): the JAX
-        ``reduced()`` on the fields the port has.  As there, an SSM config
-        comes back with ``shared_attn_every=2`` (zamba2's hybrid layout):
-        replace it with 0 for a pure-SSM variant."""
+        ``reduced()`` on the fields the port has.  As there, the softcaps,
+        ``attn_scale``, ``sandwich_norm`` and ``scale_embeddings`` stay as
+        they are and the window shrinks to 64, and an SSM config comes back
+        with ``shared_attn_every=2`` (zamba2's hybrid layout): replace it
+        with 0 for a pure-SSM variant."""
         changes = {
             "num_layers": num_layers,
             "d_model": d_model,

@@ -3,7 +3,7 @@
 81 Mamba2 layers; a *shared* (parameter-tied) attention+MLP block is applied
 after every ``shared_attn_every``-th Mamba layer.  Its attention is full
 causal (window 0); the sliding window serves only the long-context variant
-(``force_window``), which the port does not run yet.
+(``force_window``).
 """
 from repro_torch.configs.base import ModelConfig
 

@@ -12,9 +12,10 @@
 // of 128, bf16) ~4.5 us.  What held the first version back was latency
 // inside a block (one 2-byte load per thread per step, a 128-FMA chain per
 // key, two barriers per 32-key tile), not bytes.  Design: one block per
-// (batch row, kv-head) serves all g <= 16 grouped q-heads, so each head's
-// K/V are read once; it stops at the row's length (and starts at its
-// window) instead of sweeping S.  The block body is decode_block
+// (batch row, kv-head) serves its g <= 4 grouped q-heads, so each head's
+// K/V are read once (a group of up to 16 takes a block for each 4 heads,
+// the grid's y); it stops at the row's length (and starts at its window)
+// instead of sweeping S.  The block body is decode_block
 // (decode_common.cuh): every valid key of a 64-key stage in flight at once
 // as 16-byte cp.async, split by logical position over the 4 warps, scored
 // in registers, one combine.  The paged kernel runs the same body, so on
@@ -52,7 +53,7 @@ __global__ void __launch_bounds__(THREADS, DecodeGeom<T, D, DV>::MIN_BLOCKS)
       static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh,
       DenseRows{p.k_ss, p.v_ss, p.S, p.window},
       static_cast<T*>(p.out) + head0 * DV, p.softcap, p.scale,
-      p.vec16, smem);
+      p.vec16, blockIdx.y * DEC_HEADS, smem);
 }
 
 struct DecodeLaunch {
@@ -65,7 +66,8 @@ struct DecodeLaunch {
     DecodeParams q = p;
     q.vec16 = rows_aligned16(p.k, sizeof(T), {p.k_sb, p.k_sh, p.k_ss}) &&
               rows_aligned16(p.v, sizeof(T), {p.v_sb, p.v_sh, p.v_ss});
-    return launch(decode_kernel<T, D, DV>, dim3(batch * p.hkv),
+    return launch(decode_kernel<T, D, DV>,
+                  dim3(batch * p.hkv, dec_head_blocks(p.g)),
                   decode_smem_bytes<T, D, DV>(), stream, q);
   }
 

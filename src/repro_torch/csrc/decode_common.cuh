@@ -24,7 +24,7 @@
 //    and only for valid keys (the block never copies the table).  Invalid
 //    slots of a chunk are zero-filled without a read, so the trash page and
 //    unreferenced pages are never touched.
-//  * Each warp scores its chunk for all heads of the pass: the LK lanes
+//  * Each warp scores its chunk for all heads of its block: the LK lanes
 //    that share a K row read it in 16-byte pieces (bf16 converted in
 //    registers) against q held in registers, a chain of at most 8 FMAs, and
 //    the partial sums of the chunk's 16 rows meet in a reduce-scatter
@@ -47,9 +47,13 @@
 // whatever S, kv_cap, the page size, the table, the batch or the grid; and
 // with no atomics two launches give the same bits.
 //
-// Heads: a pass keeps DEC_HEADS = 4 q-heads in registers (the main path's
-// group); larger groups (up to 16) take one pass per 4 heads, re-using a
-// warp's chunk when it is its only one.  Registers: bf16 heads up to 128
+// Heads: a block keeps DEC_HEADS = 4 q-heads in registers (the main path's
+// group).  A larger group (up to 16) takes dec_head_blocks(g) blocks of 4 heads
+// side by side (blockIdx.y): at starcoder2-3b's group of 12 on 2 kv-heads
+// that is 3 x 112 blocks instead of 112 blocks of three passes in a row,
+// which left most SMs idle; the blocks of one (row, kv-head) after the
+// first read its K/V from L2.  A head's arithmetic does not depend on its
+// block, so the split changes no output bit.  Registers: bf16 heads up to 128
 // are held to 128 a thread (4 blocks a SM, see DecodeGeom::MIN_BLOCKS);
 // no instantiation spills.  K/V rows sit unpadded in shared memory: the
 // lanes of a read always cover contiguous 128-byte lines, so no bank is hit
@@ -67,8 +71,13 @@
 namespace repro {
 
 constexpr int DEC_CHUNK = 16;                   // keys a chunk
-constexpr int DEC_HEADS = 4;                    // q-heads a pass
-constexpr int DEC_MAX_GROUP = 16;               // grouped q-heads a block
+constexpr int DEC_HEADS = 4;                    // q-heads a block
+constexpr int DEC_MAX_GROUP = 16;               // grouped q-heads a kv-head
+
+// Blocks of DEC_HEADS q-heads for a group of g: the decode grid's y extent.
+constexpr int dec_head_blocks(int g) {
+  return (g + DEC_HEADS - 1) / DEC_HEADS;
+}
 
 // Where a row's keys are: its key interval [lo, hi) from its valid length,
 // and key rows' addresses, in elements from this (row, kv-head)'s K and V
@@ -263,7 +272,7 @@ __device__ __forceinline__ void issue_chunk(T* kb, long long* offs, int c,
   cp_async_commit();
 }
 
-// The pass's q-heads [h0, h0 + nh) as this lane reads them (the elements
+// The block's q-heads [h0, h0 + nh) as this lane reads them (the elements
 // of its pieces of d), in f32 times the scale; 0 past the group and past
 // the row's PK pieces.
 template <typename T, int QE, int VEC, int LK, int PK, int H>
@@ -286,14 +295,15 @@ __device__ __forceinline__ void load_q(float (&qr)[H][QE],
 // q: this row's first q-head of the kv-head (heads q_sh apart, d
 // contiguous); len: the row's valid length, which rows turns into its key
 // interval [lo, hi); kp / vp: this (row, kv-head)'s K / V bases, key j's
-// row at kp + rows.at(j); out: (g, DV) contiguous.  vec16: K and V rows
-// start on 16 bytes.
+// row at kp + rows.at(j); out: (g, DV) contiguous.  The block serves the
+// heads [h0, h0 + DEC_HEADS) below g.  vec16: K and V rows start on 16
+// bytes.
 template <typename T, int D, int DV, typename Rows>
 __device__ __forceinline__ void decode_block(
     const T* __restrict__ q, long long q_sh, int g,
     const int* __restrict__ len, const T* __restrict__ kp,
     const T* __restrict__ vp, const Rows rows, T* __restrict__ out,
-    float softcap, float scale, bool vec16, unsigned char* smem) {
+    float softcap, float scale, bool vec16, int h0, unsigned char* smem) {
   using G = DecodeGeom<T, D, DV>;
   constexpr int CH = DEC_CHUNK, H = DEC_HEADS;
   const int warp = threadIdx.x >> 5;
@@ -321,136 +331,129 @@ __device__ __forceinline__ void decode_block(
   const int kg = lane / G::LK, r = lane % G::LK;
   const int my_key = (r >> 1) * G::KW + kg;
 
-  for (int h0 = 0; h0 < g; h0 += H) {
-    const int nh = min(H, g - h0);
-    // a warp's only chunk stays in its buffer from the first pass on
-    const bool resident = h0 > 0 && n_mine == 1;
-    if (n_mine > 0 && !resident)
-      issue_chunk<T, D, DV>(kv, offs, first, lo, hi, rows, kp, vp, lane,
-                            vec16);
-    // q's loads fly beside the chunk's copy
-    float qr[H][G::QE], m[H], l[H], acc[H][G::EV];
-    load_q<T, G::QE, G::VEC, G::LK, G::PK, H>(qr, q, q_sh, h0, nh, r,
-                                              scale);
+  const int nh = min(H, g - h0);
+  if (n_mine > 0)
+    issue_chunk<T, D, DV>(kv, offs, first, lo, hi, rows, kp, vp, lane, vec16);
+  // q's loads fly beside the chunk's copy
+  float qr[H][G::QE], m[H], l[H], acc[H][G::EV];
+  load_q<T, G::QE, G::VEC, G::LK, G::PK, H>(qr, q, q_sh, h0, nh, r, scale);
 #pragma unroll
-    for (int h = 0; h < H; ++h) {
-      m[h] = NEG_INF;
-      l[h] = 0.f;
+  for (int h = 0; h < H; ++h) {
+    m[h] = NEG_INF;
+    l[h] = 0.f;
 #pragma unroll
-      for (int e = 0; e < G::EV; ++e) acc[h][e] = 0.f;
-    }
+    for (int e = 0; e < G::EV; ++e) acc[h][e] = 0.f;
+  }
 
-    for (int i = 0; i < n_mine; ++i) {
-      const int c = first + i * WARPS;
-      cp_async_wait<0>();
-      __syncwarp();
-      const T* kb = kv;
-      const T* vb = kb + CH * D;
-      // scores: partial dot products of every K row this lane reads ...
-      float part[G::NI][H];
+  for (int i = 0; i < n_mine; ++i) {
+    const int c = first + i * WARPS;
+    cp_async_wait<0>();
+    __syncwarp();
+    const T* kb = kv;
+    const T* vb = kb + CH * D;
+    // scores: partial dot products of every K row this lane reads ...
+    float part[G::NI][H];
 #pragma unroll
-      for (int it = 0; it < G::NI; ++it) {
+    for (int it = 0; it < G::NI; ++it) {
 #pragma unroll
-        for (int h = 0; h < H; ++h) part[it][h] = 0.f;
+      for (int h = 0; h < H; ++h) part[it][h] = 0.f;
 #pragma unroll
-        for (int pp = 0; pp < G::PL; ++pp) {
-          if (G::PK != G::PKP && r + pp * G::LK >= G::PK) continue;
-          float kf[G::VEC];
-          load_f32<T, G::VEC>(
-              kb + (it * G::KW + kg) * D + (r + pp * G::LK) * G::VEC, kf);
+      for (int pp = 0; pp < G::PL; ++pp) {
+        if (G::PK != G::PKP && r + pp * G::LK >= G::PK) continue;
+        float kf[G::VEC];
+        load_f32<T, G::VEC>(
+            kb + (it * G::KW + kg) * D + (r + pp * G::LK) * G::VEC, kf);
 #pragma unroll
-          for (int h = 0; h < H; ++h) {
+        for (int h = 0; h < H; ++h) {
 #pragma unroll
-            for (int e = 0; e < G::VEC; ++e)
-              part[it][h] = fmaf(qr[h][pp * G::VEC + e], kf[e], part[it][h]);
-          }
+          for (int e = 0; e < G::VEC; ++e)
+            part[it][h] = fmaf(qr[h][pp * G::VEC + e], kf[e], part[it][h]);
         }
       }
-      // ... summed over the row's lanes: lanes 2x and 2x + 1 hold my_key's
-      reduce_scatter<G::NI, H>(part, r);
-
-      // the online softmax of this warp's keys
-      const int kpos = c * CH + my_key;
-      const bool valid = kpos >= lo && kpos < hi;
-#pragma unroll
-      for (int h = 0; h < H; ++h) {
-        float s = part[0][h] + __shfl_xor_sync(FULL_MASK, part[0][h], 1);
-        if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-        s = valid ? s : NEG_INF;
-        float cm = s;                 // max and sum over the 16 keys: lanes
-#pragma unroll                         // 2x and 2x + 1 hold the same key
-        for (int o = 2; o < 32; o <<= 1)
-          cm = fmaxf(cm, __shfl_xor_sync(FULL_MASK, cm, o));
-        const float m_new = fmaxf(m[h], cm);
-        const float m_safe = m_new <= NEG_INF ? 0.f : m_new;
-        const float p = valid ? expf(s - m_safe) : 0.f;
-        const float alpha = m[h] <= NEG_INF ? 0.f : expf(m[h] - m_safe);
-        float ps = p;
-#pragma unroll
-        for (int o = 2; o < 32; o <<= 1)
-          ps += __shfl_xor_sync(FULL_MASK, ps, o);
-        l[h] = l[h] * alpha + ps;
-#pragma unroll
-        for (int e = 0; e < G::EV; ++e) acc[h][e] *= alpha;
-        if (!(lane & 1)) pw[h * CH + my_key] = p;
-        m[h] = m_new;
-      }
-      __syncwarp();
-      // P.V: this lane's EV columns of every key of the chunk
-      if (G::LV == 32 || lane < G::LV) {
-#pragma unroll
-        for (int j = 0; j < CH; ++j) {
-          float vf[G::EV];
-          load_f32<T, G::EV>(vb + j * DV + lane * G::EV, vf);
-#pragma unroll
-          for (int h = 0; h < H; ++h) {
-            const float pj = pw[h * CH + j];
-#pragma unroll
-            for (int e = 0; e < G::EV; ++e)
-              acc[h][e] = fmaf(pj, vf[e], acc[h][e]);
-          }
-        }
-      }
-      __syncwarp();                   // the buffer and P are free again
-      if (i + 1 < n_mine)
-        issue_chunk<T, D, DV>(kv, offs, c + WARPS, lo, hi, rows, kp, vp,
-                              lane, vec16);
     }
+    // ... summed over the row's lanes: lanes 2x and 2x + 1 hold my_key's
+    reduce_scatter<G::NI, H>(part, r);
 
-    // the combine: every warp's (acc, m, l), merged in warp order
-    float* cw = comb + warp * H * (DV + 2);
+    // the online softmax of this warp's keys
+    const int kpos = c * CH + my_key;
+    const bool valid = kpos >= lo && kpos < hi;
 #pragma unroll
     for (int h = 0; h < H; ++h) {
-      if (G::LV == 32 || lane < G::LV) {
+      float s = part[0][h] + __shfl_xor_sync(FULL_MASK, part[0][h], 1);
+      if (softcap > 0.f) s = softcap * tanhf(s / softcap);
+      s = valid ? s : NEG_INF;
+      float cm = s;                 // max and sum over the 16 keys: lanes
+#pragma unroll                       // 2x and 2x + 1 hold the same key
+      for (int o = 2; o < 32; o <<= 1)
+        cm = fmaxf(cm, __shfl_xor_sync(FULL_MASK, cm, o));
+      const float m_new = fmaxf(m[h], cm);
+      const float m_safe = m_new <= NEG_INF ? 0.f : m_new;
+      const float p = valid ? expf(s - m_safe) : 0.f;
+      const float alpha = m[h] <= NEG_INF ? 0.f : expf(m[h] - m_safe);
+      float ps = p;
 #pragma unroll
-        for (int e = 0; e < G::EV; ++e)
-          cw[h * (DV + 2) + lane * G::EV + e] = acc[h][e];
-      }
-      if (lane == 0) {
-        cw[h * (DV + 2) + DV] = m[h];
-        cw[h * (DV + 2) + DV + 1] = l[h];
+      for (int o = 2; o < 32; o <<= 1)
+        ps += __shfl_xor_sync(FULL_MASK, ps, o);
+      l[h] = l[h] * alpha + ps;
+#pragma unroll
+      for (int e = 0; e < G::EV; ++e) acc[h][e] *= alpha;
+      if (!(lane & 1)) pw[h * CH + my_key] = p;
+      m[h] = m_new;
+    }
+    __syncwarp();
+    // P.V: this lane's EV columns of every key of the chunk
+    if (G::LV == 32 || lane < G::LV) {
+#pragma unroll
+      for (int j = 0; j < CH; ++j) {
+        float vf[G::EV];
+        load_f32<T, G::EV>(vb + j * DV + lane * G::EV, vf);
+#pragma unroll
+        for (int h = 0; h < H; ++h) {
+          const float pj = pw[h * CH + j];
+#pragma unroll
+          for (int e = 0; e < G::EV; ++e)
+            acc[h][e] = fmaf(pj, vf[e], acc[h][e]);
+        }
       }
     }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < nh * DV; idx += THREADS) {
-      const int h = idx / DV, col = idx - h * DV;
-      float mx = NEG_INF;
+    __syncwarp();                   // the buffer and P are free again
+    if (i + 1 < n_mine)
+      issue_chunk<T, D, DV>(kv, offs, c + WARPS, lo, hi, rows, kp, vp,
+                            lane, vec16);
+  }
+
+  // the combine: every warp's (acc, m, l), merged in warp order
+  float* cw = comb + warp * H * (DV + 2);
 #pragma unroll
-      for (int w = 0; w < WARPS; ++w)
-        mx = fmaxf(mx, comb[(w * H + h) * (DV + 2) + DV]);
-      const float m_safe = mx <= NEG_INF ? 0.f : mx;
-      float lsum = 0.f, a = 0.f;
+  for (int h = 0; h < H; ++h) {
+    if (G::LV == 32 || lane < G::LV) {
 #pragma unroll
-      for (int w = 0; w < WARPS; ++w) {
-        const float* cr = comb + (w * H + h) * (DV + 2);
-        if (cr[DV] <= NEG_INF) continue;      // no valid key in this warp
-        const float f = expf(cr[DV] - m_safe);
-        lsum = fmaf(cr[DV + 1], f, lsum);
-        a = fmaf(cr[col], f, a);
-      }
-      out[(h0 + h) * DV + col] = from_f32<T>(a / (lsum == 0.f ? 1.f : lsum));
+      for (int e = 0; e < G::EV; ++e)
+        cw[h * (DV + 2) + lane * G::EV + e] = acc[h][e];
     }
-    if (h0 + H < g) __syncthreads();  // the next pass rewrites comb
+    if (lane == 0) {
+      cw[h * (DV + 2) + DV] = m[h];
+      cw[h * (DV + 2) + DV + 1] = l[h];
+    }
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < nh * DV; idx += THREADS) {
+    const int h = idx / DV, col = idx - h * DV;
+    float mx = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w)
+      mx = fmaxf(mx, comb[(w * H + h) * (DV + 2) + DV]);
+    const float m_safe = mx <= NEG_INF ? 0.f : mx;
+    float lsum = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float* cr = comb + (w * H + h) * (DV + 2);
+      if (cr[DV] <= NEG_INF) continue;      // no valid key in this warp
+      const float f = expf(cr[DV] - m_safe);
+      lsum = fmaf(cr[DV + 1], f, lsum);
+      a = fmaf(cr[col], f, a);
+    }
+    out[(h0 + h) * DV + col] = from_f32<T>(a / (lsum == 0.f ? 1.f : lsum));
   }
 }
 

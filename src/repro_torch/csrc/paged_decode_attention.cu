@@ -19,14 +19,14 @@
 // per key *element* and a copy of the row's whole table into shared memory.
 // Design: the dense kernel's body, decode_block (decode_common.cuh), with
 // another key-row address (PagedRows): one block per (batch row, kv-head)
-// serves all g <= 16 grouped q-heads; each key row's address is resolved
-// once, by one lane, from the table entry of its page, only for valid keys;
-// every valid key of a 64-key stage is in flight at once as 16-byte
-// cp.async.  A page may be shorter than a chunk or straddle two: rows are
-// addressed one by one, so page sizes 8, 16, 32 and a clipped last page
-// (W * page > kv_cap) need nothing special.  The chunks follow logical
-// positions, so on the same logical cache the paged and the dense kernels
-// agree bit for bit.  Head dims as the dense kernel's, 112 included.
+// and 4 of its g <= 16 grouped q-heads; each key row's address is
+// resolved once, by one lane, from the table entry of its page, only for
+// valid keys; every valid key of a 64-key stage is in flight at once as
+// 16-byte cp.async.  A page may be shorter than a chunk or straddle two:
+// rows are addressed one by one, so page sizes 8, 16, 32 and a clipped
+// last page (W * page > kv_cap) need nothing special.  The chunks follow
+// logical positions, so on the same logical cache the paged and the dense
+// kernels agree bit for bit.  Head dims as the dense kernel's, 112 included.
 //
 // Table entries are NOT range-checked here — that would cost a host sync per
 // call.  repro_torch.serving.kv_pool.PagedKV keeps every entry of its host
@@ -65,7 +65,7 @@ __global__ void __launch_bounds__(THREADS, DecodeGeom<T, D, DV>::MIN_BLOCKS)
       PagedRows{p.table + static_cast<long long>(b) * p.n_w, p.page,
                 p.kv_cap, p.k_sp, p.k_ss, p.v_sp, p.v_ss},
       static_cast<T*>(p.out) + head0 * DV, p.softcap, p.scale,
-      p.vec16, smem);
+      p.vec16, blockIdx.y * DEC_HEADS, smem);
 }
 
 struct PagedLaunch {
@@ -78,7 +78,8 @@ struct PagedLaunch {
     PagedParams q = p;
     q.vec16 = rows_aligned16(p.k, sizeof(T), {p.k_sp, p.k_sh, p.k_ss}) &&
               rows_aligned16(p.v, sizeof(T), {p.v_sp, p.v_sh, p.v_ss});
-    return launch(paged_decode_kernel<T, D, DV>, dim3(batch * p.hkv),
+    return launch(paged_decode_kernel<T, D, DV>,
+                  dim3(batch * p.hkv, dec_head_blocks(p.g)),
                   decode_smem_bytes<T, D, DV>(), stream, q);
   }
 

@@ -49,7 +49,11 @@ def to_tensor(arr: np.ndarray, device) -> torch.Tensor:
 def _check(params: Dict, cfg: ModelConfig) -> None:
     """The bridged tree must describe ``cfg``'s tied dense, pure-SSM or
     hybrid network: a ``shared_attn`` block exactly where ``cfg``'s plan
-    runs one, and a segment for each of its segments."""
+    runs one, and a segment for each of its segments, holding a stack of
+    ``count`` layers at each of its unit's positions (gemma2's unit has
+    two) and, in each attention block, the post-norms exactly where
+    ``cfg`` has ``sandwich_norm`` (a block would otherwise skip norms it
+    was given, or miss norms it needs)."""
     if "lm_head" in params or not cfg.tie_embeddings:
         raise NotImplementedError("untied LM heads are not ported yet")
     plan = tf.build_plan(cfg)
@@ -60,6 +64,28 @@ def _check(params: Dict, cfg: ModelConfig) -> None:
     if len(params["segments"]) != len(plan):
         raise ValueError(f"{len(params['segments'])} segments, {cfg.name!r} "
                          f"has {len(plan)}")
+    blocks = [params["shared_attn"]] if hybrid else []
+    for i, (seg, (unit, count)) in enumerate(zip(params["segments"], plan,
+                                                 strict=True)):
+        positions = {str(j) for j, kind in enumerate(unit)
+                     if kind != "shared_attn"}
+        if set(seg) != positions:
+            raise ValueError(f"segment {i} holds positions {sorted(seg)}, "
+                             f"{cfg.name!r}'s unit {unit} {sorted(positions)}")
+        for j in sorted(positions):
+            depth = {leaf.shape[0] for leaf in flatten(seg[j]).values()}
+            if depth != {count}:
+                raise ValueError(f"segment {i} position {j} stacks {depth} "
+                                 f"layers, {cfg.name!r}'s plan {count}")
+            if unit[int(j)] != "mamba":
+                blocks.append(seg[j])
+    want_posts = (["post_attn_norm", "post_mlp_norm"] if cfg.sandwich_norm
+                  else [])
+    for block in blocks:
+        posts = sorted(k for k in block if k.startswith("post_"))
+        if posts != want_posts:
+            raise ValueError(f"{cfg.name!r}: post-norms {posts} in the tree, "
+                             f"sandwich_norm {cfg.sandwich_norm}")
     want = (cfg.vocab_size, cfg.d_model)
     if tuple(params["embed"].shape) != want:
         raise ValueError(f"embed {tuple(params['embed'].shape)} != {want} "

@@ -5,9 +5,10 @@
 decode_attention`` (Pallas TPU).  One token per row attends a dense
 (b, hkv, S, d) cache up to the row's valid length.  On the H100 this is
 bound by reading the valid K/V once; as on the TPU, one block per (row,
-kv-head) serves all grouped q-heads so each head's K/V are read once, and
-it stops at the row's length.  See ``csrc/decode_common.cuh`` for the
-design.
+kv-head) serves its grouped q-heads, up to 4 (a larger group takes one
+block for each 4 heads, side by side, the later ones reading the K/V from
+L2), and it stops at the row's length.  See ``csrc/decode_common.cuh`` for
+the design.
 
 ``paged_decode_attention`` replaces ``repro/kernels/decode_attention.py::
 paged_decode_attention``: the same math over block-paged storage, each

@@ -1,12 +1,14 @@
-"""GQA attention block (RoPE, qk-norm, causal, optionally windowed).
+"""GQA attention block (RoPE, qk-norm, causal, optionally windowed, with
+gemma2's logit softcap and an optional score scale).
 
 Activations are (batch, seq, d_model); heads are split internally.  The
 full-sequence path (prefill) returns the layer's K/V; the single-token
 decode paths write the new K/V into the cache at each row's own slot, of a
 dense (b, hkv, S, hd) cache or of a block-paged one.  A layer's window is
-``resolve_window``'s, as in the JAX package; the ring-buffer decode of a
-window-sized cache is not ported yet (it lands with the ``gemma2_*``
-configs).
+``resolve_window``'s, as in the JAX package, and so is the ring-buffer
+decode of a windowed layer whose dense cache holds exactly ``window``
+slots.  Every attention call passes ``cfg.logit_softcap`` and
+``cfg.attn_scale`` (0: 1/sqrt(head_dim)) to its kernel.
 """
 from __future__ import annotations
 
@@ -64,7 +66,9 @@ def gqa_full(p, cfg: ModelConfig, x, cos, sin, *, kind: str = "attn"
     q, k, v = _gqa_qkv(p, cfg, x, cos, sin)
     qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     out = ops.flash_attention(qh, kh, vh, causal=True,
-                              window=resolve_window(cfg, kind))
+                              window=resolve_window(cfg, kind),
+                              softcap=cfg.logit_softcap,
+                              scale=cfg.attn_scale or None)
     y = out.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.resolved_head_dim)
     return y @ p["wo"], {"k": kh, "v": vh}
 
@@ -76,26 +80,33 @@ def gqa_decode(p, cfg: ModelConfig, x, cos, sin, cache: Dict,
     x: (b, 1, d); cache["k"/"v"]: (b, hkv, S, hd); pos: (b,) — per-row count
     of tokens already cached, so row i's new K/V land at slot ``pos[i]`` and
     it attends ``pos[i] + 1`` entries, the last ``window`` of them where the
-    layer has one.  A windowed layer whose cache has exactly ``window``
-    slots is the JAX package's ring-buffer mode, which raises
-    ``NotImplementedError`` here.
+    layer has one.
+
+    A windowed layer whose cache has exactly ``window`` slots runs in
+    ring-buffer mode, as in the JAX package: row i's new K/V land at slot
+    ``pos[i] % window`` and it attends ``min(pos[i] + 1, window)`` slots
+    with no window mask (softmax does not depend on the slots' order), so
+    decode memory stays O(window).
 
     The cache is updated IN PLACE (the JAX package builds a new array with
     ``.at[rows, :, slot].set``); callers that need the old cache copy it.
     """
     window = resolve_window(cfg, kind)
     if window > 0 and cache["k"].shape[2] == window:
-        raise NotImplementedError(
-            f"{cfg.name!r}: ring-buffer decode of a {window}-slot windowed "
-            "cache is not ported yet (ROADMAP Queue 1 item 18, with the "
-            "gemma2 configs)")
+        slot = pos % window
+        valid = torch.clamp(pos + 1, max=window)
+        window = 0                          # the ring already enforces it
+    else:
+        slot, valid = pos, pos + 1
     b = x.shape[0]
     q, k, v = _gqa_qkv(p, cfg, x, cos, sin)
     rows = torch.arange(b, device=x.device)
-    cache["k"][rows, :, pos] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, :, pos] = v[:, 0].to(cache["v"].dtype)
+    cache["k"][rows, :, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][rows, :, slot] = v[:, 0].to(cache["v"].dtype)
     out = ops.decode_attention(q.transpose(1, 2), cache["k"], cache["v"],
-                               pos + 1, window=window)
+                               valid, window=window,
+                               softcap=cfg.logit_softcap,
+                               scale=cfg.attn_scale or None)
     y = out.transpose(1, 2).reshape(b, 1, cfg.num_heads * cfg.resolved_head_dim)
     return y @ p["wo"]
 
@@ -125,6 +136,7 @@ def gqa_decode_paged(p, cfg: ModelConfig, x, cos, sin, cache: Dict,
     cache["v"][pid, :, slot] = v[:, 0].to(cache["v"].dtype)
     out = ops.paged_decode_attention(
         q.transpose(1, 2), cache["k"], cache["v"], pos + 1, table,
-        page_size=spec.page_size, kv_cap=spec.kv_cap)
+        page_size=spec.page_size, kv_cap=spec.kv_cap,
+        softcap=cfg.logit_softcap, scale=cfg.attn_scale or None)
     y = out.transpose(1, 2).reshape(b, 1, cfg.num_heads * cfg.resolved_head_dim)
     return y @ p["wo"]

@@ -1,4 +1,5 @@
-"""Shared model building blocks: initializers, RMSNorm, dtypes.
+"""Shared model building blocks: initializers, RMSNorm, the logit softcap,
+dtypes.
 
 Parameters are plain nested dicts of tensors laid out exactly as the JAX
 package's pytrees (per-segment layer stacks on axis 0), so the weight
@@ -44,3 +45,11 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     var = x32.square().mean(dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * params["scale"].float()).to(dt)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """Gemma2-style logit soft-capping: cap * tanh(x / cap); a no-op at
+    ``cap <= 0``."""
+    if cap <= 0.0:
+        return x
+    return cap * torch.tanh(x / cap)

@@ -1,5 +1,6 @@
-"""Top-level model API of the estimator backbones: the dense GQA stack, the
-pure-SSM Mamba2 stack and the zamba2 hybrid.
+"""Top-level model API of the estimator backbones: the dense GQA stacks
+(gemma2's local / global one included), the pure-SSM Mamba2 stack and the
+zamba2 hybrid.
 
   init_params(cfg, *, seed, device)          -> params dict
   forward_train(params, cfg, batch)          -> (logits (b, s, V), aux)
@@ -17,7 +18,10 @@ Caches are a tuple with one dict per segment, ``{"<j>": {"k", "v"}}`` of
 shape (L, b, hkv, S, hd) for an attention layer (a shared block's: one per
 occurrence), ``{"<j>": {"conv", "ssm"}}`` of shape (L, b, width - 1,
 d_inner + 2 n) in the model dtype and (L, b, heads, head_dim, n) in float32
-for a mamba layer.
+for a mamba layer.  gemma2 scales its embeddings by sqrt(d_model) (the
+factor rounded to the model dtype first, as the reference does) and softcaps
+its logits in float32, so its prefill and decode logits are float32; every
+other stack's are in the model dtype.
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ from repro_torch.models import rope as rope_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.attention import resolve_window
 from repro_torch.models.common import (
-    dtype_of, embed_init, init_rmsnorm, rmsnorm)
+    dtype_of, embed_init, init_rmsnorm, rmsnorm, softcap)
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,
@@ -68,13 +72,24 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
 
 
 def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens]
+    """Embedding rows, times sqrt(d_model) under ``scale_embeddings``: the
+    factor is rounded to the embedding's dtype before the product (the
+    reference's ``jnp.asarray(d ** 0.5, h.dtype)``; sqrt(3584) is 59.75 in
+    bfloat16)."""
+    h = params["embed"][tokens]
+    if cfg.scale_embeddings:
+        h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype).item()
+    return h
 
 
 def _logits(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    """Tied head: rmsnorm(h) @ embed.T, in the model dtype."""
+    """Tied head: rmsnorm(h) @ embed.T, in the model dtype; under
+    ``final_logit_softcap`` cast to float32 and softcapped."""
     h = rmsnorm(params["final_norm"], h, cfg.rmsnorm_eps)
-    return h @ params["embed"].T
+    logits = h @ params["embed"].T
+    if cfg.final_logit_softcap > 0.0:
+        logits = softcap(logits.float(), cfg.final_logit_softcap)
+    return logits
 
 
 def _cos_sin(cfg: ModelConfig, pos: torch.Tensor):
@@ -89,13 +104,13 @@ def _cos_sin(cfg: ModelConfig, pos: torch.Tensor):
 def forward_train(params, cfg: ModelConfig, batch: Dict, *,
                   remat: bool = True):
     """Full causal forward over ``batch["tokens"]`` (b, s) with no caches:
-    (logits (b, s, V) in the model dtype, aux).  Each layer is one
-    checkpoint when ``remat`` (the reference's default); ``aux`` (the MoE
-    router loss in the reference) is 0 for every stack, dense, pure-SSM and
-    hybrid.  On the card the attention (the hybrid's tied block included)
-    runs the flash forward and backward kernels, and a mamba layer's SSD
-    runs the scan kernel forward and ``csrc/ssd_scan_bwd.cu`` backward
-    (``kernels.ssd_scan.SSDScan``)."""
+    (logits (b, s, V) in the model dtype, or float32 under a final softcap,
+    aux).  Each layer is one checkpoint when ``remat`` (the reference's
+    default); ``aux`` (the MoE router loss in the reference) is 0 for
+    every stack, dense, pure-SSM and hybrid.  On the card the attention
+    (the hybrid's tied block included) runs the flash forward and backward
+    kernels, and a mamba layer's SSD runs the scan kernel forward and
+    ``csrc/ssd_scan_bwd.cu`` backward (``kernels.ssd_scan.SSDScan``)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     h = _embed(params, cfg, tokens)
@@ -161,7 +176,7 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches,
     and returned as the same objects (JAX returns new arrays)."""
     b = token.shape[0]
     pos = pos.reshape(-1).expand(b)
-    h = params["embed"][token]
+    h = _embed(params, cfg, token)
     cos, sin = _cos_sin(cfg, pos[:, None])
     for seg, cache, (unit, count) in zip(params["segments"], caches,
                                          tf.build_plan(cfg), strict=True):
@@ -174,7 +189,7 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
                device: DeviceLike = None):
     """Zeroed caches shaped for ``decode_step``.  As in the JAX package, a
     windowed attention layer's K/V get ``min(max_len, window)`` slots (at
-    exactly ``window`` slots its decode is the ring buffer, which raises)."""
+    exactly ``window`` slots its decode is the ring buffer)."""
     dev = resolve_device(device)
     dt = dtype_of(cfg.dtype)
 

@@ -1,14 +1,17 @@
-"""Decoder stack: the ``attn`` and ``mamba`` block kinds, the zamba2
-hybrid's ``shared_attn``, and a loop over stacked layers.
+"""Decoder stack: the ``attn``, ``attn_local`` and ``mamba`` block kinds,
+the zamba2 hybrid's ``shared_attn``, and a loop over stacked layers.
 
 As in the JAX package, layers are grouped into segments of a repeated unit
-whose parameters are stacked on a leading layer axis; where JAX scans the
-unit body, the port runs a Python loop over the stack.  The full-sequence
-pass unbinds each stacked leaf once (layer ``i`` reads the ``i``-th view),
-so under autograd the gradient of a stack is stacked once, not summed from
-a zero-filled stack per layer; decode reads the views ``leaf[i]``.  An
-``attn`` layer caches {"k", "v"}, a ``mamba`` layer {"conv", "ssm"}, each
-leaf stacked per segment.
+whose parameters are stacked on a leading layer axis (gemma2: one unit
+``("attn_local", "attn")`` repeated); where JAX scans the unit body, the
+port runs a Python loop over the stack.  The full-sequence pass unbinds
+each stacked leaf once (layer ``i`` reads the ``i``-th view), so under
+autograd the gradient of a stack is stacked once, not summed from a
+zero-filled stack per layer; decode reads the views ``leaf[i]``.  An
+attention layer caches {"k", "v"}, a ``mamba`` layer {"conv", "ssm"},
+each leaf stacked per segment.  Under ``sandwich_norm`` (gemma2) an
+attention block also normalizes the attention and MLP outputs before each
+residual add (``post_attn_norm``, ``post_mlp_norm``).
 
 zamba2's unit is ``("mamba",) * k + ("shared_attn",)``: the ``shared_attn``
 position holds no parameters of its own but runs the model-level
@@ -33,7 +36,9 @@ from repro_torch.models.common import init_rmsnorm, rmsnorm
 def build_plan(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
     """[(unit_kinds, count), ...]: for an SSM stack with shared attention,
     ``shared_attn_every`` mambas and the shared block as one unit, then the
-    remaining mambas; otherwise consecutive identical kinds grouped."""
+    remaining mambas; for a pattern of several kinds that fills the stack
+    a whole number of times, the pattern as one unit; otherwise consecutive
+    identical kinds grouped."""
     if cfg.has_ssm() and cfg.shared_attn_every > 0:
         every = cfg.shared_attn_every
         full, rem = divmod(cfg.num_layers, every)
@@ -44,6 +49,11 @@ def build_plan(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
             plan.append((("mamba",), rem))
         return plan
     kinds = cfg.layer_kinds()
+    pat = tuple(cfg.block_pattern)
+    # layer_kinds() repeats the pattern, so it fills the stack exactly when
+    # the depth is a multiple of its length
+    if len(pat) > 1 and len(kinds) % len(pat) == 0:
+        return [(pat, len(kinds) // len(pat))]
     plan = []
     i = 0
     while i < len(kinds):
@@ -62,12 +72,15 @@ def init_block(generator: torch.Generator, cfg: ModelConfig, kind: str, *,
         return {"norm": init_rmsnorm(d, device=device, dtype=dtype),
                 "mamba": ssm_mod.init_mamba(generator, cfg, device=device,
                                             dtype=dtype)}
-    return {"attn_norm": init_rmsnorm(d, device=device, dtype=dtype),
-            "mlp_norm": init_rmsnorm(d, device=device, dtype=dtype),
-            "attn": attn_mod.init_gqa(generator, cfg, device=device,
-                                      dtype=dtype),
-            "mlp": mlp_mod.init_mlp(generator, cfg, device=device,
-                                    dtype=dtype)}
+    p = {"attn_norm": init_rmsnorm(d, device=device, dtype=dtype),
+         "mlp_norm": init_rmsnorm(d, device=device, dtype=dtype),
+         "attn": attn_mod.init_gqa(generator, cfg, device=device,
+                                   dtype=dtype),
+         "mlp": mlp_mod.init_mlp(generator, cfg, device=device, dtype=dtype)}
+    if cfg.sandwich_norm:
+        p["post_attn_norm"] = init_rmsnorm(d, device=device, dtype=dtype)
+        p["post_mlp_norm"] = init_rmsnorm(d, device=device, dtype=dtype)
+    return p
 
 
 def init_segment(generator: torch.Generator, cfg: ModelConfig,
@@ -114,9 +127,21 @@ def block_full(p: Dict, cfg: ModelConfig, kind: str, h: torch.Tensor, cos,
         return h + y, cache
     x = rmsnorm(p["attn_norm"], h, cfg.rmsnorm_eps)
     y, kv = attn_mod.gqa_full(p["attn"], cfg, x, cos, sin, kind=kind)
+    return _attn_block_tail(p, cfg, h, y), kv
+
+
+def _attn_block_tail(p: Dict, cfg: ModelConfig, h: torch.Tensor,
+                     y: torch.Tensor) -> torch.Tensor:
+    """The residual adds and the MLP after an attention output ``y``, with
+    gemma2's post-norms under ``sandwich_norm``."""
+    if cfg.sandwich_norm:
+        y = rmsnorm(p["post_attn_norm"], y, cfg.rmsnorm_eps)
     h = h + y
-    x2 = rmsnorm(p["mlp_norm"], h, cfg.rmsnorm_eps)
-    return h + mlp_mod.mlp_forward(p["mlp"], cfg, x2), kv
+    y2 = mlp_mod.mlp_forward(p["mlp"], cfg,
+                             rmsnorm(p["mlp_norm"], h, cfg.rmsnorm_eps))
+    if cfg.sandwich_norm:
+        y2 = rmsnorm(p["post_mlp_norm"], y2, cfg.rmsnorm_eps)
+    return h + y2
 
 
 def block_decode(p: Dict, cfg: ModelConfig, kind: str, h: torch.Tensor,
@@ -136,9 +161,7 @@ def block_decode(p: Dict, cfg: ModelConfig, kind: str, h: torch.Tensor,
         spec, table = paged
         y = attn_mod.gqa_decode_paged(p["attn"], cfg, x, cos, sin, cache,
                                       pos, table, spec)
-    h = h + y
-    x2 = rmsnorm(p["mlp_norm"], h, cfg.rmsnorm_eps)
-    return h + mlp_mod.mlp_forward(p["mlp"], cfg, x2)
+    return _attn_block_tail(p, cfg, h, y)
 
 
 def _block_h(p: Dict, cfg: ModelConfig, kind: str, h: torch.Tensor, cos,

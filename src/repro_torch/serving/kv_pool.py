@@ -44,7 +44,7 @@ from typing import List, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTN_KINDS, ModelConfig
 from repro_torch.models.attention import resolve_window
 from repro_torch.models.common import dtype_of
 
@@ -57,7 +57,7 @@ def kv_bytes_per_token(cfg: ModelConfig) -> int:
     """KV bytes one cached token costs across every attention layer."""
     itemsize = torch.empty((), dtype=dtype_of(cfg.dtype)).element_size()
     per_layer = 2 * cfg.num_kv_heads * cfg.resolved_head_dim * itemsize
-    return per_layer * sum(1 for k in cfg.layer_kinds() if k == "attn")
+    return per_layer * sum(1 for k in cfg.layer_kinds() if k in ATTN_KINDS)
 
 
 def check_paged_support(cfg: ModelConfig) -> None:
@@ -66,7 +66,7 @@ def check_paged_support(cfg: ModelConfig) -> None:
     their own memory.  Loud failure beats decoding from the wrong cache
     lines."""
     for kind in cfg.layer_kinds():
-        if kind != "attn":
+        if kind not in ATTN_KINDS:
             raise ValueError(
                 "paged KV requires an attention-only GQA backbone: "
                 f"{cfg.name!r} has a {kind!r} layer (SSM/MLA states have "

@@ -277,8 +277,9 @@ def test_prefill_and_decode_logits_match_jax(hybrid_pair):
 def test_windowed_variant_matches_jax_and_ring_decode_raises(hybrid_pair):
     """``force_window`` windows the shared block as in JAX: below the
     window's cache size (the window passes to the attention kernels'
-    plain versions) logits match; at a cache of exactly ``window`` slots
-    (JAX's ring-buffer mode) the port raises."""
+    plain versions) generation matches; a windowed stack cannot decode
+    over paged KV, whose pages have no ring buffer: it raises, as in
+    JAX."""
     jcfg, tcfg, params, tp = hybrid_pair
     jw = dataclasses.replace(jcfg, force_window=20)
     tw = dataclasses.replace(tcfg, force_window=20)
@@ -287,17 +288,35 @@ def test_windowed_variant_matches_jax_and_ring_decode_raises(hybrid_pair):
     tg, td = TS.generate(tp, tw, prompts, max_new_tokens=4)
     np.testing.assert_array_equal(tg, jg)
     np.testing.assert_allclose(td, jd, atol=F32_TOL, rtol=F32_TOL)
-    ring = TM.init_cache(tw, 2, 40, device="cpu")
-    assert ring[0]["2"]["k"].shape[3] == 20
-    with pytest.raises(NotImplementedError, match="ring-buffer"):
-        TM.decode_step(tp, tw, torch.zeros((2, 1), dtype=torch.long), ring,
-                       torch.tensor([3, 3]))
     # an attention-only stack with a window is refused paged KV, as in JAX
     for K, cfg in ((JK, jget_config("scope-tiny")),
                    (TK, get_config("scope-tiny"))):
         K.check_paged_support(cfg)
         with pytest.raises(ValueError, match="sliding-window"):
             K.check_paged_support(dataclasses.replace(cfg, force_window=16))
+
+
+def test_ring_buffer_decode_matches_jax(hybrid_pair):
+    """At a cache of exactly ``window`` slots the shared block's decode
+    runs the ring buffer (slot ``pos % window``, ``min(pos + 1, window)``
+    keys): each step's logits and every per-occurrence cache as JAX's over
+    12 steps from position 0, rows at different positions."""
+    jcfg, tcfg, params, tp = hybrid_pair
+    jr = dataclasses.replace(jcfg, force_window=4)
+    tr = dataclasses.replace(tcfg, force_window=4)
+    ring = TM.init_cache(tr, 2, 40, device="cpu")
+    assert ring[0]["2"]["k"].shape[3] == 4
+    jring = JM.init_cache(jr, 2, 40)
+    toks = np.random.default_rng(9).integers(0, 512, (2, 12)).astype(
+        np.int32)
+    for t in range(12):
+        pos = np.array([t, t + 3], np.int32)
+        jl, jring = JM.decode_step(params, jr, jnp.asarray(toks[:, t:t + 1]),
+                                   jring, jnp.asarray(pos))
+        tl, ring = TM.decode_step(tp, tr, torch.tensor(toks[:, t:t + 1]),
+                                  ring, torch.tensor(pos))
+        _close(tl, jl, f"ring decode step {t}")
+    _caches_close(ring, jring)
 
 
 # ---------------------------------------------------------------------------
