@@ -2,22 +2,24 @@
 (``scope_estimator.CONFIG`` / ``TINY``), the dense GQA stacks
 (``starcoder2_3b.CONFIG``, ``internlm2_1_8b.CONFIG``), gemma2's
 (``gemma2_2b.CONFIG``, ``gemma2_9b.CONFIG``), the Mamba2 backbone
-(``mamba2_1_3b.CONFIG``), the zamba2 hybrid (``zamba2_7b.CONFIG``) and the
-``get_config(name)`` registry."""
+(``mamba2_1_3b.CONFIG``), the zamba2 hybrid (``zamba2_7b.CONFIG``), the
+multimodal stub backbones (``qwen2_vl_7b.CONFIG``,
+``whisper_medium.CONFIG``) and the ``get_config(name)`` registry."""
 from __future__ import annotations
 
 from typing import Dict
 
 from repro_torch.configs import (gemma2_2b, gemma2_9b, internlm2_1_8b,
-                                 mamba2_1_3b, scope_estimator, starcoder2_3b,
-                                 zamba2_7b)
+                                 mamba2_1_3b, qwen2_vl_7b, scope_estimator,
+                                 starcoder2_3b, whisper_medium, zamba2_7b)
 from repro_torch.configs.base import ModelConfig
 
 _REGISTRY: Dict[str, ModelConfig] = {
     cfg.name: cfg for cfg in (scope_estimator.CONFIG, scope_estimator.TINY,
                               starcoder2_3b.CONFIG, internlm2_1_8b.CONFIG,
                               gemma2_2b.CONFIG, gemma2_9b.CONFIG,
-                              mamba2_1_3b.CONFIG, zamba2_7b.CONFIG)}
+                              mamba2_1_3b.CONFIG, zamba2_7b.CONFIG,
+                              qwen2_vl_7b.CONFIG, whisper_medium.CONFIG)}
 
 
 def get_config(name: str) -> ModelConfig:

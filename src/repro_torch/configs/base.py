@@ -1,16 +1,19 @@
-"""Model configuration: the dense, SSM and hybrid subset of
-``repro.configs.base``.
+"""Model configuration: the dense, SSM, hybrid and multimodal-stub subset
+of ``repro.configs.base``.
 
 Only the fields the ported configs set or rely on are kept — the SCOPE
 estimator configs (``configs/scope_estimator``), the dense GQA stacks
 (``configs/starcoder2_3b``, ``configs/internlm2_1_8b``), gemma2's
 alternating local / global stacks with logit softcaps, sandwich norms and
 scaled embeddings (``configs/gemma2_2b``, ``configs/gemma2_9b``), the
-pure-SSM Mamba2 backbone (``configs/mamba2_1_3b``) and the zamba2 hybrid
-(``configs/zamba2_7b``: Mamba2 layers with a tied shared attention block)
-— with the JAX package's defaults, so a config built here describes the
-same network as its JAX twin.  Other families (MoE, MLA,
-encoder-decoder, multimodal) arrive with their own port slices.
+pure-SSM Mamba2 backbone (``configs/mamba2_1_3b``), the zamba2 hybrid
+(``configs/zamba2_7b``: Mamba2 layers with a tied shared attention block),
+the Qwen2-VL language backbone with M-RoPE and stub patch embeddings
+(``configs/qwen2_vl_7b``) and the whisper encoder-decoder with stub frame
+embeddings, sinusoid positions, cross-attention and a GELU MLP
+(``configs/whisper_medium``) — with the JAX package's defaults, so a
+config built here describes the same network as its JAX twin.  The MoE and
+MLA families arrive with their own port slices.
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ ATTN_KINDS = ("attn", "attn_local")     # the kinds with an attention layer
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str                      # dense | ssm | hybrid
+    arch_type: str                      # dense | ssm | hybrid | audio | vlm
     source: str = ""                    # paper / model card citation
 
     # Core transformer dims
@@ -45,6 +48,8 @@ class ModelConfig:
 
     # Attention options
     rope_theta: float = 10000.0
+    rope_kind: str = "standard"         # standard | mrope | none
+    mrope_sections: Tuple[int, ...] = (16, 24, 24)   # t/h/w head-dim split
     sliding_window: int = 4096          # used by attn_local blocks
     logit_softcap: float = 0.0          # gemma2: 50.0 on attention logits
     final_logit_softcap: float = 0.0    # gemma2: 30.0 on lm head
@@ -60,10 +65,19 @@ class ModelConfig:
     ssm_conv_width: int = 4
     shared_attn_every: int = 6          # zamba2: shared attn after every k-th mamba
 
+    # Encoder-decoder (whisper-style)
+    is_encoder_decoder: bool = False
+    num_encoder_layers: int = 0
+    encoder_seq_len: int = 1500         # stub audio frame count
+
+    # Multimodal stub frontend (vlm / audio)
+    num_stub_patches: int = 0           # vlm: patch embeddings prepended
+
     # Norm / misc
     rmsnorm_eps: float = 1e-6
     tie_embeddings: bool = True
     dtype: str = "bfloat16"
+    mlp_kind: str = "swiglu"            # swiglu | gelu
     sandwich_norm: bool = False         # gemma2 post-norms
     scale_embeddings: bool = False      # gemma2: embed * sqrt(d_model)
     force_window: int = 0               # >0: every attn layer windowed
@@ -107,23 +121,34 @@ class ModelConfig:
         """A smoke-test variant of the same family (CPU-runnable): the JAX
         ``reduced()`` on the fields the port has.  As there, the softcaps,
         ``attn_scale``, ``sandwich_norm`` and ``scale_embeddings`` stay as
-        they are and the window shrinks to 64, and an SSM config comes back
+        they are and the window shrinks to 64, an SSM config comes back
         with ``shared_attn_every=2`` (zamba2's hybrid layout): replace it
-        with 0 for a pure-SSM variant."""
+        with 0 for a pure-SSM variant; an encoder-decoder keeps 2 encoder
+        layers over 32 frames, a VLM 8 stub patches, and M-RoPE's sections
+        are re-split to the reduced head dim."""
+        head_dim = max(32, d_model // num_heads)
         changes = {
             "num_layers": num_layers,
             "d_model": d_model,
             "num_heads": num_heads,
             "num_kv_heads": max(1, min(self.num_kv_heads, num_heads)),
-            "head_dim": max(32, d_model // num_heads),
+            "head_dim": head_dim,
             "d_ff": d_model * 4,
             "vocab_size": vocab_size,
             "sliding_window": 64,
             "long_context_window": 64,
+            "encoder_seq_len":
+                32 if self.is_encoder_decoder else self.encoder_seq_len,
+            "num_encoder_layers": 2 if self.is_encoder_decoder else 0,
+            "num_stub_patches": 8 if self.num_stub_patches else 0,
             "dtype": "float32",
         }
         if self.has_ssm():
             changes.update(ssm_state=min(self.ssm_state or 16, 16),
                            ssm_head_dim=32, ssm_heads=0, ssm_chunk=16,
                            shared_attn_every=2)
+        if self.rope_kind == "mrope":
+            t = max(4, (head_dim // 4) // 2 * 2)
+            hw = (head_dim - t) // 2
+            changes.update(mrope_sections=(t, hw, head_dim - t - hw))
         return dataclasses.replace(self, **changes)

@@ -47,13 +47,16 @@ def to_tensor(arr: np.ndarray, device) -> torch.Tensor:
 
 
 def _check(params: Dict, cfg: ModelConfig) -> None:
-    """The bridged tree must describe ``cfg``'s tied dense, pure-SSM or
-    hybrid network: a ``shared_attn`` block exactly where ``cfg``'s plan
-    runs one, and a segment for each of its segments, holding a stack of
-    ``count`` layers at each of its unit's positions (gemma2's unit has
-    two) and, in each attention block, the post-norms exactly where
-    ``cfg`` has ``sandwich_norm`` (a block would otherwise skip norms it
-    was given, or miss norms it needs)."""
+    """The bridged tree must describe ``cfg``'s tied network: a
+    ``shared_attn`` block exactly where ``cfg``'s plan runs one, and a
+    segment for each of its segments, holding a stack of ``count`` layers
+    at each of its unit's positions (gemma2's unit has two); in each
+    attention block, the post-norms exactly where ``cfg`` has
+    ``sandwich_norm``, a cross-attention exactly where it is an
+    encoder-decoder, and its ``mlp_kind``'s MLP leaves; an ``encoder`` of
+    ``num_encoder_layers`` stacked layers exactly for an encoder-decoder and
+    a ``vision_proj`` exactly for a VLM (a block would otherwise skip
+    leaves it was given, or miss leaves it needs)."""
     if "lm_head" in params or not cfg.tie_embeddings:
         raise NotImplementedError("untied LM heads are not ported yet")
     plan = tf.build_plan(cfg)
@@ -61,38 +64,70 @@ def _check(params: Dict, cfg: ModelConfig) -> None:
     if ("shared_attn" in params) != hybrid:
         raise ValueError(f"{cfg.name!r}: shared_attn block in the tree "
                          f"{'shared_attn' in params}, in its plan {hybrid}")
-    if len(params["segments"]) != len(plan):
-        raise ValueError(f"{len(params['segments'])} segments, {cfg.name!r} "
-                         f"has {len(plan)}")
+    for key, want in (("encoder", cfg.is_encoder_decoder),
+                      ("vision_proj", cfg.num_stub_patches > 0)):
+        if (key in params) != want:
+            raise ValueError(f"{cfg.name!r}: {key} in the tree "
+                             f"{key in params}, in its config {want}")
+    d = cfg.d_model
     blocks = [params["shared_attn"]] if hybrid else []
-    for i, (seg, (unit, count)) in enumerate(zip(params["segments"], plan,
-                                                 strict=True)):
-        positions = {str(j) for j, kind in enumerate(unit)
-                     if kind != "shared_attn"}
-        if set(seg) != positions:
-            raise ValueError(f"segment {i} holds positions {sorted(seg)}, "
-                             f"{cfg.name!r}'s unit {unit} {sorted(positions)}")
-        for j in sorted(positions):
-            depth = {leaf.shape[0] for leaf in flatten(seg[j]).values()}
-            if depth != {count}:
-                raise ValueError(f"segment {i} position {j} stacks {depth} "
-                                 f"layers, {cfg.name!r}'s plan {count}")
-            if unit[int(j)] != "mamba":
-                blocks.append(seg[j])
+    stacks = [("segments", params["segments"], plan, cfg.is_encoder_decoder)]
+    if cfg.is_encoder_decoder:
+        enc = params["encoder"]
+        if set(enc) != {"frontend_proj", "segments", "final_norm"}:
+            raise ValueError(f"encoder holds {sorted(enc)}")
+        stacks.append(("encoder segments", enc["segments"],
+                       [(("attn",), cfg.num_encoder_layers)], False))
+        _check_shape("encoder frontend_proj", enc["frontend_proj"], (d, d))
+    if "vision_proj" in params:
+        _check_shape("vision_proj", params["vision_proj"], (d, d))
+    for where, segments, seg_plan, cross in stacks:
+        if len(segments) != len(seg_plan):
+            raise ValueError(f"{len(segments)} {where}, {cfg.name!r} has "
+                             f"{len(seg_plan)}")
+        for i, (seg, (unit, count)) in enumerate(zip(segments, seg_plan,
+                                                     strict=True)):
+            positions = {str(j) for j, kind in enumerate(unit)
+                         if kind != "shared_attn"}
+            if set(seg) != positions:
+                raise ValueError(f"{where} {i} holds positions {sorted(seg)}, "
+                                 f"{cfg.name!r}'s unit {unit} "
+                                 f"{sorted(positions)}")
+            for j in sorted(positions):
+                depth = {leaf.shape[0] for leaf in flatten(seg[j]).values()}
+                if depth != {count}:
+                    raise ValueError(f"{where} {i} position {j} stacks "
+                                     f"{depth} layers, {cfg.name!r}'s plan "
+                                     f"{count}")
+                if unit[int(j)] != "mamba":
+                    blocks.append(seg[j])
+                    if ("cross" in seg[j]) != cross or (
+                            "cross_norm" in seg[j]) != cross:
+                        raise ValueError(
+                            f"{cfg.name!r}: cross-attention in {where} {i} "
+                            f"position {j} {'cross' in seg[j]}, wanted "
+                            f"{cross}")
     want_posts = (["post_attn_norm", "post_mlp_norm"] if cfg.sandwich_norm
                   else [])
+    want_mlp = ({"w1", "w2"} if cfg.mlp_kind == "gelu"
+                else {"wi_gate", "wi_up", "wo"})
     for block in blocks:
         posts = sorted(k for k in block if k.startswith("post_"))
         if posts != want_posts:
             raise ValueError(f"{cfg.name!r}: post-norms {posts} in the tree, "
                              f"sandwich_norm {cfg.sandwich_norm}")
-    want = (cfg.vocab_size, cfg.d_model)
-    if tuple(params["embed"].shape) != want:
-        raise ValueError(f"embed {tuple(params['embed'].shape)} != {want} "
-                         f"for {cfg.name}")
+        if set(block["mlp"]) != want_mlp:
+            raise ValueError(f"{cfg.name!r}: MLP leaves {sorted(block['mlp'])}"
+                             f", mlp_kind {cfg.mlp_kind!r}")
+    _check_shape("embed", params["embed"], (cfg.vocab_size, d))
     dt = dtype_of(cfg.dtype)
     if params["embed"].dtype != dt:
         raise ValueError(f"embed dtype {params['embed'].dtype} != {dt}")
+
+
+def _check_shape(name: str, leaf, want) -> None:
+    if tuple(leaf.shape) != tuple(want):
+        raise ValueError(f"{name} {tuple(leaf.shape)} != {tuple(want)}")
 
 
 def params_from_numpy(tree: Any, cfg: ModelConfig,

@@ -16,7 +16,8 @@
                            (the reference's plain-XLA ref.ssd_decode_step)
 
 Each kernel's wrapper keeps a count of its launches in a module attribute;
-the helpers below read and reset all eight at once.
+the helpers below read and reset all eight at once (and the flash
+forward's count by shape, ``flash_attention.shape_launches``).
 """
 from typing import Dict
 
@@ -42,3 +43,4 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for mod, attr in _COUNTERS.values():
         setattr(mod, attr, 0)
+    flash_attention.shape_launches.clear()

@@ -23,13 +23,16 @@ log-sum-exp, which the backward reads instead of recomputing it.
 directions); on a CUDA tensor, a call that autograd records (grad enabled,
 an input that requires grad) goes through ``FlashAttention``, any other
 launches the forward kernel; either raises on what the kernels do not
-take.  ``launches`` counts forward launches, ``bwd_launches`` backward
-calls.  Calls outside autograd (the serve path, rollouts, no-grad
+take.  ``launches`` counts forward launches, ``shape_launches`` the same
+launches by (sq, sk, causal), which tells a model's calls apart (an
+encoder's, a decoder's self- and cross-attention), ``bwd_launches``
+backward calls.  Calls outside autograd (the serve path, rollouts, no-grad
 forwards) pass no log-sum-exp buffer, and the kernel writes none.
 """
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import Optional
 
 import torch
@@ -41,6 +44,7 @@ FWD_HEAD_DIMS = BWD_HEAD_DIMS = build.PAIR_HEAD_DIMS + (112,)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
+shape_launches: Counter = Counter()
 bwd_launches = 0
 
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
@@ -195,6 +199,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
              int(q_offset), torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention")
     launches += 1
+    shape_launches[(sq, sk, bool(causal))] += 1
     return (out, lse) if return_lse else out
 
 

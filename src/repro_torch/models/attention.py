@@ -1,5 +1,6 @@
-"""GQA attention block (RoPE, qk-norm, causal, optionally windowed, with
-gemma2's logit softcap and an optional score scale).
+"""GQA attention block (RoPE or M-RoPE or none, qk-norm, causal or not,
+optionally windowed, with gemma2's logit softcap and an optional score
+scale), and whisper's cross-attention.
 
 Activations are (batch, seq, d_model); heads are split internally.  The
 full-sequence path (prefill) returns the layer's K/V; the single-token
@@ -8,7 +9,14 @@ dense (b, hkv, S, hd) cache or of a block-paged one.  A layer's window is
 ``resolve_window``'s, as in the JAX package, and so is the ring-buffer
 decode of a windowed layer whose dense cache holds exactly ``window``
 slots.  Every attention call passes ``cfg.logit_softcap`` and
-``cfg.attn_scale`` (0: 1/sqrt(head_dim)) to its kernel.
+``cfg.attn_scale`` (0: 1/sqrt(head_dim)) to its kernel.  Under
+``rope_kind="none"`` the position tables are None and nothing rotates.
+
+Cross-attention (the encoder-decoder's decoder blocks) has ``num_heads``
+K/V heads, projected once from the encoder output (``cross_kv``) and kept
+in the cache as ``ck`` / ``cv`` (b, hq, enc_seq, hd); every query, of a
+prefill and of each decode step (sq = 1), attends all of them through the
+flash kernel with no causal mask, as the reference does.
 """
 from __future__ import annotations
 
@@ -19,7 +27,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import rope as rope_mod
-from repro_torch.models.common import dense_init, init_rmsnorm, rmsnorm
+from repro_torch.models.common import (dense_init, init_rmsnorm,
+                                      promoted_matmul, rmsnorm)
 
 
 def resolve_window(cfg: ModelConfig, kind: str) -> int:
@@ -52,20 +61,21 @@ def _gqa_qkv(p, cfg: ModelConfig, x, cos, sin):
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.rmsnorm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.rmsnorm_eps)
-    q = rope_mod.apply_rope(q, cos, sin)
-    k = rope_mod.apply_rope(k, cos, sin)
+    if cos is not None:
+        q = rope_mod.apply_rope(q, cos, sin)
+        k = rope_mod.apply_rope(k, cos, sin)
     return q, k, v
 
 
-def gqa_full(p, cfg: ModelConfig, x, cos, sin, *, kind: str = "attn"
-             ) -> Tuple[torch.Tensor, Dict]:
-    """Full-sequence causal GQA over the layer's window.  Returns (y,
-    {"k", "v"}) with the cache slice as (b, hkv, s, hd) views (head-major,
-    not copied)."""
+def gqa_full(p, cfg: ModelConfig, x, cos, sin, *, kind: str = "attn",
+             causal: bool = True) -> Tuple[torch.Tensor, Dict]:
+    """Full-sequence GQA over the layer's window, causal unless ``causal``
+    is False (the encoder's).  Returns (y, {"k", "v"}) with the cache slice
+    as (b, hkv, s, hd) views (head-major, not copied)."""
     b, s, _ = x.shape
     q, k, v = _gqa_qkv(p, cfg, x, cos, sin)
     qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    out = ops.flash_attention(qh, kh, vh, causal=True,
+    out = ops.flash_attention(qh, kh, vh, causal=causal,
                               window=resolve_window(cfg, kind),
                               softcap=cfg.logit_softcap,
                               scale=cfg.attn_scale or None)
@@ -140,3 +150,34 @@ def gqa_decode_paged(p, cfg: ModelConfig, x, cos, sin, cache: Dict,
         softcap=cfg.logit_softcap, scale=cfg.attn_scale or None)
     y = out.transpose(1, 2).reshape(b, 1, cfg.num_heads * cfg.resolved_head_dim)
     return y @ p["wo"]
+
+
+def init_cross(generator: torch.Generator, cfg: ModelConfig, *, device,
+               dtype) -> Dict:
+    d, hq, hd = cfg.d_model, cfg.num_heads, cfg.resolved_head_dim
+    return {name: dense_init(shape, generator, device=device, dtype=dtype)
+            for name, shape in (("wq", (d, hq * hd)), ("wk", (d, hq * hd)),
+                                ("wv", (d, hq * hd)), ("wo", (hq * hd, d)))}
+
+
+def cross_kv(p, cfg: ModelConfig, enc_out: torch.Tensor) -> Dict:
+    """Project the encoder output once: {"ck", "cv"} as (b, hq, enc_seq,
+    hd) views of the (b, enc_seq, hq * hd) projections, cached for the whole
+    decode.  An encoder output in another dtype than the weights (float32
+    stubs in a bf16 model) projects in the promoted dtype, as in JAX."""
+    b, se, _ = enc_out.shape
+    hq, hd = cfg.num_heads, cfg.resolved_head_dim
+    k = promoted_matmul(enc_out, p["wk"]).reshape(b, se, hq, hd)
+    v = promoted_matmul(enc_out, p["wv"]).reshape(b, se, hq, hd)
+    return {"ck": k.transpose(1, 2), "cv": v.transpose(1, 2)}
+
+
+def cross_attend(p, cfg: ModelConfig, x: torch.Tensor, kv: Dict
+                 ) -> torch.Tensor:
+    """x: (b, s, d) attends every cached encoder position (no mask) ->
+    (b, s, d); s = 1 in decode."""
+    b, s, _ = x.shape
+    hq, hd = cfg.num_heads, cfg.resolved_head_dim
+    q = (x @ p["wq"]).reshape(b, s, hq, hd).transpose(1, 2)
+    out = ops.flash_attention(q, kv["ck"], kv["cv"], causal=False)
+    return out.transpose(1, 2).reshape(b, s, hq * hd) @ p["wo"]

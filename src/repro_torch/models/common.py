@@ -1,5 +1,5 @@
 """Shared model building blocks: initializers, RMSNorm, the logit softcap,
-dtypes.
+sinusoid positions, dtypes.
 
 Parameters are plain nested dicts of tensors laid out exactly as the JAX
 package's pytrees (per-segment layer stacks on axis 0), so the weight
@@ -53,3 +53,31 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     if cap <= 0.0:
         return x
     return cap * torch.tanh(x / cap)
+
+
+def sinusoidal_positions(length: int, dim: int, *, device,
+                         dtype=torch.float32) -> torch.Tensor:
+    """The standard (whisper-style) sinusoid table (length, dim): sin at
+    even, cos at odd columns, built in float32 and cast to ``dtype``."""
+    return sinusoid_at(torch.arange(length, device=device), dim).to(dtype)
+
+
+def sinusoid_at(pos: torch.Tensor, dim: int) -> torch.Tensor:
+    """(..., dim) float32 sinusoid embedding at each position of ``pos``
+    (...,), the rows of ``sinusoidal_positions``.  The frequencies are
+    exp(2i * (-log(10000) / dim)), each factor rounded to float32 as the
+    reference computes them."""
+    log_base = torch.log(torch.tensor(10000.0, device=pos.device))
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32,
+                                 device=pos.device) * (-log_base / dim))
+    ang = pos.float()[..., None] * div
+    return torch.stack([torch.sin(ang), torch.cos(ang)],
+                       dim=-1).reshape(*ang.shape[:-1], dim)
+
+
+def promoted_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the promoted dtype of the two, as ``jnp.matmul``
+    promotes (float32 stubs times bfloat16 weights give float32);
+    ``torch.matmul`` refuses mixed dtypes."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)

@@ -1,4 +1,5 @@
-"""SwiGLU feed-forward block; weights stored (in, out), applied as x @ W."""
+"""Feed-forward blocks: SwiGLU (the llama / qwen / gemma families) and GELU
+(whisper); weights stored (in, out), applied as x @ W."""
 from __future__ import annotations
 
 from typing import Dict
@@ -13,11 +14,14 @@ from repro_torch.models.common import dense_init
 def init_mlp(generator: torch.Generator, cfg: ModelConfig, *, device,
              dtype) -> Dict:
     d, f = cfg.d_model, cfg.d_ff
-    return {"wi_gate": dense_init((d, f), generator, device=device,
-                                  dtype=dtype),
-            "wi_up": dense_init((d, f), generator, device=device, dtype=dtype),
-            "wo": dense_init((f, d), generator, device=device, dtype=dtype)}
+    names = ((("w1", (d, f)), ("w2", (f, d))) if cfg.mlp_kind == "gelu" else
+             (("wi_gate", (d, f)), ("wi_up", (d, f)), ("wo", (f, d))))
+    return {name: dense_init(shape, generator, device=device, dtype=dtype)
+            for name, shape in names}
 
 
 def mlp_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.mlp_kind == "gelu":
+        # jax.nn.gelu's default is the tanh approximation; F.gelu's the erf
+        return F.gelu(x @ p["w1"], approximate="tanh") @ p["w2"]
     return (F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])) @ p["wo"]

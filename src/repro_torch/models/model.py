@@ -1,6 +1,7 @@
 """Top-level model API of the estimator backbones: the dense GQA stacks
-(gemma2's local / global one included), the pure-SSM Mamba2 stack and the
-zamba2 hybrid.
+(gemma2's local / global one included), the pure-SSM Mamba2 stack, the
+zamba2 hybrid, and the multimodal-stub backbones: Qwen2-VL's (M-RoPE,
+projected patch embeddings) and whisper's encoder-decoder.
 
   init_params(cfg, *, seed, device)          -> params dict
   forward_train(params, cfg, batch)          -> (logits (b, s, V), aux)
@@ -22,10 +23,24 @@ for a mamba layer.  gemma2 scales its embeddings by sqrt(d_model) (the
 factor rounded to the model dtype first, as the reference does) and softcaps
 its logits in float32, so its prefill and decode logits are float32; every
 other stack's are in the model dtype.
+
+Batch keys, as the reference's ``_forward_full`` reads them: "tokens" (b,
+s) int; optional "labels" (b, s) (-100 = ignore); "enc_features" (b,
+enc_seq, d), the encoder-decoder's stub frame embeddings (required there);
+"image_embeds" (b, P, d), a VLM's stub patch embeddings, which replace the
+first P positions of the token embeddings after ``vision_proj`` (so s >= P);
+"positions_3d" (3, b, s) int, M-RoPE's (t, h, w) position streams (default:
+text positions, all three equal).  Stubs come in the model dtype; float32
+stubs with bf16 weights compute in float32 where JAX promotes (the patch
+projection, the encoder, the cross K/V).  An encoder-decoder's params add
+``encoder`` ({"frontend_proj", "segments", "final_norm"}) and its decoder
+blocks ``cross_norm`` / ``cross``; its caches add ``ck`` / ``cv`` (L, b,
+hq, enc_seq, hd), which decode reads and never grows.  A VLM's params add
+``vision_proj`` (d, d).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -36,7 +51,8 @@ from repro_torch.models import rope as rope_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.attention import resolve_window
 from repro_torch.models.common import (
-    dtype_of, embed_init, init_rmsnorm, rmsnorm, softcap)
+    dense_init, dtype_of, embed_init, init_rmsnorm, promoted_matmul, rmsnorm,
+    sinusoid_at, sinusoidal_positions, softcap)
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,
@@ -46,8 +62,10 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     leaf of rank >= 2 to ``cfg.dtype`` after stacking, so the embedding and
     every per-layer leaf (projections, norm scales, and a mamba layer's conv
     weights and bias, ``A_log``, ``D`` and ``dt_bias``) are made in
-    ``cfg.dtype``; the final norm scale and the unstacked shared block's
-    norm scales stay float32.  Untied heads are not supported."""
+    ``cfg.dtype``, and so are the encoder's ``frontend_proj`` and stacked
+    layers and ``vision_proj``; the final norm scales (the encoder's too)
+    and the unstacked shared block's norm scales stay float32.  Untied
+    heads are not supported."""
     if not cfg.tie_embeddings:
         raise NotImplementedError("untied LM heads are not ported yet")
     dev = resolve_device(device)
@@ -55,7 +73,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     dt = dtype_of(cfg.dtype)
     plan = tf.build_plan(cfg)
     segments = tuple(tf.init_segment(gen, cfg, unit, count, device=dev,
-                                     dtype=dt)
+                                     dtype=dt, cross=cfg.is_encoder_decoder)
                      for unit, count in plan)
     shared = None
     if any("shared_attn" in unit for unit, _ in plan):
@@ -68,10 +86,21 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
               "segments": segments}
     if shared is not None:
         params["shared_attn"] = shared
+    if cfg.is_encoder_decoder:
+        params["encoder"] = {
+            "frontend_proj": dense_init((cfg.d_model, cfg.d_model), gen,
+                                        device=dev, dtype=dt),
+            "segments": (tf.init_segment(gen, cfg, ("attn",),
+                                         cfg.num_encoder_layers, device=dev,
+                                         dtype=dt),),
+            "final_norm": init_rmsnorm(cfg.d_model, device=dev)}
+    if cfg.num_stub_patches > 0:
+        params["vision_proj"] = dense_init((cfg.d_model, cfg.d_model), gen,
+                                           device=dev, dtype=dt)
     return params
 
 
-def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+def _lookup(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     """Embedding rows, times sqrt(d_model) under ``scale_embeddings``: the
     factor is rounded to the embedding's dtype before the product (the
     reference's ``jnp.asarray(d ** 0.5, h.dtype)``; sqrt(3584) is 59.75 in
@@ -79,6 +108,32 @@ def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     h = params["embed"][tokens]
     if cfg.scale_embeddings:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype).item()
+    return h
+
+
+def _sinusoid_positions(cfg: ModelConfig) -> bool:
+    """Whether the stack adds sinusoid positions (no RoPE, and attention)."""
+    return cfg.rope_kind == "none" and not cfg.is_attention_free()
+
+
+def _embed(params, cfg: ModelConfig, tokens: torch.Tensor,
+           batch: Optional[Dict] = None) -> torch.Tensor:
+    """The full sequence's input: ``_lookup``, plus the sinusoid table of
+    positions 0..s-1 in the embedding's dtype under ``rope_kind="none"``;
+    a VLM's first P positions replaced by ``batch["image_embeds"] @
+    vision_proj`` (computed in the promoted dtype, then cast)."""
+    h = _lookup(params, cfg, tokens)
+    if _sinusoid_positions(cfg):
+        h = h + sinusoidal_positions(tokens.shape[1], cfg.d_model,
+                                     device=h.device, dtype=h.dtype)[None]
+    if cfg.num_stub_patches > 0 and batch and "image_embeds" in batch:
+        img = promoted_matmul(batch["image_embeds"], params["vision_proj"])
+        npatch = img.shape[1]
+        if npatch > h.shape[1]:
+            # the reference concatenates regardless and fails further on
+            raise ValueError(f"{npatch} image patches do not fit a "
+                             f"{h.shape[1]}-token sequence")
+        h = torch.cat([img.to(h.dtype), h[:, npatch:]], dim=1)
     return h
 
 
@@ -92,36 +147,81 @@ def _logits(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def _cos_sin(cfg: ModelConfig, pos: torch.Tensor):
-    """RoPE tables at ``pos``; none for a stack with no attention at all
-    (whose ``resolved_head_dim`` would divide by its zero heads): the
-    hybrid's layer kinds are all ``mamba``, but its shared block rotates."""
-    if cfg.is_attention_free() and cfg.shared_attn_every == 0:
+def _cos_sin(cfg: ModelConfig, pos: torch.Tensor, pos3=None):
+    """RoPE tables at ``pos`` (b, s); none under ``rope_kind="none"``, and
+    none for a stack with no attention at all (whose ``resolved_head_dim``
+    would divide by its zero heads): the hybrid's layer kinds are all
+    ``mamba``, but its shared block rotates.  M-RoPE takes the (3, b, s)
+    streams ``pos3``, text positions (``pos`` on all three) when None;
+    decode always passes None, so it rotates by the cache index on every
+    stream, as the reference does."""
+    if cfg.rope_kind == "none" or (cfg.is_attention_free()
+                                   and cfg.shared_attn_every == 0):
         return None, None
+    if cfg.rope_kind == "mrope":
+        if pos3 is None:
+            pos3 = rope_mod.text_positions_3d(pos)
+        return rope_mod.mrope_cos_sin(pos3, cfg.resolved_head_dim,
+                                      cfg.rope_theta, cfg.mrope_sections)
     return rope_mod.rope_cos_sin(pos, cfg.resolved_head_dim, cfg.rope_theta)
+
+
+def _encode(params, cfg: ModelConfig, enc_features: torch.Tensor, *,
+            remat: bool = True) -> torch.Tensor:
+    """The whisper-style encoder over stub frame embeddings (b, enc_seq,
+    d): ``frontend_proj``, the sinusoid table, the non-causal stack, the
+    final norm.  Frames in another dtype than the weights (float32 stubs,
+    bf16 model) run the whole encoder in the promoted dtype, as JAX's
+    promotion does: the weights are upcast, exactly."""
+    enc = params["encoder"]
+    h = promoted_matmul(enc_features, enc["frontend_proj"])
+    h = h + sinusoidal_positions(h.shape[1], cfg.d_model, device=h.device,
+                                 dtype=h.dtype)[None]
+    seg = enc["segments"][0]
+    if h.dtype != enc["frontend_proj"].dtype:
+        seg = tree_map(lambda t: t.to(torch.promote_types(t.dtype, h.dtype)),
+                       seg)
+    h, _ = tf.segment_full(seg, None, cfg, ("attn",), cfg.num_encoder_layers,
+                           h, None, None, causal=False, remat=remat,
+                           want_cache=False)
+    return rmsnorm(enc["final_norm"], h, cfg.rmsnorm_eps)
+
+
+def _forward_full(params, cfg: ModelConfig, batch: Dict, *,
+                  want_cache: bool, remat: bool = True):
+    """(logits, caches) of the full sequence; ``caches`` is () without
+    ``want_cache``."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    h = _embed(params, cfg, tokens, batch)
+    cos, sin = _cos_sin(cfg, torch.arange(s, device=tokens.device)
+                        .expand(b, s), batch.get("positions_3d"))
+    enc_out = (_encode(params, cfg, batch["enc_features"], remat=remat)
+               if cfg.is_encoder_decoder else None)
+    caches = []
+    for seg, (unit, count) in zip(params["segments"], tf.build_plan(cfg),
+                                  strict=True):
+        h, cache = tf.segment_full(seg, params.get("shared_attn"), cfg, unit,
+                                   count, h, cos, sin, enc_out=enc_out,
+                                   remat=remat, want_cache=want_cache)
+        caches.append(cache)
+    return _logits(params, cfg, h), (tuple(caches) if want_cache else ())
 
 
 def forward_train(params, cfg: ModelConfig, batch: Dict, *,
                   remat: bool = True):
-    """Full causal forward over ``batch["tokens"]`` (b, s) with no caches:
+    """The full forward over ``batch`` (the keys above) with no caches:
     (logits (b, s, V) in the model dtype, or float32 under a final softcap,
     aux).  Each layer is one checkpoint when ``remat`` (the reference's
     default); ``aux`` (the MoE router loss in the reference) is 0 for
-    every stack, dense, pure-SSM and hybrid.  On the card the attention
-    (the hybrid's tied block included) runs the flash forward and backward
-    kernels, and a mamba layer's SSD runs the scan kernel forward and
-    ``csrc/ssd_scan_bwd.cu`` backward (``kernels.ssd_scan.SSDScan``)."""
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    h = _embed(params, cfg, tokens)
-    cos, sin = _cos_sin(cfg, torch.arange(s, device=tokens.device)
-                        .expand(b, s))
-    for seg, (unit, count) in zip(params["segments"], tf.build_plan(cfg),
-                                  strict=True):
-        h, _ = tf.segment_full(seg, params.get("shared_attn"), cfg, unit,
-                               count, h, cos, sin, remat=remat,
-                               want_cache=False)
-    return _logits(params, cfg, h), torch.zeros((), device=tokens.device)
+    every stack, dense, pure-SSM, hybrid and multimodal.  On the card the
+    attention (the hybrid's tied block, the encoder and the cross-attention
+    included) runs the flash forward and backward kernels, and a mamba
+    layer's SSD runs the scan kernel forward and ``csrc/ssd_scan_bwd.cu``
+    backward (``kernels.ssd_scan.SSDScan``)."""
+    logits, _ = _forward_full(params, cfg, batch, want_cache=False,
+                              remat=remat)
+    return logits, torch.zeros((), device=logits.device)
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict, *, remat: bool = True):
@@ -148,21 +248,12 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict, *, remat: bool = True):
 
 
 def prefill(params, cfg: ModelConfig, batch: Dict):
-    """Full causal forward over ``batch["tokens"]`` (b, s); returns the
-    logits and per-layer caches: K/V sized to the prompt (seq axis = s),
-    a mamba layer's conv window and final SSM state."""
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    h = _embed(params, cfg, tokens)
-    cos, sin = _cos_sin(cfg, torch.arange(s, device=tokens.device)
-                        .expand(b, s))
-    caches = []
-    for seg, (unit, count) in zip(params["segments"], tf.build_plan(cfg),
-                                  strict=True):
-        h, cache = tf.segment_full(seg, params.get("shared_attn"), cfg,
-                                   unit, count, h, cos, sin)
-        caches.append(cache)
-    return _logits(params, cfg, h), tuple(caches)
+    """The full forward over ``batch`` (the keys above); returns the logits
+    and per-layer caches: K/V sized to the prompt (seq axis = s), a mamba
+    layer's conv window and final SSM state, a cross block's ck / cv.  An
+    encoder-decoder needs ``batch["enc_features"]`` (KeyError without it,
+    as in the reference)."""
+    return _forward_full(params, cfg, batch, want_cache=True)
 
 
 def decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches,
@@ -171,12 +262,16 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches,
     cached (row i's new token lands at absolute position pos[i]).
     ``paged`` = (``kv_pool.PagedSpec``, (b, W) int32 page table) when the
     caches are block-paged storage (n_pages + 1, hkv, page, hd) per layer.
+    Under ``rope_kind="none"`` the token's embedding gets the sinusoid row
+    of its position; M-RoPE rotates by ``pos`` on all three streams.
 
     Returns (logits (b, 1, V), caches).  The caches are written in place
     and returned as the same objects (JAX returns new arrays)."""
     b = token.shape[0]
     pos = pos.reshape(-1).expand(b)
-    h = _embed(params, cfg, token)
+    h = _lookup(params, cfg, token)
+    if _sinusoid_positions(cfg):
+        h = h + sinusoid_at(pos, cfg.d_model).to(h.dtype)[:, None]
     cos, sin = _cos_sin(cfg, pos[:, None])
     for seg, cache, (unit, count) in zip(params["segments"], caches,
                                          tf.build_plan(cfg), strict=True):
@@ -189,7 +284,9 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
                device: DeviceLike = None):
     """Zeroed caches shaped for ``decode_step``.  As in the JAX package, a
     windowed attention layer's K/V get ``min(max_len, window)`` slots (at
-    exactly ``window`` slots its decode is the ring buffer)."""
+    exactly ``window`` slots its decode is the ring buffer), and an
+    encoder-decoder's attention layers add zero ``ck`` / ``cv`` (L, b, hq,
+    enc_seq, hd)."""
     dev = resolve_device(device)
     dt = dtype_of(cfg.dtype)
 
@@ -201,10 +298,16 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
                               conv_dim), dt),
                     "ssm": ((count, batch_size, cfg.resolved_ssm_heads,
                              cfg.ssm_head_dim, cfg.ssm_state), torch.float32)}
+        hd = cfg.resolved_head_dim
         w = resolve_window(cfg, kind)
         shape = (count, batch_size, cfg.num_kv_heads,
-                 min(max_len, w) if w > 0 else max_len, cfg.resolved_head_dim)
-        return {"k": (shape, dt), "v": (shape, dt)}
+                 min(max_len, w) if w > 0 else max_len, hd)
+        leaves = {"k": (shape, dt), "v": (shape, dt)}
+        if cfg.is_encoder_decoder:
+            cross = (count, batch_size, cfg.num_heads, cfg.encoder_seq_len,
+                     hd)
+            leaves.update(ck=(cross, dt), cv=(cross, dt))
+        return leaves
 
     return tuple(
         {str(j): {name: torch.zeros(shape, dtype=dtype, device=dev)

@@ -1,5 +1,6 @@
-"""Decoder stack: the ``attn``, ``attn_local`` and ``mamba`` block kinds,
-the zamba2 hybrid's ``shared_attn``, and a loop over stacked layers.
+"""Decoder and encoder stacks: the ``attn``, ``attn_local`` and ``mamba``
+block kinds, the zamba2 hybrid's ``shared_attn``, whisper's cross-attention,
+and a loop over stacked layers.
 
 As in the JAX package, layers are grouped into segments of a repeated unit
 whose parameters are stacked on a leading layer axis (gemma2: one unit
@@ -18,6 +19,12 @@ position holds no parameters of its own but runs the model-level
 ``params["shared_attn"]`` attention block (one tied set at every
 occurrence), while its K/V caches are per occurrence, stacked under the
 unit's key like any other layer's.
+
+An encoder-decoder's decoder blocks (``init_block(..., cross=True)``) hold
+``cross_norm`` and ``cross`` besides: after self-attention, the block
+attends the encoder output (``enc_out``, projected once into ``ck`` /
+``cv``, which join the layer's cache) and adds the result before the MLP.
+The encoder runs the same stack non-causally (``causal=False``).
 """
 from __future__ import annotations
 
@@ -66,7 +73,7 @@ def build_plan(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
 
 
 def init_block(generator: torch.Generator, cfg: ModelConfig, kind: str, *,
-               device, dtype) -> Dict:
+               device, dtype, cross: bool = False) -> Dict:
     d = cfg.d_model
     if kind == "mamba":
         return {"norm": init_rmsnorm(d, device=device, dtype=dtype),
@@ -80,16 +87,22 @@ def init_block(generator: torch.Generator, cfg: ModelConfig, kind: str, *,
     if cfg.sandwich_norm:
         p["post_attn_norm"] = init_rmsnorm(d, device=device, dtype=dtype)
         p["post_mlp_norm"] = init_rmsnorm(d, device=device, dtype=dtype)
+    if cross:
+        p["cross_norm"] = init_rmsnorm(d, device=device, dtype=dtype)
+        p["cross"] = attn_mod.init_cross(generator, cfg, device=device,
+                                         dtype=dtype)
     return p
 
 
 def init_segment(generator: torch.Generator, cfg: ModelConfig,
-                 unit: Tuple[str, ...], count: int, *, device, dtype) -> Dict:
+                 unit: Tuple[str, ...], count: int, *, device, dtype,
+                 cross: bool = False) -> Dict:
     """Stacked per-unit params ``{"<j>": (count, ...) leaves}``;
     ``shared_attn`` positions hold none (the tied set lives at model
-    level)."""
+    level).  ``cross`` gives each block a cross-attention."""
     return {str(j): stack_trees([init_block(generator, cfg, kind,
-                                            device=device, dtype=dtype)
+                                            device=device, dtype=dtype,
+                                            cross=cross)
                                  for _ in range(count)])
             for j, kind in enumerate(unit) if kind != "shared_attn"}
 
@@ -120,23 +133,34 @@ def layer_view(tree: Dict, i: int) -> Dict:
 
 
 def block_full(p: Dict, cfg: ModelConfig, kind: str, h: torch.Tensor, cos,
-               sin) -> Tuple[torch.Tensor, Dict]:
+               sin, enc_out=None, causal: bool = True
+               ) -> Tuple[torch.Tensor, Dict]:
     if kind == "mamba":
         y, cache = ssm_mod.mamba_full(p["mamba"], cfg,
                                       rmsnorm(p["norm"], h, cfg.rmsnorm_eps))
         return h + y, cache
     x = rmsnorm(p["attn_norm"], h, cfg.rmsnorm_eps)
-    y, kv = attn_mod.gqa_full(p["attn"], cfg, x, cos, sin, kind=kind)
-    return _attn_block_tail(p, cfg, h, y), kv
+    y, cache = attn_mod.gqa_full(p["attn"], cfg, x, cos, sin, kind=kind,
+                                 causal=causal)
+    ckv = None
+    if "cross" in p and enc_out is not None:
+        ckv = attn_mod.cross_kv(p["cross"], cfg, enc_out)
+        cache.update(ckv)
+    return _attn_block_tail(p, cfg, h, y, ckv), cache
 
 
 def _attn_block_tail(p: Dict, cfg: ModelConfig, h: torch.Tensor,
-                     y: torch.Tensor) -> torch.Tensor:
+                     y: torch.Tensor, ckv=None) -> torch.Tensor:
     """The residual adds and the MLP after an attention output ``y``, with
-    gemma2's post-norms under ``sandwich_norm``."""
+    gemma2's post-norms under ``sandwich_norm`` and, given the encoder's
+    ``ckv``, the cross-attention between the two."""
     if cfg.sandwich_norm:
         y = rmsnorm(p["post_attn_norm"], y, cfg.rmsnorm_eps)
     h = h + y
+    if ckv is not None:
+        h = h + attn_mod.cross_attend(
+            p["cross"], cfg, rmsnorm(p["cross_norm"], h, cfg.rmsnorm_eps),
+            ckv)
     y2 = mlp_mod.mlp_forward(p["mlp"], cfg,
                              rmsnorm(p["mlp_norm"], h, cfg.rmsnorm_eps))
     if cfg.sandwich_norm:
@@ -148,8 +172,10 @@ def block_decode(p: Dict, cfg: ModelConfig, kind: str, h: torch.Tensor,
                  cos, sin, cache: Dict, pos: torch.Tensor,
                  paged=None) -> torch.Tensor:
     """Writes the new K/V (or conv window and SSM state) into ``cache`` in
-    place.  ``paged`` = (spec, table) routes K/V through the block-paged
-    layout; ``kv_pool.check_paged_support`` keeps SSM layers off it."""
+    place; a cross-attention block reads ``ck`` / ``cv`` from it.
+    ``paged`` = (spec, table) routes K/V through the block-paged layout;
+    ``kv_pool.check_paged_support`` keeps SSM layers and encoder-decoders
+    off it."""
     if kind == "mamba":
         return h + ssm_mod.mamba_decode(
             p["mamba"], cfg, rmsnorm(p["norm"], h, cfg.rmsnorm_eps), cache)
@@ -161,22 +187,28 @@ def block_decode(p: Dict, cfg: ModelConfig, kind: str, h: torch.Tensor,
         spec, table = paged
         y = attn_mod.gqa_decode_paged(p["attn"], cfg, x, cos, sin, cache,
                                       pos, table, spec)
-    return _attn_block_tail(p, cfg, h, y)
+    ckv = ({"ck": cache["ck"], "cv": cache["cv"]} if "cross" in p
+           else None)
+    return _attn_block_tail(p, cfg, h, y, ckv)
 
 
 def _block_h(p: Dict, cfg: ModelConfig, kind: str, h: torch.Tensor, cos,
-             sin) -> torch.Tensor:
-    return block_full(p, cfg, kind, h, cos, sin)[0]
+             sin, enc_out, causal: bool) -> torch.Tensor:
+    return block_full(p, cfg, kind, h, cos, sin, enc_out, causal)[0]
 
 
 def segment_full(seg: Dict, shared, cfg: ModelConfig, unit: Tuple[str, ...],
                  count: int, h: torch.Tensor, cos, sin, *,
+                 enc_out=None, causal: bool = True,
                  remat: bool = True, want_cache: bool = True):
     """Run ``count`` stacked units; ``shared`` is the model-level
     ``shared_attn`` block (None without one).  Returns (h, {"<j>": cache})
     with each cache leaf stacked on a leading count axis: k/v (count, b,
     hkv, s, hd), conv (count, b, width - 1, conv_dim), ssm (count, b,
-    heads, p, n); the dict is empty when ``want_cache`` is False.
+    heads, p, n), and a cross-attention block's ck / cv (count, b, hq,
+    enc_seq, hd); the dict is empty when ``want_cache`` is False.
+    ``enc_out`` is the encoder output the cross blocks attend; ``causal``
+    False runs the self-attention unmasked (the encoder).
 
     With ``remat`` and autograd recording, each block is one
     ``torch.utils.checkpoint`` (non-reentrant): the backward recomputes the
@@ -191,13 +223,15 @@ def segment_full(seg: Dict, shared, cfg: ModelConfig, unit: Tuple[str, ...],
             p, kk = ((shared, "attn") if kind == "shared_attn"
                      else (layers[str(j)][i], kind))
             if want_cache:
-                h, cache = block_full(p, cfg, kk, h, cos, sin)
+                h, cache = block_full(p, cfg, kk, h, cos, sin, enc_out,
+                                      causal)
                 per_layer[str(j)].append(cache)
             elif checkpoint:
                 h = torch.utils.checkpoint.checkpoint(
-                    _block_h, p, cfg, kk, h, cos, sin, use_reentrant=False)
+                    _block_h, p, cfg, kk, h, cos, sin, enc_out, causal,
+                    use_reentrant=False)
             else:
-                h = _block_h(p, cfg, kk, h, cos, sin)
+                h = _block_h(p, cfg, kk, h, cos, sin, enc_out, causal)
     if not want_cache:
         return h, {}
     return h, {j: stack_trees(kvs) for j, kvs in per_layer.items()}

@@ -54,17 +54,23 @@ def _ceil_div(a: int, b: int) -> int:
 
 
 def kv_bytes_per_token(cfg: ModelConfig) -> int:
-    """KV bytes one cached token costs across every attention layer."""
+    """KV bytes one cached token costs across every attention layer.  As in
+    the reference, an encoder-decoder's cross caches (fixed per row, not
+    per token) are left out."""
     itemsize = torch.empty((), dtype=dtype_of(cfg.dtype)).element_size()
     per_layer = 2 * cfg.num_kv_heads * cfg.resolved_head_dim * itemsize
     return per_layer * sum(1 for k in cfg.layer_kinds() if k in ATTN_KINDS)
 
 
 def check_paged_support(cfg: ModelConfig) -> None:
-    """Paged KV covers full-window GQA attention stacks only: SSM/conv
-    states have no paged layout, and windowed ring buffers already cap
-    their own memory.  Loud failure beats decoding from the wrong cache
-    lines."""
+    """Paged KV covers decoder-only, full-window GQA attention stacks only:
+    encoder cross caches and SSM/conv states have no paged layout, and
+    windowed ring buffers already cap their own memory.  Loud failure beats
+    decoding from the wrong cache lines."""
+    if cfg.is_encoder_decoder:
+        raise ValueError(
+            f"paged KV requires a decoder-only model: {cfg.name!r} carries "
+            "encoder cross caches")
     for kind in cfg.layer_kinds():
         if kind not in ATTN_KINDS:
             raise ValueError(

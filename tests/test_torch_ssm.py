@@ -483,7 +483,7 @@ def test_mamba2_config_and_registry():
         assert get_config(name).name == name
     assert get_config("zamba2-7b") is zamba2_7b.CONFIG
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("whisper-medium")
+        get_config("qwen3-moe-235b-a22b")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
