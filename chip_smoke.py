@@ -80,7 +80,17 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    whisper-medium's heads of 64: the decoder's flash and
                    decode, the encoder's flash non-causal over 1500
                    frames, the cross-attention's over them at 49 tokens
-                   and at sq = 1, the dense decode over 1500 keys
+                   and at sq = 1, the dense decode over 1500 keys; the MoE
+                   families' shapes (a generator of their own, every case
+                   two launches bitwise equal): flash at deepseek-v2-lite's
+                   MLA pair (q / k 192, v 128, 16 heads, group 1, the
+                   scale passed explicitly; causal at the serve's shape,
+                   a q_offset, masked rows, non-causal sk != sq, 200
+                   tokens, f32) and at its reduced config's 48 / 32 (f32
+                   and bf16), flash, dense and paged decode at
+                   qwen3-moe's group 16 (64 heads on 4 of 128); and the
+                   autograd path refusing (192, 128), which the backward
+                   does not take
   4. timing      — each kernel, its plain version and one PyTorch library
                    call computing the same function (device time: CUDA
                    graph replays between CUDA events), beside the least time
@@ -114,8 +124,12 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    320 tokens), at whisper-medium's encoder (56 x 1500
                    frames, non-causal) and cross-attention (49 tokens and
                    sq = 1 over 1500 frames; beside the latter the dense
-                   decode kernel at cache_len 1500, a finding only), and
-                   the paged decode at group 7
+                   decode kernel at cache_len 1500, a finding only), the
+                   paged decode at group 7; flash and dense decode at
+                   qwen3-moe's group 16 and flash at deepseek's (192,
+                   128) (SDPA with v's own head dim as the yardstick, or
+                   the row says it refused), and the paged decode at group
+                   16
   5. tiny        — ``ScopeEngine.serve`` on scope-tiny with seeded weights,
                    once on the card (kernels) and once on the CPU (plain
                    versions): equal token streams and decisions
@@ -197,6 +211,27 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    step's walls, device time, idle shares and peak; flash
                    launches 24 + 2 x 24 a prefill and 24 a step, decode 24
                    a step
+ 12f. tiny moe   — ``ScopeEngine.serve`` and ``predict_stream`` (whole-retire
+                   and dense refill; paged refill for qwen3-moe) on the two
+                   MoE configs' ``reduced()`` (f32, seeded weights), on the
+                   card and on the CPU: equal token streams and decisions;
+                   every router call's smallest margin between a token's
+                   k-th and (k + 1)-th probability printed
+ 12g. full mla   — deepseek-v2-lite-16b at full width and depth (27 layers:
+                   one MLA + dense layer, 26 MLA + MoE layers of 64 routed
+                   and 2 shared experts, top-6; 15.50 B random seeded
+                   params, bf16): ``ScopeEngine.serve`` as phase 12 (flash
+                   one launch a layer at (192, 128), no decode kernel: the
+                   absorbed MLA decode is plain), prefill and decode-step
+                   device ms, idle shares, peak; then one prefill with the
+                   MoE in profiler ranges: its share of the prefill's
+                   device time and the choices dropped at capacity in each
+                   layer
+ 12h. full moe   — qwen3-moe-235b-a22b at full width and 8 of its 94
+                   layers (128 experts of 4096 x 1536, top-8, 64 heads on 4
+                   of 128; 20.52 B params; all 94 layers are ~470 GB): the
+                   same, and the serve's prompts over 16-token pages and a
+                   dense cache, equal bit for bit
  13. tiny tiers  — scope-tiny with seeded weights and a seeded tier-0 head,
                    on the card and on the CPU: ``predict_stream`` over paged
                    slot refill with the gate at a midpoint between two
@@ -341,6 +376,16 @@ MULTIMODAL_ROWS = (("flash_attention", VLM), ("flash_attention", VLM + "/image")
                    ("flash_attention", AUDIO + "/cross-sq1"),
                    ("decode_attention", AUDIO))
 VLM_PATCHES, VLM_TEXT, VLM_ROWS = 256, 64, 8    # the image prefill's shape
+# the MoE families' full-width serves (phases 12g, 12h): rows named
+# <kernel>@<config> carry that serve's shapes and launches.
+# deepseek-v2-lite-16b: its MLA prefill's flash at q / k 192, v 128, 16
+# heads at group 1 (its decode is the plain absorbed form, no kernel);
+# qwen3-moe-235b-a22b: GQA group 16 (64 heads on 4 of 128) in its flash,
+# dense decode and paged decode
+MLA, MOE_Q = "@deepseek-v2-lite-16b", "@qwen3-moe-235b-a22b"
+MOE_ROWS = (("flash_attention", MLA), ("flash_attention", MOE_Q),
+            ("decode_attention", MOE_Q), ("paged_decode_attention", MOE_Q))
+MOE_LAYERS = 8          # qwen3-moe-235b-a22b's depth on one card (of 94)
 TO_PORT = []            # every TPU kernel of the repository has a port
 NO_LAUNCHES = {name: 0 for name in TPU_KERNELS}
 
@@ -645,7 +690,9 @@ def kernel_checks(torch, L: int, s_train: int):
         ("flash bf16 d=256 s=200", (1, 4, 2, 200, 200, 256, 256), {}, bf,
          None, "model"),
     ]
-    def run_flash(cases, rnd):
+    def run_flash(cases, rnd, bitwise=False):
+        """``bitwise``: every case's two launches bitwise equal, not only
+        the main ones'."""
         for name, (b, hq, hkv, sq, sk, d, dv), kw, dt, main, layout in \
                 cases:
             if layout == "model":
@@ -663,7 +710,7 @@ def kernel_checks(torch, L: int, s_train: int):
             if "masked" in name:
                 check(bool((got[:, :, :5] == 0).all()), f"{name}: masked rows "
                       "not 0")
-            if main:
+            if main or bitwise:
                 # no atomics, no split over keys: the same bits every launch
                 check(torch.equal(got, FA.flash_attention_cuda(q, k, v, **kw)),
                       f"{name}: two launches differ")
@@ -711,7 +758,7 @@ def kernel_checks(torch, L: int, s_train: int):
         ("decode d=256 f32", (2, 4, 4, 300, 256, 256), [300, 190], {},
          torch.float32, None),
     ]
-    def run_decode(cases, rnd, gen):
+    def run_decode(cases, rnd, gen, bitwise=False):
         for name, (b, hq, hkv, S_, d, dv), lens, kw, dt, main in cases:
             q = rnd(b, hq, 1, d, dt=dt)
             kc, vc = rnd(b, hkv, S_, d, dt=dt), rnd(b, hkv, S_, dv, dt=dt)
@@ -730,6 +777,10 @@ def kernel_checks(torch, L: int, s_train: int):
             if lens is not None and 0 in lens:
                 check(bool((got[lens.index(0)] == 0).all()),
                       f"{name}: empty row not 0")
+            if bitwise and not main:
+                check(torch.equal(got, DA.decode_attention_cuda(
+                    q, kc, vc, lens_t, **kw)), f"{name}: two launches differ")
+                print(f"   {name}: two launches bitwise equal")
             if not main:
                 continue
             # no atomics: the same bits every launch
@@ -806,7 +857,7 @@ def kernel_checks(torch, L: int, s_train: int):
         ("paged d=256 f32", (2, 4, 4, 300, 256, 256, 16, [300, 190], 0.0,
                              torch.float32), None),
     ]
-    def run_paged(cases, rnd, gen):
+    def run_paged(cases, rnd, gen, bitwise=False):
         for name, (b, hq, hkv, S_, d, dv, page, lens, cap, dt), main in \
                 cases:
             q = rnd(b, hq, 1, d, dt=dt)
@@ -840,7 +891,7 @@ def kernel_checks(torch, L: int, s_train: int):
             poisoned = DA.paged_decode_attention_cuda(q, kp2, vp2, lens_t,
                                                       table, **kw)
             check(torch.equal(poisoned, got), f"{name}: poisoned pages leak")
-            if main:
+            if main or bitwise:
                 check(torch.equal(got, DA.paged_decode_attention_cuda(
                     q, kp, vp, lens_t, table, **kw)),
                     f"{name}: two launches differ")
@@ -1082,6 +1133,72 @@ def kernel_checks(torch, L: int, s_train: int):
         ("paged g7 f32 ragged", (3, 28, 4, 70, 128, 128, 16, [10, 70, 33],
                                  0.0, torch.float32), None),
     ], rnd, gen)
+
+    # the MoE families' attention at their shapes, on inputs of a generator
+    # of their own (rnd draws from it too), so the cases above keep theirs;
+    # every case's two launches bitwise equal.  deepseek-v2-lite-16b's MLA
+    # prefill: q / k of nope 128 + rope 64 = 192, v 128, 16 heads at g 1,
+    # the scale (nope + rope) ** -0.5 passed as mla_full passes it (causal
+    # at the serve's 56 x L, a q_offset case, non-causal sk != sq; the f32
+    # body too), and its reduced config's 48 / 32 (f32, which the CPU
+    # tests' configs run, and bf16); qwen3-moe-235b-a22b's GQA group 16 (64
+    # heads on 4 kv-heads of 128): flash, dense and paged decode
+    gen = torch.Generator(device=dev).manual_seed(27)
+    mla = dict(scale=192 ** -0.5)
+    run_flash([
+        ("flash mla 192/128 main", (56, 16, 16, L, L, 192, 128), mla, bf,
+         "flash_attention" + MLA, "model"),
+        ("flash mla 192/128 q_offset", (4, 16, 16, 20, L, 192, 128),
+         dict(mla, q_offset=L - 20), bf, None, "model"),
+        ("flash mla 192/128 masked rows", (2, 16, 16, 20, 20, 192, 128),
+         dict(mla, q_offset=-5), bf, None, "model"),
+        ("flash mla 192/128 non-causal sk!=sq", (2, 16, 16, 33, 70, 192,
+                                                 128),
+         dict(mla, causal=False), bf, None, "model"),
+        ("flash mla 192/128 s=200", (2, 16, 16, 200, 200, 192, 128), mla, bf,
+         None, "model"),
+        ("flash mla 192/128 f32", (2, 16, 16, L, L, 192, 128), mla, f32,
+         None, "model"),
+        ("flash mla 48/32 f32", (3, 4, 4, L, L, 48, 32),
+         dict(scale=48 ** -0.5), f32, None, "model"),
+        ("flash mla 48/32 f32 non-causal sk!=sq", (2, 4, 4, 33, 70, 48, 32),
+         dict(scale=48 ** -0.5, causal=False), f32, None, "model"),
+        ("flash mla 48/32 f32 masked rows", (1, 4, 4, 20, 20, 48, 32),
+         dict(scale=48 ** -0.5, q_offset=-5), f32, None, "model"),
+        ("flash mla 48/32 bf16", (3, 4, 4, L, L, 48, 32),
+         dict(scale=48 ** -0.5), bf, None, "model"),
+        ("flash g16 main", (56, 64, 4, L, L, 128, 128), {}, bf,
+         "flash_attention" + MOE_Q, "model"),
+        ("flash g16 f32", (2, 64, 4, L, L, 128, 128), {}, f32, None,
+         "model"),
+        ("flash g16 s=200", (2, 64, 4, 200, 200, 128, 128), {}, bf, None,
+         "model"),
+    ], rnd, bitwise=True)
+    run_decode([
+        ("decode g16 main", (56, 64, 4, S, 128, 128), None, {}, bf,
+         "decode_attention" + MOE_Q),
+        ("decode g16 f32 ragged", (3, 64, 4, 70, 128, 128), [10, 70, 33], {},
+         torch.float32, None),
+        ("decode g16 300 keys", (2, 64, 4, 300, 128, 128), [300, 190], {},
+         bf, None),
+    ], rnd, gen, bitwise=True)
+    run_paged([
+        ("paged g16 main", (56, 64, 4, kv_cap, 128, 128, PAGE, None, 0.0, bf),
+         "paged_decode_attention" + MOE_Q),
+        ("paged g16 f32 ragged", (3, 64, 4, 70, 128, 128, 16, [10, 70, 33],
+                                  0.0, torch.float32), None),
+    ], rnd, gen, bitwise=True)
+    # MLA's pairs are the forward's only: the backward refuses them, so a
+    # loss through MLA on the card raises before any launch
+    q = rnd(2, 16, 16, 192, dt=bf).requires_grad_()
+    v = rnd(2, 16, 16, 128, dt=bf)
+    try:
+        FA.flash_attention(q, q, v, scale=192 ** -0.5)
+    except ValueError as e:
+        print(f"   flash mla 192/128 under autograd: refused ({e})")
+    else:
+        raise SmokeFailure("flash: the autograd path took (192, 128), which "
+                           "the backward kernel does not")
     return errs
 
 
@@ -1489,6 +1606,11 @@ def kernel_timings(torch, L: int, retriever, query_embs, s_train: int):
     out["paged_decode_attention" + VLM] = paged_timing(
         torch, torch.Generator(device=dev).manual_seed(26), 56, 28, 4, 128,
         L + NEW_TOKENS)
+    # qwen3-moe-235b-a22b's paged decode at group 16 (the serve's prompts
+    # paged), on a generator of its own
+    out["paged_decode_attention" + MOE_Q] = paged_timing(
+        torch, torch.Generator(device=dev).manual_seed(28), 56, 64, 4, 128,
+        L + NEW_TOKENS)
 
     # top-k: the request's 8 raw query embeddings against the 250 unit-norm
     # SCOPE anchors, as retrieve() calls it; the library call does the same
@@ -1629,7 +1751,11 @@ ENC_FRAMES = 1500                           # whisper-medium's encoder_seq_len
 # qwen2-vl-7b's group 7 (and its image prefill of 8 x 320 tokens) and
 # whisper-medium's decoder (group 1, d 64; and the encoder over its
 # frames, the cross-attention over them at the prompts and at sq = 1, all
-# non-causal).  Each has its dense decode timed too.
+# non-causal), qwen3-moe-235b-a22b's group 16 and deepseek-v2-lite-16b's
+# MLA prefill (head dims (d, dv) = (192, 128), the scale d ** -0.5 passed
+# explicitly).  Each has its dense decode timed too, but for the configs of
+# NO_DENSE_DECODE (MLA decodes in plain PyTorch, no kernel).
+NO_DENSE_DECODE = (MLA,)
 ATTENTION_SHAPES = (
     ("", 32, 8, 128, 0.0, SERVE_FLASH),
     (HYBRID, 32, 32, 112, 0.0, SERVE_FLASH),
@@ -1642,7 +1768,9 @@ ATTENTION_SHAPES = (
     (AUDIO, 16, 16, 64, 0.0, SERVE_FLASH + (
         ("/encoder", 56, ENC_FRAMES, ENC_FRAMES, False, 10),
         ("/cross", 56, None, ENC_FRAMES, False, 50),
-        ("/cross-sq1", 56, 1, ENC_FRAMES, False, 200))))
+        ("/cross-sq1", 56, 1, ENC_FRAMES, False, 200))),
+    (MOE_Q, 64, 4, 128, 0.0, SERVE_FLASH),
+    (MLA, 16, 16, (192, 128), 0.0, SERVE_FLASH))
 
 
 # flex_attention's tile options for a prefill at heads of 256: its default
@@ -1711,7 +1839,10 @@ def attention_timings(torch, L: int, floor_ms: float):
         return library
 
     for config, hq, hkv, d, cap, flashes in ATTENTION_SHAPES:
+        d, dv = d if isinstance(d, tuple) else (d, d)
         kw = dict(softcap=cap) if cap else {}
+        if dv != d:                 # MLA passes its scale explicitly
+            kw["scale"] = d ** -0.5
         note = f" softcap {cap:g}" if cap else ""
         call = ("flex_attention (torch.compile), score_mod softcap * "
                 "tanh(s / softcap), {} block mask" if cap else
@@ -1720,21 +1851,34 @@ def attention_timings(torch, L: int, floor_ms: float):
             sq, sk = sq or L, sk or L
             check(causal or not cap, "softcap_library masks causally")
             q = randn(fb, sq, hq, d).transpose(1, 2)
-            k, v = (randn(fb, sk, hkv, d).transpose(1, 2) for _ in range(2))
+            k = randn(fb, sk, hkv, d).transpose(1, 2)
+            v = randn(fb, sk, hkv, dv).transpose(1, 2)
             row = "flash_attention" + config + suffix
             plain = (lambda: FA.flash_attention_plain(q, k, v, causal=causal,
                                                       **kw))
             library = (softcap_library(torch, cap, q, k, v) if cap else
                        lambda: F.scaled_dot_product_attention(
-                           q, k, v, is_causal=causal, enable_gqa=True))
+                           q, k, v, is_causal=causal, enable_gqa=True,
+                           scale=kw.get("scale")))
+            refused = None
+            if dv != d:
+                try:
+                    library()
+                    torch.cuda.synchronize()
+                except RuntimeError as e:
+                    refused = f"SDPA refused dv {dv} != d {d}: {e}"[:300]
+                    print(f"   {row}: {refused}")
+                    library = None
             out[row] = dict(
                 times(torch, lambda: FA.flash_attention_cuda(
                           q, k, v, causal=causal, **kw),
-                      plain, yardstick(row, cap, library, plain), iters),
+                      plain, library and yardstick(row, cap, library, plain),
+                      iters),
                 shape=f"q ({fb},{hq},{sq},{d}) kv ({fb},{hkv},{sk},{d}) "
-                      f"bf16 {'causal' if causal else 'non-causal'}{note}, "
+                      + (f"v dim {dv} scale {d}^-0.5 " if dv != d else "")
+                      + f"bf16 {'causal' if causal else 'non-causal'}{note}, "
                       "views of (b, s, h, d)",
-                library_call=call.format("causal"))
+                library_call=refused or call.format("causal"))
             if cap:
                 tuned = softcap_library(torch, cap, q, k, v,
                                         kernel_options=FLEX_PREFILL_OPTIONS)
@@ -1750,8 +1894,8 @@ def attention_timings(torch, L: int, floor_ms: float):
                     t["library_call"] += f", {FLEX_PREFILL_OPTIONS}"
             pairs = sq * (sq + 1) // 2 if causal else sq * sk
             out[row]["bound_ms"], out[row]["bound_by"] = bound(
-                2 * (2 * q.numel() + k.numel() + v.numel()),
-                2 * 2 * d * pairs * fb * hq, "bfloat16")
+                2 * (q.numel() + k.numel() + v.numel() + fb * hq * sq * dv),
+                2 * (d + dv) * pairs * fb * hq, "bfloat16")
             if sq == 1 and not causal:
                 lens = torch.full((fb,), sk, dtype=torch.int32, device=dev)
                 qd, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
@@ -1762,6 +1906,8 @@ def attention_timings(torch, L: int, floor_ms: float):
                       f"{out[row]['dense_decode_ms']:.5f} ms")
                 del qd, kc, vc
             del q, k, v
+        if config in NO_DENSE_DECODE:
+            continue
         qd = randn(b, hq, 1, d)
         kc, vc = randn(b, hkv, S, d), randn(b, hkv, S, d)
         lens = torch.full((b,), S, dtype=torch.int32, device=dev)
@@ -2483,14 +2629,21 @@ def layer_counts(cfg):
             runs.count("mamba"))
 
 
+def mla_layers(cfg) -> int:
+    """MLA layers in one pass through ``cfg``'s stack."""
+    from repro_torch.models.transformer import build_plan, is_mla
+    return sum(is_mla(k) for unit, count in build_plan(cfg)
+               for k in unit * count)
+
+
 def path_launches(cfg, retrievals: int):
     """Each kernel's launches in ``retrievals`` retrievals, one prefill and
     the decode steps of one ``NEW_TOKENS`` generation through ``cfg``:
-    flash and dense decode a layer of attention, the SSD scan and step a
-    mamba layer."""
+    flash and dense decode a layer of GQA attention, flash alone an MLA
+    layer (its decode is plain), the SSD scan and step a mamba layer."""
     n_attn, n_mamba = layer_counts(cfg)
     return dict(NO_LAUNCHES, topk_retrieval=retrievals,
-                flash_attention=n_attn,
+                flash_attention=n_attn + mla_layers(cfg),
                 decode_attention=n_attn * NEW_TOKENS, ssd_scan=n_mamba,
                 ssd_decode_step=n_mamba * NEW_TOKENS)
 
@@ -2556,6 +2709,108 @@ def tiny_card_vs_cpu(torch, cfg, world, data, anchors, lib, qids):
     print(f"   {g_cpu.size} tokens equal, decision logits max_abs_err "
           f"{dec_err:.3g}; card launches {result['launches']}")
     return result
+
+
+def tiny_moe_configs():
+    """The small MoE configs of the CPU tests (``tests/test_torch_moe.py``,
+    ``tests/test_torch_mla.py``): qwen3-moe-235b-a22b's and
+    deepseek-v2-lite-16b's ``reduced()`` (2 layers, d 256, 4 experts of
+    512, top-2; qwen3-moe's 4 heads of 64 on 4 with qk-norm, deepseek's
+    dense MLA first layer, then MLA + MoE with one shared expert, MLA at
+    latent 64, q / k 48, v 32); f32."""
+    from repro_torch.configs import get_config
+    return [get_config(MOE_Q[1:]).reduced(), get_config(MLA[1:]).reduced()]
+
+
+def tiny_moe_card_vs_cpu(torch, cfg, world, data, anchors, lib, qids):
+    """``tiny_card_vs_cpu`` and the stream (whole-retire and dense refill;
+    paged refill too where the config pages) of a small MoE ``cfg``, card
+    against CPU, with every router call's smallest margin between a
+    token's k-th and (k + 1)-th probability recorded: where a choice flips
+    between the devices, the margin it flipped across shows.  Nothing is
+    loosened for it: tokens and decisions must be equal."""
+    import numpy as np
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serving.kv_pool import check_paged_support
+
+    try:
+        check_paged_support(cfg)
+        modes = STREAM_MODES
+    except ValueError:
+        modes = STREAM_MODES[:2]
+    moe_mod.records = []
+    try:
+        batch = tiny_card_vs_cpu(torch, cfg, world, data, anchors, lib, qids)
+        batch_gaps = [float(r["gap"]) for r in moe_mod.records]
+        moe_mod.records = []
+        stream = tiny_stream_card_vs_cpu(torch, world, data, anchors, lib,
+                                         cfg, modes)
+        stream_gaps = [float(r["gap"]) for r in moe_mod.records]
+    finally:
+        moe_mod.records = None
+    print(f"   {cfg.name}: {len(batch_gaps)} router calls in the batch "
+          f"serves (card and cpu), smallest k-th / (k+1)-th margin "
+          f"{min(batch_gaps):.3e}; per call: "
+          + " ".join(f"{g:.1e}" for g in batch_gaps[:60]))
+    print(f"   {cfg.name}: {len(stream_gaps)} router calls in the streams, "
+          f"smallest margin {min(stream_gaps):.3e}, the 5 smallest "
+          f"{sorted(stream_gaps)[:5]}")
+    return {"batch": batch, "stream": stream,
+            "router_gaps": {"batch": batch_gaps, "stream": stream_gaps},
+            "smallest_gap": float(np.min(batch_gaps + stream_gaps))}
+
+
+def moe_prefill(torch, cfg, params, prompts):
+    """One prefill of the serve's prompts with each ``moe_forward`` call in
+    a profiler range: each MoE layer's dropped choices (of the b * s * k it
+    routes) and smallest router margin, and the MoE's share of the
+    prefill's device time (the kernels under the ranges over every device
+    event but the ranges themselves)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.transformer import build_plan, is_moe
+    from repro_torch.serving import sampler
+
+    inner = moe_mod.moe_forward
+
+    def ranged(*a, **kw):
+        with record_function("moe_forward"):
+            return inner(*a, **kw)
+
+    moe_mod.moe_forward, moe_mod.records = ranged, []
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sampler.prefill_state(params, cfg, prompts, max_new_tokens=1)
+            torch.cuda.synchronize()
+        recs = moe_mod.records
+    finally:
+        moe_mod.moe_forward, moe_mod.records = inner, None
+    dropped = [int(r["dropped"]) for r in recs]
+    gaps = [float(r["gap"]) for r in recs]
+    events = prof.events()
+    total_us = sum(e.device_time_total for e in events
+                   if e.device_type == DeviceType.CUDA
+                   and e.name != "moe_forward")
+    moe_us = sum(e.device_time_total for e in events
+                 if e.device_type == DeviceType.CPU
+                 and e.name == "moe_forward")
+    choices = prompts.size * cfg.num_experts_per_tok
+    check(len(recs) == sum(is_moe(k) for unit, count in build_plan(cfg)
+                           for k in unit * count),
+          f"{cfg.name}: {len(recs)} MoE calls in a prefill")
+    share = moe_us / total_us if total_us > 0 else None
+    print(f"   {cfg.name} prefill MoE: "
+          + (f"{moe_us / 1e3:.2f} of {total_us / 1e3:.2f} ms device time "
+             f"({share:.3f})" if share is not None else
+             "device time not measured (no device events)")
+          + f"; dropped choices per layer (of {choices}): {dropped}; "
+          f"smallest router margin {min(gaps):.3e}")
+    return {"moe_ms": moe_us / 1e3, "prefill_device_ms": total_us / 1e3,
+            "moe_share": share, "dropped_per_layer": dropped,
+            "choices_per_layer": choices, "router_gaps": gaps}
 
 
 def full_params(torch, cfg, min_params: float):
@@ -2759,28 +3014,33 @@ STAT_FIELDS = ("emitted", "microbatches", "slots_refilled",
                "admissions_deferred_on_horizon")
 
 
-def tiny_stream_card_vs_cpu(torch, world, data, anchors, lib):
-    """``predict_stream`` on scope-tiny with seeded weights — whole-retire,
-    and slot refill over a dense and a paged (8-token pages) KV cache — on
-    the card and on the CPU: equal token streams, parsed fields, decisions
-    and scheduler counters; confidences within the float32 tolerance."""
+STREAM_MODES = (("whole-retire", {}), ("dense", dict(refill=True)),
+                ("paged", dict(refill=True, kv_paged=True, kv_page_size=8)))
+
+
+def tiny_stream_card_vs_cpu(torch, world, data, anchors, lib, cfg=None,
+                            modes=STREAM_MODES):
+    """``predict_stream`` on ``cfg`` (scope-tiny by default) with seeded
+    weights — whole-retire, and slot refill over a dense and a paged
+    (8-token pages) KV cache, or the ``modes`` given — on the card and on
+    the CPU: equal token streams, parsed fields, decisions and scheduler
+    counters; confidences within the float32 tolerance."""
     import numpy as np
     from repro_torch.api import FixedAlphaPolicy, RouteRequest
     from repro_torch.configs.scope_estimator import TINY
     from repro_torch.models.model import init_params
     from repro_torch.serving.scheduler import BucketConfig, MicrobatchScheduler
 
-    cpu_params = init_params(TINY, seed=0, device="cpu")
+    cfg = cfg or TINY
+    cpu_params = init_params(cfg, seed=0, device="cpu")
     params = {"cpu": cpu_params, "cuda": _to(cpu_params, "cuda")}
     ticks = stream_ticks(data, STREAM_QUERIES)
     policy = FixedAlphaPolicy(0.6)
     result = {}
-    for mode, kw in (("whole-retire", {}), ("dense", dict(refill=True)),
-                     ("paged", dict(refill=True, kv_paged=True,
-                                    kv_page_size=8))):
+    for mode, kw in modes:
         runs = {}
         for dev in ("cpu", "cuda"):
-            eng = make_engine(TINY, params[dev], anchors, lib, world, data,
+            eng = make_engine(cfg, params[dev], anchors, lib, world, data,
                               dev, segment_len=SEGMENT, **kw)
             sched = MicrobatchScheduler(BucketConfig(STREAM_BUCKETS))
             with StreamProbe() as probe:
@@ -4008,6 +4268,44 @@ def main() -> int:
     release(torch)
     done(t)
 
+    t = phase("tiny moe: card vs cpu, qwen3-moe and deepseek-v2 (reduced), "
+              "batch and stream, router margins")
+    report["tiny_moe"] = {cfg.name: tiny_moe_card_vs_cpu(
+        torch, cfg, world, data, anchors, lib, qids)
+        for cfg in tiny_moe_configs()}
+    done(t)
+
+    t = phase("full width: deepseek-v2-lite-16b")
+    mla_cfg = get_config(MLA[1:])
+    params, n_params = full_params(torch, mla_cfg, 15.4e9)
+    report["mla"] = full_width(torch, mla_cfg, world, data, anchors, lib,
+                               qids, params, n_params)
+    report["mla"]["moe"] = moe_prefill(torch, mla_cfg, params, serve_prompts(
+        mla_cfg, params, world, data, anchors, lib, qids))
+    del params
+    release(torch)
+    done(t)
+
+    t = phase(f"full width: qwen3-moe-235b-a22b, {MOE_LAYERS} of 94 layers")
+    import dataclasses
+    moe_cfg = dataclasses.replace(get_config(MOE_Q[1:]),
+                                  num_layers=MOE_LAYERS)
+    print(f"   cut: qwen3-moe-235b-a22b at full width (d {moe_cfg.d_model}, "
+          f"{moe_cfg.num_heads} heads on {moe_cfg.num_kv_heads} of "
+          f"{moe_cfg.resolved_head_dim}, {moe_cfg.num_experts} experts of "
+          f"{moe_cfg.d_model} x {moe_cfg.resolved_moe_d_ff}, top "
+          f"{moe_cfg.num_experts_per_tok}) and {MOE_LAYERS} of its 94 "
+          "layers: all 94 come to ~470 GB of bf16 weights")
+    params, n_params = full_params(torch, moe_cfg, 20.4e9)
+    report["moe"] = full_width(torch, moe_cfg, world, data, anchors, lib,
+                               qids, params, n_params)
+    prompts = serve_prompts(moe_cfg, params, world, data, anchors, lib, qids)
+    report["moe"]["moe"] = moe_prefill(torch, moe_cfg, params, prompts)
+    report["moe"]["paged"] = paged_vs_dense(torch, moe_cfg, params, prompts)
+    del params
+    release(torch)
+    done(t)
+
     t = phase("tiny tiers: card vs cpu, tier-0 gate, fallback, hot_swap")
     report["tiny_tiers"] = tiny_tiers_card_vs_cpu(torch, world, data,
                                                   anchors, lib)
@@ -4046,7 +4344,6 @@ def main() -> int:
     done(t)
 
     t = phase("full-width train: zamba2-7b, 12 mamba layers, SFT steps")
-    import dataclasses
     cut_cfg = dataclasses.replace(hybrid_cfg, num_layers=12)
     n_attn, n_mamba = layer_counts(cut_cfg)
     print(f"   cut: zamba2-7b at full width (d {cut_cfg.d_model}, "
@@ -4108,11 +4405,22 @@ def main() -> int:
         "flash_attention" + AUDIO + "/cross-sq1": audio["flash_calls"][
             "cross_sq1"],
         "decode_attention" + AUDIO: audio["launches"]["decode_attention"]})
+    # and the MoE serves: deepseek-v2-lite-16b's flash (its decode runs no
+    # kernel), qwen3-moe-235b-a22b's flash and dense decode in its serve and
+    # its paged decode over the serve's prompts, each its own run
+    mla, moe = report["mla"], report["moe"]
+    launches.update({
+        "flash_attention" + MLA: mla["launches"]["flash_attention"],
+        "flash_attention" + MOE_Q: moe["launches"]["flash_attention"],
+        "decode_attention" + MOE_Q: moe["launches"]["decode_attention"],
+        "paged_decode_attention" + MOE_Q: moe["paged"]["launches"][
+            "paged_decode_attention"]})
     kernel_rows = []
     for row in [*TPU_KERNELS, *(f"{n}{HYBRID}" for n in
                                 (*HYBRID_KERNELS, *HYBRID_TRAIN_KERNELS)),
                 *(name + config for name, config in DENSE_ROWS),
-                *(name + config for name, config in MULTIMODAL_ROWS)]:
+                *(name + config for name, config in MULTIMODAL_ROWS),
+                *(name + config for name, config in MOE_ROWS)]:
         name = row.split("@")[0]
         tm = timing[row]
         kernel_rows.append({

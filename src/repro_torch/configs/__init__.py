@@ -4,13 +4,17 @@
 (``gemma2_2b.CONFIG``, ``gemma2_9b.CONFIG``), the Mamba2 backbone
 (``mamba2_1_3b.CONFIG``), the zamba2 hybrid (``zamba2_7b.CONFIG``), the
 multimodal stub backbones (``qwen2_vl_7b.CONFIG``,
-``whisper_medium.CONFIG``) and the ``get_config(name)`` registry."""
+``whisper_medium.CONFIG``), the mixture-of-experts backbones
+(``qwen3_moe_235b_a22b.CONFIG``, ``deepseek_v2_lite_16b.CONFIG``) and the
+``get_config(name)`` registry: the reference's ten assigned configs and
+the two SCOPE estimators."""
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import (gemma2_2b, gemma2_9b, internlm2_1_8b,
-                                 mamba2_1_3b, qwen2_vl_7b, scope_estimator,
+from repro_torch.configs import (deepseek_v2_lite_16b, gemma2_2b, gemma2_9b,
+                                 internlm2_1_8b, mamba2_1_3b, qwen2_vl_7b,
+                                 qwen3_moe_235b_a22b, scope_estimator,
                                  starcoder2_3b, whisper_medium, zamba2_7b)
 from repro_torch.configs.base import ModelConfig
 
@@ -19,7 +23,9 @@ _REGISTRY: Dict[str, ModelConfig] = {
                               starcoder2_3b.CONFIG, internlm2_1_8b.CONFIG,
                               gemma2_2b.CONFIG, gemma2_9b.CONFIG,
                               mamba2_1_3b.CONFIG, zamba2_7b.CONFIG,
-                              qwen2_vl_7b.CONFIG, whisper_medium.CONFIG)}
+                              qwen2_vl_7b.CONFIG, whisper_medium.CONFIG,
+                              qwen3_moe_235b_a22b.CONFIG,
+                              deepseek_v2_lite_16b.CONFIG)}
 
 
 def get_config(name: str) -> ModelConfig:

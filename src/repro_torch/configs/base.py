@@ -1,5 +1,5 @@
-"""Model configuration: the dense, SSM, hybrid and multimodal-stub subset
-of ``repro.configs.base``.
+"""Model configuration: ``repro.configs.base.ModelConfig`` for the ported
+families.
 
 Only the fields the ported configs set or rely on are kept — the SCOPE
 estimator configs (``configs/scope_estimator``), the dense GQA stacks
@@ -11,9 +11,12 @@ pure-SSM Mamba2 backbone (``configs/mamba2_1_3b``), the zamba2 hybrid
 the Qwen2-VL language backbone with M-RoPE and stub patch embeddings
 (``configs/qwen2_vl_7b``) and the whisper encoder-decoder with stub frame
 embeddings, sinusoid positions, cross-attention and a GELU MLP
-(``configs/whisper_medium``) — with the JAX package's defaults, so a
-config built here describes the same network as its JAX twin.  The MoE and
-MLA families arrive with their own port slices.
+(``configs/whisper_medium``), and the two mixture-of-experts backbones:
+Qwen3-MoE's GQA + MoE stack (``configs/qwen3_moe_235b_a22b``) and
+DeepSeek-V2's multi-head latent attention with shared and routed experts
+and a dense first layer (``configs/deepseek_v2_lite_16b``) — with the JAX
+package's defaults, so a config built here describes the same network as
+its JAX twin.
 """
 from __future__ import annotations
 
@@ -23,15 +26,20 @@ from typing import Tuple
 
 # "attn"      : global self-attention + MLP (the SCOPE estimator family)
 # "attn_local": sliding-window self-attention + MLP (gemma2's local layers)
+# "mla"       : multi-head latent attention (DeepSeek-V2) + MLP
+# "moe"       : global self-attention + MoE FFN (Qwen3-MoE)
+# "mla_moe"   : MLA attention + MoE FFN (DeepSeek-V2)
 # "mamba"     : Mamba2 SSD block (attention-free)
-VALID_BLOCK_KINDS = ("attn", "attn_local", "mamba")
-ATTN_KINDS = ("attn", "attn_local")     # the kinds with an attention layer
+VALID_BLOCK_KINDS = ("attn", "attn_local", "mla", "moe", "mla_moe", "mamba")
+# the kinds with a GQA attention layer (and K/V caches): the reference's
+# ``_is_attn``; MLA layers cache a latent instead
+ATTN_KINDS = ("attn", "attn_local", "moe")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str                      # dense | ssm | hybrid | audio | vlm
+    arch_type: str                  # dense | moe | ssm | hybrid | audio | vlm
     source: str = ""                    # paper / model card citation
 
     # Core transformer dims
@@ -55,6 +63,21 @@ class ModelConfig:
     final_logit_softcap: float = 0.0    # gemma2: 30.0 on lm head
     attn_scale: float = 0.0             # 0 -> 1/sqrt(head_dim)
     qk_norm: bool = False
+
+    # MLA (DeepSeek-V2)
+    kv_lora_rank: int = 512
+    qk_rope_head_dim: int = 64
+    qk_nope_head_dim: int = 128
+    v_head_dim: int = 128
+
+    # MoE
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    num_shared_experts: int = 0
+    moe_d_ff: int = 0                   # per-expert hidden (0 -> d_ff)
+    first_dense_layers: int = 0         # DeepSeek-V2: layer 0 dense
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
 
     # SSM (Mamba2 / SSD)
     ssm_state: int = 0
@@ -97,6 +120,10 @@ class ModelConfig:
         return self.head_dim or self.d_model // self.num_heads
 
     @property
+    def resolved_moe_d_ff(self) -> int:
+        return self.moe_d_ff or self.d_ff
+
+    @property
     def d_inner(self) -> int:
         """Mamba2 inner width."""
         return self.ssm_expand * self.d_model
@@ -113,11 +140,18 @@ class ModelConfig:
     def is_attention_free(self) -> bool:
         return all(k == "mamba" for k in self.layer_kinds())
 
+    def has_moe(self) -> bool:
+        return any(k in ("moe", "mla_moe") for k in self.layer_kinds())
+
+    def has_mla(self) -> bool:
+        return any(k.startswith("mla") for k in self.layer_kinds())
+
     def has_ssm(self) -> bool:
         return any(k.startswith("mamba") for k in self.layer_kinds())
 
     def reduced(self, *, num_layers: int = 2, d_model: int = 256,
-                num_heads: int = 4, vocab_size: int = 512) -> "ModelConfig":
+                num_heads: int = 4, vocab_size: int = 512,
+                max_experts: int = 4) -> "ModelConfig":
         """A smoke-test variant of the same family (CPU-runnable): the JAX
         ``reduced()`` on the fields the port has.  As there, the softcaps,
         ``attn_scale``, ``sandwich_norm`` and ``scale_embeddings`` stay as
@@ -125,7 +159,10 @@ class ModelConfig:
         with ``shared_attn_every=2`` (zamba2's hybrid layout): replace it
         with 0 for a pure-SSM variant; an encoder-decoder keeps 2 encoder
         layers over 32 frames, a VLM 8 stub patches, and M-RoPE's sections
-        are re-split to the reduced head dim."""
+        are re-split to the reduced head dim.  A MoE config keeps at most
+        ``max_experts`` experts, top-2, at most one shared expert and one
+        dense first layer, experts of width 2 d_model; MLA shrinks to a
+        latent of 64, rope 16, nope 32 and v 32."""
         head_dim = max(32, d_model // num_heads)
         changes = {
             "num_layers": num_layers,
@@ -143,6 +180,13 @@ class ModelConfig:
             "num_stub_patches": 8 if self.num_stub_patches else 0,
             "dtype": "float32",
         }
+        if self.has_moe():
+            changes.update(
+                num_experts=min(self.num_experts, max_experts),
+                num_experts_per_tok=min(self.num_experts_per_tok, 2),
+                num_shared_experts=min(self.num_shared_experts, 1),
+                moe_d_ff=d_model * 2,
+                first_dense_layers=min(self.first_dense_layers, 1))
         if self.has_ssm():
             changes.update(ssm_state=min(self.ssm_state or 16, 16),
                            ssm_head_dim=32, ssm_heads=0, ssm_chunk=16,
@@ -151,4 +195,7 @@ class ModelConfig:
             t = max(4, (head_dim // 4) // 2 * 2)
             hw = (head_dim - t) // 2
             changes.update(mrope_sections=(t, hw, head_dim - t - hw))
+        if self.kv_lora_rank and self.has_mla():
+            changes.update(kv_lora_rank=64, qk_rope_head_dim=16,
+                           qk_nope_head_dim=32, v_head_dim=32)
         return dataclasses.replace(self, **changes)

@@ -209,6 +209,27 @@ cudaError_t dispatch_head_dims(int d, int dv, F&& f) {
   }
 }
 
+// A (d, dv) pair a kernel takes besides those of dispatch_head_dims.
+template <int D, int DV>
+struct HeadPair {};
+
+template <int D, int DV, typename F>
+bool run_pair(HeadPair<D, DV>, int d, int dv, F& f, cudaError_t& err) {
+  if (d != D || dv != DV) return false;
+  err = f.template operator()<D, DV>();
+  return true;
+}
+
+// Any pair of 32, 64, 128 and 256, and each HeadPair<D, DV> of PAIRS: the
+// pairs a kernel lists for itself where dv may differ from d (the flash
+// forward takes MLA's (192, 128) and, on reduced configs, (48, 32)).
+template <typename... PAIRS, typename F>
+cudaError_t dispatch_head_pairs(int d, int dv, F&& f) {
+  cudaError_t err = cudaErrorInvalidValue;
+  if ((run_pair(PAIRS{}, d, dv, f, err) || ...)) return err;
+  return dispatch_head_dims<>(d, dv, f);
+}
+
 // Launch helper: raise the dynamic shared-memory cap when a configuration
 // needs more than the default 48 KB, then launch and report the launch error.
 template <typename Kernel, typename Params>

@@ -47,8 +47,17 @@
 // buffer (training's forward, which the backward reads instead of
 // recomputing it); the serve path passes none and writes the same output.
 //
-// Head dims: any (d, dv) pair of 32, 64, 128 and 256, and d = dv = 112
-// (zamba2-7b's shared attention, 3584 / 32 heads, group 1).  A 112-wide
+// Head dims: any (d, dv) pair of 32, 64, 128 and 256, d = dv = 112
+// (zamba2-7b's shared attention, 3584 / 32 heads, group 1), and MLA's
+// pairs (deepseek-v2-lite's q / k of nope 128 + rope 64 = 192 with v 128,
+// group 1; 48 / 32 on its reduced config).  At d 192 the bf16 kernel stages
+// Q at a row stride of 200 elements (400 bytes: eight rows of an ldmatrix
+// fall in distinct banks) and two K/V stages, 68.6 KB of dynamic shared
+// memory, and runs twelve k-steps of Q fragments, each read from shared
+// memory where it is used, so registers hold only S and O's accumulators
+// as at d 128; like every pair above 128 it runs one block a SM at least,
+// with up to 255 registers.  A 48-wide row is 6 16-byte chunks, copied
+// like 112's in row-major order with a ragged last pass.  A 112-wide
 // row is 14 16-byte chunks, which divide neither a warp nor the block's
 // 128 threads, so the copies walk the tile's chunks in row-major order with
 // a ragged last pass; its 7 k-steps and 14 n-tiles (7 ldmatrix.x4 pairs)
@@ -449,5 +458,7 @@ extern "C" int repro_flash_attention(
   f.batch = b;
   f.dtype = dtype;
   f.stream = static_cast<cudaStream_t>(stream);
-  return repro::dispatch_head_dims<112>(d, dv, f);
+  return repro::dispatch_head_pairs<repro::HeadPair<112, 112>,
+                                    repro::HeadPair<192, 128>,
+                                    repro::HeadPair<48, 32>>(d, dv, f);
 }

@@ -53,7 +53,12 @@ def _check(params: Dict, cfg: ModelConfig) -> None:
     at each of its unit's positions (gemma2's unit has two); in each
     attention block, the post-norms exactly where ``cfg`` has
     ``sandwich_norm``, a cross-attention exactly where it is an
-    encoder-decoder, and its ``mlp_kind``'s MLP leaves; an ``encoder`` of
+    encoder-decoder, its ``mlp_kind``'s MLP leaves (a MoE block: the
+    router and the expert stacks of ``num_experts`` experts of width
+    ``resolved_moe_d_ff``, and a shared MLP exactly where the config has
+    shared experts) and its kind's attention leaves (an MLA block: ``wq``,
+    ``w_dkv``, ``kv_norm``, ``w_uk``, ``w_uv``, ``wo`` at the config's MLA
+    dims); an ``encoder`` of
     ``num_encoder_layers`` stacked layers exactly for an encoder-decoder and
     a ``vision_proj`` exactly for a VLM (a block would otherwise skip
     leaves it was given, or miss leaves it needs)."""
@@ -70,7 +75,7 @@ def _check(params: Dict, cfg: ModelConfig) -> None:
             raise ValueError(f"{cfg.name!r}: {key} in the tree "
                              f"{key in params}, in its config {want}")
     d = cfg.d_model
-    blocks = [params["shared_attn"]] if hybrid else []
+    blocks = [(params["shared_attn"], "attn", 0)] if hybrid else []
     stacks = [("segments", params["segments"], plan, cfg.is_encoder_decoder)]
     if cfg.is_encoder_decoder:
         enc = params["encoder"]
@@ -100,7 +105,7 @@ def _check(params: Dict, cfg: ModelConfig) -> None:
                                      f"{depth} layers, {cfg.name!r}'s plan "
                                      f"{count}")
                 if unit[int(j)] != "mamba":
-                    blocks.append(seg[j])
+                    blocks.append((seg[j], unit[int(j)], 1))
                     if ("cross" in seg[j]) != cross or (
                             "cross_norm" in seg[j]) != cross:
                         raise ValueError(
@@ -111,23 +116,69 @@ def _check(params: Dict, cfg: ModelConfig) -> None:
                   else [])
     want_mlp = ({"w1", "w2"} if cfg.mlp_kind == "gelu"
                 else {"wi_gate", "wi_up", "wo"})
-    for block in blocks:
+    for block, kind, stacked in blocks:
         posts = sorted(k for k in block if k.startswith("post_"))
         if posts != want_posts:
             raise ValueError(f"{cfg.name!r}: post-norms {posts} in the tree, "
                              f"sandwich_norm {cfg.sandwich_norm}")
-        if set(block["mlp"]) != want_mlp:
+        ffn = "moe" if tf.is_moe(kind) else "mlp"
+        if ffn not in block or {"mlp", "moe"} & set(block) != {ffn}:
+            raise ValueError(f"{cfg.name!r}: a {kind!r} block holds "
+                             f"{sorted(block)}, wanted its {ffn!r}")
+        if ffn == "moe":
+            _check_moe(block["moe"], cfg, stacked, want_mlp)
+        elif set(block["mlp"]) != want_mlp:
             raise ValueError(f"{cfg.name!r}: MLP leaves {sorted(block['mlp'])}"
                              f", mlp_kind {cfg.mlp_kind!r}")
+        if tf.is_mla(kind):
+            _check_mla(block["attn"], cfg, stacked)
+        elif "w_dkv" in block["attn"]:
+            raise ValueError(f"{cfg.name!r}: MLA leaves in a {kind!r} "
+                             "block")
     _check_shape("embed", params["embed"], (cfg.vocab_size, d))
     dt = dtype_of(cfg.dtype)
     if params["embed"].dtype != dt:
         raise ValueError(f"embed dtype {params['embed'].dtype} != {dt}")
 
 
-def _check_shape(name: str, leaf, want) -> None:
-    if tuple(leaf.shape) != tuple(want):
-        raise ValueError(f"{name} {tuple(leaf.shape)} != {tuple(want)}")
+def _check_moe(moe: Dict, cfg: ModelConfig, stacked: int,
+               want_mlp) -> None:
+    """A MoE block's leaves and shapes (behind ``stacked`` layer axes)."""
+    d, e, f = cfg.d_model, cfg.num_experts, cfg.resolved_moe_d_ff
+    want = {"router", "wi_gate", "wi_up", "wo"}
+    if cfg.num_shared_experts > 0:
+        want.add("shared")
+    if set(moe) != want:
+        raise ValueError(f"{cfg.name!r}: MoE leaves {sorted(moe)}, wanted "
+                         f"{sorted(want)}")
+    for name, shape in (("router", (d, e)), ("wi_gate", (e, d, f)),
+                        ("wi_up", (e, d, f)), ("wo", (e, f, d))):
+        _check_shape(f"moe {name}", moe[name], shape, stacked)
+    if "shared" in moe and set(moe["shared"]) != want_mlp:
+        raise ValueError(f"{cfg.name!r}: shared expert leaves "
+                         f"{sorted(moe['shared'])}")
+
+
+def _check_mla(attn: Dict, cfg: ModelConfig, stacked: int) -> None:
+    """An MLA block's attention leaves and shapes."""
+    d, h, lora = cfg.d_model, cfg.num_heads, cfg.kv_lora_rank
+    nope, rdim = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    want = {"wq": (d, h * (nope + rdim)), "w_dkv": (d, lora + rdim),
+            "w_uk": (lora, h * nope), "w_uv": (lora, h * cfg.v_head_dim),
+            "wo": (h * cfg.v_head_dim, d)}
+    if set(attn) != {*want, "kv_norm"}:
+        raise ValueError(f"{cfg.name!r}: MLA leaves {sorted(attn)}, wanted "
+                         f"{sorted({*want, 'kv_norm'})}")
+    for name, shape in want.items():
+        _check_shape(f"mla {name}", attn[name], shape, stacked)
+    _check_shape("mla kv_norm", attn["kv_norm"]["scale"], (lora,), stacked)
+
+
+def _check_shape(name: str, leaf, want, lead: int = 0) -> None:
+    """``leaf``'s shape behind its first ``lead`` (layer-stack) axes."""
+    if tuple(leaf.shape)[lead:] != tuple(want):
+        raise ValueError(f"{name} {tuple(leaf.shape)[lead:]} != "
+                         f"{tuple(want)}")
 
 
 def params_from_numpy(tree: Any, cfg: ModelConfig,

@@ -29,7 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # every attention library takes any (d, dv) pair of these; a library may
 # also take d = dv of dims of its own (``dispatch_head_dims<...>`` in
-# ``csrc/attention_common.cuh``)
+# ``csrc/attention_common.cuh``) and (d, dv) pairs of its own
+# (``dispatch_head_pairs<HeadPair<d, dv>...>``)
 PAIR_HEAD_DIMS = (32, 64, 128, 256)
 
 _FNS: Dict[str, "ctypes._CFuncPtr"] = {}      # C entry point by symbol
@@ -106,14 +107,16 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
-def check_head_dims(d: int, dv: int, dims: Sequence[int], what: str) -> None:
-    """Raise ``ValueError`` unless ``what``, instantiated for ``dims``,
-    takes (d, dv): any pair of ``PAIR_HEAD_DIMS``, and d = dv of its other
-    dims."""
-    if d in dims and dv in dims and (
+def check_head_dims(d: int, dv: int, dims: Sequence[int], what: str,
+                    pairs: Sequence = ()) -> None:
+    """Raise ``ValueError`` unless ``what``, instantiated for ``dims`` and
+    the (d, dv) ``pairs``, takes (d, dv): any pair of ``PAIR_HEAD_DIMS``,
+    d = dv of its other dims, and each of ``pairs``."""
+    if (d, dv) in pairs or d in dims and dv in dims and (
             d == dv or (d in PAIR_HEAD_DIMS and dv in PAIR_HEAD_DIMS)):
         return
     extra = tuple(x for x in dims if x not in PAIR_HEAD_DIMS)
     raise ValueError(
         f"head dims d={d}, dv={dv}: {what} takes any (d, dv) pair of "
-        f"{PAIR_HEAD_DIMS}" + (f" and d = dv in {extra}" if extra else ""))
+        f"{PAIR_HEAD_DIMS}" + (f", d = dv in {extra}" if extra else "")
+        + (f" and (d, dv) in {tuple(pairs)}" if pairs else ""))

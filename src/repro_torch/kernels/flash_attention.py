@@ -39,8 +39,12 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-# both kernels: any pair of PAIR_HEAD_DIMS, and 112 with dv = d (zamba2-7b)
+# both kernels: any pair of PAIR_HEAD_DIMS, and 112 with dv = d (zamba2-7b);
+# the forward also MLA's (d, dv) pairs: deepseek-v2-lite's nope + rope 192
+# with v 128, and 48 with 32 on its reduced config.  The backward does not
+# take them: a loss through MLA on the card raises.
 FWD_HEAD_DIMS = BWD_HEAD_DIMS = build.PAIR_HEAD_DIMS + (112,)
+FWD_PAIRS = ((192, 128), (48, 32))
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
@@ -83,6 +87,8 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, scale, q_offset):
+        # refuse what the backward does not take before the forward runs
+        check_args(q, k, v, backward=True)
         mask = dict(causal=causal, window=window, softcap=softcap,
                     scale=scale, q_offset=q_offset)
         out, lse = flash_attention_cuda(q, k, v, return_lse=True, **mask)
@@ -148,9 +154,12 @@ def check_args(q, k, v, *, backward: bool = False) -> None:
                          f"{tuple(k.shape)} v {tuple(v.shape)}")
     if hkv == 0 or hq % hkv:
         raise ValueError(f"hq {hq} is not a multiple of hkv {hkv}")
-    build.check_head_dims(
-        d, v.shape[3], BWD_HEAD_DIMS if backward else FWD_HEAD_DIMS,
-        "the flash backward kernel" if backward else "the flash kernel")
+    if backward:
+        build.check_head_dims(d, v.shape[3], BWD_HEAD_DIMS,
+                              "the flash backward kernel")
+    else:
+        build.check_head_dims(d, v.shape[3], FWD_HEAD_DIMS,
+                              "the flash kernel", FWD_PAIRS)
     if b == 0 or sq == 0 or sk == 0:
         raise ValueError("empty batch or sequence")
     for name, t in (("q", q), ("k", k), ("v", v)):

@@ -17,6 +17,19 @@ K/V heads, projected once from the encoder output (``cross_kv``) and kept
 in the cache as ``ck`` / ``cv`` (b, hq, enc_seq, hd); every query, of a
 prefill and of each decode step (sq = 1), attends all of them through the
 flash kernel with no causal mask, as the reference does.
+
+Multi-head latent attention (DeepSeek-V2's ``mla`` kinds) caches one
+latent a token instead of per-head K/V: ``c_kv`` (b, S, kv_lora_rank),
+RMS-normalized, and ``k_rope`` (b, S, qk_rope_head_dim), one rotated key
+head shared by every query head.  The full-sequence path up-projects the
+latent to per-head keys (nope part from ``w_uk``, the shared rope head
+broadcast beside it) and values (``w_uv``) and runs the flash kernel at
+q / k head dim nope + rope and v head dim ``v_head_dim`` (192 / 128 at
+deepseek-v2-lite's width, 48 / 32 on ``reduced()``), scaled by (nope +
+rope) ** -0.5.  The decode step attends in the latent space (the absorbed
+form): ``w_uk`` folds into the query and ``w_uv`` into the output, in
+float32 einsums, as the reference's plain XLA decode; it runs as plain
+PyTorch on the card too, as there is no Pallas kernel behind it.
 """
 from __future__ import annotations
 
@@ -170,6 +183,105 @@ def cross_kv(p, cfg: ModelConfig, enc_out: torch.Tensor) -> Dict:
     k = promoted_matmul(enc_out, p["wk"]).reshape(b, se, hq, hd)
     v = promoted_matmul(enc_out, p["wv"]).reshape(b, se, hq, hd)
     return {"ck": k.transpose(1, 2), "cv": v.transpose(1, 2)}
+
+
+def init_mla(generator: torch.Generator, cfg: ModelConfig, *, device,
+             dtype) -> Dict:
+    d, h = cfg.d_model, cfg.num_heads
+    nope, rdim, vdim = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                        cfg.v_head_dim)
+    lora = cfg.kv_lora_rank
+    p = {name: dense_init(shape, generator, device=device, dtype=dtype)
+         for name, shape in (("wq", (d, h * (nope + rdim))),
+                             ("w_dkv", (d, lora + rdim)))}
+    p["kv_norm"] = init_rmsnorm(lora, device=device, dtype=dtype)
+    for name, shape in (("w_uk", (lora, h * nope)),
+                        ("w_uv", (lora, h * vdim)), ("wo", (h * vdim, d))):
+        p[name] = dense_init(shape, generator, device=device, dtype=dtype)
+    return p
+
+
+def _mla_q(p, cfg: ModelConfig, x, cos, sin):
+    """(q_nope (b, s, h, nope), q_rope (b, s, h, rope) rotated)."""
+    b, s, _ = x.shape
+    nope = cfg.qk_nope_head_dim
+    q = (x @ p["wq"]).reshape(b, s, cfg.num_heads,
+                              nope + cfg.qk_rope_head_dim)
+    return q[..., :nope], rope_mod.apply_rope(q[..., nope:], cos, sin)
+
+
+def _mla_compress(p, cfg: ModelConfig, x, cos, sin):
+    """The latent of x: (c_kv (b, s, lora) normalized, k_rope (b, s, rope)
+    rotated as one head)."""
+    lora = cfg.kv_lora_rank
+    dkv = x @ p["w_dkv"]
+    c_kv = rmsnorm(p["kv_norm"], dkv[..., :lora], cfg.rmsnorm_eps)
+    k_rope = rope_mod.apply_rope(dkv[..., lora:][:, :, None], cos, sin)
+    return c_kv, k_rope[:, :, 0]
+
+
+def mla_full(p, cfg: ModelConfig, x, cos, sin, *, kind: str = "mla",
+             causal: bool = True) -> Tuple[torch.Tensor, Dict]:
+    """Full-sequence MLA in the up-projected form (train and prefill):
+    q and k of head dim nope + rope, v of ``v_head_dim``, one flash call.
+    Returns (y, {"c_kv", "k_rope"}), the latent cache of the sequence."""
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    nope, rdim, vdim = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                        cfg.v_head_dim)
+    q_nope, q_rope = _mla_q(p, cfg, x, cos, sin)
+    c_kv, k_rope = _mla_compress(p, cfg, x, cos, sin)
+    k_nope = (c_kv @ p["w_uk"]).reshape(b, s, h, nope)
+    v = (c_kv @ p["w_uv"]).reshape(b, s, h, vdim)
+    q = torch.cat([q_nope, q_rope], -1)
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(b, s, h, rdim)], -1)
+    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=causal,
+                              scale=(nope + rdim) ** -0.5,
+                              window=resolve_window(cfg, kind),
+                              softcap=cfg.logit_softcap)
+    y = out.transpose(1, 2).reshape(b, s, h * vdim)
+    return y @ p["wo"], {"c_kv": c_kv, "k_rope": k_rope}
+
+
+def mla_decode(p, cfg: ModelConfig, x, cos, sin, cache: Dict,
+               pos: torch.Tensor, *, kind: str = "mla") -> torch.Tensor:
+    """Absorbed-form MLA decode: attention runs in the latent space.
+
+    cache: {"c_kv": (b, S, lora), "k_rope": (b, S, rope)}; pos: (b,) — row
+    i's new latent lands at slot ``pos[i]`` (written IN PLACE, as
+    ``gqa_decode``) and it attends slots 0..pos[i].  ``w_uk`` is folded
+    into the query and ``w_uv`` into the output, all in float32."""
+    b = x.shape[0]
+    h = cfg.num_heads
+    nope, rdim, vdim = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                        cfg.v_head_dim)
+    lora = cfg.kv_lora_rank
+    q_nope, q_rope = _mla_q(p, cfg, x, cos, sin)
+    c_new, r_new = _mla_compress(p, cfg, x, cos, sin)
+    rows = torch.arange(b, device=x.device)
+    ckv, krope = cache["c_kv"], cache["k_rope"]
+    ckv[rows, pos] = c_new[:, 0].to(ckv.dtype)
+    krope[rows, pos] = r_new[:, 0].to(krope.dtype)
+    w_uk = p["w_uk"].reshape(lora, h, nope).float()
+    q_lat = torch.einsum("bhn,lhn->bhl", q_nope[:, 0].float(), w_uk)
+    scale = (nope + rdim) ** -0.5
+    ckv32 = ckv.float()
+    s = (torch.einsum("bhl,bsl->bhs", q_lat, ckv32) * scale
+         + torch.einsum("bhr,bsr->bhs", q_rope[:, 0].float(), krope.float())
+         * scale)
+    if cfg.logit_softcap > 0.0:
+        s = cfg.logit_softcap * torch.tanh(s / cfg.logit_softcap)
+    kpos = torch.arange(ckv.shape[1], device=x.device)[None, None]
+    mask = kpos <= pos[:, None, None]
+    window = resolve_window(cfg, kind)
+    if window > 0:
+        mask = mask & (kpos > pos[:, None, None] - window)
+    probs = torch.softmax(torch.where(mask, s, -1e30), dim=-1)
+    ctx = torch.einsum("bhs,bsl->bhl", probs, ckv32)
+    w_uv = p["w_uv"].reshape(lora, h, vdim).float()
+    v_ctx = torch.einsum("bhl,lhv->bhv", ctx, w_uv)
+    return v_ctx.reshape(b, 1, h * vdim).to(x.dtype) @ p["wo"]
 
 
 def cross_attend(p, cfg: ModelConfig, x: torch.Tensor, kv: Dict

@@ -18,13 +18,18 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 def dense_init(shape, generator: torch.Generator, *, device,
-               dtype=torch.float32, scale: float = 1.0) -> torch.Tensor:
+               dtype=torch.float32, scale: float = 1.0,
+               stacked: bool = False) -> torch.Tensor:
     """Truncated-normal fan-in init, the distribution of the JAX
-    ``dense_init`` (std = scale / sqrt(fan_in), cut at +-2 std)."""
-    fan_in = shape[0] if len(shape) >= 2 else max(1, shape[-1])
+    ``dense_init`` (std = scale / sqrt(fan_in), cut at +-2 std).
+    ``stacked``: ``shape[0]`` counts matrices of ``shape[1:]`` (a MoE
+    layer's experts, the reference's ``vmap`` of ``dense_init``), each with
+    the fan-in ``shape[1]``."""
+    mat = shape[1:] if stacked else shape
+    fan_in = mat[0] if len(mat) >= 2 else max(1, mat[-1])
     t = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (t * (scale / fan_in ** 0.5)).to(dtype)
+    return t.mul_(scale / fan_in ** 0.5).to(dtype)
 
 
 def embed_init(shape, generator: torch.Generator, *, device,

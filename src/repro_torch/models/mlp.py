@@ -12,8 +12,9 @@ from repro_torch.models.common import dense_init
 
 
 def init_mlp(generator: torch.Generator, cfg: ModelConfig, *, device,
-             dtype) -> Dict:
-    d, f = cfg.d_model, cfg.d_ff
+             dtype, d_ff: int = 0) -> Dict:
+    """An MLP of hidden width ``d_ff`` (0: ``cfg.d_ff``)."""
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     names = ((("w1", (d, f)), ("w2", (f, d))) if cfg.mlp_kind == "gelu" else
              (("wi_gate", (d, f)), ("wi_up", (d, f)), ("wo", (f, d))))
     return {name: dense_init(shape, generator, device=device, dtype=dtype)

@@ -1,7 +1,9 @@
 """Top-level model API of the estimator backbones: the dense GQA stacks
 (gemma2's local / global one included), the pure-SSM Mamba2 stack, the
-zamba2 hybrid, and the multimodal-stub backbones: Qwen2-VL's (M-RoPE,
-projected patch embeddings) and whisper's encoder-decoder.
+zamba2 hybrid, the multimodal-stub backbones: Qwen2-VL's (M-RoPE,
+projected patch embeddings) and whisper's encoder-decoder, and the
+mixture-of-experts stacks: Qwen3-MoE (GQA + MoE) and DeepSeek-V2 (MLA,
+shared + routed experts, a dense first layer).
 
   init_params(cfg, *, seed, device)          -> params dict
   forward_train(params, cfg, batch)          -> (logits (b, s, V), aux)
@@ -19,7 +21,10 @@ Caches are a tuple with one dict per segment, ``{"<j>": {"k", "v"}}`` of
 shape (L, b, hkv, S, hd) for an attention layer (a shared block's: one per
 occurrence), ``{"<j>": {"conv", "ssm"}}`` of shape (L, b, width - 1,
 d_inner + 2 n) in the model dtype and (L, b, heads, head_dim, n) in float32
-for a mamba layer.  gemma2 scales its embeddings by sqrt(d_model) (the
+for a mamba layer, ``{"<j>": {"c_kv", "k_rope"}}`` of shape (L, b, S,
+kv_lora_rank) and (L, b, S, qk_rope_head_dim) for an MLA layer (no ring
+buffer, no window).  An MLA stack rotates ``qk_rope_head_dim`` dims of
+its queries and its shared key head.  gemma2 scales its embeddings by sqrt(d_model) (the
 factor rounded to the model dtype first, as the reference does) and softcaps
 its logits in float32, so its prefill and decode logits are float32; every
 other stack's are in the model dtype.
@@ -158,12 +163,13 @@ def _cos_sin(cfg: ModelConfig, pos: torch.Tensor, pos3=None):
     if cfg.rope_kind == "none" or (cfg.is_attention_free()
                                    and cfg.shared_attn_every == 0):
         return None, None
+    dim = cfg.qk_rope_head_dim if cfg.has_mla() else cfg.resolved_head_dim
     if cfg.rope_kind == "mrope":
         if pos3 is None:
             pos3 = rope_mod.text_positions_3d(pos)
-        return rope_mod.mrope_cos_sin(pos3, cfg.resolved_head_dim,
-                                      cfg.rope_theta, cfg.mrope_sections)
-    return rope_mod.rope_cos_sin(pos, cfg.resolved_head_dim, cfg.rope_theta)
+        return rope_mod.mrope_cos_sin(pos3, dim, cfg.rope_theta,
+                                      cfg.mrope_sections)
+    return rope_mod.rope_cos_sin(pos, dim, cfg.rope_theta)
 
 
 def _encode(params, cfg: ModelConfig, enc_features: torch.Tensor, *,
@@ -181,15 +187,16 @@ def _encode(params, cfg: ModelConfig, enc_features: torch.Tensor, *,
     if h.dtype != enc["frontend_proj"].dtype:
         seg = tree_map(lambda t: t.to(torch.promote_types(t.dtype, h.dtype)),
                        seg)
-    h, _ = tf.segment_full(seg, None, cfg, ("attn",), cfg.num_encoder_layers,
-                           h, None, None, causal=False, remat=remat,
-                           want_cache=False)
+    h, _, _ = tf.segment_full(seg, None, cfg, ("attn",),
+                              cfg.num_encoder_layers, h, None, None,
+                              causal=False, remat=remat, want_cache=False)
     return rmsnorm(enc["final_norm"], h, cfg.rmsnorm_eps)
 
 
 def _forward_full(params, cfg: ModelConfig, batch: Dict, *,
                   want_cache: bool, remat: bool = True):
-    """(logits, caches) of the full sequence; ``caches`` is () without
+    """(logits, aux, caches) of the full sequence: ``aux`` the summed MoE
+    load-balance losses (0 without MoE), ``caches`` () without
     ``want_cache``."""
     tokens = batch["tokens"]
     b, s = tokens.shape
@@ -199,13 +206,17 @@ def _forward_full(params, cfg: ModelConfig, batch: Dict, *,
     enc_out = (_encode(params, cfg, batch["enc_features"], remat=remat)
                if cfg.is_encoder_decoder else None)
     caches = []
+    aux = h.new_zeros((), dtype=torch.float32)
     for seg, (unit, count) in zip(params["segments"], tf.build_plan(cfg),
                                   strict=True):
-        h, cache = tf.segment_full(seg, params.get("shared_attn"), cfg, unit,
-                                   count, h, cos, sin, enc_out=enc_out,
-                                   remat=remat, want_cache=want_cache)
+        h, a, cache = tf.segment_full(seg, params.get("shared_attn"), cfg,
+                                      unit, count, h, cos, sin,
+                                      enc_out=enc_out, remat=remat,
+                                      want_cache=want_cache)
+        aux = aux + a
         caches.append(cache)
-    return _logits(params, cfg, h), (tuple(caches) if want_cache else ())
+    return (_logits(params, cfg, h), aux,
+            tuple(caches) if want_cache else ())
 
 
 def forward_train(params, cfg: ModelConfig, batch: Dict, *,
@@ -213,20 +224,23 @@ def forward_train(params, cfg: ModelConfig, batch: Dict, *,
     """The full forward over ``batch`` (the keys above) with no caches:
     (logits (b, s, V) in the model dtype, or float32 under a final softcap,
     aux).  Each layer is one checkpoint when ``remat`` (the reference's
-    default); ``aux`` (the MoE router loss in the reference) is 0 for
-    every stack, dense, pure-SSM, hybrid and multimodal.  On the card the
-    attention (the hybrid's tied block, the encoder and the cross-attention
-    included) runs the flash forward and backward kernels, and a mamba
-    layer's SSD runs the scan kernel forward and ``csrc/ssd_scan_bwd.cu``
-    backward (``kernels.ssd_scan.SSDScan``)."""
-    logits, _ = _forward_full(params, cfg, batch, want_cache=False,
-                              remat=remat)
-    return logits, torch.zeros((), device=logits.device)
+    default); ``aux`` is the sum of the MoE layers' load-balance losses
+    (float32; 0 for a stack without MoE).  On the card the attention (the
+    hybrid's tied block, the encoder and the cross-attention included)
+    runs the flash forward and backward kernels, and a mamba layer's SSD
+    runs the scan kernel forward and ``csrc/ssd_scan_bwd.cu`` backward
+    (``kernels.ssd_scan.SSDScan``).  MLA's flash call (q, k of nope + rope,
+    v of ``v_head_dim``) has no backward kernel at those head dims: on the
+    card, a loss through an MLA stack raises the wrapper's ValueError."""
+    logits, aux, _ = _forward_full(params, cfg, batch, want_cache=False,
+                                   remat=remat)
+    return logits, aux
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict, *, remat: bool = True):
-    """Masked next-token cross-entropy in float32 over the full vocabulary:
-    (loss, {"ce", "aux", "acc"}).  ``batch["labels"]`` (b, s), -100 = ignore;
+    """Masked next-token cross-entropy in float32 over the full vocabulary,
+    plus ``router_aux_coef`` times the MoE load-balance loss: (loss, {"ce",
+    "aux", "acc"}).  ``batch["labels"]`` (b, s), -100 = ignore;
     without labels, position t predicts token t + 1 and the last position
     is ignored."""
     logits, aux = forward_train(params, cfg, batch, remat=remat)
@@ -243,17 +257,18 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict, *, remat: bool = True):
     denom = torch.clamp(mask.sum(), min=1).float()
     ce = torch.sum(nll * maskf) / denom
     acc = torch.sum((torch.argmax(logits, -1) == safe).float() * maskf) / denom
-    # the reference adds router_aux_coef * aux, and aux is 0 here
-    return ce, {"ce": ce, "aux": aux, "acc": acc}
+    return ce + cfg.router_aux_coef * aux, {"ce": ce, "aux": aux, "acc": acc}
 
 
 def prefill(params, cfg: ModelConfig, batch: Dict):
     """The full forward over ``batch`` (the keys above); returns the logits
-    and per-layer caches: K/V sized to the prompt (seq axis = s), a mamba
-    layer's conv window and final SSM state, a cross block's ck / cv.  An
-    encoder-decoder needs ``batch["enc_features"]`` (KeyError without it,
-    as in the reference)."""
-    return _forward_full(params, cfg, batch, want_cache=True)
+    and per-layer caches: K/V (or an MLA layer's latent) sized to the
+    prompt (seq axis = s), a mamba layer's conv window and final SSM
+    state, a cross block's ck / cv.  An encoder-decoder needs
+    ``batch["enc_features"]`` (KeyError without it, as in the
+    reference)."""
+    logits, _, caches = _forward_full(params, cfg, batch, want_cache=True)
+    return logits, caches
 
 
 def decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches,
@@ -286,7 +301,8 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
     windowed attention layer's K/V get ``min(max_len, window)`` slots (at
     exactly ``window`` slots its decode is the ring buffer), and an
     encoder-decoder's attention layers add zero ``ck`` / ``cv`` (L, b, hq,
-    enc_seq, hd)."""
+    enc_seq, hd).  An MLA layer's latent caches hold ``max_len`` slots,
+    never a ring."""
     dev = resolve_device(device)
     dt = dtype_of(cfg.dtype)
 
@@ -299,10 +315,16 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
                     "ssm": ((count, batch_size, cfg.resolved_ssm_heads,
                              cfg.ssm_head_dim, cfg.ssm_state), torch.float32)}
         hd = cfg.resolved_head_dim
-        w = resolve_window(cfg, kind)
-        shape = (count, batch_size, cfg.num_kv_heads,
-                 min(max_len, w) if w > 0 else max_len, hd)
-        leaves = {"k": (shape, dt), "v": (shape, dt)}
+        if tf.is_mla(kind):
+            leaves = {"c_kv": ((count, batch_size, max_len,
+                                cfg.kv_lora_rank), dt),
+                      "k_rope": ((count, batch_size, max_len,
+                                  cfg.qk_rope_head_dim), dt)}
+        else:
+            w = resolve_window(cfg, kind)
+            shape = (count, batch_size, cfg.num_kv_heads,
+                     min(max_len, w) if w > 0 else max_len, hd)
+            leaves = {"k": (shape, dt), "v": (shape, dt)}
         if cfg.is_encoder_decoder:
             cross = (count, batch_size, cfg.num_heads, cfg.encoder_seq_len,
                      hd)

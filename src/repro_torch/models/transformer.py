@@ -1,6 +1,6 @@
-"""Decoder and encoder stacks: the ``attn``, ``attn_local`` and ``mamba``
-block kinds, the zamba2 hybrid's ``shared_attn``, whisper's cross-attention,
-and a loop over stacked layers.
+"""Decoder and encoder stacks: the ``attn``, ``attn_local``, ``mla``,
+``moe``, ``mla_moe`` and ``mamba`` block kinds, the zamba2 hybrid's
+``shared_attn``, whisper's cross-attention, and a loop over stacked layers.
 
 As in the JAX package, layers are grouped into segments of a repeated unit
 whose parameters are stacked on a leading layer axis (gemma2: one unit
@@ -36,6 +36,7 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import init_rmsnorm, rmsnorm
 
@@ -45,7 +46,9 @@ def build_plan(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
     ``shared_attn_every`` mambas and the shared block as one unit, then the
     remaining mambas; for a pattern of several kinds that fills the stack
     a whole number of times, the pattern as one unit; otherwise consecutive
-    identical kinds grouped."""
+    identical kinds grouped, after the first ``first_dense_layers`` MoE
+    layers became dense (deepseek-v2: ``[(("mla",), 1), (("mla_moe",),
+    26)]``)."""
     if cfg.has_ssm() and cfg.shared_attn_every > 0:
         every = cfg.shared_attn_every
         full, rem = divmod(cfg.num_layers, every)
@@ -55,11 +58,15 @@ def build_plan(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
         if rem:
             plan.append((("mamba",), rem))
         return plan
-    kinds = cfg.layer_kinds()
+    kinds = list(cfg.layer_kinds())
+    for i in range(min(cfg.first_dense_layers, len(kinds))):
+        kinds[i] = {"mla_moe": "mla", "moe": "attn"}.get(kinds[i], kinds[i])
     pat = tuple(cfg.block_pattern)
     # layer_kinds() repeats the pattern, so it fills the stack exactly when
-    # the depth is a multiple of its length
-    if len(pat) > 1 and len(kinds) % len(pat) == 0:
+    # the depth is a multiple of its length (and no first layer was made
+    # dense)
+    if (len(pat) > 1 and len(kinds) % len(pat) == 0
+            and all(k == pat[i % len(pat)] for i, k in enumerate(kinds))):
         return [(pat, len(kinds) // len(pat))]
     plan = []
     i = 0
@@ -72,6 +79,14 @@ def build_plan(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
     return plan
 
 
+def is_mla(kind: str) -> bool:
+    return kind in ("mla", "mla_moe")
+
+
+def is_moe(kind: str) -> bool:
+    return kind in ("moe", "mla_moe")
+
+
 def init_block(generator: torch.Generator, cfg: ModelConfig, kind: str, *,
                device, dtype, cross: bool = False) -> Dict:
     d = cfg.d_model
@@ -79,11 +94,16 @@ def init_block(generator: torch.Generator, cfg: ModelConfig, kind: str, *,
         return {"norm": init_rmsnorm(d, device=device, dtype=dtype),
                 "mamba": ssm_mod.init_mamba(generator, cfg, device=device,
                                             dtype=dtype)}
+    init_attn = attn_mod.init_mla if is_mla(kind) else attn_mod.init_gqa
     p = {"attn_norm": init_rmsnorm(d, device=device, dtype=dtype),
          "mlp_norm": init_rmsnorm(d, device=device, dtype=dtype),
-         "attn": attn_mod.init_gqa(generator, cfg, device=device,
-                                   dtype=dtype),
-         "mlp": mlp_mod.init_mlp(generator, cfg, device=device, dtype=dtype)}
+         "attn": init_attn(generator, cfg, device=device, dtype=dtype)}
+    if is_moe(kind):
+        p["moe"] = moe_mod.init_moe(generator, cfg, device=device,
+                                    dtype=dtype)
+    else:
+        p["mlp"] = mlp_mod.init_mlp(generator, cfg, device=device,
+                                    dtype=dtype)
     if cfg.sandwich_norm:
         p["post_attn_norm"] = init_rmsnorm(d, device=device, dtype=dtype)
         p["post_mlp_norm"] = init_rmsnorm(d, device=device, dtype=dtype)
@@ -99,12 +119,37 @@ def init_segment(generator: torch.Generator, cfg: ModelConfig,
                  cross: bool = False) -> Dict:
     """Stacked per-unit params ``{"<j>": (count, ...) leaves}``;
     ``shared_attn`` positions hold none (the tied set lives at model
-    level).  ``cross`` gives each block a cross-attention."""
-    return {str(j): stack_trees([init_block(generator, cfg, kind,
-                                            device=device, dtype=dtype,
-                                            cross=cross)
-                                 for _ in range(count)])
-            for j, kind in enumerate(unit) if kind != "shared_attn"}
+    level).  ``cross`` gives each block a cross-attention.  Each layer is
+    made and copied into its slot of the stack in turn, so the stack and
+    one layer are all that is ever held (a qwen3-moe layer is ~5 GB)."""
+    seg = {}
+    for j, kind in enumerate(unit):
+        if kind == "shared_attn":
+            continue
+        stack = None
+        for i in range(count):
+            block = init_block(generator, cfg, kind, device=device,
+                               dtype=dtype, cross=cross)
+            if stack is None:
+                stack = _empty_stack(block, count)
+            _copy_layer(stack, block, i)
+            del block
+        seg[str(j)] = stack
+    return seg
+
+
+def _empty_stack(block: Dict, count: int) -> Dict:
+    if isinstance(block, dict):
+        return {k: _empty_stack(v, count) for k, v in block.items()}
+    return block.new_empty((count, *block.shape))
+
+
+def _copy_layer(stack: Dict, block: Dict, i: int) -> None:
+    if isinstance(stack, dict):
+        for k in stack:
+            _copy_layer(stack[k], block[k], i)
+    else:
+        stack[i].copy_(block)
 
 
 def stack_trees(trees: List[Dict]) -> Dict:
@@ -134,26 +179,30 @@ def layer_view(tree: Dict, i: int) -> Dict:
 
 def block_full(p: Dict, cfg: ModelConfig, kind: str, h: torch.Tensor, cos,
                sin, enc_out=None, causal: bool = True
-               ) -> Tuple[torch.Tensor, Dict]:
+               ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
+    """(h, the layer's cache, its MoE load-balance loss: 0 without MoE)."""
     if kind == "mamba":
         y, cache = ssm_mod.mamba_full(p["mamba"], cfg,
                                       rmsnorm(p["norm"], h, cfg.rmsnorm_eps))
-        return h + y, cache
+        return h + y, cache, h.new_zeros((), dtype=torch.float32)
     x = rmsnorm(p["attn_norm"], h, cfg.rmsnorm_eps)
-    y, cache = attn_mod.gqa_full(p["attn"], cfg, x, cos, sin, kind=kind,
-                                 causal=causal)
+    attend = attn_mod.mla_full if is_mla(kind) else attn_mod.gqa_full
+    y, cache = attend(p["attn"], cfg, x, cos, sin, kind=kind, causal=causal)
     ckv = None
     if "cross" in p and enc_out is not None:
         ckv = attn_mod.cross_kv(p["cross"], cfg, enc_out)
         cache.update(ckv)
-    return _attn_block_tail(p, cfg, h, y, ckv), cache
+    h, aux = _attn_block_tail(p, cfg, kind, h, y, ckv)
+    return h, cache, aux
 
 
-def _attn_block_tail(p: Dict, cfg: ModelConfig, h: torch.Tensor,
-                     y: torch.Tensor, ckv=None) -> torch.Tensor:
-    """The residual adds and the MLP after an attention output ``y``, with
-    gemma2's post-norms under ``sandwich_norm`` and, given the encoder's
-    ``ckv``, the cross-attention between the two."""
+def _attn_block_tail(p: Dict, cfg: ModelConfig, kind: str, h: torch.Tensor,
+                     y: torch.Tensor, ckv=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The residual adds and the MLP (or MoE) after an attention output
+    ``y``, with gemma2's post-norms under ``sandwich_norm`` and, given the
+    encoder's ``ckv``, the cross-attention between the two.  Returns (h,
+    aux)."""
     if cfg.sandwich_norm:
         y = rmsnorm(p["post_attn_norm"], y, cfg.rmsnorm_eps)
     h = h + y
@@ -161,40 +210,52 @@ def _attn_block_tail(p: Dict, cfg: ModelConfig, h: torch.Tensor,
         h = h + attn_mod.cross_attend(
             p["cross"], cfg, rmsnorm(p["cross_norm"], h, cfg.rmsnorm_eps),
             ckv)
-    y2 = mlp_mod.mlp_forward(p["mlp"], cfg,
-                             rmsnorm(p["mlp_norm"], h, cfg.rmsnorm_eps))
+    x2 = rmsnorm(p["mlp_norm"], h, cfg.rmsnorm_eps)
+    if is_moe(kind):
+        y2, aux = moe_mod.moe_forward(p["moe"], cfg, x2)
+    else:
+        y2 = mlp_mod.mlp_forward(p["mlp"], cfg, x2)
+        aux = h.new_zeros((), dtype=torch.float32)
     if cfg.sandwich_norm:
         y2 = rmsnorm(p["post_mlp_norm"], y2, cfg.rmsnorm_eps)
-    return h + y2
+    return h + y2, aux
 
 
 def block_decode(p: Dict, cfg: ModelConfig, kind: str, h: torch.Tensor,
                  cos, sin, cache: Dict, pos: torch.Tensor,
                  paged=None) -> torch.Tensor:
     """Writes the new K/V (or conv window and SSM state) into ``cache`` in
-    place; a cross-attention block reads ``ck`` / ``cv`` from it.
-    ``paged`` = (spec, table) routes K/V through the block-paged layout;
-    ``kv_pool.check_paged_support`` keeps SSM layers and encoder-decoders
-    off it."""
+    place (an MLA layer its latent); a cross-attention block reads ``ck``
+    / ``cv`` from it.  ``paged`` = (spec, table) routes K/V through the
+    block-paged layout; ``kv_pool.check_paged_support`` keeps SSM and MLA
+    layers and encoder-decoders off it.  A MoE block's load-balance loss
+    is dropped, as in the reference's decode."""
     if kind == "mamba":
         return h + ssm_mod.mamba_decode(
             p["mamba"], cfg, rmsnorm(p["norm"], h, cfg.rmsnorm_eps), cache)
     x = rmsnorm(p["attn_norm"], h, cfg.rmsnorm_eps)
-    if paged is None:
-        y = attn_mod.gqa_decode(p["attn"], cfg, x, cos, sin, cache, pos,
-                                kind=kind)
-    else:
+    if paged is not None:
+        if is_mla(kind):
+            raise ValueError("paged decode does not support MLA layers")
         spec, table = paged
         y = attn_mod.gqa_decode_paged(p["attn"], cfg, x, cos, sin, cache,
                                       pos, table, spec)
+    elif is_mla(kind):
+        y = attn_mod.mla_decode(p["attn"], cfg, x, cos, sin, cache, pos,
+                                kind=kind)
+    else:
+        y = attn_mod.gqa_decode(p["attn"], cfg, x, cos, sin, cache, pos,
+                                kind=kind)
     ckv = ({"ck": cache["ck"], "cv": cache["cv"]} if "cross" in p
            else None)
-    return _attn_block_tail(p, cfg, h, y, ckv)
+    return _attn_block_tail(p, cfg, kind, h, y, ckv)[0]
 
 
 def _block_h(p: Dict, cfg: ModelConfig, kind: str, h: torch.Tensor, cos,
-             sin, enc_out, causal: bool) -> torch.Tensor:
-    return block_full(p, cfg, kind, h, cos, sin, enc_out, causal)[0]
+             sin, enc_out, causal: bool
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    h, _, aux = block_full(p, cfg, kind, h, cos, sin, enc_out, causal)
+    return h, aux
 
 
 def segment_full(seg: Dict, shared, cfg: ModelConfig, unit: Tuple[str, ...],
@@ -202,11 +263,14 @@ def segment_full(seg: Dict, shared, cfg: ModelConfig, unit: Tuple[str, ...],
                  enc_out=None, causal: bool = True,
                  remat: bool = True, want_cache: bool = True):
     """Run ``count`` stacked units; ``shared`` is the model-level
-    ``shared_attn`` block (None without one).  Returns (h, {"<j>": cache})
-    with each cache leaf stacked on a leading count axis: k/v (count, b,
-    hkv, s, hd), conv (count, b, width - 1, conv_dim), ssm (count, b,
-    heads, p, n), and a cross-attention block's ck / cv (count, b, hq,
-    enc_seq, hd); the dict is empty when ``want_cache`` is False.
+    ``shared_attn`` block (None without one).  Returns (h, aux, {"<j>":
+    cache}), as the reference's: ``aux`` the sum of the MoE blocks'
+    load-balance losses (f32, 0 without MoE), each cache leaf stacked on a
+    leading count axis: k/v (count, b, hkv, s, hd), c_kv (count, b, s,
+    lora), k_rope (count, b, s, rope), conv (count, b, width - 1,
+    conv_dim), ssm (count, b, heads, p, n), and a cross-attention block's
+    ck / cv (count, b, hq, enc_seq, hd); the dict is empty when
+    ``want_cache`` is False.
     ``enc_out`` is the encoder output the cross blocks attend; ``causal``
     False runs the self-attention unmasked (the encoder).
 
@@ -218,23 +282,25 @@ def segment_full(seg: Dict, shared, cfg: ModelConfig, unit: Tuple[str, ...],
               for j, kind in enumerate(unit) if kind != "shared_attn"}
     per_layer = {str(j): [] for j in range(len(unit))}
     checkpoint = remat and torch.is_grad_enabled()
+    aux = h.new_zeros((), dtype=torch.float32)
     for i in range(count):
         for j, kind in enumerate(unit):
             p, kk = ((shared, "attn") if kind == "shared_attn"
                      else (layers[str(j)][i], kind))
             if want_cache:
-                h, cache = block_full(p, cfg, kk, h, cos, sin, enc_out,
-                                      causal)
+                h, cache, a = block_full(p, cfg, kk, h, cos, sin, enc_out,
+                                         causal)
                 per_layer[str(j)].append(cache)
             elif checkpoint:
-                h = torch.utils.checkpoint.checkpoint(
+                h, a = torch.utils.checkpoint.checkpoint(
                     _block_h, p, cfg, kk, h, cos, sin, enc_out, causal,
                     use_reentrant=False)
             else:
-                h = _block_h(p, cfg, kk, h, cos, sin, enc_out, causal)
+                h, a = _block_h(p, cfg, kk, h, cos, sin, enc_out, causal)
+            aux = aux + a
     if not want_cache:
-        return h, {}
-    return h, {j: stack_trees(kvs) for j, kvs in per_layer.items()}
+        return h, aux, {}
+    return h, aux, {j: stack_trees(kvs) for j, kvs in per_layer.items()}
 
 
 def segment_decode(seg: Dict, shared, cfg: ModelConfig,

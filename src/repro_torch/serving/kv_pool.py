@@ -54,17 +54,21 @@ def _ceil_div(a: int, b: int) -> int:
 
 
 def kv_bytes_per_token(cfg: ModelConfig) -> int:
-    """KV bytes one cached token costs across every attention layer.  As in
-    the reference, an encoder-decoder's cross caches (fixed per row, not
-    per token) are left out."""
+    """KV bytes one cached token costs across every GQA attention layer
+    (``moe`` layers included).  As in the reference, an encoder-decoder's
+    cross caches (fixed per row, not per token) are left out, and so are
+    MLA layers, whose latent (kv_lora_rank + qk_rope_head_dim values a
+    token) the reference's count does not see: deepseek-v2 gives 0 on both
+    sides."""
     itemsize = torch.empty((), dtype=dtype_of(cfg.dtype)).element_size()
     per_layer = 2 * cfg.num_kv_heads * cfg.resolved_head_dim * itemsize
     return per_layer * sum(1 for k in cfg.layer_kinds() if k in ATTN_KINDS)
 
 
 def check_paged_support(cfg: ModelConfig) -> None:
-    """Paged KV covers decoder-only, full-window GQA attention stacks only:
-    encoder cross caches and SSM/conv states have no paged layout, and
+    """Paged KV covers decoder-only, full-window GQA attention stacks only
+    (``moe`` layers included): encoder cross caches, MLA latents and
+    SSM/conv states have no paged layout, and
     windowed ring buffers already cap their own memory.  Loud failure beats
     decoding from the wrong cache lines."""
     if cfg.is_encoder_decoder:

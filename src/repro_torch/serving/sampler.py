@@ -55,10 +55,13 @@ from repro_torch.serving.kv_pool import (KVPool, PagedKV, _ceil_div,
 DECISION_TOKENS = (YES, NO)
 
 # Seq axis of each decode-cache leaf, behind the layer-stack dim:
-#   k / v : (L, b, kv_heads, S, head_dim) -> axis 3
-# Everything else (the mamba conv window and SSM state) has no decode-time
-# sequence axis and is never grown, whatever its shape.
-CACHE_SEQ_AXIS = {"k": 3, "v": 3}
+#   k / v  : (L, b, kv_heads, S, head_dim)  -> axis 3
+#   c_kv   : (L, b, S, kv_lora_rank)        -> axis 2
+#   k_rope : (L, b, S, qk_rope_head_dim)    -> axis 2
+# Everything else (the mamba conv window and SSM state, the encoder cross
+# caches) has no decode-time sequence axis and is never grown, whatever its
+# shape.
+CACHE_SEQ_AXIS = {"k": 3, "v": 3, "c_kv": 2, "k_rope": 2}
 
 
 def _params_device(params) -> torch.device:
@@ -103,9 +106,10 @@ def _pad_caches(caches, max_len: int, prompt_len: int):
 def _merge_rows(caches, new_caches, rows: torch.Tensor,
                 src: torch.Tensor) -> None:
     """Replace dense cache rows ``rows`` by rows ``src`` of the prefill
-    caches ``new_caches`` — (count, p, hkv, W, hd) K/V, zero past W; a
-    mamba layer's conv window and SSM state whole — the reference's row
-    replacement by a grown prefill cache, in place."""
+    caches ``new_caches`` — (count, p, hkv, W, hd) K/V and (count, p, W,
+    ·) MLA latents, zero past W; a mamba layer's conv window and SSM state
+    whole — the reference's row replacement by a grown prefill cache, in
+    place."""
     for (name, old), (_, new) in zip(_leaves(caches), _leaves(new_caches),
                                      strict=True):
         ax = CACHE_SEQ_AXIS.get(name)
@@ -113,8 +117,9 @@ def _merge_rows(caches, new_caches, rows: torch.Tensor,
             old[:, rows] = new[:, src].to(old.dtype)
             continue
         width = new.shape[ax]
-        old[:, rows, :, :width] = new[:, src].to(old.dtype)
-        old[:, rows, :, width:] = 0
+        lead = (slice(None), rows) + (slice(None),) * (ax - 2)
+        old[lead + (slice(None, width),)] = new[:, src].to(old.dtype)
+        old[lead + (slice(width, None),)] = 0
 
 
 def _paged_leaf_scatter(leaf: torch.Tensor, storage: torch.Tensor,

@@ -211,9 +211,11 @@ def test_segment_full_and_decode_match_jax(hybrid_pair):
     tcos, tsin = TR.rope_cos_sin(torch.tensor(pos), hd, tcfg.rope_theta)
     jh, _, jc = JT.segment_full(params["segments"][0], params["shared_attn"],
                                 jcfg, unit, count, jnp.asarray(x), jcos, jsin)
-    th, tc = TT.segment_full(tp["segments"][0], tp["shared_attn"], tcfg,
-                             unit, count, torch.tensor(x), tcos, tsin)
+    th, taux, tc = TT.segment_full(tp["segments"][0], tp["shared_attn"],
+                                   tcfg, unit, count, torch.tensor(x), tcos,
+                                   tsin)
     _close(th, jh, "h")
+    assert float(taux) == 0.0
     _caches_close(tc, jc)
     assert tuple(tc["2"]["k"].shape) == (count, b, 4, PROMPT_LEN, 112)
 
