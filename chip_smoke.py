@@ -88,9 +88,17 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    a q_offset, masked rows, non-causal sk != sq, 200
                    tokens, f32) and at its reduced config's 48 / 32 (f32
                    and bf16), flash, dense and paged decode at
-                   qwen3-moe's group 16 (64 heads on 4 of 128); and the
-                   autograd path refusing (192, 128), which the backward
-                   does not take
+                   qwen3-moe's group 16 (64 heads on 4 of 128); the
+                   training families' shapes (a generator of their own,
+                   every case two launches bitwise equal): the flash
+                   backward at MLA's (192, 128) (deepseek's SFT shape,
+                   masked rows, 200 tokens, non-causal sk != sq, f32) and
+                   (48, 32) (f32 and bf16, masked rows, a window), at
+                   gemma2-9b's heads of 256 with softcap 50 (and a
+                   window), at groups 16, 12 and 7 (qwen2-vl's 256 stub
+                   patches and 57 tokens), at whisper-medium's encoder (64
+                   x 1500 frames, non-causal) and cross-attention (f32
+                   too), and at the small configs' f32 shapes
   4. timing      — each kernel, its plain version and one PyTorch library
                    call computing the same function (device time: CUDA
                    graph replays between CUDA events), beside the least time
@@ -129,7 +137,13 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    qwen3-moe's group 16 and flash at deepseek's (192,
                    128) (SDPA with v's own head dim as the yardstick, or
                    the row says it refused), and the paged decode at group
-                   16
+                   16; the flash backward at the training families' SFT
+                   shapes: deepseek's MLA (16 heads, (192, 128), its
+                   scale), gemma2-9b's heads of 256 with softcap 50 (no
+                   yardstick: SDPA takes no softcap), qwen3-moe's group 16
+                   and whisper-medium's encoder (64 x 1500 frames,
+                   non-causal), each beside its plain version and SDPA's
+                   backward
   5. tiny        — ``ScopeEngine.serve`` on scope-tiny with seeded weights,
                    once on the card (kernels) and once on the CPU (plain
                    versions): equal token streams and decisions
@@ -253,8 +267,9 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    device time per request, the stream's wall and idle
                    share, peak memory
  15. tiny train  — scope-tiny from the same seeded port params on the card
-                   and on the CPU: ten SFT steps (losses within 1e-4), then
-                   a greedy GRPO step on each (equal rollouts, rewards and
+                   and on the CPU: the loss and every gradient leaf of one
+                   SFT batch, ten SFT steps (losses within 1e-4), then a
+                   greedy GRPO step on each (equal rollouts, rewards and
                    advantages; loss, pg and kl within 2e-5)
  16. full train  — scope-qwen3-4b at full width from seeded random weights:
                    three SFT steps of 64 sequences (72 forward and 36
@@ -283,6 +298,28 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    layers (2 shared-block occurrences, ~1.26 B params; at
                    full depth its AdamW state alone needs ~80 GB): three
                    SFT steps of 64 sequences; the same readings
+ 20a. tiny families train — the small dense, multimodal and MoE configs of
+                   phases 12a, 12c and 12f from the same seeded port
+                   params on the card and on the CPU: the loss and every
+                   gradient leaf of one SFT batch (with the stub inputs of
+                   ``pipeline.with_stubs`` for qwen2-vl and whisper; loss
+                   within 2e-5, each leaf within 1e-4 of its largest
+                   magnitude), ten SFT steps (losses within 1e-4), and a
+                   greedy GRPO step for the text-only ones (equal
+                   rollouts); the flash forward and backward launches by
+                   (sq, sk, causal)
+ 20b. full family train — starcoder2-3b, internlm2-1.8b, gemma2-2b,
+                   gemma2-9b (16 of 42 layers), qwen2-vl-7b (16 of 28
+                   layers, 16 rows of 256 stub patches and 57 tokens),
+                   whisper-medium (1500 stub frames a row),
+                   deepseek-v2-lite-16b (its dense layer and 6 MoE
+                   layers) and qwen3-moe-235b-a22b (1 of 94 layers) at
+                   full width from seeded random weights, one phase each:
+                   three SFT steps, the flash launches by (sq, sk, causal)
+                   (two forward and one backward a call: the encoder's,
+                   the decoder's self- and cross-attention), losses, step
+                   wall and device time, peak memory, finite losses and
+                   params; the weights freed after each
  21. CLIs        — ``python -m repro_torch.launch.train`` on scope-tiny,
                    then ``python -m repro_torch.launch.serve --checkpoint``
                    on what it saved, both on the card
@@ -386,8 +423,42 @@ MLA, MOE_Q = "@deepseek-v2-lite-16b", "@qwen3-moe-235b-a22b"
 MOE_ROWS = (("flash_attention", MLA), ("flash_attention", MOE_Q),
             ("decode_attention", MOE_Q), ("paged_decode_attention", MOE_Q))
 MOE_LAYERS = 8          # qwen3-moe-235b-a22b's depth on one card (of 94)
+# the training families' full-width SFT steps (phase 20b): rows named
+# flash_attention_bwd@<config>[/encoder] carry that run's backward shapes
+# and launches (deepseek-v2-lite-16b's MLA at (192, 128), gemma2-9b's heads
+# of 256 with softcap 50, qwen3-moe-235b-a22b's g 16, whisper-medium's
+# encoder non-causal over its frames)
+TRAIN_ROWS = (("flash_attention_bwd", MLA),
+              ("flash_attention_bwd", "@gemma2-9b"),
+              ("flash_attention_bwd", MOE_Q),
+              ("flash_attention_bwd", AUDIO + "/encoder"))
 TO_PORT = []            # every TPU kernel of the repository has a port
 NO_LAUNCHES = {name: 0 for name in TPU_KERNELS}
+# the training phases: SFT steps on the small configs and at full width,
+# and the full-width SFT batch
+SFT_STEPS_TINY, SFT_STEPS_FULL, SFT_BATCH = 10, 3, 64
+# the dense, multimodal and MoE families' SFT steps at full width (phase
+# 20b): config -> (least params of what runs, layers kept of its depth
+# or None for all, SFT batch).  A step holds bf16 weights, bf16 gradients
+# and f32 AdamW moments, ~12 bytes a parameter, beside the activations and
+# the loss's float32 logits over the vocabulary, so the largest run cut:
+# gemma2-9b at 16 of 42 layers (eight (local, global) units; at 20 AdamW's
+# update ran out of the card's memory), qwen2-vl-7b at
+# 16 of 28 and 16 sequences (each its 256 stub patches before the 57
+# tokens: the float32 logits over 152064 ids of 64 such rows would take
+# ~12 GB a copy), deepseek-v2-lite-16b at its dense layer and 6 of its 26
+# MoE layers, qwen3-moe-235b-a22b at 1 of 94 layers (~30 GB of state a
+# layer)
+FAMILY_TRAIN = {
+    "starcoder2-3b": (4.0e9, None, SFT_BATCH),
+    "internlm2-1.8b": (1.6e9, None, SFT_BATCH),
+    "gemma2-2b": (2.5e9, None, SFT_BATCH),
+    "gemma2-9b": (3.9e9, 16, SFT_BATCH),
+    "qwen2-vl-7b": (4.0e9, 16, 16),
+    "whisper-medium": (0.7e9, None, SFT_BATCH),
+    "deepseek-v2-lite-16b": (3.5e9, 7, SFT_BATCH),
+    "qwen3-moe-235b-a22b": (2.9e9, 1, SFT_BATCH),
+}
 
 # SSD scan checks: name, (b, l, h, p, n, chunk; 0 = the main path's chunk
 # of an L-token prompt, l 0 = L), x / A dtype, dt scale, the kernel whose
@@ -1188,17 +1259,20 @@ def kernel_checks(torch, L: int, s_train: int):
         ("paged g16 f32 ragged", (3, 64, 4, 70, 128, 128, 16, [10, 70, 33],
                                   0.0, torch.float32), None),
     ], rnd, gen, bitwise=True)
-    # MLA's pairs are the forward's only: the backward refuses them, so a
-    # loss through MLA on the card raises before any launch
-    q = rnd(2, 16, 16, 192, dt=bf).requires_grad_()
-    v = rnd(2, 16, 16, 128, dt=bf)
-    try:
-        FA.flash_attention(q, q, v, scale=192 ** -0.5)
-    except ValueError as e:
-        print(f"   flash mla 192/128 under autograd: refused ({e})")
-    else:
-        raise SmokeFailure("flash: the autograd path took (192, 128), which "
-                           "the backward kernel does not")
+    # the training families' flash backward at their shapes, on a
+    # generator of its own (rnd draws from it too), every case's two
+    # launches bitwise equal: MLA's (192, 128) at deepseek-v2-lite-16b's
+    # SFT shape (16 heads at g 1, the scale (nope + rope) ** -0.5 as
+    # mla_full passes it) with masked rows, several tiles, non-causal sk !=
+    # sq and the f32 body, and its reduced config's (48, 32) in both bodies;
+    # gemma2-9b's heads of 256 with softcap 50 (and a window),
+    # qwen3-moe-235b-a22b's g 16, starcoder2-3b's g 12, qwen2-vl-7b's g 7
+    # over the image's patches and the text, whisper-medium's encoder
+    # (non-causal over 1500 frames, at its SFT batch) and its
+    # cross-attention; and the small configs' f32 shapes (heads of 32 at g
+    # 12 and g 7, whisper's 64 over 32 frames)
+    gen = torch.Generator(device=dev).manual_seed(29)
+    family_bwd_checks(torch, rnd, compare, s_train)
     return errs
 
 
@@ -1328,9 +1402,10 @@ def bwd_checks(torch, rnd, compare, s_train: int, cases=None):
     mask and shape they take: several key and row tiles, groups 1 to 8, d
     32 to 256, dv != d, windows with either sign of q_offset, non-causal sk
     != sq, softcap), f32 the FMA kernels.  On the main case also: the saved
-    log-sum-exp against the plain one, the forward's bits without and with
-    it, and two launches bitwise equal.  ``cases`` replaces those cases
-    (zamba2-7b's head dim 112)."""
+    log-sum-exp against the plain one and the forward's bits without and
+    with it.  Every case's two launches are bitwise equal.  ``cases``
+    replaces those cases (zamba2-7b's head dim 112; the training
+    families' shapes)."""
     from repro_torch.kernels import flash_attention as FA
     bf, f32 = torch.bfloat16, torch.float32
     cases = cases or [
@@ -1384,6 +1459,10 @@ def bwd_checks(torch, rnd, compare, s_train: int, cases=None):
                                                  before[1] + 1),
               f"{name}: the forward and backward kernels did not run once "
               "each")
+        again = torch.autograd.grad(FA.flash_attention(q, k, v, **kw),
+                                    (q, k, v), dout)
+        check(all(torch.equal(a, c) for a, c in zip(got, again, strict=True)),
+              f"{name}: two launches differ")
         want = torch.autograd.grad(FA.flash_attention_plain(q, k, v, **kw),
                                    (q, k, v), dout)
         tol = F32_TOL if dt == f32 else BF16_TOL
@@ -1417,13 +1496,56 @@ def bwd_checks(torch, rnd, compare, s_train: int, cases=None):
         check(torch.equal(out, FA.flash_attention_cuda(q.detach(), k.detach(),
                                                        v.detach(), **kw)),
               f"{name}: the forward's output differs with the lse saved")
-        again = torch.autograd.grad(FA.flash_attention(q, k, v, **kw),
-                                    (q, k, v), dout)
-        check(all(torch.equal(a, c) for a, c in zip(got, again,
-                                                    strict=True)),
-              f"{name}: two launches differ")
         print(f"   {name}: two launches bitwise equal; forward bits equal "
               "with and without the saved lse")
+
+
+def family_bwd_checks(torch, rnd, compare, st: int):
+    """The flash backward at the training families' shapes (``bwd_checks``
+    on ``st``-token SFT sequences)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    mla, mla48 = dict(scale=192 ** -0.5), dict(scale=48 ** -0.5)
+    bwd_checks(torch, rnd, compare, st, [
+        ("bwd mla 192/128 main", (SFT_BATCH, 16, 16, st, st, 192, 128), mla,
+         bf, "flash_attention_bwd" + MLA),
+        ("bwd mla 192/128 f32", (2, 16, 16, st, st, 192, 128), mla, f32,
+         None),
+        ("bwd mla 192/128 masked rows", (1, 4, 4, 20, 20, 192, 128),
+         dict(mla, q_offset=-5), bf, None),
+        ("bwd mla 192/128 f32 masked rows", (1, 4, 4, 20, 20, 192, 128),
+         dict(mla, q_offset=-5), f32, None),
+        ("bwd mla 192/128 s=200", (2, 4, 4, 200, 200, 192, 128), mla, bf,
+         None),
+        ("bwd mla 192/128 sk!=sq non-causal", (2, 4, 4, 33, 100, 192, 128),
+         dict(mla, causal=False), bf, None),
+        ("bwd mla 48/32 f32", (3, 4, 4, st, st, 48, 32), mla48, f32, None),
+        ("bwd mla 48/32 bf16", (3, 4, 4, st, st, 48, 32), mla48, bf, None),
+        ("bwd mla 48/32 f32 masked rows", (1, 4, 4, 20, 20, 48, 32),
+         dict(mla48, q_offset=-5), f32, None),
+        ("bwd mla 48/32 s=200 window", (2, 4, 4, 200, 200, 48, 32),
+         dict(mla48, window=40), bf, None),
+        ("bwd gemma2-9b main", (SFT_BATCH, 16, 8, st, st, 256, 256),
+         dict(softcap=50.0), bf, "flash_attention_bwd@gemma2-9b"),
+        ("bwd d256 window+softcap", (2, 4, 2, 100, 100, 256, 256),
+         dict(window=16, softcap=50.0), bf, None),
+        ("bwd g16 main", (SFT_BATCH, 64, 4, st, st, 128, 128), {}, bf,
+         "flash_attention_bwd" + MOE_Q),
+        ("bwd g12", (8, 24, 2, st, st, 128, 128), {}, bf, None),
+        ("bwd g7 image + text", (4, 28, 4, VLM_PATCHES + st,
+                                 VLM_PATCHES + st, 128, 128), {}, bf, None),
+        ("bwd whisper encoder main", (FAMILY_TRAIN[AUDIO[1:]][2], 16, 16,
+                                      ENC_FRAMES, ENC_FRAMES, 64, 64),
+         dict(causal=False), bf, "flash_attention_bwd" + AUDIO + "/encoder"),
+        ("bwd whisper cross", (8, 16, 16, st, ENC_FRAMES, 64, 64),
+         dict(causal=False), bf, None),
+        ("bwd whisper cross f32", (2, 4, 4, st, ENC_FRAMES, 64, 64),
+         dict(causal=False), f32, None),
+        ("bwd g12 d32 f32", (2, 24, 2, st, st, 32, 32), {}, f32, None),
+        ("bwd g7 d32 f32", (2, 28, 4, 8 + st, 8 + st, 32, 32), {}, f32,
+         None),
+        ("bwd whisper small encoder f32", (2, 4, 4, 32, 32, 64, 64),
+         dict(causal=False), f32, None),
+    ])
 
 
 def step_checks(torch, gen, L: int, main_chunk: int, compare, stacked,
@@ -1727,6 +1849,23 @@ def kernel_timings(torch, L: int, retriever, query_embs, s_train: int):
     out["ssd_scan_bwd"] = ssd_bwd_timing(torch, gen, s_train, h=64, n=128)
     out["ssd_scan_bwd" + HYBRID] = ssd_bwd_timing(torch, gen, s_train,
                                                   h=112, n=64)
+    # the training families' flash backward at their SFT shapes, on a
+    # generator of its own: deepseek-v2-lite-16b's MLA (16 heads at g 1,
+    # q / k 192, v 128, its scale), gemma2-9b's heads of 256 with softcap
+    # 50 (flex_attention's backward the yardstick: SDPA takes no softcap),
+    # qwen3-moe-235b-a22b's g 16, whisper-medium's encoder non-causal over
+    # its 1500 frames
+    gen = torch.Generator(device=dev).manual_seed(30)
+    for row, kw in (
+            (MLA, dict(hq=16, hkv=16, d=192, dv=128, scale=192 ** -0.5)),
+            ("@gemma2-9b", dict(hq=16, hkv=8, d=256, softcap=50.0)),
+            (MOE_Q, dict(hq=64, hkv=4, d=128)),
+            (AUDIO + "/encoder", dict(
+                hq=16, hkv=16, d=64, causal=False, sk=ENC_FRAMES,
+                b=FAMILY_TRAIN[AUDIO[1:]][2]))):
+        row = "flash_attention_bwd" + row
+        out[row] = bwd_timing(torch, gen, ENC_FRAMES if "/encoder" in row
+                              else s_train, label=row, **kw)
     for name, t in out.items():
         lib = ("none" if t["library_ms"] is None
                else f"{t['library_ms']:.5f}")
@@ -2002,89 +2141,157 @@ def kernels_ms(torch, fn, iters: int, warmup: int = 3, by_kernel=False):
 
 
 def bwd_timing(torch, gen, s: int, hq: int = 32, hkv: int = 8,
-               d: int = 128, label: str = "flash_attention_bwd"):
-    """The flash backward kernel at an SFT step's shape (64 sequences of
-    ``s`` tokens, bf16, causal, q, k, v the model's views; scope-qwen3-4b's
-    32/8 heads of 128 by default, zamba2-7b's 32/32 of 112), beside the plain version's backward (autograd of
+               d: int = 128, label: str = "flash_attention_bwd", *,
+               b: int = SFT_BATCH, sk=None, dv=None, causal: bool = True,
+               softcap: float = 0.0, scale=None):
+    """The flash backward kernel at an SFT step's shape (``b`` sequences of
+    ``s`` tokens, bf16, q, k, v the model's views; scope-qwen3-4b's 32/8
+    heads of 128, causal, by default; keys ``sk`` (default ``s``), v's
+    head dim ``dv`` (default ``d``), the mask, softcap and scale as the
+    model passes them), beside the plain version's backward (autograd of
     ``flash_attention_plain``) and, as a yardstick only, the backward of
-    ``F.scaled_dot_product_attention`` on the same inputs.  All three are
-    timed the same way, by device time: the CUDA time of their kernels
-    summed from ``torch.profiler`` (``kernels_ms``; autograd's backward is
-    not captured in a graph).  ``ms`` is the kernel's wrapper in CUDA-graph
-    replays, as every other kernel's, ``prof_ms`` the same call by the
-    profiler's sum; the eager times of all three stand beside them.  The
-    forward kernel at this shape is timed without and with its log-sum-exp
-    output (graph replays)."""
+    one PyTorch call on the same inputs: ``F.scaled_dot_product_attention``
+    without a softcap, ``softcap_library`` with one (the faster of its
+    default tiles and FLEX_PREFILL_OPTIONS, its gradients held to the plain
+    version's first, as the forward's yardstick is).  All three are timed
+    the same way, by device time: the CUDA time of their kernels summed
+    from ``torch.profiler`` (``kernels_ms``; autograd's backward is not
+    captured in a graph).
+    ``ms`` is the kernel's wrapper in CUDA-graph replays, as every other
+    kernel's, ``prof_ms`` the same call by the profiler's sum; the eager
+    times stand beside them.  The forward kernel at this shape is timed
+    without and with its log-sum-exp output (graph replays)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     dev, bf = "cuda", torch.bfloat16
-    b = 64
+    sk, dv = sk or s, dv or d
+    mask = dict(causal=causal, softcap=softcap, scale=scale)
 
-    def view(h):
-        return torch.randn(b, s, h, d, generator=gen, device=dev).to(bf) \
+    def view(n, h, w):
+        return torch.randn(b, n, h, w, generator=gen, device=dev).to(bf) \
             .transpose(1, 2).requires_grad_(True)
 
-    q, k, v = view(hq), view(hkv), view(hkv)
-    dout = torch.randn(b, hq, s, d, generator=gen, device=dev).to(bf)
+    q, k, v = view(s, hq, d), view(sk, hkv, d), view(sk, hkv, dv)
+    dout = torch.randn(b, hq, s, dv, generator=gen, device=dev).to(bf)
     with torch.no_grad():
-        out, lse = FA.flash_attention_cuda(q, k, v, return_lse=True)
-    plain_out = FA.flash_attention_plain(q, k, v)
-    sdpa_out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                              enable_gqa=True)
+        out, lse = FA.flash_attention_cuda(q, k, v, return_lse=True, **mask)
+    plain_out = FA.flash_attention_plain(q, k, v, **mask)
 
     def kernel():
-        return FA.flash_attention_bwd_cuda(q, k, v, out, dout, lse)
+        return FA.flash_attention_bwd_cuda(q, k, v, out, dout, lse, **mask)
 
-    def plain():
-        return torch.autograd.grad(plain_out, (q, k, v), dout,
-                                   retain_graph=True)
+    def grads(y):
+        return lambda: torch.autograd.grad(y, (q, k, v), dout,
+                                           retain_graph=True)
 
-    def sdpa():
-        return torch.autograd.grad(sdpa_out, (q, k, v), dout,
-                                   retain_graph=True)
+    plain = grads(plain_out)
+    if softcap:
+        check(causal, "softcap_library masks causally")
+        lib_ms, call = softcap_bwd_library(torch, softcap, q, k, v, dout,
+                                           plain(), label)
+        lib_eager_ms = None
+        lib_call = call or "none: flex_attention's backward failed to run"
+    else:
+        sdpa_out = F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True, scale=scale)
+        lib_ms = kernels_ms(torch, grads(sdpa_out), 20)
+        lib_eager_ms = eager_ms(torch, grads(sdpa_out), 20)
+        lib_call = ("backward of scaled_dot_product_attention (GQA, the "
+                    "same mask and scale)")
+        del sdpa_out
 
     with torch.no_grad():
         fwd = dict(
-            fwd_ms=device_ms(torch, lambda: FA.flash_attention_cuda(q, k, v),
-                             50),
+            fwd_ms=device_ms(torch, lambda: FA.flash_attention_cuda(
+                q, k, v, **mask), 50),
             fwd_lse_ms=device_ms(torch, lambda: FA.flash_attention_cuda(
-                q, k, v, return_lse=True), 50))
+                q, k, v, return_lse=True, **mask), 50))
     prof_ms, split = kernels_ms(torch, kernel, 20, by_kernel=True)
     t = dict(
         ms=device_ms(torch, kernel, 20),
         prof_ms=prof_ms, split_ms=split,
         plain_ms=kernels_ms(torch, plain, 10),
-        library_ms=kernels_ms(torch, sdpa, 20),
+        library_ms=lib_ms,
         eager_ms=eager_ms(torch, kernel, 20),
         plain_eager_ms=eager_ms(torch, plain, 10),
-        library_eager_ms=eager_ms(torch, sdpa, 20),
+        library_eager_ms=lib_eager_ms,
         **fwd,
-        shape=f"q ({b},{hq},{s},{d}) kv ({b},{hkv},{s},{d}) bf16 causal, "
-              "views of (b, s, h, d); out, dO (b, hq, s, d); lse (b, hq, s) "
-              "f32",
-        library_call="backward of scaled_dot_product_attention (GQA, "
-                     "causal); plain_ms and library_ms are profiler sums of "
-                     "device time, as prof_ms")
+        shape=f"q ({b},{hq},{s},{d}) k ({b},{hkv},{sk},{d}) v ({b},{hkv},"
+              f"{sk},{dv}) bf16 {'causal' if causal else 'non-causal'}"
+              + (f" softcap {softcap}" if softcap else "")
+              + (f" scale {scale:.6g}" if scale else "")
+              + ", views of (b, s, h, d); out, dO (b, hq, s, dv); lse "
+              "(b, hq, s) f32",
+        library_call=lib_call + "; plain_ms and library_ms are profiler "
+                                "sums of device time, as prof_ms")
+
+    def ms(x):
+        return "none" if x is None else f"{x:.5f}"
+
+    lib = "flex_attention" if softcap else "SDPA"
     print(f"   {label} device ms, profiler sums: kernel "
-          f"{t['prof_ms']:.5f} plain {t['plain_ms']:.5f} SDPA backward "
-          f"{t['library_ms']:.5f}; kernel graph replays {t['ms']:.5f}; "
+          f"{t['prof_ms']:.5f} plain {t['plain_ms']:.5f} {lib} backward "
+          f"{ms(t['library_ms'])}; kernel graph replays {t['ms']:.5f}; "
           f"eager: kernel {t['eager_ms']:.5f} plain "
-          f"{t['plain_eager_ms']:.5f} SDPA backward "
-          f"{t['library_eager_ms']:.5f}")
+          f"{t['plain_eager_ms']:.5f} {lib} backward "
+          f"{ms(t['library_eager_ms'])}")
     print(f"   {label} by launch (profiler, ms a call): "
           + ", ".join(f"{k} {v:.5f}" for k, v in split.items()))
     print(f"   flash forward at the SFT shape: {t['fwd_ms']:.5f} ms, with "
           f"the lse saved {t['fwd_lse_ms']:.5f} ms")
-    # q, k, v, o, dO and lse read once, dq, dk, dv written once; per causal
-    # (query, key) pair and q-head the scores (2d), dP (2dv), dV (2dv), dK
-    # (2d) and dQ (2d)
-    pairs = s * (s + 1) // 2
+    # q, k, v, o, dO and lse read once, dq, dk, dv written once; per
+    # (query, key) pair that attends and q-head the scores (2d), dP (2dv),
+    # dV (2dv), dK (2d) and dQ (2d)
+    pairs = s * (s + 1) // 2 if causal else s * sk
     nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
                   + 2 * out.numel()) + 4 * lse.numel()
     t["bound_ms"], t["bound_by"] = bound(
-        nbytes, pairs * b * hq * (6 * d + 4 * d), "bfloat16")
-    del plain_out, sdpa_out
+        nbytes, pairs * b * hq * (6 * d + 4 * dv), "bfloat16")
+    del plain_out
+    release(torch)
     return t
+
+
+def softcap_bwd_library(torch, cap: float, q, k, v, dout, want, label):
+    """(device ms, call) of the backward of ``softcap_library`` (causal) on
+    q, k, v for the upstream gradient ``dout``: for its default tiles and
+    for FLEX_PREFILL_OPTIONS, each one's (dq, dk, dv) held to ``want`` (the
+    plain version's) within BF16_TOL x max(1, max |want|) before it is
+    timed, the faster kept.  A tiling the compiler refuses is printed and
+    skipped; (None, None) if both are."""
+    best = (None, None)
+    for options in (None, FLEX_PREFILL_OPTIONS):
+        name = "default tiles" if options is None else str(options)
+        try:
+            y = softcap_library(torch, cap, q, k, v,
+                                kernel_options=options)()
+
+            def grads():
+                return torch.autograd.grad(y, (q, k, v), dout,
+                                           retain_graph=True)
+
+            got = grads()
+            torch.cuda.synchronize()
+        except Exception as e:          # noqa: BLE001 (a compiler's refusal)
+            print(f"   {label}: flex_attention backward, {name}: "
+                  f"{type(e).__name__}: {str(e)[:300]}")
+            continue
+        for g, w, n in zip(got, want, "qkv"):
+            w = w.float()
+            err = (g.float() - w).abs().max().item()
+            tol = BF16_TOL * max(1.0, w.abs().max().item())
+            print(f"   {label}: flex_attention backward, {name}: d{n} vs "
+                  f"plain {err:.3e} (tolerance {tol:.3e})")
+            check(err <= tol, f"{label}: flex_attention's d{n} differs from "
+                  f"the plain version's by {err:.3e} (tolerance {tol:.3e})")
+        t = kernels_ms(torch, grads, 20)
+        print(f"   {label}: flex_attention backward, {name}: {t:.5f} ms")
+        if best[0] is None or t < best[0]:
+            best = (t, "backward of flex_attention (torch.compile), score_mod "
+                       "softcap * tanh(s / softcap), causal block mask"
+                       + ("" if options is None else f", {options}"))
+        del y, got
+    return best
 
 
 def ssd_bwd_timing(torch, gen, s: int, h: int, n: int, p: int = 64):
@@ -2299,10 +2506,8 @@ def stub_batch(torch, cfg, b: int, s: int, seed: int, device):
     """Seeded tokens (b, s) and the family's stubs in the model dtype, made
     on ``device`` from its own generator: ``enc_features`` (b, enc_seq, d)
     for an encoder-decoder; for a VLM ``image_embeds`` (b, P, d) and
-    ``positions_3d`` as Qwen2-VL lays them out: the P patches at t = 0 on
-    a square (h, w) grid of side ceil(sqrt(P)), the text continuing all
-    three streams from the grid's largest index + 1."""
-    import math
+    ``positions_3d`` as Qwen2-VL lays them out (``grid_positions_3d``)."""
+    from repro_torch.data.pipeline import grid_positions_3d
     from repro_torch.models.common import dtype_of
     g = torch.Generator(device=device).manual_seed(seed)
     dt = dtype_of(cfg.dtype)
@@ -2316,13 +2521,7 @@ def stub_batch(torch, cfg, b: int, s: int, seed: int, device):
     if P:
         batch["image_embeds"] = torch.randn(b, P, cfg.d_model, generator=g,
                                             device=device).to(dt)
-        side = math.isqrt(P - 1) + 1
-        idx = torch.arange(P, device=device)
-        pos = torch.zeros(3, b, s, dtype=torch.int32, device=device)
-        pos[1, :, :P], pos[2, :, :P] = idx // side, idx % side
-        pos[:, :, P:] = int(pos.max()) + 1 + torch.arange(s - P,
-                                                          device=device)
-        batch["positions_3d"] = pos
+        batch["positions_3d"] = grid_positions_3d(b, s, P, device=device)
     return batch
 
 
@@ -3651,9 +3850,6 @@ def full_tiers(torch, world, data, anchors, lib, smi):
 # phases 15-17: training (SFT and GRPO through the flash forward and
 # backward kernels) and the train / serve CLIs
 # ---------------------------------------------------------------------------
-SFT_STEPS_TINY, SFT_STEPS_FULL, SFT_BATCH = 10, 3, 64
-
-
 class StepProbe:
     """While installed: each ``grpo_step``'s batch (tokens, mask,
     advantages, old and reference log-probs) and loss."""
@@ -3695,22 +3891,56 @@ def grpo_trainer(torch, cfg, params, device, *, tasks, group, temperature,
         seed=seed, generator=torch.Generator(device=device).manual_seed(seed))
 
 
-def train_launches(cfg, steps: int):
-    """Each kernel's launches in ``steps`` SFT steps of ``cfg`` with one
-    checkpoint a layer: a forward and its recompute a layer (two scans a
-    mamba layer, two flash forwards a shared-block occurrence) and one
-    backward."""
-    n_attn, n_mamba = layer_counts(cfg)
-    return dict(NO_LAUNCHES, flash_attention=2 * n_attn * steps,
-                flash_attention_bwd=n_attn * steps,
-                ssd_scan=2 * n_mamba * steps, ssd_scan_bwd=n_mamba * steps)
+def train_calls(cfg, s: int):
+    """{(sq, sk, causal): flash calls} of one forward pass of ``cfg`` over
+    ``s``-token sequences: a causal call an attention or MLA layer (a
+    shared block's at each occurrence); an encoder-decoder's encoder
+    layers also one each, non-causal over its frames, and its decoder
+    layers a cross-attention call each, the ``s`` rows over the frames."""
+    from collections import Counter
+    n_attn, _ = layer_counts(cfg)
+    calls = Counter({(s, s, True): n_attn + mla_layers(cfg)})
+    if cfg.is_encoder_decoder:
+        frames = cfg.encoder_seq_len
+        calls[(frames, frames, False)] += cfg.num_encoder_layers
+        calls[(s, frames, False)] += n_attn
+    return +calls
+
+
+def train_launches(cfg, steps: int, s: int):
+    """Each kernel's launches in ``steps`` SFT steps of ``cfg`` over
+    ``s``-token sequences with one checkpoint a layer, and the flash
+    forward's and backward's launches by (sq, sk, causal)
+    (``train_calls``): every flash call runs in the forward and again in
+    its layer's recompute, and its backward once; a mamba layer two scans
+    and one SSD backward."""
+    from collections import Counter
+    calls = train_calls(cfg, s)
+    n, n_mamba = sum(calls.values()), layer_counts(cfg)[1]
+    counts = dict(NO_LAUNCHES, flash_attention=2 * n * steps,
+                  flash_attention_bwd=n * steps,
+                  ssd_scan=2 * n_mamba * steps, ssd_scan_bwd=n_mamba * steps)
+    return (counts, Counter({k: 2 * v * steps for k, v in calls.items()}),
+            Counter({k: v * steps for k, v in calls.items()}))
+
+
+def train_counts():
+    """This run's launches: (each kernel's, the flash forward's and
+    backward's by (sq, sk, causal)), as ``train_launches`` gives them."""
+    from collections import Counter
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_attention as FA
+    return (kernels.launch_counts(), Counter(FA.shape_launches),
+            Counter(FA.bwd_shape_launches))
 
 
 def sft_card_vs_cpu(torch, cfg, ds, cpu_params):
     """Ten SFT steps of ``cfg`` from ``cpu_params`` on the card and on the
-    CPU: losses within 1e-4, the first within 2e-5; the card's launches
-    those of ``train_launches``.  Returns (trained params by device, losses
-    by device, the largest loss difference, the card's launches)."""
+    CPU through ``train_sft`` (a multimodal config's steps with its stub
+    inputs, ``pipeline.with_stubs``): losses within 1e-4, the first within
+    2e-5; the card's launches those of ``train_launches``.  Returns
+    (trained params by device, losses by device, the largest loss
+    difference, the card's launches)."""
     from repro_torch import kernels
     from repro_torch.training.sft import train_sft
 
@@ -3720,58 +3950,51 @@ def sft_card_vs_cpu(torch, cfg, ds, cpu_params):
         trained[dev], losses[dev] = train_sft(
             _to(cpu_params, dev), cfg, ds, steps=SFT_STEPS_TINY,
             batch_size=32)
-        counts[dev] = kernels.launch_counts()
+        counts[dev] = train_counts()
     err = max(abs(a - b) for a, b in zip(losses["cpu"], losses["cuda"],
                                          strict=True))
     check(abs(losses["cpu"][0] - losses["cuda"][0]) <= F32_TOL,
           f"{cfg.name} sft: first loss {losses['cpu'][0]} vs "
           f"{losses['cuda'][0]}")
     check(err <= 1e-4, f"{cfg.name} sft: losses differ by {err}")
-    want = train_launches(cfg, SFT_STEPS_TINY)
+    # a VLM's patches stand in front of the text (with_stubs)
+    want = train_launches(cfg, SFT_STEPS_TINY,
+                          ds["tokens"].shape[1] + cfg.num_stub_patches)
     check(counts["cuda"] == want,
           f"{cfg.name} sft launches {counts['cuda']} != {want}")
     print(f"   sft {SFT_STEPS_TINY} steps: losses {losses['cuda'][0]:.6f} -> "
           f"{losses['cuda'][-1]:.6f}, card vs cpu max_abs_err {err:.3g}; "
-          f"card launches {counts['cuda']}")
-    return trained, losses, err, counts["cuda"]
+          f"card launches {counts['cuda'][0]}")
+    return trained, losses, err, counts["cuda"][0]
 
 
-def tiny_train_card_vs_cpu(torch, ds):
-    """scope-tiny from the same seeded port params on the card and on the
-    CPU: ten SFT steps (``sft_card_vs_cpu``), then one greedy GRPO step on
-    each (equal rollout tokens, advantages and rewards; loss, pg and kl
-    within 2e-5)."""
-    from repro_torch.configs.scope_estimator import TINY
-    from repro_torch.models.model import init_params
-
-    trained, losses, err, sft_counts = sft_card_vs_cpu(
-        torch, TINY, ds, init_params(TINY, seed=0, device="cpu"))
-
+def grpo_card_vs_cpu(torch, cfg, cpu_params):
+    """One greedy GRPO step of the text-only ``cfg`` from ``cpu_params`` on
+    the card and on the CPU: equal rollout tokens, advantages and rewards;
+    loss, pg and kl within 2e-5."""
     runs = {}
     for dev in ("cpu", "cuda"):
-        trainer = grpo_trainer(torch, TINY, _to(trained["cpu"], dev), dev,
+        trainer = grpo_trainer(torch, cfg, _to(cpu_params, dev), dev,
                                tasks=4, group=2, temperature=0.0)
         with StepProbe() as probe:
             info = trainer.rollout_step()
         runs[dev] = (info, probe.steps[0])
     (ia, sa), (ib, sb) = runs["cpu"], runs["cuda"]
     check(torch.equal(sa["batch"]["tokens"], sb["batch"]["tokens"]),
-          "tiny grpo: greedy rollouts differ")
+          f"{cfg.name} grpo: greedy rollouts differ")
     check(torch.equal(sa["batch"]["adv"], sb["batch"]["adv"])
           and ia["reward"] == ib["reward"]
           and ia["format_rate"] == ib["format_rate"],
-          "tiny grpo: rewards or advantages differ")
-    grpo_err = max(abs(sa["loss"] - sb["loss"]),
-                   *(abs(sa["metrics"][k] - sb["metrics"][k])
-                     for k in ("pg", "kl")))
-    check(grpo_err <= F32_TOL, f"tiny grpo: loss/pg/kl differ by {grpo_err}")
+          f"{cfg.name} grpo: rewards or advantages differ")
+    err = max(abs(sa["loss"] - sb["loss"]),
+              *(abs(sa["metrics"][k] - sb["metrics"][k])
+                for k in ("pg", "kl")))
+    check(err <= F32_TOL, f"{cfg.name} grpo: loss/pg/kl differ by {err}")
     print(f"   greedy grpo step: {tuple(sb['batch']['tokens'].shape)} rollout "
           f"tokens equal, reward {ib['reward']:.4f} format_rate "
           f"{ib['format_rate']:.3f}, loss {sb['loss']:.6g} (max_abs_err "
-          f"{grpo_err:.3g})")
-    return {"sft_losses": losses, "sft_max_abs_err": err,
-            "grpo_max_abs_err": grpo_err, "grpo_cuda": ib,
-            "launches": sft_counts}
+          f"{err:.3g})")
+    return {"grpo_max_abs_err": err, "grpo_cuda": ib}
 
 
 def profiled_ms(torch, fn, top: int = 8, expect=None):
@@ -3806,27 +4029,30 @@ def profiled_ms(torch, fn, top: int = 8, expect=None):
         for e in ranked]
 
 
-def sft_steps(torch, cfg, params, ds):
-    """``SFT_STEPS_FULL`` SFT steps of ``SFT_BATCH`` sequences on ``cfg``'s
-    ``params`` (trained in place; AdamW, lr 1e-5), the last one under the
-    profiler: each step's loss, accuracy, wall and device time, the
-    launches (``train_launches``: one checkpoint a layer), peak memory,
-    finite losses and params.  The optimizer state is freed on return."""
+def sft_steps(torch, cfg, params, ds, batch_size: int = SFT_BATCH):
+    """``SFT_STEPS_FULL`` SFT steps of ``batch_size`` sequences on
+    ``cfg``'s ``params`` (trained in place; AdamW, lr 1e-5; a multimodal
+    config's batches with its stub inputs, ``pipeline.with_stubs``), the
+    last one under the profiler: each step's loss, accuracy, wall and
+    device time, the launches (``train_launches``: one checkpoint a layer;
+    the flash calls by shape), peak memory, finite losses and params.  The
+    optimizer state is freed on return."""
     import numpy as np
     from repro_torch import kernels
-    from repro_torch.data.pipeline import batches
+    from repro_torch.data.pipeline import batches, with_stubs
     from repro_torch.training.optimizer import AdamWConfig, adamw_init
     from repro_torch.training.sft import sft_step
 
     opt_cfg = AdamWConfig(lr=1e-5, warmup_steps=2, total_steps=100)
     opt_state = adamw_init(params)
-    it = batches(ds, SFT_BATCH, seed=0, device="cuda")
+    it = batches(ds, batch_size, seed=0, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     steps = []
     for i in range(SFT_STEPS_FULL):
-        batch = next(it)
+        batch = with_stubs(next(it), cfg, seed=i)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         if i == SFT_STEPS_FULL - 1:        # the last step under the profiler
             out, dev_ms, top = profiled_ms(
@@ -3843,10 +4069,12 @@ def sft_steps(torch, cfg, params, ds):
         print(f"   sft step {i + 1}: loss {float(loss):.4f} acc "
               f"{float(metrics['acc']):.4f} wall {wall:.3f} s"
               + ("" if dev_ms is None else f" device {dev_ms:.1f} ms"))
-    counts = kernels.launch_counts()
+    counts, fwd_shapes, bwd_shapes = train_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    want = train_launches(cfg, SFT_STEPS_FULL)
-    check(counts == want, f"{cfg.name} sft launches {counts} != {want}")
+    want = train_launches(cfg, SFT_STEPS_FULL, batch["tokens"].shape[1])
+    check((counts, fwd_shapes, bwd_shapes) == want,
+          f"{cfg.name} sft launches {counts}, flash by shape {fwd_shapes} / "
+          f"{bwd_shapes} != {want}")
     check(all(np.isfinite(st["loss"]) for st in steps),
           f"{cfg.name}: non-finite SFT loss")
     check(all(bool(torch.isfinite(t).all()) for t in _leaves(params)),
@@ -3857,7 +4085,8 @@ def sft_steps(torch, cfg, params, ds):
           f"peak {peak:.2f} GiB; top device work of the profiled step "
           f"(name, ms, calls): {top}")
     return {"sft_batch": list(batch["tokens"].shape), "sft_steps": steps,
-            "sft_launches": counts, "sft_peak_gib": peak, "sft_top": top}
+            "sft_launches": counts, "sft_peak_gib": peak, "sft_top": top,
+            "sft_bwd_shapes": {str(k): v for k, v in bwd_shapes.items()}}
 
 
 def full_train(torch, ds):
@@ -3920,29 +4149,32 @@ def full_train(torch, ds):
             "grpo_launches": grpo_counts, "grpo_peak_gib": grpo_peak}
 
 
-def tiny_ssm_train_card_vs_cpu(torch, cfg, ds):
-    """The small SSM or hybrid ``cfg`` (f32) from the same seeded port
-    params on the card and on the CPU: the loss and every gradient leaf of
-    one SFT batch (loss within 2e-5, each leaf within 1e-4 of that leaf's
-    largest magnitude: the two backward passes sum in other orders), then
-    ten SFT steps (losses within 1e-4, the first within 2e-5); the card's
-    launches.  At 57 tokens the small configs' chunk is 3: the backward
-    runs 19 chunks with the state terms."""
-    from repro_torch import kernels
-    from repro_torch.data.pipeline import batches
+def tiny_grads_card_vs_cpu(torch, cfg, ds, grpo: bool = False):
+    """The small ``cfg`` (f32) from the same seeded port params on the card
+    and on the CPU: the loss and every gradient leaf of one SFT batch (a
+    multimodal config's with its stub inputs; loss within 2e-5, each leaf
+    within 1e-4 of that leaf's largest magnitude: the two backward passes
+    sum in other orders, and on the card the MoE's index ops with
+    atomics), then ten SFT steps (``sft_card_vs_cpu``) and, with ``grpo``,
+    one greedy GRPO step (``grpo_card_vs_cpu``); the card's launches.  At
+    57 tokens the small SSM configs' chunk is 3: the SSD backward runs 19
+    chunks with the state terms."""
+    from repro_torch.data.pipeline import batches, with_stubs
     from repro_torch.io import flatten
+    from repro_torch import kernels
     from repro_torch.models import model as M
     from repro_torch.training.optimizer import value_and_grad
 
     cpu_params = M.init_params(cfg, seed=0, device="cpu")
-    batch = next(batches(ds, 32, seed=0, device="cpu"))
+    batch = with_stubs(next(batches(ds, 32, seed=0, device="cpu")), cfg,
+                       seed=0)
     runs = {}
     for dev in ("cpu", "cuda"):
         b = {k: v.to(dev) for k, v in batch.items()}
         kernels.reset_launch_counts()
         loss, _, grads = value_and_grad(lambda p, b=b: M.loss_fn(p, cfg, b),
                                         _to(cpu_params, dev))
-        runs[dev] = (float(loss), flatten(grads), kernels.launch_counts())
+        runs[dev] = (float(loss), flatten(grads), train_counts())
     (lc, gc, _), (lg, gg, counts) = runs["cpu"], runs["cuda"]
     check(abs(lc - lg) <= F32_TOL, f"{cfg.name}: loss {lc} vs {lg}")
     check(list(gc) == list(gg), f"{cfg.name}: gradient trees differ")
@@ -3953,14 +4185,19 @@ def tiny_ssm_train_card_vs_cpu(torch, cfg, ds):
         check(err <= 1e-4 and top > 1e-30,
               f"{cfg.name} grad {key}: err {err} x max|want|, max {top}")
         worst = max(worst, err)
-    want = train_launches(cfg, 1)
+    want = train_launches(cfg, 1, batch["tokens"].shape[1])
     check(counts == want, f"{cfg.name} loss launches {counts} != {want}")
-    print(f"   loss {lg:.6f} (cpu {lc:.6f}); {len(gc)} gradient leaves, "
-          f"worst err {worst:.3g} x the leaf's max; launches {counts}")
+    print(f"   {cfg.name}: loss {lg:.6f} (cpu {lc:.6f}); {len(gc)} gradient "
+          f"leaves, worst err {worst:.3g} x the leaf's max; launches "
+          f"{counts[0]}, flash by (sq, sk, causal) {dict(counts[1])}")
 
-    _, losses, err, counts = sft_card_vs_cpu(torch, cfg, ds, cpu_params)
-    return {"loss": lg, "grad_worst_rel": worst, "sft_losses": losses,
-            "sft_max_abs_err": err, "launches": counts}
+    trained, losses, err, counts = sft_card_vs_cpu(torch, cfg, ds,
+                                                   cpu_params)
+    out = {"loss": lg, "grad_worst_rel": worst, "sft_losses": losses,
+           "sft_max_abs_err": err, "launches": counts}
+    if grpo:
+        out.update(grpo_card_vs_cpu(torch, cfg, trained["cpu"]))
+    return out
 
 
 def grads_vs_plain(torch, cfg, params, ds):
@@ -4030,6 +4267,29 @@ def full_ssm_train(torch, cfg, ds, min_params: float):
     release(torch)
     return {"config": cfg.name, "num_layers": cfg.num_layers,
             "params": n_params, "grads_vs_plain": vs_plain, **sft}
+
+
+def full_family_train(torch, name, least, layers, batch, ds):
+    """``name`` at full width from seeded random weights, cut to its first
+    ``layers`` layers where given: ``sft_steps`` of ``batch`` sequences
+    (one checkpoint a layer; the flash forward twice and its backward
+    once a layer, by shape); the weights freed after."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    full = get_config(name)
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          num_layers=layers)
+    if layers is not None:
+        print(f"   cut: {name} at full width (d {cfg.d_model}, "
+              f"{cfg.num_heads} heads on {cfg.num_kv_heads}) and {layers} of "
+              f"its {full.num_layers} layers: every layer's weights, "
+              "gradients and AdamW moments do not fit the card")
+    params, n_params = full_params(torch, cfg, least)
+    sft = sft_steps(torch, cfg, params, ds, batch)
+    del params
+    release(torch)
+    return {"config": name, "num_layers": cfg.num_layers,
+            "params": n_params, **sft}
 
 
 def clis():
@@ -4317,8 +4577,10 @@ def main() -> int:
     release(torch)
     done(t)
 
-    t = phase("tiny train: card vs cpu, SFT and a greedy GRPO step")
-    report["tiny_train"] = tiny_train_card_vs_cpu(torch, sft_ds)
+    t = phase("tiny train: card vs cpu, loss, gradients, SFT and a greedy "
+              "GRPO step")
+    report["tiny_train"] = tiny_grads_card_vs_cpu(torch, TINY, sft_ds,
+                                                  grpo=True)
     release(torch)
     done(t)
 
@@ -4327,14 +4589,14 @@ def main() -> int:
     done(t)
 
     t = phase("tiny ssm train: card vs cpu, loss, gradients, ten SFT steps")
-    report["tiny_ssm_train"] = tiny_ssm_train_card_vs_cpu(
+    report["tiny_ssm_train"] = tiny_grads_card_vs_cpu(
         torch, tiny_ssm_config(), sft_ds)
     release(torch)
     done(t)
 
     t = phase("tiny hybrid train: card vs cpu, loss, gradients, ten SFT "
               "steps")
-    report["tiny_hybrid_train"] = tiny_ssm_train_card_vs_cpu(
+    report["tiny_hybrid_train"] = tiny_grads_card_vs_cpu(
         torch, tiny_hybrid_config(), sft_ds)
     release(torch)
     done(t)
@@ -4355,6 +4617,25 @@ def main() -> int:
           "moments alone need ~80 GB")
     report["hybrid_train"] = full_ssm_train(torch, cut_cfg, sft_ds, 1.2e9)
     done(t)
+
+    t = phase("tiny families train: card vs cpu, loss, gradients, ten SFT "
+              "steps, a greedy GRPO step (text-only)")
+    report["tiny_family_train"] = {
+        cfg.name: tiny_grads_card_vs_cpu(torch, cfg, sft_ds,
+                                         grpo=not (cfg.is_encoder_decoder
+                                                   or cfg.num_stub_patches))
+        for cfg in (*tiny_dense_configs(), *tiny_multimodal_configs(),
+                    *tiny_moe_configs())}
+    release(torch)
+    done(t)
+
+    report["family_train"] = {}
+    for name, (least, layers, batch) in FAMILY_TRAIN.items():
+        t = phase(f"full-width train: {name}"
+                  + (f", {layers} layers" if layers else "") + ", SFT steps")
+        report["family_train"][name] = full_family_train(
+            torch, name, least, layers, batch, sft_ds)
+        done(t)
 
     t = phase("CLIs: repro_torch.launch.train, then .serve --checkpoint")
     report["clis"] = clis()
@@ -4415,12 +4696,25 @@ def main() -> int:
         "decode_attention" + MOE_Q: moe["launches"]["decode_attention"],
         "paged_decode_attention" + MOE_Q: moe["paged"]["launches"][
             "paged_decode_attention"]})
+    # and the training families' SFT steps: each backward row's launches
+    # from its config's run (whisper's encoder calls told apart by shape)
+    fam = report["family_train"]
+    launches.update({
+        "flash_attention_bwd" + MLA: fam[MLA[1:]]["sft_launches"][
+            "flash_attention_bwd"],
+        "flash_attention_bwd@gemma2-9b": fam["gemma2-9b"]["sft_launches"][
+            "flash_attention_bwd"],
+        "flash_attention_bwd" + MOE_Q: fam[MOE_Q[1:]]["sft_launches"][
+            "flash_attention_bwd"],
+        "flash_attention_bwd" + AUDIO + "/encoder": fam[AUDIO[1:]][
+            "sft_bwd_shapes"][str((ENC_FRAMES, ENC_FRAMES, False))]})
     kernel_rows = []
     for row in [*TPU_KERNELS, *(f"{n}{HYBRID}" for n in
                                 (*HYBRID_KERNELS, *HYBRID_TRAIN_KERNELS)),
                 *(name + config for name, config in DENSE_ROWS),
                 *(name + config for name, config in MULTIMODAL_ROWS),
-                *(name + config for name, config in MOE_ROWS)]:
+                *(name + config for name, config in MOE_ROWS),
+                *(name + config for name, config in TRAIN_ROWS)]:
         name = row.split("@")[0]
         tm = timing[row]
         kernel_rows.append({

@@ -10,13 +10,23 @@
 // q-heads of a group), causal with q_offset of either sign, a sliding
 // window, softcap (the gradient through cap tanh(x / cap) is dS (1 - t^2)),
 // dv != d, f32 and bf16 inputs, strided views with a contiguous last dim.
-// Head dims: any pair of 32, 64, 128 and 256, and d = dv = 112 (zamba2-7b's
+// Head dims: any pair of 32, 64, 128 and 256, MLA's (d, dv) = (192, 128)
+// (deepseek-v2-lite's nope + rope with its v) and (48, 32) (its reduced
+// config), and d = dv = 112 (zamba2-7b's
 // tied attention block): a 112-wide row is 14 16-byte chunks and 7 mma
 // k-steps, so the row loaders take a ragged last pass (load_rows,
 // flash_common.cuh; the dQ kernel's own Q / dO rows), the f32 kernels'
 // accumulator tiles are 16 columns wide (Owned), and every mma loop runs
 // over 16-column slices one at a time (ldmatrix x4 pairs 8-wide n-tiles,
-// never k-steps), so the odd count of k-steps needs no pairing.
+// never k-steps), so the odd count of k-steps needs no pairing.  MLA's
+// pairs take the same bodies: 192 and 48 are multiples of 16 (12 and 3
+// k-steps, 24 and 6 chunks a row, which the row loaders walk in ragged
+// passes as at 112); at (192, 128) the dQ block keeps 24 n-tiles of dQ a
+// warp (96 f32, as 128 at d 256) and runs one block an SM, and d + dv =
+// 320 splits dK/dV's columns over 8 warps (96 + 64 a warp); the f32
+// kernels own 16-row tiles of 192 columns as 3 a thread (Owned: W 64) and
+// of 48 as 3 (W 16).  The scale is the forward's, passed explicitly (MLA's
+// (nope + rope)^-0.5, not v's dim).
 // A query row with no valid key gets zero gradient, as the forward writes
 // it zero output.  Each row's log-sum-exp comes from the forward (its
 // ``lse`` output), so no launch recomputes it.
@@ -189,8 +199,11 @@ __device__ __forceinline__ void tile_grads(
   }
 }
 
+// At (48, 32) ptxas left to itself spills 4 bytes at 56 registers; asked
+// for four blocks an SM it keeps everything in registers (122).
 template <typename T, int D, int DV>
-__global__ void __launch_bounds__(THREADS) bwd_dkdv_kernel(const BwdParams p) {
+__global__ void __launch_bounds__(THREADS, D == 48 ? 4 : 1)
+    bwd_dkdv_kernel(const BwdParams p) {
   extern __shared__ float smem[];
   float* ks = smem;                  // BKB x (D + 1)
   float* vs = ks + BKB * (D + 1);    // BKB x (DV + 1)
@@ -1010,5 +1023,7 @@ extern "C" int repro_flash_attention_bwd(
   f.batch = b;
   f.dtype = dtype;
   f.stream = static_cast<cudaStream_t>(stream);
-  return repro::dispatch_head_dims<112>(d, dv_dim, f);
+  return repro::dispatch_head_pairs<repro::HeadPair<112, 112>,
+                                    repro::HeadPair<192, 128>,
+                                    repro::HeadPair<48, 32>>(d, dv_dim, f);
 }

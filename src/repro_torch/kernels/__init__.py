@@ -17,7 +17,8 @@
 
 Each kernel's wrapper keeps a count of its launches in a module attribute;
 the helpers below read and reset all eight at once (and the flash
-forward's count by shape, ``flash_attention.shape_launches``).
+forward's and backward's counts by shape, ``flash_attention.shape_launches``
+and ``bwd_shape_launches``).
 """
 from typing import Dict
 
@@ -44,3 +45,4 @@ def reset_launch_counts() -> None:
     for mod, attr in _COUNTERS.values():
         setattr(mod, attr, 0)
     flash_attention.shape_launches.clear()
+    flash_attention.bwd_shape_launches.clear()

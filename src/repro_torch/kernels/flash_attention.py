@@ -25,9 +25,12 @@ an input that requires grad) goes through ``FlashAttention``, any other
 launches the forward kernel; either raises on what the kernels do not
 take.  ``launches`` counts forward launches, ``shape_launches`` the same
 launches by (sq, sk, causal), which tells a model's calls apart (an
-encoder's, a decoder's self- and cross-attention), ``bwd_launches``
-backward calls.  Calls outside autograd (the serve path, rollouts, no-grad
-forwards) pass no log-sum-exp buffer, and the kernel writes none.
+encoder's, a decoder's self- and cross-attention), ``bwd_launches`` and
+``bwd_shape_launches`` backward calls, in all and by the same key.  Both
+kernels take the same head dims, MLA's (d, dv) pairs included, so a loss
+through any stack the forward serves trains on the card.  Calls outside
+autograd (the serve path, rollouts, no-grad forwards) pass no log-sum-exp
+buffer, and the kernel writes none.
 """
 from __future__ import annotations
 
@@ -39,17 +42,17 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-# both kernels: any pair of PAIR_HEAD_DIMS, and 112 with dv = d (zamba2-7b);
-# the forward also MLA's (d, dv) pairs: deepseek-v2-lite's nope + rope 192
-# with v 128, and 48 with 32 on its reduced config.  The backward does not
-# take them: a loss through MLA on the card raises.
-FWD_HEAD_DIMS = BWD_HEAD_DIMS = build.PAIR_HEAD_DIMS + (112,)
-FWD_PAIRS = ((192, 128), (48, 32))
+# what both kernels take: any pair of PAIR_HEAD_DIMS, 112 with dv = d
+# (zamba2-7b), and MLA's (d, dv) pairs: deepseek-v2-lite's nope + rope 192
+# with v 128, and 48 with 32 on its reduced config
+HEAD_DIMS = build.PAIR_HEAD_DIMS + (112,)
+PAIRS = ((192, 128), (48, 32))
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
 shape_launches: Counter = Counter()
 bwd_launches = 0
+bwd_shape_launches: Counter = Counter()
 
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
              + [ctypes.c_longlong] * 9
@@ -87,8 +90,6 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, scale, q_offset):
-        # refuse what the backward does not take before the forward runs
-        check_args(q, k, v, backward=True)
         mask = dict(causal=causal, window=window, softcap=softcap,
                     scale=scale, q_offset=q_offset)
         out, lse = flash_attention_cuda(q, k, v, return_lse=True, **mask)
@@ -138,9 +139,9 @@ def flash_lse_plain(q, k, v, *, causal: bool = True, window: int = 0,
     return lse.masked_fill(~mask.any(dim=-1), float("inf"))
 
 
-def check_args(q, k, v, *, backward: bool = False) -> None:
-    """Raise ``ValueError`` on any input the forward kernel (or, with
-    ``backward``, the backward kernel) does not take."""
+def check_args(q, k, v) -> None:
+    """Raise ``ValueError`` on any input the kernels (forward and backward
+    alike) do not take."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be 4-D (b, h, s, d)")
     b, hq, sq, d = q.shape
@@ -154,12 +155,8 @@ def check_args(q, k, v, *, backward: bool = False) -> None:
                          f"{tuple(k.shape)} v {tuple(v.shape)}")
     if hkv == 0 or hq % hkv:
         raise ValueError(f"hq {hq} is not a multiple of hkv {hkv}")
-    if backward:
-        build.check_head_dims(d, v.shape[3], BWD_HEAD_DIMS,
-                              "the flash backward kernel")
-    else:
-        build.check_head_dims(d, v.shape[3], FWD_HEAD_DIMS,
-                              "the flash kernel", FWD_PAIRS)
+    build.check_head_dims(d, v.shape[3], HEAD_DIMS, "the flash kernels",
+                          PAIRS)
     if b == 0 or sq == 0 or sk == 0:
         raise ValueError("empty batch or sequence")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -225,7 +222,7 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *, causal: bool = True,
             or q.device.type != "cuda":
         raise ValueError("flash_attention backward needs CUDA tensors on one "
                          "device")
-    check_args(q, k, v, backward=True)
+    check_args(q, k, v)
     b, hq, sq, d = q.shape
     hkv, sk, dv = k.shape[1], k.shape[2], v.shape[3]
     for name, t in (("out", out), ("dout", dout)):
@@ -255,4 +252,5 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *, causal: bool = True,
              int(q_offset), torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention_bwd")
     bwd_launches += 1
+    bwd_shape_launches[(sq, sk, bool(causal))] += 1
     return dq, dk, dvv

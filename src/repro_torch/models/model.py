@@ -230,8 +230,8 @@ def forward_train(params, cfg: ModelConfig, batch: Dict, *,
     runs the flash forward and backward kernels, and a mamba layer's SSD
     runs the scan kernel forward and ``csrc/ssd_scan_bwd.cu`` backward
     (``kernels.ssd_scan.SSDScan``).  MLA's flash call (q, k of nope + rope,
-    v of ``v_head_dim``) has no backward kernel at those head dims: on the
-    card, a loss through an MLA stack raises the wrapper's ValueError."""
+    v of ``v_head_dim``, its scale passed explicitly) takes the backward
+    kernel at those head dims too."""
     logits, aux, _ = _forward_full(params, cfg, batch, want_cache=False,
                                    remat=remat)
     return logits, aux

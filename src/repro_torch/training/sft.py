@@ -20,7 +20,7 @@ from repro_torch.core import serialization
 from repro_torch.core.fingerprint import FingerprintLibrary
 from repro_torch.core.retrieval import AnchorRetriever
 from repro_torch.data.datasets import ScopeData
-from repro_torch.data.pipeline import batches, make_lm_batch
+from repro_torch.data.pipeline import batches, make_lm_batch, with_stubs
 from repro_torch.models import model as M
 from repro_torch.training.optimizer import (
     AdamWConfig, AdamWState, adamw_init, adamw_update, value_and_grad)
@@ -77,7 +77,10 @@ def train_sft(params, cfg: ModelConfig, dataset: Dict[str, np.ndarray], *,
               log_every: int = 50, verbose: bool = False):
     """``steps`` SFT steps over ``dataset``, epoch e shuffled by
     ``default_rng(seed + e)`` as in the reference; the params are trained
-    in place on their own device.  Returns (params, losses)."""
+    in place on their own device.  A multimodal config's step i gets its
+    stub inputs from ``pipeline.with_stubs(..., seed=seed + i)`` (the
+    reference's trainer feeds text alone, which whisper's loss cannot
+    take).  Returns (params, losses)."""
     opt_cfg = opt_cfg or AdamWConfig(lr=1e-3, warmup_steps=20,
                                      total_steps=steps)
     dev = params["embed"].device
@@ -88,6 +91,7 @@ def train_sft(params, cfg: ModelConfig, dataset: Dict[str, np.ndarray], *,
     while done < steps:
         for batch in batches(dataset, batch_size, seed=seed + epoch,
                              device=dev):
+            batch = with_stubs(batch, cfg, seed=seed + done)
             params, opt_state, loss, _ = sft_step(params, cfg, opt_state,
                                                   batch, opt_cfg)
             losses.append(float(loss))

@@ -555,13 +555,21 @@ def engines(request, port_world, scope_data, library, retriever):
     return jeng, teng, scope_data, data, qids
 
 
-@pytest.mark.parametrize("policy", ["alpha0.7", "budget"])
-def test_engine_serve_decisions_equal(engines, policy):
+@pytest.fixture(scope="module")
+def predicted(engines):
+    """Both engines' pool predictions over the test queries, made once for
+    both policies' serves."""
     jeng, teng, jdata, tdata, qids = engines
-    jreq = japi.RouteRequest([jdata.queries[q] for q in qids])
-    treq = tapi.RouteRequest([tdata.queries[q] for q in qids])
-    jp = jeng.predict(jreq, use_cache=False)
-    tp = teng.predict(treq, use_cache=False)
+    return (jeng.predict(japi.RouteRequest([jdata.queries[q] for q in qids]),
+                         use_cache=False),
+            teng.predict(tapi.RouteRequest([tdata.queries[q] for q in qids]),
+                         use_cache=False))
+
+
+@pytest.mark.parametrize("policy", ["alpha0.7", "budget"])
+def test_engine_serve_decisions_equal(engines, predicted, policy):
+    jeng, teng, jdata, tdata, qids = engines
+    jp, tp = predicted
     for f in ("y_hat", "len_hat", "well_formed", "pred_overhead"):
         np.testing.assert_array_equal(getattr(tp, f), getattr(jp, f),
                                       err_msg=f)

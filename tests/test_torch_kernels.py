@@ -802,22 +802,17 @@ def test_flash_check_args_accepts_model_layout_and_f32_odd_strides():
 
 def test_flash_forward_takes_d112_and_backward_refuses_it():
     """d = dv = 112 (zamba2-7b's tied block, which trains) is a head dim of
-    the forward and of the backward kernel, in the model's bf16 layout too;
-    both still refuse 112 paired with another dv, the backward by name."""
+    the flash kernels, forward and backward alike (one ``check_args``), in
+    the model's bf16 layout too; they still refuse 112 paired with another
+    dv, by name."""
     bf = torch.bfloat16
     q = _t(2, 49, 32, 112, dtype=bf).transpose(1, 2)
-    for backward in (False, True):
-        FA.check_args(q, q, q, backward=backward)
-        FA.check_args(_t(1, 4, 8, 112), _t(1, 4, 8, 112), _t(1, 4, 8, 112),
-                      backward=backward)
+    FA.check_args(q, q, q)
+    FA.check_args(_t(1, 4, 8, 112), _t(1, 4, 8, 112), _t(1, 4, 8, 112))
     for d, dv in ((112, 128), (128, 112), (112, 64)):
-        with pytest.raises(ValueError, match="head dims"):
+        with pytest.raises(ValueError, match="head dims.*the flash kernels"):
             FA.check_args(_t(1, 2, 8, d), _t(1, 2, 8, d), _t(1, 2, 8, dv))
-        with pytest.raises(ValueError, match="flash backward kernel"):
-            FA.check_args(_t(1, 2, 8, d), _t(1, 2, 8, d), _t(1, 2, 8, dv),
-                          backward=True)
-    FA.check_args(_t(1, 2, 8, 128), _t(1, 2, 8, 128), _t(1, 2, 8, 64),
-                  backward=True)
+    FA.check_args(_t(1, 2, 8, 128), _t(1, 2, 8, 128), _t(1, 2, 8, 64))
 
 
 def test_decode_kernels_take_d112_only_with_dv_112():
