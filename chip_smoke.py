@@ -323,6 +323,24 @@ Phases, each of which must pass (any failure exits non-zero with no result):
  21. CLIs        — ``python -m repro_torch.launch.train`` on scope-tiny,
                    then ``python -m repro_torch.launch.serve --checkpoint``
                    on what it saved, both on the card
+ 22. planning    — ``launch.dryrun``: the host plan of all 40 (arch, input
+                   shape) pairs (34 ok, 6 skipped with the reference's
+                   reason), then each of the 34 steps once on the card
+                   through ``run_one`` at its shape's own length (train
+                   4096, prefill 32768, decode one token against 32768
+                   cached or, for long_500k, a window's ring or an SSM
+                   state), seeded random weights, the cuts of
+                   ``plan_cut`` listed under ``reduced``: output finite
+                   and of its shape, each kernel of its path launched;
+                   the kernels at those lengths against their plain
+                   versions (``long_checks``: flash at 4096 x 4096 and
+                   over 32768 keys, with gemma2-9b's window and softcap;
+                   the flash backward at 4096; the dense decode over 32768
+                   keys; gemma2-9b's 4096-slot ring full and wrapped; the
+                   SSD scan and its backward over 4096 and 32768 tokens
+                   against float64), two launches bitwise equal; and their
+                   times beside their bounds and yardsticks
+                   (``long_timings``); the phase's seconds
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.  Details go to
@@ -343,11 +361,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "build"
-
-# H100 SXM peaks (NVIDIA data sheet, dense): device memory bandwidth and the
-# arithmetic rate for each operand type
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 F32_TOL, BF16_TOL, TOPK_TOL = 2e-5, 3e-2, 1e-5
 # the SSD backward's float32 outputs (d(dt), dB, dC) with x in bf16: the
@@ -658,7 +671,9 @@ def times(torch, kernel, plain, library, iters: int):
 
 def bound(nbytes: float, flops: float, dtype: str):
     """(ms, what bounds it): the larger of bytes over the memory rate and
-    operations over the peak rate for their type."""
+    operations over the peak rate for their type (the H100's, the
+    planning path's ``launch/step_cost``)."""
+    from repro_torch.launch.step_cost import HBM_BYTES_PER_S, PEAK_FLOPS
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
     return (max(t_bytes, t_ops) * 1e3,
@@ -1919,12 +1934,14 @@ FLEX_PREFILL_OPTIONS = dict(BLOCK_M=64, BLOCK_N=32, num_warps=4, num_stages=2)
 
 
 def softcap_library(torch, cap: float, q, k, v, lens=None,
-                    kernel_options=None):
+                    kernel_options=None, window: int = 0, q_offset: int = 0):
     """The one PyTorch call that computes softcapped attention:
     ``flex_attention`` under ``torch.compile``, with the score_mod cap *
-    tanh(s / cap) and a block mask, causal for a prefill or each row's
-    first ``lens[b]`` keys for a decode; q-heads grouped on k's heads.  The
-    port never calls it; it is the yardstick of the softcapped rows."""
+    tanh(s / cap) and a block mask, causal for a prefill (queries from
+    position ``q_offset``, within ``window`` keys when it is set) or each
+    row's first ``lens[b]`` keys for a decode; q-heads grouped on k's
+    heads.  The port never calls it; it is the yardstick of the softcapped
+    rows."""
     from torch.nn.attention.flex_attention import (create_block_mask,
                                                    flex_attention)
 
@@ -1933,7 +1950,10 @@ def softcap_library(torch, cap: float, q, k, v, lens=None,
 
     if lens is None:
         def mask_mod(b, h, q_idx, kv_idx):
-            return q_idx >= kv_idx
+            keep = q_idx + q_offset >= kv_idx
+            if window:
+                keep = keep & (q_idx + q_offset - kv_idx < window)
+            return keep
     else:
         def mask_mod(b, h, q_idx, kv_idx):
             return kv_idx < lens[b]
@@ -4292,6 +4312,496 @@ def full_family_train(torch, name, least, layers, batch, ds):
             "params": n_params, **sft}
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the planning path, every (arch, input shape) step on the card
+# ---------------------------------------------------------------------------
+# (arch, shape) -> (num_layers, rows) of its card run, None = the config's
+# depth / the shape's batch.  Each step runs at its shape's own seq_len; the
+# cuts keep it within one card and a few seconds: train_4k and prefill_32k
+# one row (a row's float32 logits at gemma2's 256000-token vocabulary and
+# 32768 positions are 33.5 GB), at 2 layers (zamba2: 6, its first
+# shared-block occurrence; qwen3-moe: 1, ~2.5 B params a layer); decode_32k
+# at its 128 rows and 2 layers (zamba2: 32 rows, its shared block's cache
+# of 32 heads of 112 is 60 GB at 128 rows); long_500k at full depth
+PLAN_LAYERS = {"zamba2-7b": 6, "qwen3-moe-235b-a22b": 1}
+PLAN_ROWS = {("zamba2-7b", "decode_32k"): 32}
+# the planning phase's kernel rows: row -> (kernel, the runs whose launches
+# it counts: shape, archs or None for all)
+PLAN_ROWS_KERNELS = {
+    "flash_attention@train_4k": ("flash_attention", "train_4k", None),
+    "flash_attention@prefill_32k": ("flash_attention", "prefill_32k", None),
+    "flash_attention@prefill_32k/gemma2-9b": ("flash_attention",
+                                              "prefill_32k", ("gemma2-9b",)),
+    "flash_attention_bwd@train_4k": ("flash_attention_bwd", "train_4k",
+                                     None),
+    "decode_attention@decode_32k": ("decode_attention", "decode_32k", None),
+    "decode_attention@long_500k/gemma2-9b": ("decode_attention", "long_500k",
+                                             ("gemma2-9b",)),
+    "ssd_scan@prefill_32k": ("ssd_scan", "prefill_32k", None),
+    "ssd_scan_bwd@train_4k": ("ssd_scan_bwd", "train_4k", None),
+}
+LONG_KEYS, LONG_ROWS, RING = 32768, 256, 4096
+
+
+def plan_cut(arch: str, shape: str):
+    """(num_layers, rows) of a card run; None keeps the config's depth or
+    the shape's batch."""
+    if shape == "long_500k":
+        return None, None
+    rows = (1 if shape in ("train_4k", "prefill_32k")
+            else PLAN_ROWS.get((arch, shape)))
+    return PLAN_LAYERS.get(arch, 2), rows
+
+
+def path_kernels(cfg, mode: str):
+    """The kernels a step of ``mode`` on ``cfg`` must launch on the card."""
+    ssm = cfg.has_ssm()
+    attn = not cfg.is_attention_free() or cfg.shared_attn_every > 0
+    if mode == "train":
+        return ((("flash_attention", "flash_attention_bwd") if attn else ())
+                + (("ssd_scan", "ssd_scan_bwd") if ssm else ()))
+    if mode == "prefill":
+        return (("flash_attention",) if attn else ()) + (
+            ("ssd_scan",) if ssm else ())
+    gqa = attn and not cfg.has_mla()
+    return ((("decode_attention",) if gqa else ())
+            + (("flash_attention",) if cfg.is_encoder_decoder else ())
+            + (("ssd_decode_step",) if ssm else ()))
+
+
+def planning_runs(torch, only=None):
+    """Every pair's host plan (40 rows: 34 ok, 6 skipped with the
+    reference's reason), then each of the 34 steps once on the card
+    through ``launch.dryrun.run_one`` at its shape's seq_len and the cuts
+    of ``plan_cut``, the launch counts set to 0 just before each and read
+    just after; each step's output finite and of its shape, each kernel of
+    its path launched.  ``only``: the (arch, shape) pairs to run (all
+    34 by default)."""
+    from repro_torch import kernels
+    from repro_torch.configs import ASSIGNED_ARCHS, INPUT_SHAPES, get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import specs as S
+    plans = [D.plan(a, s) for a in ASSIGNED_ARCHS for s in INPUT_SHAPES]
+    for row in plans:
+        D.print_row(row)
+    ok = [(r["arch"], r["shape"]) for r in plans if r["status"] == "ok"]
+    skipped = [r for r in plans if r["status"] == "skipped"]
+    check(len(ok) == 34 and len(skipped) == 6 and all(
+        r["reason"] == "full-attention arch: long_500k requires "
+                       "sub-quadratic attention" for r in skipped),
+          f"plan: {len(ok)} ok, {len(skipped)} skipped")
+    runs = []
+    for arch, shape in ok:
+        if only is not None and (arch, shape) not in only:
+            continue
+        layers, rows = plan_cut(arch, shape)
+        release(torch)
+        kernels.reset_launch_counts()
+        row = D.run_one(arch, shape, num_layers=layers, rows=rows)
+        counts = kernels.launch_counts()
+        r = row["run"]
+        cfg = S.resolved_config(get_config(arch), INPUT_SHAPES[shape])
+        mode = INPUT_SHAPES[shape].mode
+        want = {"train": [], "prefill": [r["rows"], r["seq_len"],
+                                         cfg.vocab_size],
+                "decode": [r["rows"], 1, cfg.vocab_size]}[mode]
+        check(r["finite"] and r["output_shape"] == want,
+              f"{arch} x {shape}: output {r['output_shape']} (want {want}),"
+              f" finite {r['finite']}")
+        check(r["device_ms"] is not None, f"{arch} x {shape}: the profiler "
+              "saw no device time")
+        missing = [k for k in path_kernels(cfg, mode) if not counts[k]]
+        check(not missing, f"{arch} x {shape}: {missing} never launched")
+        row["launches"] = {k: v for k, v in counts.items() if v}
+        print(f"   launches {row['launches']}")
+        runs.append(row)
+    release(torch)
+    return {"plans": plans, "runs": runs}
+
+
+def long_checks(torch):
+    """The kernels at the input shapes' lengths against their plain
+    versions on the card (a generator of its own, seed 40), bf16 within 3e-2
+    x min(1, max|want|) (outputs of many keys sit far below 1) or, for
+    gradients, x max(1, max|want|), each case two launches bitwise equal:
+    flash at 4096 x 4096 causal (scope-qwen3-4b's 32 heads on 8 of 128);
+    flash over 32768 keys on the last 256 query rows (q_offset; the plain
+    version cannot hold 32768^2 scores), and so at gemma2-9b's heads of 256
+    with its window of 4096 and softcap 50; the flash backward at 4096
+    through the autograd Function against autograd of the plain version;
+    the dense decode over 32768 keys (full and ragged rows); gemma2-9b's
+    4096-slot ring short of the window, full, just wrapped and wrapped at
+    position 32767, against its plain version and the windowed history;
+    the SSD scan (y within 3e-2, the f32 state within 2e-5, each element x
+    max(1, |want|)) and its backward (dx, dA within 3e-2, the f32 d(dt),
+    dB, dC within 1e-4, x max(1, max|want|)) at mamba2-1.3b's heads over
+    4096 and 32768 tokens, against the plain version in float64.  Returns
+    {row: max_abs_err} for the phase's kernel rows."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as SS
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    bf = torch.bfloat16
+    errs = {}
+
+    def rnd(*shape, dt=bf):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dt)
+
+    def view(b, s, h, d):
+        return rnd(b, s, h, d).transpose(1, 2)
+
+    def compare(name, got, want, tol, scale="rel", row=None):
+        torch.cuda.synchronize()
+        w = want.float() if want.dtype != torch.float64 else want
+        diff = (got.to(w.dtype) - w).abs()
+        err = diff.max().item()
+        top = w.abs().max().item()
+        if scale == "each":
+            bad = (diff / w.abs().clamp(min=1.0)).max().item()
+        else:
+            bad = err / {"rel": max(min(1.0, top), 1e-30),
+                         "max": max(1.0, top)}[scale]
+        finite = bool(torch.isfinite(got.float()).all())
+        print(f"   {name}: max_abs_err {err:.3g} (tol {tol} x "
+              f"{ {'rel': 'min(1, max|want|)', 'max': 'max(1, max|want|)', 'each': 'max(1, |want|) each'}[scale]}, "
+              f"max|want| {top:.3g})")
+        check(finite and bad <= tol, f"{name}: err {bad} > {tol} or "
+              "non-finite")
+        if row:
+            errs[row] = max(errs.get(row, 0.0), err)
+
+    def same(name, a, b):
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(a, b, strict=True)),
+              f"{name}: two launches differ")
+        print(f"   {name}: two launches bitwise equal")
+
+    # flash forward: 4096 x 4096 causal; the last 256 rows over 32768 keys
+    cases = [("flash 4096 causal", 1, 32, 8, 4096, 4096, 128, {}, 0,
+              "flash_attention@train_4k"),
+             ("flash 32768 keys, last 256 rows", 1, 32, 8, LONG_ROWS,
+              LONG_KEYS, 128, {}, LONG_KEYS - LONG_ROWS,
+              "flash_attention@prefill_32k"),
+             ("flash 32768 keys, gemma2-9b window 4096 softcap 50", 1, 16, 8,
+              LONG_ROWS, LONG_KEYS, 256, dict(window=RING, softcap=50.0),
+              LONG_KEYS - LONG_ROWS, "flash_attention@prefill_32k/gemma2-9b")]
+    for name, b, hq, hkv, sq, sk, d, kw, off, row in cases:
+        q, k, v = view(b, sq, hq, d), view(b, sk, hkv, d), view(b, sk, hkv, d)
+        got = FA.flash_attention_cuda(q, k, v, q_offset=off, **kw)
+        compare(name, got, FA.flash_attention_plain(q, k, v, q_offset=off,
+                                                    **kw), BF16_TOL, row=row)
+        same(name, (got,), (FA.flash_attention_cuda(q, k, v, q_offset=off,
+                                                     **kw),))
+        del q, k, v, got
+        release(torch)
+
+    # the flash backward at 4096, as a loss reaches it
+    q, k, v = (view(1, 4096, h, 128).requires_grad_(True) for h in (32, 8, 8))
+    dout = rnd(1, 32, 4096, 128)
+    before = FA.bwd_launches
+    got = torch.autograd.grad(FA.flash_attention(q, k, v), (q, k, v), dout)
+    check(FA.bwd_launches == before + 1, "flash bwd 4096: no backward launch")
+    want = torch.autograd.grad(FA.flash_attention_plain(q, k, v), (q, k, v),
+                               dout)
+    for n, g, w in zip("qkv", got, want, strict=True):
+        compare(f"flash bwd 4096 causal d{n}", g, w, BF16_TOL, scale="max",
+                row="flash_attention_bwd@train_4k")
+    with torch.no_grad():
+        out, lse = FA.flash_attention_cuda(q, k, v, return_lse=True)
+        same("flash bwd 4096", FA.flash_attention_bwd_cuda(
+            q, k, v, out, dout, lse), FA.flash_attention_bwd_cuda(
+            q, k, v, out, dout, lse))
+    del q, k, v, dout, got, want, out, lse
+    release(torch)
+
+    # the dense decode over 32768 keys: full rows and ragged ones
+    qd = rnd(4, 32, 1, 128)
+    kc, vc = rnd(4, 8, LONG_KEYS, 128), rnd(4, 8, LONG_KEYS, 128)
+    for lens in ([LONG_KEYS] * 4, [LONG_KEYS, 30000, 4097, 17]):
+        lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        got = DA.decode_attention_cuda(qd, kc, vc, lens)
+        name = f"decode 32768 keys, lens {lens.tolist()}"
+        compare(name, got, DA.decode_attention_plain(qd, kc, vc, lens),
+                BF16_TOL, row="decode_attention@decode_32k")
+        same(name, (got,), (DA.decode_attention_cuda(qd, kc, vc, lens),))
+    del qd, kc, vc
+
+    # gemma2-9b's ring of 4096 slots: short, full, just wrapped, far
+    pos = torch.tensor([1000, RING - 1, RING, LONG_KEYS - 1],
+                       dtype=torch.int32, device="cuda")
+    b, hq, hkv, d, cap = pos.numel(), 16, 8, 256, 50.0
+    full_k, full_v = rnd(b, hkv, LONG_KEYS, d), rnd(b, hkv, LONG_KEYS, d)
+    ring_k = torch.zeros(b, hkv, RING, d, dtype=bf, device="cuda")
+    ring_v = torch.zeros_like(ring_k)
+    for i, p in enumerate(pos.tolist()):
+        keep = torch.arange(max(0, p - RING + 1), p + 1, device="cuda")
+        ring_k[i, :, keep % RING] = full_k[i, :, keep]
+        ring_v[i, :, keep % RING] = full_v[i, :, keep]
+    q = rnd(b, hq, 1, d)
+    lens = torch.clamp(pos + 1, max=RING)
+    got = DA.decode_attention_cuda(q, ring_k, ring_v, lens, softcap=cap)
+    name = f"decode ring 4096 d256 softcap, pos {pos.tolist()}"
+    compare(name, got, DA.decode_attention_plain(q, ring_k, ring_v, lens,
+                                                 softcap=cap), BF16_TOL,
+            row="decode_attention@long_500k/gemma2-9b")
+    compare(f"{name} vs the windowed history", got, DA.decode_attention_plain(
+        q, full_k, full_v, pos + 1, window=RING, softcap=cap), BF16_TOL)
+    same(name, (got,), (DA.decode_attention_cuda(q, ring_k, ring_v, lens,
+                                                 softcap=cap),))
+    del full_k, full_v, ring_k, ring_v, q
+    release(torch)
+
+    # the SSD scan and its backward over 4096 and 32768 tokens, mamba2's
+    # 64 heads of 64, state 128, chunk 128, x the conv output's bf16 slice
+    for l in (4096, LONG_KEYS):
+        x, dtv, A, B, C = ssd_inputs(torch, gen, 1, l, 64, 64, 128, 1.0, bf,
+                                     conv_layout=True)
+        got = SS.ssd_scan_cuda(x, dtv, A, B, C, chunk=128)
+        with torch.no_grad():
+            yw, sw = ref.ssd(*(t.double() for t in (x, dtv, A, B, C)),
+                             chunk=128)
+        name = f"ssd {l} tokens"
+        compare(f"{name} y", got[0], yw, BF16_TOL, scale="each",
+                row="ssd_scan@prefill_32k")
+        compare(f"{name} state", got[1], sw, F32_TOL, scale="each")
+        same(name, got, SS.ssd_scan_cuda(x, dtv, A, B, C, chunk=128))
+        del yw, sw, got
+        dy = rnd(1, l, 64, 64)
+        leaves = [t.detach().requires_grad_(True) for t in (x, dtv, A, B, C)]
+        before = SS.bwd_launches
+        y, _ = SS.ssd_scan(*leaves, chunk=128)
+        grads = torch.autograd.grad(y, leaves, dy)
+        check(SS.bwd_launches == before + 1, f"{name}: no backward launch")
+        del y
+        wit = SS.ssd_scan_bwd_plain(
+            *(t.double() for t in (x, dtv, A, B, C, dy)), None, chunk=128)
+        for part, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), grads, wit,
+                              strict=True):
+            compare(f"{name} bwd {part}", g, w,
+                    SPLIT_TOL if g.dtype == torch.float32 else BF16_TOL,
+                    scale="max", row="ssd_scan_bwd@train_4k")
+        del wit
+        with torch.no_grad():
+            _, _, states = SS.ssd_scan_cuda(x, dtv, A, B, C, chunk=128,
+                                            save_states=True)
+            same(f"{name} bwd", SS.ssd_scan_bwd_cuda(
+                x, dtv, A, B, C, dy, None, states, chunk=128),
+                SS.ssd_scan_bwd_cuda(x, dtv, A, B, C, dy, None, states,
+                                     chunk=128))
+        del x, dtv, A, B, C, dy, leaves, grads, states
+        release(torch)
+    return errs
+
+
+def long_timings(torch):
+    """Each kernel at the input shapes' lengths (a generator of its own,
+    seed 41; bf16; q, k, v the model's views), its plain version and its
+    yardstick (SDPA, or ``softcap_library`` with a softcap), by device time
+    in CUDA-graph replays, beside its bound: the rows of
+    ``PLAN_ROWS_KERNELS``.  The 32768-key flash rows are timed on their
+    last 256 query rows (the plain version cannot hold 32768^2 scores); the
+    kernel and SDPA over all 32768 query rows are timed beside them."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as SS
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    bf = torch.bfloat16
+    out = {}
+
+    def view(b, s, h, d):
+        return torch.randn(b, s, h, d, generator=gen, device="cuda").to(
+            bf).transpose(1, 2)
+
+    def show(row, t):
+        lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
+        print(f"   {row}: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f}, library {lib}, bound "
+              f"{t['bound_ms']:.4f} ({t['bound_by']}); {t['shape']}")
+
+    flash = [("flash_attention@train_4k", 32, 8, 4096, 4096, 128, {}, 0, 5),
+             ("flash_attention@prefill_32k", 32, 8, LONG_ROWS, LONG_KEYS,
+              128, {}, LONG_KEYS - LONG_ROWS, 5),
+             ("flash_attention@prefill_32k/gemma2-9b", 16, 8, LONG_ROWS,
+              LONG_KEYS, 256, dict(window=RING, softcap=50.0),
+              LONG_KEYS - LONG_ROWS, 5)]
+    for row, hq, hkv, sq, sk, d, kw, off, iters in flash:
+        q, k, v = view(1, sq, hq, d), view(1, sk, hkv, d), view(1, sk, hkv, d)
+        cap, window = kw.get("softcap", 0.0), kw.get("window", 0)
+        plain = (lambda: FA.flash_attention_plain(q, k, v, q_offset=off,
+                                                  **kw))
+        if cap:
+            library = softcap_library(torch, cap, q, k, v, window=window,
+                                      q_offset=off)
+            err = (library().float() - plain().float()).abs().max().item()
+            print(f"   {row}: flex_attention vs plain {err:.3e}")
+            check(err <= BF16_TOL, f"{row}: flex_attention differs by {err}")
+            call = ("flex_attention (torch.compile), score_mod softcap * "
+                    "tanh(s / softcap), causal window block mask")
+        else:
+            mask = None
+            if off:
+                mask = (torch.arange(sq, device="cuda")[:, None] + off
+                        >= torch.arange(sk, device="cuda")[None])
+            library = (lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=mask is None, attn_mask=mask,
+                enable_gqa=True))
+            call = "scaled_dot_product_attention"
+        t = dict(times(torch, lambda: FA.flash_attention_cuda(
+            q, k, v, q_offset=off, **kw), plain, library, iters),
+            library_call=call,
+            shape=f"q (1,{hq},{sq},{d}) kv (1,{hkv},{sk},{d}) bf16 causal"
+                  + (f" q_offset {off}" if off else "")
+                  + (f" window {window} softcap {cap:g}" if cap else ""))
+        # keys a query row attends (causal from q_offset, within the
+        # window), and the keys some row needs, read once
+        pairs = sum(min(off + i + 1, window or off + i + 1)
+                    for i in range(sq))
+        needed = min(sk, off + sq) - (max(0, off - window + 1) if window
+                                      else 0)
+        t["bound_ms"], t["bound_by"] = bound(
+            2 * (2 * q.numel() + 2 * hkv * needed * d),
+            4 * d * pairs * hq, "bfloat16")
+        out[row] = t
+        show(row, t)
+        del q, k, v
+        release(torch)
+    # the full 32768 x 32768 causal prefill of one row: the kernel and SDPA
+    q, k, v = (view(1, LONG_KEYS, h, 128) for h in (32, 8, 8))
+    full = dict(
+        ms=device_ms(torch, lambda: FA.flash_attention_cuda(q, k, v), 1, 2),
+        library_ms=device_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 1, 2))
+    pairs = LONG_KEYS * (LONG_KEYS + 1) // 2
+    full["bound_ms"], full["bound_by"] = bound(
+        2 * (q.numel() + k.numel() + v.numel() + q.numel()),
+        4 * 128 * pairs * 32, "bfloat16")
+    out["flash_attention@prefill_32k"]["full_32768"] = full
+    print(f"   flash 32768 x 32768 causal, 32 heads on 8 of 128: kernel "
+          f"{full['ms']:.3f} ms, SDPA {full['library_ms']:.3f}, bound "
+          f"{full['bound_ms']:.3f}")
+    del q, k, v
+    release(torch)
+
+    # the flash backward at 4096: the kernel in graph replays, its plain
+    # version's and SDPA's backward (autograd, which a graph does not
+    # capture) by CUDA events around back-to-back calls of milliseconds
+    # each, where the host's launches hide under the device's work.  Late
+    # in this script the profiler's sums lose events here (the kernel's
+    # summed to a quarter of its graph replays in three profiles running)
+    row = "flash_attention_bwd@train_4k"
+    q, k, v = (view(1, 4096, h, 128).requires_grad_(True)
+               for h in (32, 8, 8))
+    dout = torch.randn(1, 32, 4096, 128, generator=gen,
+                       device="cuda").to(bf)
+    with torch.no_grad():
+        o, lse = FA.flash_attention_cuda(q, k, v, return_lse=True)
+
+    def grads(y):
+        return lambda: torch.autograd.grad(y, (q, k, v), dout,
+                                           retain_graph=True)
+
+    t = dict(ms=device_ms(torch, lambda: FA.flash_attention_bwd_cuda(
+                 q, k, v, o, dout, lse), 20),
+             plain_ms=eager_ms(torch, grads(FA.flash_attention_plain(
+                 q, k, v)), 5),
+             library_ms=eager_ms(torch, grads(F.scaled_dot_product_attention(
+                 q, k, v, is_causal=True, enable_gqa=True)), 20),
+             library_call="backward of scaled_dot_product_attention (GQA, "
+                          "causal); plain_ms and library_ms by CUDA events "
+                          "around back-to-back calls",
+             shape="q (1,32,4096,128) k, v (1,8,4096,128) bf16 causal, "
+                   "views of (b, s, h, d); out, dO (b, hq, s, d); lse f32")
+    # q, k, v, o, dO and lse read once, dq, dk, dv written once; per
+    # attending (query, key) pair and q-head 6d + 4dv FLOPs
+    t["bound_ms"], t["bound_by"] = bound(
+        2 * (2 * q.numel() + 4 * k.numel() + 2 * o.numel())
+        + 4 * lse.numel(), 4096 * 4097 // 2 * 32 * 10 * 128, "bfloat16")
+    out[row] = t
+    show(row, t)
+    del q, k, v, dout, o, lse
+    release(torch)
+
+    # the dense decode over 32768 keys, 8 rows; gemma2-9b's ring
+    for row, b, hq, hkv, S, d, cap in (
+            ("decode_attention@decode_32k", 8, 32, 8, LONG_KEYS, 128, 0.0),
+            ("decode_attention@long_500k/gemma2-9b", 1, 16, 8, RING, 256,
+             50.0)):
+        qd = torch.randn(b, hq, 1, d, generator=gen, device="cuda").to(bf)
+        kc = torch.randn(b, hkv, S, d, generator=gen, device="cuda").to(bf)
+        vc = torch.randn(b, hkv, S, d, generator=gen, device="cuda").to(bf)
+        lens = torch.full((b,), S, dtype=torch.int32, device="cuda")
+        kw = dict(softcap=cap) if cap else {}
+        plain = (lambda: DA.decode_attention_plain(qd, kc, vc, lens, **kw))
+        if cap:
+            library = softcap_library(torch, cap, qd, kc, vc, lens)
+            err = (library().float() - plain().float()).abs().max().item()
+            check(err <= BF16_TOL, f"{row}: flex_attention differs by {err}")
+            call = "flex_attention (torch.compile), valid-length block mask"
+        else:
+            library = (lambda: F.scaled_dot_product_attention(
+                qd, kc, vc, enable_gqa=True))
+            call = "scaled_dot_product_attention"
+        t = dict(times(torch, lambda: DA.decode_attention_cuda(
+            qd, kc, vc, lens, **kw), plain, library, 20),
+            library_call=call,
+            shape=f"q ({b},{hq},1,{d}) cache ({b},{hkv},{S},{d}) bf16 "
+                  f"cache_len {S}" + (f" softcap {cap:g}" if cap else ""))
+        t["bound_ms"], t["bound_by"] = bound(
+            2 * (2 * qd.numel() + 2 * b * hkv * S * d) + 4 * b,
+            4 * d * b * S * hq, "bfloat16")
+        out[row] = t
+        show(row, t)
+        del qd, kc, vc
+        release(torch)
+
+    # the SSD scan over 32768 tokens and its backward over 4096, mamba2's
+    for row, l in (("ssd_scan@prefill_32k", LONG_KEYS),
+                   ("ssd_scan_bwd@train_4k", 4096)):
+        x, dtv, A, B, C = ssd_inputs(torch, gen, 1, l, 64, 64, 128, 1.0, bf,
+                                     conv_layout=True)
+        shape = (f"x (1,{l},64,64) bf16 conv-output slice, dt, B, C f32, "
+                 "state 128, chunk 128")
+        if row.startswith("ssd_scan@"):
+            t = dict(times(torch, lambda: SS.ssd_scan_cuda(
+                x, dtv, A, B, C, chunk=128), lambda: ref.ssd(
+                x, dtv, A, B, C, chunk=128), None, 5), shape=shape)
+            work = ssd_work(1, l, 64, 64, 128, 128, 2, 2)
+        else:
+            dy = torch.randn(1, l, 64, 64, generator=gen,
+                             device="cuda").to(bf)
+            with torch.no_grad():
+                _, _, states = SS.ssd_scan_cuda(x, dtv, A, B, C, chunk=128,
+                                                save_states=True)
+            t = dict(times(torch, lambda: SS.ssd_scan_bwd_cuda(
+                x, dtv, A, B, C, dy, None, states, chunk=128),
+                lambda: SS.ssd_scan_bwd_plain(x, dtv, A, B, C, dy,
+                                              chunk=128), None, 5),
+                shape=shape + ", dy bf16")
+            work = ssd_bwd_work(1, l, 64, 64, 128, 128, 2, 2)
+        t["library_call"] = "none: no single PyTorch call computes it"
+        t["bound_ms"], t["bound_by"] = bound(*work, "float32")
+        out[row] = t
+        show(row, t)
+        del x, dtv, A, B, C
+        release(torch)
+    return out
+
+
+def plan_launches(runs):
+    """Each planning row's launches: its kernel's count over the runs of
+    its shape (and archs)."""
+    out = {}
+    for row, (kernel, shape, archs) in PLAN_ROWS_KERNELS.items():
+        out[row] = sum(r["launches"].get(kernel, 0) for r in runs
+                       if r["shape"] == shape
+                       and (archs is None or r["arch"] in archs))
+        check(out[row] > 0, f"{row}: {kernel} never launched on its path")
+    return out
+
+
 def clis():
     """``python -m repro_torch.launch.train`` on scope-tiny (the card by
     default), then ``python -m repro_torch.launch.serve --checkpoint`` on
@@ -4641,6 +5151,17 @@ def main() -> int:
     report["clis"] = clis()
     done(t)
 
+    t = phase("planning: 40 (arch, input shape) plans, the 34 steps on the "
+              "card at their lengths, the kernels at 4096 and 32768")
+    report["planning"] = planning_runs(torch)
+    plan_errs = long_checks(torch)
+    timing.update(long_timings(torch))
+    errs.update(plan_errs)
+    launches_plan = plan_launches(report["planning"]["runs"])
+    report["planning"]["seconds"] = time.perf_counter() - t
+    print(f"   planning phase: {report['planning']['seconds']:.1f} s")
+    done(t)
+
     # launches: each kernel's count on its own path's run — the batch serve
     # for the three kernels of that path, the paged stream for the paged
     # one, the mamba2-1.3b serve for the SSD scan and decode step, the
@@ -4708,13 +5229,15 @@ def main() -> int:
             "flash_attention_bwd"],
         "flash_attention_bwd" + AUDIO + "/encoder": fam[AUDIO[1:]][
             "sft_bwd_shapes"][str((ENC_FRAMES, ENC_FRAMES, False))]})
+    launches.update(launches_plan)
     kernel_rows = []
     for row in [*TPU_KERNELS, *(f"{n}{HYBRID}" for n in
                                 (*HYBRID_KERNELS, *HYBRID_TRAIN_KERNELS)),
                 *(name + config for name, config in DENSE_ROWS),
                 *(name + config for name, config in MULTIMODAL_ROWS),
                 *(name + config for name, config in MOE_ROWS),
-                *(name + config for name, config in TRAIN_ROWS)]:
+                *(name + config for name, config in TRAIN_ROWS),
+                *PLAN_ROWS_KERNELS]:
         name = row.split("@")[0]
         tm = timing[row]
         kernel_rows.append({

@@ -7,7 +7,8 @@ multimodal stub backbones (``qwen2_vl_7b.CONFIG``,
 ``whisper_medium.CONFIG``), the mixture-of-experts backbones
 (``qwen3_moe_235b_a22b.CONFIG``, ``deepseek_v2_lite_16b.CONFIG``) and the
 ``get_config(name)`` registry: the reference's ten assigned configs and
-the two SCOPE estimators."""
+the two SCOPE estimators; ``ASSIGNED_ARCHS`` in the reference's order, and
+the planning shapes of ``base``."""
 from __future__ import annotations
 
 from typing import Dict
@@ -16,7 +17,8 @@ from repro_torch.configs import (deepseek_v2_lite_16b, gemma2_2b, gemma2_9b,
                                  internlm2_1_8b, mamba2_1_3b, qwen2_vl_7b,
                                  qwen3_moe_235b_a22b, scope_estimator,
                                  starcoder2_3b, whisper_medium, zamba2_7b)
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import (INPUT_SHAPES, InputShape, ModelConfig,
+                                     shape_applicable)
 
 _REGISTRY: Dict[str, ModelConfig] = {
     cfg.name: cfg for cfg in (scope_estimator.CONFIG, scope_estimator.TINY,
@@ -27,6 +29,19 @@ _REGISTRY: Dict[str, ModelConfig] = {
                               qwen3_moe_235b_a22b.CONFIG,
                               deepseek_v2_lite_16b.CONFIG)}
 
+ASSIGNED_ARCHS = (
+    "starcoder2-3b",
+    "whisper-medium",
+    "internlm2-1.8b",
+    "zamba2-7b",
+    "gemma2-9b",
+    "qwen2-vl-7b",
+    "qwen3-moe-235b-a22b",
+    "gemma2-2b",
+    "mamba2-1.3b",
+    "deepseek-v2-lite-16b",
+)
+
 
 def get_config(name: str) -> ModelConfig:
     try:
@@ -36,4 +51,11 @@ def get_config(name: str) -> ModelConfig:
             f"unknown arch {name!r}; available: {sorted(_REGISTRY)}") from None
 
 
-__all__ = ["ModelConfig", "get_config"]
+def list_configs():
+    return dict(_REGISTRY)
+
+
+__all__ = [
+    "ModelConfig", "InputShape", "INPUT_SHAPES", "shape_applicable",
+    "get_config", "list_configs", "ASSIGNED_ARCHS",
+]

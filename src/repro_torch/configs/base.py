@@ -199,3 +199,36 @@ class ModelConfig:
             changes.update(kv_lora_rank=64, qk_rope_head_dim=16,
                            qk_nope_head_dim=32, v_head_dim=32)
         return dataclasses.replace(self, **changes)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned): ``repro.configs.base``'s four planning shapes
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                           # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: InputShape) -> Tuple[bool, str]:
+    """Whether (arch, shape) should run; returns (ok, reason-if-skip)."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, ("full-attention arch: long_500k requires "
+                       "sub-quadratic attention")
+    return True, ""
+
+
+def long_context_variant(cfg: ModelConfig) -> ModelConfig:
+    """Sub-quadratic variant for long_500k: every attention layer becomes
+    sliding-window at ``long_context_window`` (SSM layers untouched)."""
+    return dataclasses.replace(cfg, force_window=cfg.long_context_window)

@@ -54,6 +54,7 @@ shape_launches: Counter = Counter()
 bwd_launches = 0
 bwd_shape_launches: Counter = Counter()
 
+GRID_Y_MAX = 65535
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
              + [ctypes.c_longlong] * 9
              + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
@@ -159,6 +160,17 @@ def check_args(q, k, v) -> None:
                           PAIRS)
     if b == 0 or sq == 0 or sk == 0:
         raise ValueError("empty batch or sequence")
+    # the grids' y extents (csrc/flash_attention.cu, flash_attention_bwd.cu):
+    # bf16 tiles of 64 position-major rows (group x sq) and of 64 keys;
+    # f32 tiles of 16 query rows forward, and the backward's (b x hq) and
+    # (b x hkv) blocks
+    g = hq // hkv
+    ys = ((-(-g * sq // 64), -(-sk // 64)) if q.dtype == torch.bfloat16
+          else (-(-sq // 16), b * hq))
+    if max(ys) > GRID_Y_MAX:
+        raise ValueError(f"b {b}, hq {hq}, group {g}, sq {sq}, sk {sk}: a "
+                         f"grid of {max(ys)} blocks in y, past the "
+                         f"{GRID_Y_MAX} CUDA allows")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"{name} must be contiguous in its last dim")

@@ -70,11 +70,14 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     ``cfg.dtype``, and so are the encoder's ``frontend_proj`` and stacked
     layers and ``vision_proj``; the final norm scales (the encoder's too)
     and the unstacked shared block's norm scales stay float32.  Untied
-    heads are not supported."""
+    heads are not supported.  On ``device="meta"`` nothing is drawn and
+    nothing allocated: the same code gives every leaf's shape and dtype
+    (``launch.specs.abstract_params``)."""
     if not cfg.tie_embeddings:
         raise NotImplementedError("untied LM heads are not ported yet")
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = (None if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
     dt = dtype_of(cfg.dtype)
     plan = tf.build_plan(cfg)
     segments = tuple(tf.init_segment(gen, cfg, unit, count, device=dev,
@@ -144,11 +147,18 @@ def _embed(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def _logits(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     """Tied head: rmsnorm(h) @ embed.T, in the model dtype; under
-    ``final_logit_softcap`` cast to float32 and softcapped."""
+    ``final_logit_softcap`` cast to float32 and softcapped, in place when
+    no gradient is recorded (the same operations in the same order: at
+    gemma2's vocabulary of 256000 a 32768-token row's float32 logits are
+    33.5 GB, and the out-of-place form holds three of them at once)."""
     h = rmsnorm(params["final_norm"], h, cfg.rmsnorm_eps)
     logits = h @ params["embed"].T
-    if cfg.final_logit_softcap > 0.0:
-        logits = softcap(logits.float(), cfg.final_logit_softcap)
+    cap = cfg.final_logit_softcap
+    if cap > 0.0:
+        logits = logits.float()
+        if torch.is_grad_enabled():
+            return softcap(logits, cap)
+        return logits.div_(cap).tanh_().mul_(cap)
     return logits
 
 

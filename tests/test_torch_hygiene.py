@@ -46,7 +46,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.training.checkpoint, repro_torch.data.pipeline, "
             "repro_torch.core.rewards, repro_torch.core.baselines, "
             "repro_torch.core.evaluation, repro_torch.launch.train, "
-            "repro_torch.launch.serve\n"
+            "repro_torch.launch.serve, repro_torch.launch.specs, "
+            "repro_torch.launch.step_cost, repro_torch.launch.dryrun\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "print(bad); sys.exit(1 if bad else 0)")
