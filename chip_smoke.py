@@ -341,9 +341,26 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    against float64), two launches bitwise equal; and their
                    times beside their bounds and yardsticks
                    (``long_timings``); the phase's seconds
+ 23. mesh        — scope-qwen3-4b at full width served through
+                   ``ReasoningEstimator.shard`` over a serve mesh of a
+                   world-1 NCCL process group (``launch.mesh``): one
+                   batch's tokens and decision logits, the batch serve
+                   (decisions, parsed fields, launches; walls and peaks
+                   alternated P1 C1 C2 P2), a dense and a paged refill
+                   stream (each request's window, decisions, scheduler
+                   stats, launches), all bit for bit equal to the
+                   unsharded engine on the same weights; ``launch.serve
+                   --mesh`` under ``torch.distributed.run`` on a scope-tiny
+                   checkpoint written there, its report the unsharded
+                   one; on a machine with more cards, the batch serve at
+                   world min(cards, 4) (``chip_smoke.py --mesh-rank``, one
+                   process a card) held to world 1
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and as
-its last line ``{"ok": true, "device": {...}}``.  Details go to
+its last line ``{"ok": true, "device": {...}}``.  ``python3 chip_smoke.py
+--mesh-phase`` runs phases 1, 2, the world and 23 alone and ends with the
+mesh report (on a machine with several cards, phase 23 also serves over
+min(cards, 4) of them).  Details go to
 ``build/chip_smoke.json``.  Needs one CUDA card; without one it exits with
 code 1.
 """
@@ -4833,6 +4850,289 @@ def clis():
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 23: scope-qwen3-4b over a serve mesh (torch.distributed, NCCL)
+# ---------------------------------------------------------------------------
+MESH_STREAM_QUERIES = 8
+MESH_KERNELS = ("topk_retrieval", "flash_attention", "decode_attention")
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def decisions(report):
+    return [(d.query_id, d.model, d.p_hat, d.cost_hat, d.status)
+            for d in report.decisions]
+
+
+def mesh_serve(torch, engine, data, qids):
+    """One cold ``serve`` of ``qids``: (decisions, the pool's parsed fields
+    read back from the prediction cache, launch counts, wall s, peak GiB
+    allocated over the serve)."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.api import FixedAlphaPolicy, RouteRequest
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = engine.serve(data, qids, FixedAlphaPolicy(0.7))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = kernels.launch_counts()
+    pool = engine.predict(RouteRequest([data.queries[q] for q in qids]))
+    fields = {f: np.asarray(getattr(pool, f)).tolist() for f in (
+        "y_hat", "len_hat", "well_formed", "p_hat", "pred_overhead")}
+    return decisions(rep), fields, counts, wall, peak
+
+
+def mesh_phase(torch, world, data, anchors, lib, qids, smi):
+    """scope-qwen3-4b at full width served through ``ReasoningEstimator.
+    shard`` over a world-1 NCCL serve mesh, held bit for bit to the
+    unsharded engine on the same weights and inputs: one batch's tokens and
+    decision logits, the batch serve (P1 C1 C2 P2 walls), a dense and a
+    paged refill stream, launch counts; ``launch.serve --mesh`` under
+    ``torch.distributed.run``; the batch serve at world min(cards, 4)
+    where the machine has more than one card."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.api import FixedAlphaPolicy, RouteRequest
+    from repro_torch.configs.scope_estimator import CONFIG
+    from repro_torch.launch.mesh import init_distributed, make_serve_mesh
+    from repro_torch.serving import sampler
+    from repro_torch.serving.scheduler import BucketConfig, MicrobatchScheduler
+
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+               RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    os.environ.update(env)
+    dev = init_distributed()
+    out = {"smi": smi}
+    try:
+        check(dev == torch.device("cuda:0") and dist.get_backend() == "nccl"
+              and dist.get_world_size() == 1,
+              f"process group on {dev} over {dist.get_backend()}")
+        mesh = make_serve_mesh()
+        out["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.shape, strict=True))
+        check(tuple(mesh.shape) == (1, 1), f"serve mesh {out['mesh']}")
+        params, _ = full_params(torch, CONFIG, 3.9e9)
+
+        def engine(sharded, **kw):
+            gc.collect()            # the last engine's sharded weights
+            eng = make_engine(CONFIG, params, anchors, lib, world, data,
+                              "cuda", **kw)
+            if sharded:
+                eng.estimator.shard(mesh)
+            return eng
+
+        # one batch through dispatch_batch: tokens and decision logits
+        probe = engine(False)
+        st = probe._prepare(RouteRequest([data.queries[q] for q in qids]),
+                            False)
+        prompts = np.asarray(st.prompts, np.int32)
+        host = {}
+        for sharded in (False, True):
+            est = engine(sharded).estimator
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            host[sharded] = sampler.to_host(
+                *est.dispatch_batch(prompts).chunks[0]) + (
+                kernels.launch_counts(),)
+            del est
+        (g0, d0, c0), (g1, d1, c1) = host[False], host[True]
+        check(np.array_equal(g0, g1) and np.array_equal(
+            d0.view(np.uint32), d1.view(np.uint32)),
+            "mesh: tokens or decision logits differ from the unsharded")
+        check(c0 == c1 and all(c1[k] > 0 for k in ("flash_attention",
+                                                    "decode_attention")),
+              f"mesh: batch launches {c1} vs {c0}")
+        print(f"   {len(prompts)} rows x {g0.shape[1]} tokens and decision "
+              f"logits bit for bit; launches {c1}")
+
+        # the batch serve, alternated: P1 C1 C2 P2
+        runs = [(s, mesh_serve(torch, engine(s), data, qids))
+                for s in (False, True, True, False)]
+        want = runs[0][1]
+        for s, got in runs[1:]:
+            check(got[0] == want[0], "mesh: serve decisions differ")
+            check(got[1] == want[1], "mesh: parsed fields differ")
+            check(got[2] == want[2], f"mesh: serve launches {got[2]} vs "
+                  f"{want[2]}")
+        check(all(want[2][k] > 0 for k in MESH_KERNELS),
+              f"mesh: a kernel of the serve never launched: {want[2]}")
+        walls = {"unsharded": [r[3] for s, r in runs if not s],
+                 "sharded": [r[3] for s, r in runs if s]}
+        peaks = {"unsharded": [r[4] for s, r in runs if not s],
+                 "sharded": [r[4] for s, r in runs if s]}
+        out["serve"] = {"walls_s": walls, "peak_gib": peaks,
+                        "launches": want[2],
+                        "pairs": len(want[1]["y_hat"]) * len(
+                            want[1]["y_hat"][0])}
+        print(f"   serve P1 C1 C2 P2: {runs[0][1][3]:.4f} "
+              f"{runs[1][1][3]:.4f} {runs[2][1][3]:.4f} "
+              f"{runs[3][1][3]:.4f} s, peak {runs[0][1][4]:.2f} "
+              f"{runs[1][1][4]:.2f} {runs[2][1][4]:.2f} {runs[3][1][4]:.2f} "
+              f"GiB; decisions, parsed fields and launches {want[2]} equal "
+              f"({smi})")
+
+        # a dense and a paged refill stream
+        ticks = stream_ticks(data, MESH_STREAM_QUERIES)
+        policy = FixedAlphaPolicy(0.6)
+        out["streams"] = {}
+        for mode, kw in (("dense", {}), ("paged", dict(
+                kv_paged=True, kv_page_size=PAGE))):
+            res = {}
+            for sharded in (False, True):
+                eng = engine(sharded, refill=True, segment_len=SEGMENT, **kw)
+                sched = MicrobatchScheduler(BucketConfig(STREAM_BUCKETS))
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                with StreamProbe() as seen, ParseProbe() as parsed:
+                    t0 = time.perf_counter()
+                    reports = list(eng.serve_stream(
+                        data, ticks, policy, scheduler=sched,
+                        use_cache=False))
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                res[sharded] = (reports, parsed.windows(), len(seen.segments),
+                                kernels.launch_counts(), wall,
+                                {f: getattr(sched.stats, f)
+                                 for f in STAT_FIELDS})
+                del eng
+            (r0, s0, n0, c0, w0, st0), (r1, s1, n1, c1, w1, st1) = (
+                res[False], res[True])
+            check(n0 == n1, f"mesh {mode} stream: {n1} segments vs {n0}")
+            # each request's own window: rows that retired or never filled
+            # decode filler nothing reads (from the trash page, paged)
+            same_segments(s0, s1, f"mesh {mode} stream")
+            check([decisions(r) for r in r0] == [decisions(r) for r in r1],
+                  f"mesh {mode} stream: decisions differ")
+            kernel = "paged_decode_attention" if kw else "decode_attention"
+            check(c0 == c1 and c1[kernel] > 0 and c1["flash_attention"] > 0,
+                  f"mesh {mode} stream: launches {c1} vs {c0}")
+            check(st0 == st1, f"mesh {mode} stream: stats {st1} vs {st0}")
+            out["streams"][mode] = {"walls_s": {"unsharded": w0,
+                                                "sharded": w1},
+                                    "segments": n1, "launches": c1,
+                                    "stats": st1}
+            print(f"   {mode} refill stream: {n1} segments, {len(s1)} "
+                  f"requests' windows of tokens and logits bit for bit, "
+                  f"decisions and stats equal, "
+                  f"launches {c1}; wall unsharded {w0:.3f} s, sharded "
+                  f"{w1:.3f} s")
+        del params, probe
+        release(torch)
+        out["cli"] = mesh_cli()
+    finally:
+        dist.destroy_process_group()
+        for var in env:
+            os.environ.pop(var, None)
+    n = min(torch.cuda.device_count(), 4)
+    if n > 1:
+        out["world"] = mesh_world(n, want)
+    else:
+        print("   one card: the sharded serve ran at world 1 only")
+    return out
+
+
+def mesh_cli():
+    """``python -m torch.distributed.run --nproc-per-node 1 -m
+    repro_torch.launch.serve --mesh`` on a scope-tiny checkpoint written
+    here: exit 0, and the report of the same serve run in this process
+    without a mesh, but for the mesh line."""
+    import contextlib
+    import io
+    from repro_torch.configs.scope_estimator import TINY
+    from repro_torch.launch import serve
+    from repro_torch.models.model import init_params
+    from repro_torch.training import checkpoint
+    ck = OUT_DIR / "mesh_scope_tiny.npz"
+    checkpoint.save(str(ck), init_params(TINY, seed=0, device="cpu"))
+    args = ["--checkpoint", str(ck), "--queries", "8"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check(serve.main(args) == 0, "serve without a mesh failed")
+    env = {k: v for k, v in os.environ.items() if k not in (
+        "RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         "1", "--master-port", str(free_port()), "-m",
+         "repro_torch.launch.serve", *args, "--mesh"],
+        env=env, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    check(res.returncode == 0, f"serve --mesh exit {res.returncode}: "
+          f"{res.stderr[-2000:]}")
+    lines = res.stdout.splitlines()
+    mesh_line = "# estimator sharded over {'data': 1, 'model': 1}"
+    check(mesh_line in lines, f"serve --mesh printed no mesh line: "
+          f"{res.stdout[-1000:]}")
+    got = "\n".join(x for x in lines if x != mesh_line) + "\n"
+    check(got == buf.getvalue(), "serve --mesh report differs:\n"
+          f"{got}\nvs\n{buf.getvalue()}")
+    print(f"   launch.serve --mesh under torch.distributed.run: the "
+          f"unsharded report, {wall:.1f} s")
+    ck.unlink()
+    return {"wall_s": wall}
+
+
+def mesh_world(n, want):
+    """The batch serve at world ``n`` over NCCL, one process a card
+    (``chip_smoke.py --mesh-rank``), held to world 1's decisions, parsed
+    fields and launch counts."""
+    path = OUT_DIR / "mesh_world.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         str(n), "--master-port", str(free_port()),
+         str(Path(__file__).resolve()),
+         "--mesh-rank", str(path)], env=env, capture_output=True, text=True,
+        timeout=600)
+    check(res.returncode == 0, f"world {n} serve exit {res.returncode}: "
+          f"{res.stderr[-3000:]}")
+    got = json.loads(path.read_text())
+    check(got["decisions"] == [list(d) for d in want[0]],
+          f"world {n}: decisions differ from world 1")
+    check(got["fields"] == want[1], f"world {n}: parsed fields differ")
+    check(got["launches"] == want[2], f"world {n}: launches "
+          f"{got['launches']} vs {want[2]}")
+    print(f"   world {n}: decisions, parsed fields and launches equal to "
+          f"world 1, {time.perf_counter() - t0:.1f} s")
+    return {"world": n, "launches": got["launches"]}
+
+
+def mesh_rank(path: str) -> int:
+    """One rank of ``mesh_world``: scope-qwen3-4b's seeded weights sharded
+    over every rank, one cold serve; rank 0 writes what it returned."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.scope_estimator import CONFIG
+    from repro_torch.launch.mesh import init_distributed, make_serve_mesh
+    from repro_torch.models.model import init_params
+    dev = init_distributed()
+    try:
+        world, data, anchors, lib = build_world()
+        qids = [int(q) for q in data.test_qids[:N_QUERIES]]
+        engine = make_engine(CONFIG, init_params(CONFIG, seed=0, device=dev),
+                             anchors, lib, world, data, dev)
+        engine.estimator.shard(make_serve_mesh())
+        dec, fields, counts, *_ = mesh_serve(torch, engine, data, qids)
+        if dist.get_rank() == 0:
+            Path(path).write_text(json.dumps(
+                {"decisions": dec, "fields": fields, "launches": counts}))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def _to(tree, dev):
     """A copy of ``tree`` on ``dev`` (training writes params in place)."""
     from repro_torch.io import tree_map
@@ -4844,7 +5144,9 @@ def _leaves(tree):
     return flatten(tree).values()
 
 
-def main() -> int:
+def main(mesh_only: bool = False) -> int:
+    """Every phase, or with ``mesh_only`` (``--mesh-phase``) the device,
+    build, world and mesh phases alone, ending with the mesh report."""
     # torch.compile (the softcapped rows' yardstick) keeps its caches in
     # the checkout's build directory and compiles in this process
     for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
@@ -4919,6 +5221,13 @@ def main() -> int:
     s_train = sft_ds["tokens"].shape[1]
     print(f"   SFT examples {sft_ds['tokens'].shape}")
     done(t)
+
+    if mesh_only:
+        t = phase("mesh")
+        report = mesh_phase(torch, world, data, anchors, lib, qids, smi)
+        done(t)
+        print(json.dumps({"mesh": report}, default=str))
+        return 0
 
     t = phase("kernels")
     errs = kernel_checks(torch, L, s_train)
@@ -5162,6 +5471,13 @@ def main() -> int:
     print(f"   planning phase: {report['planning']['seconds']:.1f} s")
     done(t)
 
+    t = phase("mesh: scope-qwen3-4b over a serve mesh, world 1 over NCCL, "
+              "batch and refill streams bit for bit, launch.serve --mesh")
+    release(torch)
+    report["mesh"] = mesh_phase(torch, world, data, anchors, lib, qids, smi)
+    report["mesh"]["seconds"] = time.perf_counter() - t
+    done(t)
+
     # launches: each kernel's count on its own path's run — the batch serve
     # for the three kernels of that path, the paged stream for the paged
     # one, the mamba2-1.3b serve for the SSD scan and decode step, the
@@ -5260,4 +5576,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank(sys.argv[2]))
+    sys.exit(main(mesh_only=sys.argv[1:] == ["--mesh-phase"]))

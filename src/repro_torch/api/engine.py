@@ -836,6 +836,16 @@ class ScopeEngine:
                 "runtime keeps dense per-microbatch caches) — set "
                 "EngineConfig.refill=True or pass refill=True")
         sched = scheduler if scheduler is not None else MicrobatchScheduler()
+        mesh = getattr(self.estimator, "mesh", None)
+        if mesh is not None and mesh.size() > 1 and (
+                sched.max_queue_age is not None
+                or cfg.deadline_ms is not None):
+            raise ValueError(
+                "max_queue_age and deadline_ms act on each process's own "
+                "clock, so the ranks of an estimator sharded over "
+                f"{mesh.size()} devices would flush and expire different "
+                "requests: stream without them (min_fill counts requests "
+                "and is kept)")
         if refill:
             yield from self._predict_stream_refill(
                 requests, sched, rng=rng, use_cache=use_cache,

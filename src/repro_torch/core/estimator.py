@@ -13,6 +13,18 @@ reference the parity tests pin the batched parse against.  The batch serve
 path (``predict_batch`` -> ``dispatch_batch`` -> ``sampler.generate_async``)
 and the continuous-batching slot state (``open_slots`` -> ``SlotRun``) run
 on the params' device.
+
+``shard(mesh)`` serves over a device mesh, one process a device: the params
+become DTensors placed per ``distributed.sharding.param_specs`` (FSDP on
+``data``), each call gathers them whole once (``full_tensor`` a leaf) for
+the kernels, each rank prefills and decodes its own rows of the batch
+(``batch_specs``), and the rows' tokens, decision logits and done-masks
+are all-gathered, so every rank ends a call with the whole batch's
+results and the same host state — what the reference's global arrays
+give.  A batch whose rows do not divide over ``data`` is computed whole on
+every rank, and so is every batch of a MoE backbone: its routing groups
+span the batch, so a rank routing only its own rows would drop other
+tokens at capacity than one process does.
 """
 from __future__ import annotations
 
@@ -26,6 +38,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.status import (STATUS_DEGRADED, STATUS_FAILED,
                                      STATUS_OK)
 from repro_torch.data import tokenizer as tok
+from repro_torch.distributed import sharding as shd
 from repro_torch.serving import sampler
 
 
@@ -343,17 +356,24 @@ class SlotRun:
         # per-row true lengths only when genuinely ragged: exact-fit
         # buckets stay on the unmasked path (SSM backbones included)
         pl = lens if lens is not None and (lens != L).any() else None
+        # the run binds the params it opened on (a hot swap leaves it
+        # alone), gathered whole once when sharded; this rank's rows
+        self.params = estimator.local_params()
+        self.rows = estimator.local_rows(b)
         if kv_pool is None:
             self.state = sampler.prefill_state(
-                estimator.params, estimator.cfg, tokens,
-                max_new_tokens=self.horizon, prompt_lens=pl, generator=rng)
+                self.params, estimator.cfg, tokens,
+                max_new_tokens=self.horizon, prompt_lens=pl, generator=rng,
+                rows=self.rows)
         else:
+            # every rank keeps the whole page bookkeeping and a pool of the
+            # same size, and writes only its own rows' pages
             self.state = sampler.prefill_state(
-                estimator.params, estimator.cfg, tokens,
+                self.params, estimator.cfg, tokens,
                 max_new_tokens=self.budget_steps, prompt_lens=pl,
                 generator=rng, kv_pool=kv_pool,
                 kv_kernel=kv_kernel or "xla",
-                kv_active=np.arange(b) < len(tags))
+                kv_active=np.arange(b) < len(tags), rows=self.rows)
         # rows past the real tags are free slots from the start (a
         # partially-filled opening bucket refills instead of padding)
         true_lens = lens if lens is not None else np.full(b, L, int)
@@ -370,7 +390,7 @@ class SlotRun:
         # slot-aligned refills admitted since the last launch; fused into
         # the next ``decode_segment(refill=...)`` call
         self._pending: Optional[tuple] = None
-        self._inflight: Optional[tuple] = None      # (gen, dec) futures
+        self._inflight: Optional[tuple] = None  # (gen, dec, done) futures
         # decode-slot accounting (token granularity; folded into
         # SchedulerStats by ``account``)
         self.slot_steps_total = 0
@@ -520,10 +540,13 @@ class SlotRun:
             raise RuntimeError(
                 f"segment overruns the {self.horizon}-step slot horizon")
         self.state, g, d = sampler.decode_segment(
-            self.est.params, self.est.cfg, self.state, self.segment_len,
+            self.params, self.est.cfg, self.state, self.segment_len,
             refill=self._pending)
         self._pending = None
-        self._inflight = (g, d)
+        # every rank decides the next boundary on the whole batch's tokens
+        # and done-mask
+        self._inflight = self.est.gather_rows(self.rows, self.batch, g, d,
+                                              self.state.done)
         self.steps_run += self.segment_len
         self.slot_steps_total += self.batch * self.segment_len
 
@@ -538,7 +561,7 @@ class SlotRun:
         """
         if self._inflight is None:
             self.launch()
-        g, d = self._inflight
+        g, d, done = self._inflight
         self._inflight = None
         t0, t1 = self.steps_done, self.steps_done + self.segment_len
         if t1 > self._gen.shape[1]:
@@ -554,7 +577,7 @@ class SlotRun:
         # the segment's tokens, decision logits and done-mask reach the
         # host in one copy
         self._gen[:, t0:t1], self._dec[:, t0:t1], done = sampler.to_host(
-            g, d, self.state.done)
+            g, d, done)
         self.steps_done = t1
         completed = []
         for row, slot in enumerate(self.slots):
@@ -621,8 +644,54 @@ class ReasoningEstimator:
         self.cot = cot
         self.max_new_tokens = max_new_tokens
         self.batch_size = batch_size
+        self.mesh = None            # set by shard(): data-parallel serving
 
     # ------------------------------------------------------------------
+    def shard(self, mesh) -> "ReasoningEstimator":
+        """Place the estimator on a ``DeviceMesh`` for data-parallel
+        serving: the params become DTensors per
+        ``distributed.sharding.param_specs`` (FSDP on ``data``, TP axes on
+        ``model`` where divisible), taken from the mesh's first rank, and
+        every later call splits its batch's rows over ``data`` per
+        ``batch_specs``.  Every rank of the mesh must make the same calls.
+        Returns self."""
+        self.params = shd.distribute_tree(
+            mesh, self.params, shd.param_specs(mesh, self.params))
+        self.mesh = mesh
+        return self
+
+    def local_params(self):
+        """The params as plain tensors: when sharded, gathered whole (one
+        all-gather a leaf, which every rank joins)."""
+        return self.params if self.mesh is None else shd.gather_tree(
+            self.params)
+
+    def local_rows(self, b: int) -> Optional[slice]:
+        """The rows of a b-row batch this rank computes: None unsharded,
+        all of them where b does not divide over ``data`` or the backbone
+        routes tokens over the batch (MoE)."""
+        if self.mesh is None:
+            return None
+        if self.cfg.has_moe():
+            return slice(0, b)
+        return shd.local_rows(self.mesh, b)
+
+    def gather_rows(self, rows: Optional[slice], b: int, gen: torch.Tensor,
+                    dec: torch.Tensor, done: Optional[torch.Tensor] = None):
+        """(gen (b, T), dec (b, T, 2)[, done (b,)]) on every rank from each
+        rank's ``rows`` of them: one all-gather of the three packed as
+        float32 (the token ids as their bit patterns)."""
+        if rows is None or (rows.start, rows.stop) == (0, b):
+            return (gen, dec) if done is None else (gen, dec, done)
+        n, T = gen.shape
+        cols = [gen.view(torch.float32), dec.reshape(n, 2 * T)]
+        if done is not None:
+            cols.append(done.float()[:, None])
+        full = shd.gather_rows(self.mesh, b, torch.cat(cols, dim=1))
+        out = (full[:, :T].contiguous().view(torch.int32),
+               full[:, T: 3 * T].reshape(b, T, 2))
+        return out if done is None else out + (full[:, 3 * T] != 0,)
+
     def dispatch_batch(self, prompts, *, prompt_lens=None,
                        temperature: float = 0.0,
                        rng: Optional[torch.Generator] = None) -> DecodeHandle:
@@ -640,16 +709,24 @@ class ReasoningEstimator:
             if len(lens) != 1:
                 raise ValueError("structured prompts must be constant-length")
         arr = np.asarray(prompts, np.int32)
+        params = self.local_params()
         chunks = []
         for i in range(0, len(arr), self.batch_size):
             pl = (None if prompt_lens is None
                   else np.asarray(prompt_lens)[i: i + self.batch_size])
-            chunks.append(sampler.generate_async(
-                self.params, self.cfg, arr[i: i + self.batch_size],
-                max_new_tokens=self.max_new_tokens, temperature=temperature,
-                generator=rng, prompt_lens=pl))
+            sub = arr[i: i + self.batch_size]
+            rows = self.local_rows(len(sub))
+            gen, dec = sampler.generate_async(
+                params, self.cfg, sub, max_new_tokens=self.max_new_tokens,
+                temperature=temperature, generator=rng, prompt_lens=pl,
+                rows=rows)
+            chunks.append(self.gather_rows(rows, len(sub), gen, dec))
+        if self.mesh is not None and self.mesh.size() > 1:
+            # ready at once on every rank: a rank's own event would let the
+            # ranks' stream loops parse at different points
+            return DecodeHandle(chunks)
         return DecodeHandle(chunks, event=_dispatched_event(
-            self.params["embed"].device))
+            params["embed"].device))
 
     def open_slots(self, tokens, *, lengths=None, tags=None,
                    segment_len: int = 4, horizon: Optional[int] = None,

@@ -3,8 +3,8 @@
 Batches are built in numpy exactly as the reference builds them;
 ``batches`` hands them out as tensors on a given device (int32 columns as
 int64, the dtype PyTorch indexes with).  ``with_stubs`` adds the stub
-inputs a multimodal backbone's loss reads.  ``shard_batch`` (placing a
-batch on a device mesh) is not ported.
+inputs a multimodal backbone's loss reads.  ``shard_batch`` places a batch
+on a device mesh as DTensors.
 """
 from __future__ import annotations
 
@@ -80,6 +80,19 @@ def batches(data: Dict[str, np.ndarray], batch_size: int, *,
 def stack_examples(examples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
     keys = examples[0].keys()
     return {k: np.stack([e[k] for e in examples]) for k in keys}
+
+
+def shard_batch(batch: Dict[str, np.ndarray], mesh,
+                spec) -> Dict[str, torch.Tensor]:
+    """Place a host batch onto ``mesh`` (a ``DeviceMesh``) with the given
+    spec (``distributed.sharding``): each column a DTensor of the same
+    dtype, taken from the mesh's first rank."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distributed.sharding import placements
+    place = placements(mesh, spec)
+    return {k: distribute_tensor(torch.as_tensor(np.asarray(v)).to(
+        mesh.device_type), mesh, place) for k, v in batch.items()}
 
 
 def with_stubs(batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,

@@ -5,12 +5,17 @@ shared library with a plain C interface, loaded with ``ctypes``.  Libraries
 land in ``build/repro_torch_kernels/`` at the repository root, named by a
 hash of the sources and flags, so a library is built at first use and again
 only when its sources change.  ``build()`` starts one ``nvcc`` per source,
-all at once, and waits for them.  Nothing is compiled at import time: the
-CPU tests import every module, and there is no ``nvcc`` there.
+all at once, and waits for them, holding a file lock in the build directory
+so that processes started together (one a rank) compile each library once:
+the first takes the lock and builds, the others wait for it and find the
+libraries built.  Nothing is compiled at import time: the CPU tests import
+every module, and there is no ``nvcc`` there.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -54,16 +59,35 @@ def lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+@contextlib.contextmanager
+def _locked():
+    """The build directory's lock, held exclusively (blocks until free)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
     """Compile every library in ``names`` that is missing, in parallel.
 
     The compiler's output (``-Xptxas=-v``: registers, shared memory, spills
     per kernel) is kept beside each library as ``<lib>.log``.
     """
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {n: lib_path(n) for n in names}
-    todo = [n for n, path in paths.items() if not path.exists()]
-    nvcc = _nvcc() if todo else None
+    if all(path.exists() for path in paths.values()):
+        return paths
+    nvcc = _nvcc()                  # no compiler: raise, leaving no file
+    with _locked():
+        _compile(nvcc, [n for n, path in paths.items() if not path.exists()],
+                 paths)
+    return paths
+
+
+def _compile(nvcc: str, todo, paths: Dict[str, Path]) -> None:
     procs = {}
     for name in todo:
         path = paths[name]
@@ -84,7 +108,6 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
             os.replace(tmp, paths[name])
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    return paths
 
 
 def load(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:

@@ -18,10 +18,16 @@ caller cuts ``num_layers`` and ``rows``, and the row lists each cut under
 ``reduced``; the plan stays the full step's.  Nothing catches an
 out-of-memory error to retry smaller.
 
+``--mesh 16x16`` and ``--multi-pod`` (``--mesh 2x16x16``) plan each step
+over the reference's production meshes instead (``launch.mesh``), per
+device, with ``step_cost.analyze_mesh``: the argument bytes exact from the
+sharding specs, the rest analytic.  Those rows are plans only.
+
 Usage:
   python -m repro_torch.launch.dryrun --arch internlm2-1.8b --shape train_4k \
       [--run [--device cuda:0] [--num-layers N] [--rows R]] [--out f.json]
   python -m repro_torch.launch.dryrun --all [--reduced] [--out f.json]
+  python -m repro_torch.launch.dryrun --all --multi-pod [--out f.json]
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ from repro_torch import kernels
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.launch import specs as S
 from repro_torch.launch import step_cost as C
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import model as M
 from repro_torch.training.optimizer import adamw_init
 
@@ -60,13 +67,17 @@ def _config(arch: str, reduced: bool) -> ModelConfig:
     return reduce_config(base) if reduced else base
 
 
-def plan(arch: str, shape_name: str, *, reduced: bool = False
-         ) -> Dict[str, Any]:
-    """The host plan of one (arch, shape) pair, with the reference's field
-    names: nothing is allocated."""
+MESHES = ("1", "16x16", "2x16x16")
+
+
+def plan(arch: str, shape_name: str, *, reduced: bool = False,
+         mesh: str = "1") -> Dict[str, Any]:
+    """The host plan of one (arch, shape) pair on one H100 or, per device,
+    over a production ``mesh``, with the reference's field names: nothing
+    is allocated."""
     shape = INPUT_SHAPES[shape_name]
     base = _config(arch, reduced)
-    row: Dict[str, Any] = {"arch": arch, "shape": shape_name, "mesh": "1",
+    row: Dict[str, Any] = {"arch": arch, "shape": shape_name, "mesh": mesh,
                            "mode": shape.mode}
     ok, reason = shape_applicable(base, shape)
     if not ok:
@@ -77,14 +88,24 @@ def plan(arch: str, shape_name: str, *, reduced: bool = False
     params = S.abstract_params(cfg)
     n_params = S.num_params(params)
     inputs = S.input_specs(cfg, shape)
-    sizes = dict(param_bytes=C.tree_bytes(params), n_params=n_params,
-                 cache_bytes=C.tree_bytes(inputs.get("caches", ())))
-    m = C.fit_microbatches(cfg, shape, **sizes)
-    ana = C.analyze(cfg, shape, m, **sizes)
-    mem = C.plan_memory(cfg, shape, m, **sizes)
+    if mesh == "1":
+        sizes = dict(param_bytes=C.tree_bytes(params), n_params=n_params,
+                     cache_bytes=C.tree_bytes(inputs.get("caches", ())))
+        m = C.fit_microbatches(cfg, shape, **sizes)
+        ana = C.analyze(cfg, shape, m, **sizes)
+        mem = C.plan_memory(cfg, shape, m, **sizes)
+        ana.update(microbatches=m, memory=mem, num_devices=1,
+                   argument_bytes=sizes["param_bytes"] + mem["adam"]
+                   + C.tree_bytes(inputs),
+                   roofline=C.roofline(ana["flops"], ana["hbm_bytes"],
+                                       cfg.dtype))
+    else:
+        ana = C.analyze_mesh(cfg, shape, make_production_mesh(
+            multi_pod=mesh == "2x16x16"), params, inputs)
+    mem = ana["memory"]
     row.update({
         "status": "ok",
-        "microbatches": m,
+        "microbatches": ana["microbatches"],
         "plan_s": round(time.perf_counter() - t0, 3),
         "num_params": n_params,
         "hlo_flops_per_device": ana["flops"],
@@ -93,14 +114,13 @@ def plan(arch: str, shape_name: str, *, reduced: bool = False
                         "total_bytes": ana["collective_total_bytes"],
                         "op_counts": ana["collective_op_counts"]},
         "memory_analysis": {
-            "argument_size_in_bytes": int(sizes["param_bytes"] + mem["adam"]
-                                          + C.tree_bytes(inputs)),
+            "argument_size_in_bytes": int(ana["argument_bytes"]),
             "output_size_in_bytes": int(mem["logits"]),
             "temp_size_in_bytes": int(mem["temp"]),
             "plan": mem,
             "fits": mem["total"] <= C.CARD_BYTES},
-        "roofline": C.roofline(ana["flops"], ana["hbm_bytes"], cfg.dtype),
-        "num_devices": 1,
+        "roofline": ana["roofline"],
+        "num_devices": ana["num_devices"],
     })
     return row
 
@@ -196,12 +216,14 @@ def run_step(cfg: ModelConfig, shape: InputShape, *, rows: int,
 def run_one(arch: str, shape_name: str, *, device: DeviceLike = None,
             num_layers: Optional[int] = None, rows: Optional[int] = None,
             run: bool = True, reduced: bool = False,
-            verbose: bool = True) -> Dict[str, Any]:
+            verbose: bool = True, mesh: str = "1") -> Dict[str, Any]:
     """The plan of (arch, shape) and, with ``run``, its step once on
     ``device`` (the card by default) at ``num_layers`` layers and ``rows``
     rows (default: the config's depth and the shape's batch), each cut
     listed under ``reduced``."""
-    row = plan(arch, shape_name, reduced=reduced)
+    if run and mesh != "1":
+        raise ValueError(f"a run takes one card: the {mesh} mesh is a plan")
+    row = plan(arch, shape_name, reduced=reduced, mesh=mesh)
     if row["status"] != "ok" or not run:
         if verbose:
             print_row(row)
@@ -255,7 +277,12 @@ def main(argv=None) -> int:
                     "--run, also run each step once on --device.")
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None, choices=list(INPUT_SHAPES))
-    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--mesh", default="1", choices=MESHES,
+                    help="plan on one H100 (1) or per device of a "
+                         "production mesh")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the 2x16x16 (pod, data, model) mesh: --mesh "
+                         "2x16x16")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default=None)
     ap.add_argument("--run", action="store_true",
@@ -270,10 +297,9 @@ def main(argv=None) -> int:
     ap.add_argument("--reduced", action="store_true",
                     help="plan (and run) each arch's reduced() config")
     args = ap.parse_args(argv)
-    if args.multi_pod:
-        raise NotImplementedError(
-            "--multi-pod: the multi-pod meshes are not ported; sharding "
-            "over devices waits for ROADMAP.md item 19")
+    mesh = "2x16x16" if args.multi_pod else args.mesh
+    if args.run and mesh != "1":
+        ap.error(f"--run takes one card: the {mesh} mesh is a plan")
     if args.all:
         combos = [(a, s) for a in ASSIGNED_ARCHS for s in INPUT_SHAPES]
     else:
@@ -286,7 +312,7 @@ def main(argv=None) -> int:
             results.append(run_one(arch, shape, device=args.device,
                                    num_layers=args.num_layers,
                                    rows=args.rows, run=args.run,
-                                   reduced=args.reduced))
+                                   reduced=args.reduced, mesh=mesh))
         except Exception as e:  # noqa: BLE001 -- a failed pair is a row
             print(f"[{arch} x {shape}] FAILED: {type(e).__name__}: {e}",
                   file=sys.stderr)

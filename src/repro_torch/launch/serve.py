@@ -1,7 +1,10 @@
 """SCOPE routing service CLI on the ``repro_torch.api`` surface: the port
 of ``repro/launch/serve.py``, with the same flags and output plus
 ``--device`` (default: the card; ``cpu`` runs the kernels' plain
-versions).  ``--mesh`` (sharding over a device mesh) is not ported.
+versions).  ``--mesh`` shards the estimator over every process of the
+``torchrun`` world, one a device (NCCL on the card, gloo with ``--device
+cpu``); every rank serves the same stream, and rank 0 prints the report
+once every rank's report agrees with its own.
 
 Loads (or quickly trains) an estimator, assembles a ``ScopeEngine``,
 fingerprints the pool — including the unseen OOD models, which need NO
@@ -27,6 +30,8 @@ retraining — and serves a batch of queries under a chosen routing policy.
       --drift-detect --drift-threshold 5.0
   PYTHONPATH=src python -m repro_torch.launch.serve --stream-ticks 12 \
       --refill --hot-swap
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+      --device cpu --checkpoint ck --mesh
 """
 from __future__ import annotations
 
@@ -113,8 +118,8 @@ def main(argv=None):
                          "(default: auto-size each slot state to its "
                          "bucket's dense worst case)")
     ap.add_argument("--mesh", action="store_true",
-                    help="shard the estimator over a device mesh (not "
-                         "ported: raises)")
+                    help="shard the estimator over the torchrun world "
+                         "(make_serve_mesh: data-parallel, FSDP params)")
     ap.add_argument("--max-retries", type=int, default=2,
                     help="failed microbatch/segment rows are requeued and "
                          "retried up to this many times before quarantine")
@@ -165,19 +170,54 @@ def main(argv=None):
                     help="torch device to serve on (default: the card, "
                          "cuda:0; 'cpu' runs the kernels' plain versions)")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: sharding the estimator over a device mesh is not "
-            "ported yet (ROADMAP.md item 19)")
+    if not args.mesh:
+        return serve(ap, args, resolve_device(args.device), print)
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed
+    dev = init_distributed(args.device)
+    rank0 = dist.get_rank() == 0
+    try:
+        return serve(ap, args, dev,
+                     print if rank0 else lambda *a, **k: None)
+    finally:
+        dist.destroy_process_group()
 
-    dev = resolve_device(args.device)
+
+def check_agreed(report: dict) -> None:
+    """Raise unless every rank of the process group holds this report.
+    Queue ages are each rank's own clock readings and are left out of the
+    comparison."""
+    import copy
+
+    import torch.distributed as dist
+    mine = copy.deepcopy(report)
+    if "scheduler" in mine:
+        mine["scheduler"].pop("queue_age_ms", None)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    bad = [r for r, other in enumerate(every) if other != mine]
+    if bad:
+        raise RuntimeError(f"ranks {bad} served another report than rank "
+                           f"{dist.get_rank()}")
+
+
+def report_out(args, report: dict, say) -> None:
+    """Print the JSON report; under ``--mesh`` once every rank agrees."""
+    if args.mesh:
+        check_agreed(report)
+    say(json.dumps(report, indent=2))
+
+
+def serve(ap, args, dev, say) -> int:
+    """The serve on ``dev``; ``say`` prints (rank 0's ``print`` under a
+    mesh, nothing on the other ranks)."""
     cfg = estimator_config(args.size)
     world, data, lib, retr = build_world(600, 250, args.seed, dev)
     params = M.init_params(cfg, seed=args.seed, device=dev)
     if args.checkpoint:
         params = checkpoint.load(args.checkpoint, params)
     else:
-        print("no checkpoint given - quick SFT bootstrap...")
+        say("no checkpoint given - quick SFT bootstrap...")
         ds = build_sft_dataset(data, lib, retr, max_examples=3000,
                                seed=args.seed)
         params, _ = train_sft(params, cfg, ds, steps=250, batch_size=64)
@@ -206,12 +246,12 @@ def main(argv=None):
     tier0_head = None
     if args.tier0:
         from repro_torch.training.tier0 import distill_tier0
-        print("distilling tier-0 pre-router from the estimator...")
+        say("distilling tier-0 pre-router from the estimator...")
         tier0_head = distill_tier0(data, lib, retr, estimator,
                                    max_pairs=3000, steps=args.tier0_steps,
                                    seed=args.seed, device=dev)
-        print(f"# tier-0 calibration temperature "
-              f"{tier0_head.temperature:.3f}")
+        say(f"# tier-0 calibration temperature "
+            f"{tier0_head.temperature:.3f}")
 
     engine = ScopeEngine.build(EngineConfig(
         estimator=estimator, retriever=retr,
@@ -248,6 +288,13 @@ def main(argv=None):
                                 seed=args.seed + 1, difficulty_shift=0.9)
     else:
         pool = data.models
+
+    if args.mesh:
+        from repro_torch.launch.mesh import make_serve_mesh
+        mesh = make_serve_mesh()
+        engine.estimator.shard(mesh)
+        say(f"# estimator sharded over "
+            f"{dict(zip(mesh.mesh_dim_names, mesh.shape, strict=True))}")
 
     policy = pick_policy(args)
     if args.drift_detect:
@@ -289,10 +336,10 @@ def main(argv=None):
                 version = engine.config.estimator_version + "+swap"
                 engine.hot_swap(engine.estimator, version, tier0=t0)
                 swap_at = None
-                print(f"# hot-swapped estimator to {version!r} "
-                      f"after tick {i + 1}")
+                say(f"# hot-swapped estimator to {version!r} "
+                    f"after tick {i + 1}")
         n = sum(r.n_queries for r in reports)
-        print(json.dumps({
+        report_out(args, {
             "policy": policy.name,
             "ticks": [{"queries": r.n_queries,
                        "accuracy": round(r.accuracy, 3),
@@ -302,11 +349,11 @@ def main(argv=None):
                             for r in reports) / max(n, 1),
             "total_cost_usd": round(sum(r.total_cost for r in reports), 4),
             "scheduler": sched.stats.as_dict(),
-        }, indent=2))
+        }, say)
         return 0
 
     report = engine.serve(data, qids, policy, models=pool)
-    print(json.dumps({
+    report_out(args, {
         "policy": report.policy,
         "alpha": report.alpha,
         "accuracy": report.accuracy,
@@ -316,7 +363,7 @@ def main(argv=None):
         "cache": {"hits": report.cache_hits, "misses": report.cache_misses},
         "portfolio": {k: round(v, 3) for k, v in
                       report.per_model_share.items() if v > 0},
-    }, indent=2))
+    }, say)
     return 0
 
 

@@ -28,6 +28,24 @@ meaning and not the mechanism:
 
 There are no collectives on one card: ``collectives`` and ``collective_s``
 stay 0 so that a reader of the reference's rows finds them.
+
+``analyze_mesh`` plans the step over a production mesh (``launch.mesh``)
+of H100s, per device.  The reference reads these counts off an executable
+compiled for 256 or 512 forced host devices; here they are analytic:
+
+* the argument bytes are exact: each leaf of the params, the AdamW moments
+  (train), the batch or the token and caches, over the product of the
+  sizes of the axes its spec (``distributed.sharding``) shards it on;
+* the microbatch count, memory plan, FLOPs and HBM bytes are those of the
+  rows one device holds (the batch over its data axes, where they divide),
+  the FLOPs and bytes over the ``model`` axis too;
+* the collectives are the FSDP all-gathers (every leaf sharded on the
+  data axes, gathered to its ``model`` share once a microbatch, twice in
+  training for the recompute), the gradients' reduce-scatters (training,
+  once a microbatch) and the row-parallel projections' all-reduces of
+  their outputs (once a microbatch, three times in training: forward,
+  recompute, and the column-parallel input gradient); each as the bytes one
+  device receives, ring-style, at ``LINK_BYTES_PER_S``.
 """
 from __future__ import annotations
 
@@ -37,6 +55,7 @@ import math
 from typing import Dict, List
 
 from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.io import flatten
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as tf
@@ -53,6 +72,10 @@ CARD_BYTES = 80e9
 # the allocator's slack and the kernels' workspaces
 HBM_BUDGET = CARD_BYTES - 4e9
 MAX_MICROBATCHES = 16
+# what one H100 of a mesh of 8-card nodes exchanges with the others: one
+# 400 Gb/s InfiniBand NDR port a card (the NVLink inside a node is faster;
+# a 16 x 16 mesh spans 32 nodes)
+LINK_BYTES_PER_S = 50e9
 
 
 @dataclasses.dataclass(frozen=True)
@@ -463,6 +486,95 @@ def roofline(flops: float, hbm_bytes: float,
     terms["bottleneck"] = max(("compute_s", "memory_s", "collective_s"),
                               key=lambda k: terms[k])
     return terms
+
+
+def _leaf_bytes(leaf) -> int:
+    return leaf.numel() * leaf.element_size()
+
+
+def _collectives(cfg: ModelConfig, shape: InputShape, mesh, params,
+                 pspecs, microbatches: int, rows: int) -> Dict[str, Dict]:
+    """{"bytes": {op: bytes}, "ops": {op: count}} one device takes part in
+    over one step (see the module docstring)."""
+    train = shape.mode == "train"
+    fsdp = set(shd.spec_axes(shd.data_axes(mesh)))
+    sizes = shd.axis_sizes(mesh)
+    s = 1 if shape.mode == "decode" else shape.seq_len
+    act = dtype_of(cfg.dtype).itemsize
+    out = {"bytes": {}, "ops": {}}
+
+    def add(op, nbytes, count):
+        out["bytes"][op] = out["bytes"].get(op, 0.0) + nbytes
+        out["ops"][op] = out["ops"].get(op, 0) + count
+
+    for key, leaf in flatten(params).items():
+        spec = pspecs[key]
+        axes = [shd.spec_axes(e) for e in spec]
+        fs = math.prod(sizes[a] for ax in axes for a in ax if a in fsdp)
+        tp = math.prod(sizes[a] for ax in axes for a in ax if a == "model")
+        stack = math.prod(leaf.shape[: max(0, leaf.dim() - 2)]) or 1
+        if fs > 1:
+            share = _leaf_bytes(leaf) / tp * (fs - 1) / fs
+            gathers = microbatches * (2 if train else 1)
+            add("all-gather", gathers * share, gathers * stack)
+            if train:
+                add("reduce-scatter", microbatches * share,
+                    microbatches * stack)
+        name = key.rpartition("k:")[2]
+        if (name in shd._ROW_PARALLEL and leaf.dim() >= 2 and tp > 1
+                and "model" in axes[-2]):
+            seq = cfg.encoder_seq_len if "k:encoder" in key else s
+            passes = 3 if train else 1
+            nbytes = rows * seq * leaf.shape[-1] * act * 2 * (tp - 1) / tp
+            add("all-reduce", passes * stack * nbytes,
+                passes * stack * microbatches)
+    return out
+
+
+def analyze_mesh(cfg: ModelConfig, shape: InputShape, mesh, params,
+                 inputs) -> Dict[str, object]:
+    """The step of ``shape`` planned per device of ``mesh``: its argument
+    bytes, microbatches, memory plan, FLOPs, HBM bytes, collectives and
+    roofline (see the module docstring).  ``params`` and ``inputs`` are
+    meta tensors (``launch.specs``)."""
+    pspecs = shd.param_specs(mesh, params)
+    flat = flatten(params)
+    n_params = sum(t.numel() for t in flat.values())
+    n_dev = sum(t.numel() // shd.split(mesh, pspecs[k])
+                for k, t in flat.items())
+    param_dev = shd.local_bytes(mesh, params, pspecs)
+    batch = ({"token": inputs["token"]} if shape.mode == "decode"
+             else inputs["batch"])
+    bspecs = shd.batch_specs(mesh, batch)
+    in_dev = sum(_leaf_bytes(t) // shd.split(mesh, bspecs[k])
+                 for k, t in batch.items())
+    lead = bspecs["token" if shape.mode == "decode" else "tokens"][0]
+    cache_dev = (0 if shape.mode != "decode" else shd.local_bytes(
+        mesh, inputs["caches"], shd.cache_specs(mesh, inputs["caches"])))
+    # the AdamW moments (float32, sharded as their params) and step count
+    opt_dev = 8 * n_dev + 4 if shape.mode == "train" else 0
+    rows = shape.global_batch // shd.axis_size(mesh, lead)
+    model = shd.axis_size(mesh, "model")
+    local = dataclasses.replace(shape, global_batch=rows)
+    sizes = dict(param_bytes=param_dev, n_params=n_dev,
+                 cache_bytes=cache_dev)
+    m = fit_microbatches(cfg, local, **sizes)
+    mem = plan_memory(cfg, local, m, **sizes)
+    flops = step_flops(cfg, local, m) / model
+    hbm = step_hbm_bytes(cfg, local, m, **sizes) / model
+    coll = _collectives(cfg, shape, mesh, params, pspecs, m, rows)
+    total = float(sum(coll["bytes"].values()))
+    terms = roofline(flops, hbm, cfg.dtype)
+    terms["collective_s"] = total / LINK_BYTES_PER_S
+    terms["bottleneck"] = max(("compute_s", "memory_s", "collective_s"),
+                              key=lambda k: terms[k])
+    return {"microbatches": m, "num_params": n_params, "flops": flops,
+            "hbm_bytes": hbm, "collective_bytes": coll["bytes"],
+            "collective_total_bytes": total,
+            "collective_op_counts": coll["ops"],
+            "argument_bytes": param_dev + opt_dev + in_dev + cache_dev,
+            "memory": mem, "roofline": terms,
+            "num_devices": math.prod(mesh.shape)}
 
 
 def analyze(cfg: ModelConfig, shape: InputShape, microbatches: int, *,

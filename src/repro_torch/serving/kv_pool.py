@@ -333,10 +333,11 @@ class PagedKV:
             self.row_high[row] = target
 
     # -- device views -----------------------------------------------------
-    def device_table(self, device) -> torch.Tensor:
-        """The host mirror as an int32 tensor on ``device``: one upload,
-        made once per decode segment at its launch."""
-        return torch.tensor(self.table, device=device)
+    def device_table(self, device, rows: slice = slice(None)
+                     ) -> torch.Tensor:
+        """The host mirror's ``rows`` as an int32 tensor on ``device``: one
+        upload, made once per decode segment at its launch."""
+        return torch.tensor(self.table[rows], device=device)
 
     def prompt_page_ids(self, mask: np.ndarray, n_pages_row: int
                         ) -> np.ndarray:

@@ -27,6 +27,12 @@ stay on the device, and only the token ids (b, T), the decision logit pairs
 (b, T, 2) and, for the slot runtime, the done-mask (b,) reach the host,
 packed into one transfer (``to_host``).
 
+Under a serve mesh each rank's device state holds only its own rows of the
+batch (``rows``, a slice of the batch): the host arguments — prompts, true
+lengths, refill masks — and the page bookkeeping stay whole and equal on
+every rank, and each rank prefills, merges and decodes its own rows.  The
+caller (``core.estimator``) gathers the rows' tokens and logits.
+
 Positions are per row: right-padded prompts with true lengths
 ``prompt_lens`` decode from their own length, the new K/V overwriting the
 pad slots and attention masked at each row's own valid length, so a padded
@@ -200,6 +206,10 @@ class DecodeState:
     block-paged layout: ``max_len`` then equals the paged ``kv_cap`` and
     the batch-wide ``used`` guard is replaced by the attachment's per-row
     ``row_high`` bound.
+
+    ``rows`` (with ``size`` the whole batch) marks a state whose tensors
+    hold only those rows of the batch: one rank's share under a serve
+    mesh.  Host-side fields (``used``, ``paged``) cover the whole batch.
     """
     caches: tuple
     last_logits: torch.Tensor       # (b, V) float32
@@ -209,17 +219,26 @@ class DecodeState:
     max_len: int
     used: int
     paged: Optional[PagedKV] = None
+    rows: Optional[slice] = None
+    size: Optional[int] = None
 
     @property
     def batch(self) -> int:
-        return int(self.last_logits.shape[0])
+        return self.size if self.rows is not None else int(
+            self.last_logits.shape[0])
+
+    @property
+    def part(self) -> slice:
+        """This state's rows of the batch (all of them unless split)."""
+        return slice(None) if self.rows is None else self.rows
 
 
 def prefill_state(params, cfg: ModelConfig, prompts, *, max_new_tokens: int,
                   prompt_lens=None,
                   generator: Optional[torch.Generator] = None,
                   kv_pool: Optional[KVPool] = None, kv_kernel: str = "xla",
-                  kv_active=None) -> DecodeState:
+                  kv_active=None, rows: Optional[slice] = None
+                  ) -> DecodeState:
     """Batch prefill into a ``DecodeState`` sized for ``max_new_tokens``.
 
     ``prompts``: (b, L) int, right-padded.  ``prompt_lens`` (b,) gives each
@@ -232,10 +251,13 @@ def prefill_state(params, cfg: ModelConfig, prompts, *, max_new_tokens: int,
     rows own no pages — their tables point at the trash page.
     ``kv_kernel`` is checked against the reference's names ("xla",
     "pallas"); the implementation is the device's (see ``kv_pool``).
+    ``rows`` prefills only those rows of the batch (see ``DecodeState``);
+    the arguments stay whole.
     """
     dev = _params_device(params)
-    prompts = torch.as_tensor(np.asarray(prompts, np.int32), device=dev)
+    prompts = np.asarray(prompts, np.int32)
     b, lp = prompts.shape
+    part = slice(None) if rows is None else rows
     max_len = lp + int(max_new_tokens)
     lens = None
     if prompt_lens is not None:
@@ -272,13 +294,16 @@ def prefill_state(params, cfg: ModelConfig, prompts, *, max_new_tokens: int,
         for i in np.flatnonzero(active):
             paged.admit_row(int(i), int(row_lens[i]))
         npg = _ceil_div(lp, paged.page_size)
-        ids = torch.as_tensor(paged.prompt_page_ids(active, npg).reshape(-1),
-                              dtype=torch.long, device=dev)
+        ids = torch.as_tensor(
+            paged.prompt_page_ids(active, npg)[part].reshape(-1),
+            dtype=torch.long, device=dev)
     # host->device copies before the first launch (see decode_segment)
-    positions = (torch.full((b,), lp, dtype=torch.int32, device=dev)
+    tokens = torch.as_tensor(prompts[part], device=dev)
+    positions = (torch.full((tokens.shape[0],), lp, dtype=torch.int32,
+                            device=dev)
                  if lens is None else
-                 torch.as_tensor(lens, dtype=torch.int32, device=dev))
-    logits, caches = M.prefill(params, cfg, {"tokens": prompts})
+                 torch.as_tensor(lens[part], dtype=torch.int32, device=dev))
+    logits, caches = M.prefill(params, cfg, {"tokens": tokens})
     if paged is not None:
         caches = _scatter_prefill_caches(
             caches, _fresh_paged_storage(caches, kv_pool.n_pages + 1,
@@ -289,9 +314,10 @@ def prefill_state(params, cfg: ModelConfig, prompts, *, max_new_tokens: int,
     last = (logits[:, -1].float() if lens is None
             else _gather_last(logits, positions))
     return DecodeState(caches, last, positions,
-                       done=torch.zeros((b,), dtype=torch.bool, device=dev),
+                       done=torch.zeros((tokens.shape[0],), dtype=torch.bool,
+                                        device=dev),
                        generator=generator, max_len=max_len, used=lp,
-                       paged=paged)
+                       paged=paged, rows=rows, size=b)
 
 
 def decode_segment(params, cfg: ModelConfig, state: DecodeState, steps: int,
@@ -310,7 +336,8 @@ def decode_segment(params, cfg: ModelConfig, state: DecodeState, steps: int,
     into the rows' fresh pages (paged; unmasked rows scatter to the trash
     page), and the masked rows reset to decode from their own prompt before
     the segment runs — equal to ``refill_slots`` followed by a plain
-    segment.
+    segment.  On a state of some ``rows`` of the batch, ``refill`` stays
+    whole and the rank refills its own masked rows.
     """
     steps = int(steps)
     pg = state.paged
@@ -332,6 +359,7 @@ def decode_segment(params, cfg: ModelConfig, state: DecodeState, steps: int,
     dev = state.last_logits.device
     logits, caches = state.last_logits, state.caches
     positions, done, used = state.positions, state.done, state.used
+    part = state.part
     if refill is not None:
         mask, prompts, lens = refill
         mask = np.asarray(mask, bool).reshape(-1)
@@ -364,10 +392,18 @@ def decode_segment(params, cfg: ModelConfig, state: DecodeState, steps: int,
                     pg.admit_row(int(i), int(lens[i]))
             pg.check_steps(steps)
             ids = pg.prompt_page_ids(mask, _ceil_div(width, pg.page_size))
+        used = max(used, int(mlens.max()))
+        # this rank's rows; a rank none of whose rows refill skips the
+        # prefill
+        mask, prompts, lens = mask[part], prompts[part], lens[part]
+        if pg is not None:
+            ids = ids[part]
+        if not mask.any():
+            refill = None
     paged = None
     if pg is not None:
         pg.ensure(steps)
-        paged = (pg.spec, pg.device_table(dev))     # one upload per segment
+        paged = (pg.spec, pg.device_table(dev, part))   # one upload a segment
     # every host->device copy of the segment is issued before its first
     # launch: a copy from pageable host memory waits for the stream
     dec_ix = torch.as_tensor(DECISION_TOKENS, device=dev)
@@ -387,7 +423,6 @@ def decode_segment(params, cfg: ModelConfig, state: DecodeState, steps: int,
                              logits)
         positions = torch.where(mask_t, lens_t, positions)
         done = done & ~mask_t
-        used = max(used, int(mlens.max()))
     gens, decs = [], []
     for t in range(steps):
         if temperature > 0.0:
@@ -404,7 +439,8 @@ def decode_segment(params, cfg: ModelConfig, state: DecodeState, steps: int,
                                            positions + t, paged=paged)
         logits = new_logits[:, 0].float()
     new = DecodeState(caches, logits, positions + steps, done,
-                      state.generator, state.max_len, used + steps, paged=pg)
+                      state.generator, state.max_len, used + steps, paged=pg,
+                      rows=state.rows, size=state.size)
     return new, torch.stack(gens, dim=1), torch.stack(decs, dim=1)
 
 
@@ -421,6 +457,10 @@ def refill_slots(params, cfg: ModelConfig, state: DecodeState,
     rows or the rows' fresh pages (filler rows scatter to trash) — and the
     row's position/done/logits reset; the other rows are untouched.
     """
+    if state.rows is not None:
+        raise ValueError("refill_slots takes a state of the whole batch; a "
+                         "rank's rows refill through "
+                         "decode_segment(refill=...)")
     arr = np.asarray(prompts, np.int32)
     if arr.ndim != 2:
         raise ValueError(f"prompts must be (p, W), got {arr.shape}")
@@ -512,16 +552,19 @@ def to_host(gen: torch.Tensor, dec: torch.Tensor,
 def generate_async(params, cfg: ModelConfig, prompts, *,
                    max_new_tokens: int = 12, temperature: float = 0.0,
                    generator: Optional[torch.Generator] = None,
-                   stop_at_eos: bool = True, prompt_lens=None
+                   stop_at_eos: bool = True, prompt_lens=None,
+                   rows: Optional[slice] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``generate`` without the host copy: device (gen, dec) tensors."""
+    """``generate`` without the host copy: device (gen, dec) tensors (of
+    ``rows`` of the batch only, when given)."""
     if temperature > 0.0 and generator is None:
         raise ValueError(
             "generate(temperature > 0) requires an explicit torch.Generator "
             "(greedy decoding stays deterministic without one)")
     state = prefill_state(params, cfg, prompts,
                           max_new_tokens=max_new_tokens,
-                          prompt_lens=prompt_lens, generator=generator)
+                          prompt_lens=prompt_lens, generator=generator,
+                          rows=rows)
     _, gen, dec = decode_segment(params, cfg, state, max_new_tokens,
                                  temperature=temperature,
                                  stop_at_eos=stop_at_eos)

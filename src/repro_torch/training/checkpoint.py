@@ -14,6 +14,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import refuse_sharded
 from repro_torch.io import flatten, to_tensor, unflatten
 
 
@@ -25,6 +26,7 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def save(path: str, tree: Any) -> None:
+    refuse_sharded(tree, "checkpoint.save")
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     np.savez(path, **{k: _to_numpy(v) for k, v in flatten(tree).items()})
 

@@ -26,6 +26,7 @@ from repro_torch.core.retrieval import AnchorRetriever
 from repro_torch.data import tokenizer as tok
 from repro_torch.data.datasets import ScopeData
 from repro_torch.data.pipeline import to_tensors
+from repro_torch.distributed.sharding import refuse_sharded
 from repro_torch.io import tree_map
 from repro_torch.models import model as M
 from repro_torch.serving import sampler
@@ -108,6 +109,7 @@ class GRPOTrainer:
                  opt_cfg: Optional[AdamWConfig] = None,
                  k: int = 5, cot: bool = True, seed: int = 0,
                  generator: Optional[torch.Generator] = None):
+        refuse_sharded(params, "GRPOTrainer")
         self.cfg = cfg
         self.params = params
         self.ref_params = tree_map(torch.clone, params)

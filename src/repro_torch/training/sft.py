@@ -21,6 +21,7 @@ from repro_torch.core.fingerprint import FingerprintLibrary
 from repro_torch.core.retrieval import AnchorRetriever
 from repro_torch.data.datasets import ScopeData
 from repro_torch.data.pipeline import batches, make_lm_batch, with_stubs
+from repro_torch.distributed.sharding import refuse_sharded
 from repro_torch.models import model as M
 from repro_torch.training.optimizer import (
     AdamWConfig, AdamWState, adamw_init, adamw_update, value_and_grad)
@@ -83,6 +84,7 @@ def train_sft(params, cfg: ModelConfig, dataset: Dict[str, np.ndarray], *,
     take).  Returns (params, losses)."""
     opt_cfg = opt_cfg or AdamWConfig(lr=1e-3, warmup_steps=20,
                                      total_steps=steps)
+    refuse_sharded(params, "train_sft")
     dev = params["embed"].device
     opt_state = adamw_init(params)
     losses = []

@@ -47,7 +47,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.core.rewards, repro_torch.core.baselines, "
             "repro_torch.core.evaluation, repro_torch.launch.train, "
             "repro_torch.launch.serve, repro_torch.launch.specs, "
-            "repro_torch.launch.step_cost, repro_torch.launch.dryrun\n"
+            "repro_torch.launch.step_cost, repro_torch.launch.dryrun, "
+            "repro_torch.distributed.sharding, repro_torch.launch.mesh\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -97,6 +98,17 @@ def test_entry_points_default_to_the_card(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA"):
             router.fit(torch.zeros(4, 3).numpy(), torch.zeros(4).long()
                        .numpy(), 2)
+    # under a process group too: the rank's card, or a raise without CUDA
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setenv("LOCAL_RANK", "3")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        device_mod.resolve_device()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    assert device_mod.resolve_device() == torch.device("cuda:3")
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: False)
+    assert device_mod.resolve_device() == torch.device("cuda:0")
 
 
 def test_resolve_device_turns_tf32_off(monkeypatch):
@@ -105,3 +117,32 @@ def test_resolve_device_turns_tf32_off(monkeypatch):
     assert device_mod.resolve_device("cuda:0").type == "cuda"
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
+
+
+def test_first_use_build_compiles_once_across_processes(tmp_path):
+    """Two processes that build the same library at once run the compiler
+    once: the second waits on the build directory's lock and finds the
+    library (a stub compiler counts its runs)."""
+    stub = tmp_path / "nvcc"
+    runs = tmp_path / "runs"
+    stub.write_text(
+        "#!/bin/sh\n"
+        f"echo run >> {runs}\n"
+        "sleep 1\n"
+        'while [ "$1" != "-o" ]; do shift; done\n'
+        'echo lib > "$2"\n')
+    stub.chmod(0o755)
+    code = (
+        "import sys; from pathlib import Path\n"
+        "from repro_torch.kernels import build\n"
+        f"build.BUILD_DIR = Path({str(tmp_path / 'out')!r})\n"
+        f"build.NVCC_PATHS = ({str(stub)!r},)\n"
+        "print(build.build(['topk_retrieval'])['topk_retrieval'])\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = [subprocess.Popen([sys.executable, "-c", code], env=env,
+                              stdout=subprocess.PIPE, text=True)
+             for _ in range(2)]
+    outs = [p.communicate(timeout=120)[0].strip() for p in procs]
+    assert [p.returncode for p in procs] == [0, 0]
+    assert outs[0] == outs[1] and Path(outs[0]).read_text() == "lib\n"
+    assert runs.read_text() == "run\n"

@@ -212,8 +212,14 @@ def test_serve_main_prints_the_reference_report(reference_checkpoint, capsys,
     assert got == want
 
 
-def test_serve_mesh_is_not_ported(reference_checkpoint):
-    with pytest.raises(NotImplementedError, match="item 19"):
+def test_serve_mesh_needs_a_process_group(reference_checkpoint,
+                                         monkeypatch):
+    """``--mesh`` outside torchrun raises and names what is missing; the
+    sharded serve itself is in ``test_torch_distributed.py``."""
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match="no process group: RANK"):
         tserve.main(["--device", "cpu", "--checkpoint", reference_checkpoint,
                      "--mesh"])
 

@@ -228,9 +228,21 @@ def test_device_time_profiles_again_when_events_are_lost(monkeypatch):
     kernels.reset_launch_counts()
 
 
-def test_multi_pod_raises():
-    with pytest.raises(NotImplementedError, match="item 19"):
-        D.main(["--all", "--multi-pod"])
+def test_multi_pod_plans_every_pair(tmp_path):
+    """``--all --multi-pod`` plans the 34 admitted pairs per device of the
+    2x16x16 mesh (the argument bytes against the reference's specs are in
+    ``test_torch_sharding.py``) and skips the other 6; a mesh row is never
+    run."""
+    out = tmp_path / "multi_pod.json"
+    assert D.main(["--all", "--multi-pod", "--out", str(out)]) == 0
+    rows = json.loads(out.read_text())
+    ok = [r for r in rows if r["status"] == "ok"]
+    assert len(rows) == 40 and len(ok) == 34
+    assert all(r["mesh"] == "2x16x16" and r["num_devices"] == 512
+               for r in ok)
+    with pytest.raises(SystemExit):
+        D.main(["--arch", "gemma2-2b", "--shape", "decode_32k", "--mesh",
+                "16x16", "--run"])
 
 
 def test_importing_the_dry_run_sets_nothing_global():
