@@ -151,6 +151,19 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    (36 layers, d 2560, random seeded weights, bf16): 8 test
                    queries x 7 models, launch counts of every kernel read
                    around the run
+  6a. lint       — scopelint-torch (``repro_torch.analysis``) on the card:
+                   its runtime pass over the five registered serve units
+                   (dense, dense refill, paged and paged refill decode
+                   segments of 4 steps, 56 rows, 49-token prompts, 16-token
+                   pages, on phase 6's full-width params; the tier-0
+                   forward) under its dispatch recorder and CUDA's sync
+                   debug mode: no host read, float64 output or
+                   device->host copy in any window, no sync after a
+                   window's first launch, the syncs before it equal to the
+                   registry's counts, and the flash, decode and paged
+                   decode launches each unit's steps and 36 layers imply;
+                   then its static pass over ``src/repro_torch`` (no
+                   unsuppressed finding) and its self-test
   7. tiny stream — ``predict_stream`` on scope-tiny, whole-retire and with
                    slot refill over a dense and a paged KV cache, on the
                    card and on the CPU: equal token streams, parsed fields,
@@ -3167,6 +3180,85 @@ def full_width(torch, cfg, world, data, anchors, lib, qids, params,
 
 
 # ---------------------------------------------------------------------------
+# phase 6a: the lint on the card
+# ---------------------------------------------------------------------------
+LINT_STEPS, LINT_PAGE = 4, 16
+
+
+def lint_launches(cfg, unit: str):
+    """The kernel launches of one runtime-pass unit's window: a decode
+    segment launches its decode kernel a layer and step, and a refill
+    segment's prefill the flash kernel a layer; tier-0 runs no kernel."""
+    n_attn, _ = layer_counts(cfg)
+    if unit == "tier0_forward":
+        return {}
+    decode = "paged_decode_attention" if unit.startswith("paged") else \
+        "decode_attention"
+    want = {decode: n_attn * LINT_STEPS}
+    if "refill" in unit:
+        want["flash_attention"] = n_attn
+    return want
+
+
+def lint_phase(torch, cfg, params, rows: int, prompt_len: int, smi: str):
+    """scopelint-torch on the card: the runtime pass's five units at full
+    width on ``params`` (every check of the module docstring's phase 6a),
+    the static pass over the checkout's ``src/repro_torch`` and the
+    self-test."""
+    from repro_torch.analysis import runtime_pass, scan_paths
+    from repro_torch.analysis.runner import iter_py_files
+    from repro_torch.analysis.selftest import run_self_test
+
+    t0 = time.perf_counter()
+    units = runtime_pass.registered()
+    reports = runtime_pass.run_runtime_pass(
+        cfg, params, rows=rows, prompt_len=prompt_len, steps=LINT_STEPS,
+        page_size=LINT_PAGE)
+    out = {"units": {}}
+    for rep in reports:
+        print(f"   {rep.name}: {rep.ops} ops, syncs {rep.syncs_before} "
+              f"before / {rep.syncs_after} after the first launch (op "
+              f"#{rep.first_launch}), launches {rep.launches}, "
+              f"{rep.seconds:.3f} s  [{smi}]")
+        for f in rep.findings:
+            print(f"     {f.render()}")
+        check(rep.device.startswith("cuda"), f"{rep.name} ran on "
+              f"{rep.device}")
+        check(not rep.findings, f"lint unit {rep.name}: "
+              f"{[f.message for f in rep.findings]}")
+        check(rep.syncs_after == 0 and
+              rep.syncs_before == units[rep.name].syncs,
+              f"lint unit {rep.name}: syncs {rep.syncs_before} / "
+              f"{rep.syncs_after}, registry {units[rep.name].syncs}")
+        want = lint_launches(cfg, rep.name)
+        check(rep.launches == want,
+              f"lint unit {rep.name}: launches {rep.launches} != {want}")
+        out["units"][rep.name] = {
+            "ops": rep.ops, "first_launch": rep.first_launch,
+            "syncs_before": rep.syncs_before, "syncs_after": rep.syncs_after,
+            "launches": rep.launches, "seconds": rep.seconds}
+    check(sorted(out["units"]) == sorted(units),
+          f"units run {sorted(out['units'])}")
+    runtime_s = time.perf_counter() - t0
+    pkg = str(ROOT / "src" / "repro_torch")
+    n_files = len(list(iter_py_files([pkg])))
+    check(n_files > 50, f"the static pass reads {n_files} files of {pkg}")
+    findings = scan_paths([pkg])
+    hard = [f.render() for f in findings if not f.suppressed]
+    check(not hard, f"static findings {hard}")
+    failures = run_self_test()
+    check(not failures, f"lint self-test {failures}")
+    out.update(runtime_s=runtime_s, files=n_files, static_findings=len(hard),
+               suppressed=len(findings) - len(hard),
+               seconds=time.perf_counter() - t0)
+    print(f"   runtime pass {runtime_s:.2f} s; static pass over {n_files} "
+          f"files: 0 findings ({out['suppressed']} suppressed); self-test "
+          f"green; "
+          f"{out['seconds']:.2f} s in all")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phases 7/8: the streaming serve stack (predict_stream / serve_stream with
 # slot refill, dense and block-paged KV)
 # ---------------------------------------------------------------------------
@@ -5250,6 +5342,11 @@ def main(mesh_only: bool = False) -> int:
     params, n_params = full_params(torch, CONFIG, 3.9e9)
     report["full"] = full_width(torch, CONFIG, world, data, anchors, lib,
                                 qids, params, n_params)
+    done(t)
+
+    t = phase("lint: runtime pass on the card, scope-qwen3-4b")
+    report["lint"] = lint_phase(torch, CONFIG, params,
+                                len(qids) * len(data.models), L, smi)
     done(t)
 
     t = phase("tiny stream: card vs cpu, whole-retire, dense and paged "

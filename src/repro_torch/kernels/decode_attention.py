@@ -51,6 +51,7 @@ CacheLen = Union[int, torch.Tensor]
 
 def _lengths(cache_len: CacheLen, b: int, device) -> torch.Tensor:
     """Scalar or (b,) valid lengths -> (b,) int32 on ``device``."""
+    # scopelint-torch: allow[graph-capture-hazard] -- the decode step passes its int32 positions on the card, which as_tensor returns as they are; an int uploads, as in the kernel checks
     lens = torch.as_tensor(cache_len, dtype=torch.int32, device=device)
     return lens.reshape(-1).expand(b) if lens.numel() == 1 else lens
 
@@ -149,6 +150,7 @@ def decode_attention_cuda(q, k_cache, v_cache, cache_len: CacheLen, *,
              int(window), float(softcap), float(scale),
              torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "decode_attention")
+    # scopelint-torch: allow[device-body-side-effect] -- counted at the Python call; a CUDA graph replay repeats the launch without counting it (ROADMAP item 8b)
     launches += 1
     return out
 
@@ -269,5 +271,6 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, cache_len: CacheLen,
              float(softcap), float(scale),
              torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "paged_decode_attention")
+    # scopelint-torch: allow[device-body-side-effect] -- counted at the Python call; a CUDA graph replay repeats the launch without counting it (ROADMAP item 8b)
     paged_launches += 1
     return out

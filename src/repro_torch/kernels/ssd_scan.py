@@ -374,6 +374,7 @@ def ssd_scan_cuda(x, dt, A, B, C, *, chunk: int, save_states: bool = False):
              B.stride(0), B.stride(1), C.stride(0), C.stride(1),
              torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "ssd_scan")
+    # scopelint-torch: allow[device-body-side-effect] -- counted at the Python call; a CUDA graph replay repeats the launch without counting it (ROADMAP item 8b)
     launches += 1
     return (y, state, states) if save_states else (y, state)
 
@@ -441,5 +442,6 @@ def ssd_scan_bwd_cuda(x, dt, A, B, C, dy, dstate, states, *, chunk: int):
              B.stride(0), B.stride(1), C.stride(0), C.stride(1),
              torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "ssd_scan_bwd")
+    # scopelint-torch: allow[device-body-side-effect] -- counted at the Python call; a CUDA graph replay repeats the launch without counting it (ROADMAP item 8b)
     bwd_launches += 1
     return dx, ddt, dA, dB, dC

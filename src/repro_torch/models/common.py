@@ -72,7 +72,9 @@ def sinusoid_at(pos: torch.Tensor, dim: int) -> torch.Tensor:
     (...,), the rows of ``sinusoidal_positions``.  The frequencies are
     exp(2i * (-log(10000) / dim)), each factor rounded to float32 as the
     reference computes them."""
-    log_base = torch.log(torch.tensor(10000.0, device=pos.device))
+    # on the host: a float32 scalar the product reads as a kernel argument,
+    # where one made on the card would be a copy that waits for the stream
+    log_base = torch.log(torch.tensor(10000.0))
     div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32,
                                  device=pos.device) * (-log_base / dim))
     ang = pos.float()[..., None] * div

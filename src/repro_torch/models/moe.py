@@ -145,6 +145,7 @@ def moe_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor
     aux = E * torch.sum(frac * probs.mean(dim=(0, 1)))
     if records is not None:
         top = torch.sort(probs, dim=-1, descending=True).values
+        # scopelint-torch: allow[device-body-side-effect] -- a diagnostic hook, None on the serve path; a captured step would record once
         records.append({"dropped": (~keep).sum(), "gap": (
             top[..., k - 1] - top[..., k]).min() if k < E else None})
     return y, aux

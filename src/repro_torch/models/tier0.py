@@ -229,6 +229,7 @@ class Tier0Head:
                 x[:, QUERY_FEATS:a_end].reshape(b, K, ANCHOR_FEATS),
                 x[:, a_end:a_end + MODEL_FEATS], x[:, -1].long())
             out = torch.cat([p_logit[:, None], len_logits], dim=1)
+        # scopelint-torch: allow[host-sync-in-hot-path] -- the gate's one device->host copy: both outputs in one (bucket, 1 + n_len) buffer
         out = out.cpu().numpy()
         return out[:n, 0], out[:n, 1:]
 

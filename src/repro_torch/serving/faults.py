@@ -113,6 +113,7 @@ class FaultPlan:
                 "model_drift cannot be rate-drawn (a spec must name the "
                 "drifting model); add FaultSpec('model_drift', K, "
                 "model=...) to the plan explicitly")
+        # scopelint-torch: allow[serve-time-nondeterminism] -- build-time plan draw, deterministic in seed; serve time only replays it
         rng = np.random.default_rng(seed)
         specs = []
         for site in SITES:                      # fixed draw order

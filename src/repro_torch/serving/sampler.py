@@ -125,7 +125,10 @@ def _merge_rows(caches, new_caches, rows: torch.Tensor,
         width = new.shape[ax]
         lead = (slice(None), rows) + (slice(None),) * (ax - 2)
         old[lead + (slice(None, width),)] = new[:, src].to(old.dtype)
-        old[lead + (slice(width, None),)] = 0
+        # a zero made on the device: a Python 0 here is a host value, which
+        # an indexed store into a card tensor copies over, waiting for the
+        # stream mid-segment
+        old[lead + (slice(width, None),)] = old.new_zeros(())
 
 
 def _paged_leaf_scatter(leaf: torch.Tensor, storage: torch.Tensor,
@@ -540,6 +543,7 @@ def to_host(gen: torch.Tensor, dec: torch.Tensor,
                        dim=-1).reshape(b, 3 * T)
     if done is not None:
         packed = torch.cat([packed, done.float()[:, None]], dim=1)
+    # scopelint-torch: allow[host-sync-in-hot-path] -- the segment's one device->host copy, after its last launch
     host = packed.cpu().numpy()
     body = host[:, : 3 * T].reshape(b, T, 3)
     out = (np.ascontiguousarray(body[..., 0]).view(np.int32),

@@ -48,7 +48,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.core.evaluation, repro_torch.launch.train, "
             "repro_torch.launch.serve, repro_torch.launch.specs, "
             "repro_torch.launch.step_cost, repro_torch.launch.dryrun, "
-            "repro_torch.distributed.sharding, repro_torch.launch.mesh\n"
+            "repro_torch.distributed.sharding, repro_torch.launch.mesh, "
+            "repro_torch.analysis, repro_torch.analysis.runtime_pass, "
+            "repro_torch.analysis.selftest\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "print(bad); sys.exit(1 if bad else 0)")
