@@ -368,12 +368,31 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    one; on a machine with more cards, the batch serve at
                    world min(cards, 4) (``chip_smoke.py --mesh-rank``, one
                    process a card) held to world 1
+ 24. mesh training — scope-qwen3-4b at full width placed by
+                   ``ReasoningEstimator.shard(make_host_mesh())`` over a
+                   world-1 NCCL group: three SFT steps (losses, every param
+                   leaf and the flash forward / backward launches) and a
+                   batch serve (decisions, parsed fields, launches), all bit
+                   for bit equal to the unsharded runs on the same weights
+                   and batches, walls and peaks beside them; on a machine
+                   with more cards, world n = min(cards, 4), one process a
+                   card (``chip_smoke.py --mesh-train-rank``): TP over a
+                   (1, n) mesh (the batch serve and a dense and a paged
+                   refill stream equal to world 1 with p_hat within 3e-2,
+                   three SFT steps within 3e-2 of world 1's losses, the
+                   attention kernels at 32/n on 8/n heads, each rank's
+                   param bytes ``local_bytes``, and those kernels at those
+                   heads against their plain versions and timed) and FSDP
+                   over an (n, 1) mesh (gemma2-9b at 16 layers and zamba2-7b
+                   at 12 mamba layers within 3e-2 of world 1, then both at
+                   full depth: finite losses, step walls, per-card peaks,
+                   the bytes of params and AdamW state a rank holds)
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.  ``python3 chip_smoke.py
---mesh-phase`` runs phases 1, 2, the world and 23 alone and ends with the
-mesh report (on a machine with several cards, phase 23 also serves over
-min(cards, 4) of them).  Details go to
+--mesh-phase`` runs phases 1, 2, the world, 23 and 24 alone and ends with
+the mesh report (on a machine with several cards, phases 23 and 24 also
+run over min(cards, 4) of them).  Details go to
 ``build/chip_smoke.json``.  Needs one CUDA card; without one it exits with
 code 1.
 """
@@ -1995,7 +2014,8 @@ def softcap_library(torch, cap: float, q, k, v, lens=None,
                       enable_gqa=True, kernel_options=kernel_options)
 
 
-def attention_timings(torch, L: int, floor_ms: float):
+def attention_timings(torch, L: int, floor_ms: float,
+                      shapes=ATTENTION_SHAPES):
     """Flash and dense decode at every serve's attention shape
     (ATTENTION_SHAPES): each flash call of its prefill (56 prompts of L
     tokens, and the table's other calls) and the last decode step at L +
@@ -2027,7 +2047,7 @@ def attention_timings(torch, L: int, floor_ms: float):
               f"plain version by {err:.3e} (tolerance {BF16_TOL})")
         return library
 
-    for config, hq, hkv, d, cap, flashes in ATTENTION_SHAPES:
+    for config, hq, hkv, d, cap, flashes in shapes:
         d, dv = d if isinstance(d, tuple) else (d, d)
         kw = dict(softcap=cap) if cap else {}
         if dv != d:                 # MLA passes its scale explicitly
@@ -5225,6 +5245,503 @@ def mesh_rank(path: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 24: training over a device mesh (FSDP on data, TP on model)
+# ---------------------------------------------------------------------------
+MESH_TRAIN_STEPS = 3
+# the FSDP runs at world n: each config at the depth it trains at on one
+# card (FAMILY_TRAIN's gemma2-9b; phase 20's zamba2-7b, 12 mamba layers),
+# then at full depth (42 layers; 81 mamba layers)
+FSDP_TRAIN = (("gemma2-9b", 16, 3.9e9), ("zamba2-7b", 12, 1.2e9))
+# scope-qwen3-4b's attention heads (q, kv)
+QWEN_HEADS = (32, 8)
+
+
+class HeadProbe:
+    """While installed: the (q-heads, kv-heads) of every flash, dense and
+    paged decode call the model makes, by kernel (``kernels.ops`` wraps
+    each kernel; the model calls through it)."""
+
+    NAMES = ("flash_attention", "decode_attention", "paged_decode_attention")
+
+    def __enter__(self):
+        from collections import Counter
+        from repro_torch.kernels import ops
+        self.heads = {n: Counter() for n in self.NAMES}
+        self._saved = {n: getattr(ops, n) for n in self.NAMES}
+        for n, fn in self._saved.items():
+            def wrapped(q, k, *a, _fn=fn, _n=n, **kw):
+                self.heads[_n][(q.shape[1], k.shape[1])] += 1
+                return _fn(q, k, *a, **kw)
+            setattr(ops, n, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        for n, fn in self._saved.items():
+            setattr(ops, n, fn)
+        return False
+
+    def seen(self):
+        return {n: {f"{h}/{g}": c for (h, g), c in sorted(cnt.items())}
+                for n, cnt in self.heads.items() if cnt}
+
+
+def sft_dataset():
+    """The SFT examples of the training phases (``main``'s, from a world
+    of their own)."""
+    from repro_torch.core.retrieval import AnchorRetriever
+    from repro_torch.training.sft import build_sft_dataset
+    _, data, anchors, lib = build_world()
+    return build_sft_dataset(data, lib, AnchorRetriever(anchors,
+                                                        device="cpu"),
+                             max_examples=320, seed=0)
+
+
+def mesh_sft(torch, cfg, params, ds, batch_size: int = SFT_BATCH):
+    """``MESH_TRAIN_STEPS`` SFT steps of ``params`` (plain or sharded),
+    ``train_sft``'s batches and stub seeds, one ``sft_step`` at a time:
+    losses, each step's wall, the launches, peak GiB, the final params
+    and the AdamW state (each rank's blocks)."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.data.pipeline import batches, with_stubs
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.sft import sft_step
+
+    opt_cfg = AdamWConfig(lr=1e-5, warmup_steps=2, total_steps=100)
+    state = adamw_init(params)
+    it = batches(ds, batch_size, seed=0,
+                 device=coll.local(params["embed"]).device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, walls = [], []
+    for i in range(MESH_TRAIN_STEPS):
+        batch = with_stubs(next(it), cfg, seed=i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss, _ = sft_step(params, cfg, state, batch, opt_cfg)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    check(all(np.isfinite(losses)), f"{cfg.name}: non-finite loss {losses}")
+    return dict(losses=losses, walls_s=walls,
+                launches=kernels.launch_counts(),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                params=params, state=state)
+
+
+def same_bits(torch, a, b) -> bool:
+    from repro_torch.distributed import collectives as coll
+    return all(torch.equal(coll.local(x).cpu(), coll.local(y).cpu())
+               for x, y in zip(_leaves(a), _leaves(b), strict=True))
+
+
+def rank_bytes(tree) -> int:
+    """The bytes of this rank's blocks of ``tree``."""
+    from repro_torch.distributed import collectives as coll
+    return sum(coll.local(t).numel() * t.element_size()
+               for t in _leaves(tree))
+
+
+def spec_bytes(mesh, cfg, dtype=None) -> int:
+    """``sharding.local_bytes`` of ``cfg``'s params (in ``dtype`` when
+    given: the AdamW moments' float32) under ``param_specs``."""
+    import torch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.io import tree_map
+    from repro_torch.launch.specs import abstract_params
+    meta = abstract_params(cfg)
+    if dtype is not None:
+        meta = tree_map(lambda t: torch.empty(t.shape, dtype=dtype,
+                                              device="meta"), meta)
+    return shd.local_bytes(mesh, meta, shd.param_specs(mesh, meta))
+
+
+def stream_decisions(torch, engine, data, ticks):
+    """The decisions of a refill stream over ``ticks`` and its launches."""
+    from repro_torch import kernels
+    from repro_torch.api import FixedAlphaPolicy
+    from repro_torch.serving.scheduler import BucketConfig, MicrobatchScheduler
+    sched = MicrobatchScheduler(BucketConfig(STREAM_BUCKETS))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    reports = list(engine.serve_stream(data, ticks, FixedAlphaPolicy(0.6),
+                                       scheduler=sched, use_cache=False))
+    torch.cuda.synchronize()
+    return [decisions(r) for r in reports], kernels.launch_counts()
+
+
+def close_decisions(got, want, tol: float) -> bool:
+    """Equal but for p_hat, which agrees within ``tol``."""
+    got, want = [list(d) for d in got], [list(d) for d in want]
+    return len(got) == len(want) and all(
+        g[:2] == w[:2] and g[3:] == w[3:] and abs(g[2] - w[2]) <= tol
+        for g, w in zip(got, want, strict=True))
+
+
+def close_fields(got, want, tol: float) -> bool:
+    import numpy as np
+    return got.keys() == want.keys() and all(
+        (np.abs(np.asarray(got[k]) - np.asarray(want[k])).max() <= tol)
+        if k == "p_hat" else got[k] == want[k] for k in want)
+
+
+def mesh_train_phase(torch, world, data, anchors, lib, qids, L: int, ds,
+                     smi):
+    """Training over a world-1 NCCL mesh: scope-qwen3-4b at full width
+    sharded by ``ReasoningEstimator.shard(make_host_mesh())``, three SFT
+    steps and a batch serve, held bit for bit to the unsharded runs on the
+    same weights and batches (losses, every param leaf, launches,
+    decisions and parsed fields); walls and peaks beside the unsharded.
+    On a machine with more cards, world min(cards, 4) after it
+    (``mesh_train_world``), against the world-1 runs made here."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.scope_estimator import CONFIG
+    from repro_torch.core.estimator import ReasoningEstimator
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+    import torch.distributed as dist
+
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+               RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    os.environ.update(env)
+    init_distributed()
+    n = min(torch.cuda.device_count(), 4)
+    out, refs = {"smi": smi}, {}
+    try:
+        mesh = make_host_mesh()
+        check(tuple(mesh.shape) == (1, 1), f"host mesh {tuple(mesh.shape)}")
+        runs = {}
+        for sharded in (False, True):
+            params, _ = full_params(torch, CONFIG, 3.9e9)
+            if sharded:
+                params = ReasoningEstimator(CONFIG, params).shard(mesh).params
+            res = mesh_sft(torch, CONFIG, params, ds)
+            del params
+            res["params"] = _to(res["params"], "cpu") if not sharded \
+                else res["params"]
+            res.pop("state")
+            runs[sharded] = res
+            release(torch)
+        one, sh = runs[False], runs[True]
+        check(sh["losses"] == one["losses"],
+              f"mesh train: losses {sh['losses']} vs {one['losses']}")
+        check(same_bits(torch, sh["params"], one["params"]),
+              "mesh train: a param leaf differs from the unsharded run")
+        check(sh["launches"] == one["launches"]
+              and sh["launches"]["flash_attention_bwd"] > 0,
+              f"mesh train: launches {sh['launches']} vs {one['launches']}")
+        for r in runs.values():
+            r.pop("params")
+        release(torch)
+        out["sft"] = runs = {"unsharded": one, "sharded": sh}
+        print(f"   {MESH_TRAIN_STEPS} SFT steps of {SFT_BATCH} sequences: "
+              f"losses {sh['losses']} and every param leaf bit for bit; "
+              f"launches {sh['launches']}; step walls unsharded "
+              f"{[round(w, 4) for w in one['walls_s']]} s, sharded "
+              f"{[round(w, 4) for w in sh['walls_s']]} s; peak "
+              f"{one['peak_gib']:.2f} / {sh['peak_gib']:.2f} GiB ({smi})")
+
+        served = {}
+        for sharded in (False, True):
+            params, _ = full_params(torch, CONFIG, 3.9e9)
+            engine = make_engine(CONFIG, params, anchors, lib, world, data,
+                                 "cuda")
+            if sharded:
+                engine.estimator.shard(mesh)
+            del params
+            served[sharded] = mesh_serve(torch, engine, data, qids)
+            if n > 1 and not sharded:
+                ticks = stream_ticks(data, MESH_STREAM_QUERIES)
+                refs["streams"] = {}
+                for mode, kw in (("dense", {}), ("paged", dict(
+                        kv_paged=True, kv_page_size=PAGE))):
+                    eng = make_engine(CONFIG, engine.estimator.params,
+                                      anchors, lib, world, data, "cuda",
+                                      refill=True, segment_len=SEGMENT, **kw)
+                    refs["streams"][mode] = stream_decisions(
+                        torch, eng, data, ticks)[0]
+                    del eng
+            del engine
+            release(torch)
+        (d0, f0, c0, w0, p0), (d1, f1, c1, w1, p1) = served[False], \
+            served[True]
+        check(d1 == d0 and f1 == f0 and c1 == c0,
+              "mesh train: the sharded batch serve differs from the "
+              "unsharded")
+        out["serve"] = {"walls_s": {"unsharded": w0, "sharded": w1},
+                        "peak_gib": {"unsharded": p0, "sharded": p1},
+                        "launches": c1}
+        print(f"   batch serve: decisions, parsed fields and launches {c1} "
+              f"bit for bit; wall {w0:.4f} / {w1:.4f} s, peak {p0:.2f} / "
+              f"{p1:.2f} GiB")
+        if n > 1:
+            refs["prompt_len"] = L
+            refs["serve"] = {"decisions": d0, "fields": f0}
+            refs["sft"] = one["losses"]
+            refs["fsdp"] = {}
+            for name, layers, least in FSDP_TRAIN:
+                import dataclasses
+                cfg = dataclasses.replace(get_config(name),
+                                          num_layers=layers)
+                params, _ = full_params(torch, cfg, least)
+                refs["fsdp"][name] = mesh_sft(torch, cfg, params,
+                                              ds)["losses"]
+                del params
+                release(torch)
+    finally:
+        dist.destroy_process_group()
+        for var in env:
+            os.environ.pop(var, None)
+    if n > 1:
+        out["world"] = mesh_train_world(n, refs)
+    else:
+        print("   one card: the sharded training ran at world 1 only")
+    return out
+
+
+def mesh_train_world(n, refs):
+    """World ``n`` over NCCL, one process a card (``chip_smoke.py
+    --mesh-train-rank``), held to the world-1 runs ``refs``: TP over a
+    (1, n) mesh, FSDP over an (n, 1) mesh."""
+    refs_path = OUT_DIR / "mesh_train_refs.json"
+    path = OUT_DIR / "mesh_train_world.json"
+    refs_path.write_text(json.dumps(refs, default=list))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         str(n), "--master-port", str(free_port()),
+         str(Path(__file__).resolve()), "--mesh-train-rank", str(refs_path),
+         str(path)], env=env, capture_output=True, text=True, timeout=1500)
+    print(res.stdout[-6000:])
+    check(res.returncode == 0, f"world {n} training exit {res.returncode}: "
+          f"{res.stderr[-3000:]}")
+    got = json.loads(path.read_text())
+    got["wall_s"] = time.perf_counter() - t0
+    print(f"   world {n}: TP and FSDP held to world 1, "
+          f"{got['wall_s']:.1f} s")
+    return got
+
+
+def tp_kernel_rows(torch, n: int, L: int, s_train: int):
+    """The kernels at the heads a rank of a (1, n) mesh computes
+    (scope-qwen3-4b's 32/n on 8/n of 128): each against its plain version
+    on the card (max |err|), its time, bound and yardstick, as the
+    timing phase gives them at 32 on 8."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    hq, hkv = QWEN_HEADS[0] // n, QWEN_HEADS[1] // n
+    tag = f"@tp{n}"
+    rows = attention_timings(torch, L, 0.0, shapes=(
+        (tag, hq, hkv, 128, 0.0, SERVE_FLASH),))
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    rows["paged_decode_attention" + tag] = paged_timing(
+        torch, gen, 56, hq, hkv, 128, L + NEW_TOKENS)
+    rows["flash_attention_bwd" + tag] = bwd_timing(
+        torch, gen, s_train, hq=hq, hkv=hkv,
+        label="flash_attention_bwd" + tag)
+    bf = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(bf)
+
+    def err(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    q, k, v = randn(56, hq, L, 128), randn(56, hkv, L, 128), \
+        randn(56, hkv, L, 128)
+    errs = {"flash_attention": err(FA.flash_attention_cuda(q, k, v),
+                                   FA.flash_attention_plain(q, k, v))}
+    S = L + NEW_TOKENS
+    qd, kc, vc = randn(56, hq, 1, 128), randn(56, hkv, S, 128), \
+        randn(56, hkv, S, 128)
+    lens = torch.full((56,), S, dtype=torch.int32, device="cuda")
+    errs["decode_attention"] = err(DA.decode_attention_cuda(qd, kc, vc, lens),
+                                   DA.decode_attention_plain(qd, kc, vc,
+                                                             lens))
+    _, _, kp, vp, table = paged_layout(torch, gen, 56, hkv, S, 128, 128,
+                                       PAGE, bf)
+    kw = dict(page_size=PAGE, kv_cap=S)
+    errs["paged_decode_attention"] = err(
+        DA.paged_decode_attention_cuda(qd, kp, vp, lens, table, **kw),
+        DA.paged_decode_attention_plain(qd, kp, vp, lens, table, **kw))
+    q, k, v = (randn(SFT_BATCH, h, s_train, 128).requires_grad_(True)
+               for h in (hq, hkv, hkv))
+    dout = randn(SFT_BATCH, hq, s_train, 128)
+    with torch.no_grad():
+        out, lse = FA.flash_attention_cuda(q, k, v, return_lse=True)
+    got = FA.flash_attention_bwd_cuda(q, k, v, out, dout, lse)
+    want = torch.autograd.grad(FA.flash_attention_plain(q, k, v), (q, k, v),
+                               dout)
+    errs["flash_attention_bwd"] = max(err(a, b) for a, b in zip(
+        got, want, strict=True))
+    # gradients reach ~10, where one bf16 step is 0.06 (bwd_checks' scale)
+    scale = {"flash_attention_bwd": max(1.0, max(
+        w.float().abs().max().item() for w in want))}
+    for name, e in errs.items():
+        check(e <= BF16_TOL * scale.get(name, 1.0),
+              f"{name}{tag}: {e:.3e} from its plain version")
+        rows[name + tag]["max_abs_err"] = e
+    release(torch)
+    return rows
+
+
+def mesh_train_rank(refs_path: str, path: str) -> int:
+    """One rank of ``mesh_train_world``: (a) TP over (1, n): scope-qwen3-4b
+    served (batch, dense and paged refill streams) and three SFT steps,
+    the attention kernels' head counts, the rank's param bytes; (b) FSDP
+    over (n, 1): gemma2-9b and zamba2-7b at their one-card depths and at
+    full depth, three SFT steps each, per-card peaks, step walls and the
+    bytes of params and AdamW state.  Rank 0 writes what it found."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.configs.scope_estimator import CONFIG
+    from repro_torch.core.estimator import ReasoningEstimator
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.launch.mesh import (init_distributed, make_host_mesh,
+                                         make_serve_mesh)
+    from repro_torch.models.model import init_params
+    dev = init_distributed()
+    refs = json.loads(Path(refs_path).read_text())
+    n, rank = dist.get_world_size(), dist.get_rank()
+    out = {"world": n, "smi": nvidia_smi()}
+
+    def say(msg):
+        if rank == 0:
+            print(f"   [world {n}] {msg}", flush=True)
+
+    try:
+        world, data, anchors, lib = build_world()
+        qids = [int(q) for q in data.test_qids[:N_QUERIES]]
+        ds = sft_dataset()
+        heads = (QWEN_HEADS[0] // n, QWEN_HEADS[1] // n)
+
+        # (a) TP over (1, n)
+        mesh = make_serve_mesh(n_data=1, n_model=n)
+        split = coll.model_split(CONFIG, mesh)
+        check(split == (True, True, True), f"TP split {split}")
+        plain = init_params(CONFIG, seed=0, device=dev)
+
+        def engine(**kw):
+            gc.collect()            # the last engine's sharded weights
+            eng = make_engine(CONFIG, plain, anchors, lib, world, data, dev,
+                              **kw)
+            eng.estimator.shard(mesh)
+            return eng
+
+        with HeadProbe() as probe:
+            eng = engine()
+            pbytes = rank_bytes(eng.estimator.params)
+            check(pbytes == spec_bytes(mesh, CONFIG),
+                  f"TP param bytes {pbytes} vs local_bytes")
+            dec, fields, counts, wall, peak = mesh_serve(torch, eng, data,
+                                                         qids)
+            ticks = stream_ticks(data, MESH_STREAM_QUERIES)
+            streams = {}
+            for mode, kw in (("dense", {}), ("paged", dict(
+                    kv_paged=True, kv_page_size=PAGE))):
+                eng = engine(refill=True, segment_len=SEGMENT, **kw)
+                streams[mode] = stream_decisions(torch, eng, data, ticks)
+            del eng
+        check(close_decisions(dec, refs["serve"]["decisions"], BF16_TOL)
+              and close_fields(fields, refs["serve"]["fields"], BF16_TOL),
+              f"TP world {n}: the batch serve differs from world 1")
+        for mode, (got, _) in streams.items():
+            check(len(got) == len(refs["streams"][mode]) and all(
+                close_decisions(g, w, BF16_TOL) for g, w in zip(
+                    got, refs["streams"][mode], strict=True)),
+                f"TP world {n}: the {mode} refill stream differs")
+        seen = probe.seen()
+        want = f"{heads[0]}/{heads[1]}"
+        check(all(list(c) == [want] for c in seen.values())
+              and len(seen) == 3, f"TP heads {seen}, want {want}")
+        say(f"TP (1, {n}): batch serve and dense / paged refill streams "
+            f"equal to world 1 (p_hat within {BF16_TOL}); kernels at "
+            f"{want} heads: {seen}; param bytes {pbytes}; serve wall "
+            f"{wall:.4f} s, peak {peak:.2f} GiB")
+        release(torch)
+        params = ReasoningEstimator(CONFIG, plain).shard(mesh).params
+        del plain
+        with HeadProbe() as probe:
+            sft = mesh_sft(torch, CONFIG, params, ds)
+        del params, sft["params"], sft["state"]
+        release(torch)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(
+            sft["losses"], refs["sft"], strict=True))
+        check(rel <= BF16_TOL, f"TP SFT losses {sft['losses']} vs world 1 "
+              f"{refs['sft']}")
+        out["tp"] = {"mesh": [1, n], "heads": seen, "sft_heads": probe.seen(),
+                     "param_bytes": pbytes, "serve_launches": counts,
+                     "serve_wall_s": wall, "serve_peak_gib": peak,
+                     "stream_launches": {m: s[1] for m, s in
+                                         streams.items()},
+                     "sft": sft, "sft_rel_err": rel}
+        say(f"TP SFT: losses {sft['losses']} (world 1 {refs['sft']}, "
+            f"{rel:.2e} rel), step walls {sft['walls_s']}, peak "
+            f"{sft['peak_gib']:.2f} GiB, launches {sft['launches']}")
+        if rank == 0:
+            out["tp"]["kernels"] = tp_kernel_rows(
+                torch, n, int(refs["prompt_len"]), ds["tokens"].shape[1])
+        dist.barrier()
+
+        # (b) FSDP over (n, 1)
+        mesh = make_host_mesh()
+        out["fsdp"] = {}
+        for name, layers, least in FSDP_TRAIN:
+            for depth in (layers, None):
+                full = get_config(name)
+                cfg = full if depth is None else dataclasses.replace(
+                    full, num_layers=depth)
+                est = ReasoningEstimator(cfg, init_params(cfg, seed=0,
+                                                          device=dev))
+                params = est.shard(mesh).params
+                del est
+                release(torch)
+                res = mesh_sft(torch, cfg, params, ds)
+                sbytes = rank_bytes(res["state"].mu) + rank_bytes(
+                    res["state"].nu)
+                pbytes = rank_bytes(res["params"])
+                want = (spec_bytes(mesh, cfg),
+                        2 * spec_bytes(mesh, cfg, torch.float32))
+                check((pbytes, sbytes) == want, f"{name} FSDP bytes "
+                      f"{(pbytes, sbytes)} vs local_bytes {want}")
+                del params, res["params"], res["state"]
+                release(torch)
+                key = f"{name}@{cfg.num_layers}"
+                res.update(param_bytes=pbytes, adamw_bytes=sbytes,
+                           num_layers=cfg.num_layers)
+                if depth is not None:
+                    ref = refs["fsdp"][name]
+                    res["rel_err"] = max(abs(a - b) / abs(b) for a, b in
+                                         zip(res["losses"], ref,
+                                             strict=True))
+                    check(res["rel_err"] <= BF16_TOL, f"{key} FSDP losses "
+                          f"{res['losses']} vs world 1 {ref}")
+                peaks = [torch.zeros((), device=dev) + res["peak_gib"]]
+                gathered = [torch.zeros((), device=dev) for _ in range(n)]
+                dist.all_gather(gathered, peaks[0])
+                res["peak_gib_by_rank"] = [float(x) for x in gathered]
+                out["fsdp"][key] = res
+                say(f"FSDP ({n}, 1) {key}: losses {res['losses']}"
+                    + (f" (world 1 {refs['fsdp'][name]}, "
+                       f"{res['rel_err']:.2e} rel)" if depth else "")
+                    + f", step walls {[round(w, 3) for w in res['walls_s']]}"
+                    f" s, peak by rank {res['peak_gib_by_rank']} GiB, "
+                    f"bytes a rank: params {pbytes}, AdamW {sbytes}")
+        if rank == 0:
+            Path(path).write_text(json.dumps(out, default=str))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def _to(tree, dev):
     """A copy of ``tree`` on ``dev`` (training writes params in place)."""
     from repro_torch.io import tree_map
@@ -5305,20 +5822,25 @@ def main(mesh_only: bool = False) -> int:
           f"{N_ANCHORS} anchors, prompt length {L}")
     # the SFT examples of the training phases, from a world of their own
     # (building them draws from the world's generator)
-    from repro_torch.training.sft import build_sft_dataset
-    _, sft_data, sft_anchors, sft_lib = build_world()
-    sft_ds = build_sft_dataset(sft_data, sft_lib,
-                               AnchorRetriever(sft_anchors, device="cpu"),
-                               max_examples=320, seed=0)
+    sft_ds = sft_dataset()
     s_train = sft_ds["tokens"].shape[1]
     print(f"   SFT examples {sft_ds['tokens'].shape}")
     done(t)
 
     if mesh_only:
         t = phase("mesh")
-        report = mesh_phase(torch, world, data, anchors, lib, qids, smi)
+        report = {"mesh": mesh_phase(torch, world, data, anchors, lib, qids,
+                                     smi)}
         done(t)
-        print(json.dumps({"mesh": report}, default=str))
+        t = phase("mesh training")
+        report["mesh_train"] = mesh_train_phase(torch, world, data, anchors,
+                                                lib, qids, L, sft_ds, smi)
+        report["mesh_train"]["seconds"] = time.perf_counter() - t
+        done(t)
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1,
+                                                            default=str))
+        print(json.dumps(report, default=str))
         return 0
 
     t = phase("kernels")
@@ -5575,6 +6097,15 @@ def main(mesh_only: bool = False) -> int:
     report["mesh"]["seconds"] = time.perf_counter() - t
     done(t)
 
+    t = phase("mesh training: scope-qwen3-4b SFT steps and a batch serve "
+              "sharded over a world-1 NCCL mesh, bit for bit; TP and FSDP "
+              "on more cards")
+    release(torch)
+    report["mesh_train"] = mesh_train_phase(torch, world, data, anchors, lib,
+                                            qids, L, sft_ds, smi)
+    report["mesh_train"]["seconds"] = time.perf_counter() - t
+    done(t)
+
     # launches: each kernel's count on its own path's run — the batch serve
     # for the three kernels of that path, the paged stream for the paged
     # one, the mamba2-1.3b serve for the SSD scan and decode step, the
@@ -5659,6 +6190,27 @@ def main(mesh_only: bool = False) -> int:
             "max_abs_err": errs[row], "ms": tm["ms"],
             "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
             "bound_by": tm["bound_by"], "library_ms": tm["library_ms"]})
+    # and, where more cards ran the mesh training phase, the attention
+    # kernels at the heads one rank of its (1, n) mesh computes
+    tp = report["mesh_train"].get("world", {}).get("tp")
+    if tp:
+        n = tp["mesh"][1]
+        tp_launches = {
+            "flash_attention": tp["serve_launches"]["flash_attention"],
+            "decode_attention": tp["serve_launches"]["decode_attention"],
+            "paged_decode_attention": tp["stream_launches"]["paged"][
+                "paged_decode_attention"],
+            "flash_attention_bwd": tp["sft"]["launches"][
+                "flash_attention_bwd"]}
+        for name, count in tp_launches.items():
+            tm = tp["kernels"][f"{name}@tp{n}"]
+            kernel_rows.append({
+                "name": f"{name}@tp{n}", "route": "cuda",
+                "source": SOURCES[name], "replaces": TPU_KERNELS[name],
+                "launches": count, "max_abs_err": tm["max_abs_err"],
+                "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+                "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+                "library_ms": tm["library_ms"]})
     report["kernels"] = kernel_rows
     report["timing"] = timing
     OUT_DIR.mkdir(exist_ok=True)
@@ -5675,4 +6227,6 @@ def main(mesh_only: bool = False) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:
         sys.exit(mesh_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--mesh-train-rank"]:
+        sys.exit(mesh_train_rank(sys.argv[2], sys.argv[3]))
     sys.exit(main(mesh_only=sys.argv[1:] == ["--mesh-phase"]))

@@ -16,12 +16,14 @@ on the params' device.
 
 ``shard(mesh)`` serves over a device mesh, one process a device: the params
 become DTensors placed per ``distributed.sharding.param_specs`` (FSDP on
-``data``), each call gathers them whole once (``full_tensor`` a leaf) for
-the kernels, each rank prefills and decodes its own rows of the batch
-(``batch_specs``), and the rows' tokens, decision logits and done-masks
-are all-gathered, so every rank ends a call with the whole batch's
-results and the same host state — what the reference's global arrays
-give.  A batch whose rows do not divide over ``data`` is computed whole on
+``data``, TP on ``model``), the model gathers each layer over ``data``
+just before it runs (``distributed.collectives``) and computes its own
+heads and MLP columns where ``model`` splits them, so each rank's decode
+caches and page pool hold its own kv-heads; each rank prefills and decodes
+its own rows of the batch (``batch_specs``), and the rows' tokens,
+decision logits and done-masks are all-gathered over ``data``, so every
+rank ends a call with the whole batch's results and the same host state —
+what the reference's global arrays give.  A batch whose rows do not divide over ``data`` is computed whole on
 every rank, and so is every batch of a MoE backbone: its routing groups
 span the batch, so a rank routing only its own rows would drop other
 tokens at capacity than one process does.
@@ -357,8 +359,8 @@ class SlotRun:
         # buckets stay on the unmasked path (SSM backbones included)
         pl = lens if lens is not None and (lens != L).any() else None
         # the run binds the params it opened on (a hot swap leaves it
-        # alone), gathered whole once when sharded; this rank's rows
-        self.params = estimator.local_params()
+        # alone); this rank's rows
+        self.params = estimator.params
         self.rows = estimator.local_rows(b)
         if kv_pool is None:
             self.state = sampler.prefill_state(
@@ -644,27 +646,21 @@ class ReasoningEstimator:
         self.cot = cot
         self.max_new_tokens = max_new_tokens
         self.batch_size = batch_size
-        self.mesh = None            # set by shard(): data-parallel serving
+        self.mesh = None            # set by shard(): serving over a mesh
 
     # ------------------------------------------------------------------
     def shard(self, mesh) -> "ReasoningEstimator":
-        """Place the estimator on a ``DeviceMesh`` for data-parallel
-        serving: the params become DTensors per
-        ``distributed.sharding.param_specs`` (FSDP on ``data``, TP axes on
-        ``model`` where divisible), taken from the mesh's first rank, and
-        every later call splits its batch's rows over ``data`` per
-        ``batch_specs``.  Every rank of the mesh must make the same calls.
-        Returns self."""
+        """Place the estimator on a ``DeviceMesh``: the params become
+        DTensors per ``distributed.sharding.param_specs`` (FSDP on ``data``,
+        TP axes on ``model`` where divisible), taken from the mesh's first
+        rank, and every later call splits its batch's rows over ``data``
+        per ``batch_specs``.  The sharded params also train as they are
+        (``training.sft.train_sft``).  Every rank of the mesh must make the
+        same calls.  Returns self."""
         self.params = shd.distribute_tree(
             mesh, self.params, shd.param_specs(mesh, self.params))
         self.mesh = mesh
         return self
-
-    def local_params(self):
-        """The params as plain tensors: when sharded, gathered whole (one
-        all-gather a leaf, which every rank joins)."""
-        return self.params if self.mesh is None else shd.gather_tree(
-            self.params)
 
     def local_rows(self, b: int) -> Optional[slice]:
         """The rows of a b-row batch this rank computes: None unsharded,
@@ -709,7 +705,7 @@ class ReasoningEstimator:
             if len(lens) != 1:
                 raise ValueError("structured prompts must be constant-length")
         arr = np.asarray(prompts, np.int32)
-        params = self.local_params()
+        params = self.params
         chunks = []
         for i in range(0, len(arr), self.batch_size):
             pl = (None if prompt_lens is None
@@ -726,7 +722,7 @@ class ReasoningEstimator:
             # ranks' stream loops parse at different points
             return DecodeHandle(chunks)
         return DecodeHandle(chunks, event=_dispatched_event(
-            params["embed"].device))
+            sampler.params_device(params)))
 
     def open_slots(self, tokens, *, lengths=None, tags=None,
                    segment_len: int = 4, horizon: Optional[int] = None,

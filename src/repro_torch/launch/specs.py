@@ -18,6 +18,7 @@ from repro_torch.configs.base import (InputShape, ModelConfig,
                                       long_context_variant)
 from repro_torch.data.pipeline import grid_positions_3d
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import collectives as coll
 from repro_torch.io import flatten, tree_map
 from repro_torch.models import model as M
 from repro_torch.models.common import dtype_of
@@ -135,8 +136,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
     """Train step with optional gradient accumulation: over
     ``microbatches`` > 1 slices the gradients are summed in float32 and
     divided by the count, as is the loss; then one AdamW update, in place
-    (``training/optimizer.adamw_update``).  Returns (params, opt_state,
-    loss)."""
+    (``training/optimizer.adamw_update``).  On sharded params every rank
+    takes the whole batch and each microbatch's gradients accumulate on
+    the rank's blocks.  Returns (params, opt_state, loss)."""
     if opt_cfg is None:
         opt_cfg = AdamWConfig()
 
@@ -154,10 +156,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
             for mbatch in _split_microbatches(batch, microbatches):
                 lv, _, g = value_and_grad(loss(mbatch), params)
                 for key, t in flatten(g).items():
-                    acc[key].add_(t.float())
+                    coll.local(acc[key]).add_(coll.local(t).float())
                 value = value + lv
                 del g
-            grads = tree_map(lambda g: g.div_(microbatches), gsum)
+            for t in acc.values():
+                coll.local(t).div_(microbatches)
+            grads = gsum
             value = value / microbatches
         params, opt_state = adamw_update(opt_cfg, grads, opt_state, params)
         return params, opt_state, value

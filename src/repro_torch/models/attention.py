@@ -40,7 +40,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import rope as rope_mod
-from repro_torch.models.common import (dense_init, init_rmsnorm,
+from repro_torch.models.common import (dense_init, init_rmsnorm, out_proj,
                                       promoted_matmul, rmsnorm)
 
 
@@ -81,10 +81,13 @@ def _gqa_qkv(p, cfg: ModelConfig, x, cos, sin):
 
 
 def gqa_full(p, cfg: ModelConfig, x, cos, sin, *, kind: str = "attn",
-             causal: bool = True) -> Tuple[torch.Tensor, Dict]:
+             causal: bool = True, partial: bool = False
+             ) -> Tuple[torch.Tensor, Dict]:
     """Full-sequence GQA over the layer's window, causal unless ``causal``
     is False (the encoder's).  Returns (y, {"k", "v"}) with the cache slice
-    as (b, hkv, s, hd) views (head-major, not copied)."""
+    as (b, hkv, s, hd) views (head-major, not copied).  ``partial``: the
+    heads are one rank's share of a split over ``model``, and y is their
+    float32 share of the output projection (``common.out_proj``)."""
     b, s, _ = x.shape
     q, k, v = _gqa_qkv(p, cfg, x, cos, sin)
     qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -93,11 +96,12 @@ def gqa_full(p, cfg: ModelConfig, x, cos, sin, *, kind: str = "attn",
                               softcap=cfg.logit_softcap,
                               scale=cfg.attn_scale or None)
     y = out.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.resolved_head_dim)
-    return y @ p["wo"], {"k": kh, "v": vh}
+    return out_proj(y, p["wo"], partial), {"k": kh, "v": vh}
 
 
 def gqa_decode(p, cfg: ModelConfig, x, cos, sin, cache: Dict,
-               pos: torch.Tensor, *, kind: str = "attn") -> torch.Tensor:
+               pos: torch.Tensor, *, kind: str = "attn",
+               partial: bool = False) -> torch.Tensor:
     """Single-token GQA decode.
 
     x: (b, 1, d); cache["k"/"v"]: (b, hkv, S, hd); pos: (b,) — per-row count
@@ -113,6 +117,7 @@ def gqa_decode(p, cfg: ModelConfig, x, cos, sin, cache: Dict,
 
     The cache is updated IN PLACE (the JAX package builds a new array with
     ``.at[rows, :, slot].set``); callers that need the old cache copy it.
+    ``partial`` as ``gqa_full``'s.
     """
     window = resolve_window(cfg, kind)
     if window > 0 and cache["k"].shape[2] == window:
@@ -131,12 +136,12 @@ def gqa_decode(p, cfg: ModelConfig, x, cos, sin, cache: Dict,
                                softcap=cfg.logit_softcap,
                                scale=cfg.attn_scale or None)
     y = out.transpose(1, 2).reshape(b, 1, cfg.num_heads * cfg.resolved_head_dim)
-    return y @ p["wo"]
+    return out_proj(y, p["wo"], partial)
 
 
 def gqa_decode_paged(p, cfg: ModelConfig, x, cos, sin, cache: Dict,
-                     pos: torch.Tensor, table: torch.Tensor, spec
-                     ) -> torch.Tensor:
+                     pos: torch.Tensor, table: torch.Tensor, spec,
+                     partial: bool = False) -> torch.Tensor:
     """Single-token GQA decode against a block-paged cache.
 
     cache["k"/"v"]: (n_pages + 1, hkv, page_size, hd) physical pages shared
@@ -147,7 +152,8 @@ def gqa_decode_paged(p, cfg: ModelConfig, x, cos, sin, cache: Dict,
     point at the trash page: their PAD writes collide there, so the scatter
     is a plain index assignment that tolerates duplicate indices (which of
     them wins is irrelevant — the trash page is never read unmasked for a
-    live row).  Written IN PLACE, as ``gqa_decode``.
+    live row).  Written IN PLACE, as ``gqa_decode``; ``partial`` as
+    ``gqa_full``'s.
     """
     b = x.shape[0]
     q, k, v = _gqa_qkv(p, cfg, x, cos, sin)
@@ -162,7 +168,7 @@ def gqa_decode_paged(p, cfg: ModelConfig, x, cos, sin, cache: Dict,
         page_size=spec.page_size, kv_cap=spec.kv_cap,
         softcap=cfg.logit_softcap, scale=cfg.attn_scale or None)
     y = out.transpose(1, 2).reshape(b, 1, cfg.num_heads * cfg.resolved_head_dim)
-    return y @ p["wo"]
+    return out_proj(y, p["wo"], partial)
 
 
 def init_cross(generator: torch.Generator, cfg: ModelConfig, *, device,

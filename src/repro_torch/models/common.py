@@ -52,6 +52,14 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (y * params["scale"].float()).to(dt)
 
 
+def out_proj(y: torch.Tensor, w: torch.Tensor, partial: bool = False
+             ) -> torch.Tensor:
+    """``y @ w``; with ``partial`` (one rank's share of a product split over
+    ``model``) in float32, so that the sum over the ranks is rounded to the
+    model dtype once, as the whole product is."""
+    return y.float() @ w.float() if partial else y @ w
+
+
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     """Gemma2-style logit soft-capping: cap * tanh(x / cap); a no-op at
     ``cap <= 0``."""

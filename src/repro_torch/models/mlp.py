@@ -8,7 +8,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import dense_init
+from repro_torch.models.common import dense_init, out_proj
 
 
 def init_mlp(generator: torch.Generator, cfg: ModelConfig, *, device,
@@ -21,8 +21,13 @@ def init_mlp(generator: torch.Generator, cfg: ModelConfig, *, device,
             for name, shape in names}
 
 
-def mlp_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def mlp_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
+                partial: bool = False) -> torch.Tensor:
+    """``partial``: the columns are one rank's share of a split over
+    ``model``; the output is their float32 share (``common.out_proj``)."""
     if cfg.mlp_kind == "gelu":
         # jax.nn.gelu's default is the tanh approximation; F.gelu's the erf
-        return F.gelu(x @ p["w1"], approximate="tanh") @ p["w2"]
-    return (F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])) @ p["wo"]
+        return out_proj(F.gelu(x @ p["w1"], approximate="tanh"), p["w2"],
+                        partial)
+    return out_proj(F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"]), p["wo"],
+                    partial)

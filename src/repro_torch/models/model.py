@@ -42,6 +42,16 @@ projection, the encoder, the cross K/V).  An encoder-decoder's params add
 blocks ``cross_norm`` / ``cross``; its caches add ``ck`` / ``cv`` (L, b,
 hq, enc_seq, hd), which decode reads and never grows.  A VLM's params add
 ``vision_proj`` (d, d).
+
+Every entry point also takes params sharded over a device mesh
+(``ReasoningEstimator.shard``: DTensors placed per
+``distributed.sharding.param_specs``).  A rank then gathers each layer over
+``data`` just before it runs and computes its own heads and MLP columns
+where ``collectives.model_split`` splits them; the vocabulary splits too,
+and the logits come back whole on every rank (the local slice all-gathered
+along the last dim: (b, s, V) a rank, as one process holds).  ``loss_fn``
+computes this rank's rows of the batch (``collectives.train_rows``) and
+returns the whole batch's loss on every rank.
 """
 from __future__ import annotations
 
@@ -51,6 +61,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import collectives as coll
 from repro_torch.io import tree_map
 from repro_torch.models import rope as rope_mod
 from repro_torch.models import transformer as tf
@@ -108,12 +119,20 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     return params
 
 
-def _lookup(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+def _top(tree, lay):
+    """An unstacked leaf (or dict of them) as plain tensors, gathered whole
+    when sharded."""
+    return tree if lay is None else lay.tree(tree)
+
+
+def _lookup(params, cfg: ModelConfig, tokens: torch.Tensor,
+            lay=None) -> torch.Tensor:
     """Embedding rows, times sqrt(d_model) under ``scale_embeddings``: the
     factor is rounded to the embedding's dtype before the product (the
     reference's ``jnp.asarray(d ** 0.5, h.dtype)``; sqrt(3584) is 59.75 in
-    bfloat16)."""
-    h = params["embed"][tokens]
+    bfloat16).  Sharded, the lookup is ``Layout.lookup``'s."""
+    h = (params["embed"][tokens] if lay is None
+         else lay.lookup(params["embed"], tokens))
     if cfg.scale_embeddings:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype).item()
     return h
@@ -125,17 +144,18 @@ def _sinusoid_positions(cfg: ModelConfig) -> bool:
 
 
 def _embed(params, cfg: ModelConfig, tokens: torch.Tensor,
-           batch: Optional[Dict] = None) -> torch.Tensor:
+           batch: Optional[Dict] = None, lay=None) -> torch.Tensor:
     """The full sequence's input: ``_lookup``, plus the sinusoid table of
     positions 0..s-1 in the embedding's dtype under ``rope_kind="none"``;
     a VLM's first P positions replaced by ``batch["image_embeds"] @
     vision_proj`` (computed in the promoted dtype, then cast)."""
-    h = _lookup(params, cfg, tokens)
+    h = _lookup(params, cfg, tokens, lay)
     if _sinusoid_positions(cfg):
         h = h + sinusoidal_positions(tokens.shape[1], cfg.d_model,
                                      device=h.device, dtype=h.dtype)[None]
     if cfg.num_stub_patches > 0 and batch and "image_embeds" in batch:
-        img = promoted_matmul(batch["image_embeds"], params["vision_proj"])
+        img = promoted_matmul(batch["image_embeds"],
+                              _top(params["vision_proj"], lay))
         npatch = img.shape[1]
         if npatch > h.shape[1]:
             # the reference concatenates regardless and fails further on
@@ -145,14 +165,17 @@ def _embed(params, cfg: ModelConfig, tokens: torch.Tensor,
     return h
 
 
-def _logits(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+def _logits(params, cfg: ModelConfig, h: torch.Tensor,
+            lay=None) -> torch.Tensor:
     """Tied head: rmsnorm(h) @ embed.T, in the model dtype; under
     ``final_logit_softcap`` cast to float32 and softcapped, in place when
     no gradient is recorded (the same operations in the same order: at
     gemma2's vocabulary of 256000 a 32768-token row's float32 logits are
-    33.5 GB, and the out-of-place form holds three of them at once)."""
-    h = rmsnorm(params["final_norm"], h, cfg.rmsnorm_eps)
-    logits = h @ params["embed"].T
+    33.5 GB, and the out-of-place form holds three of them at once).
+    Sharded, the product is ``Layout.logits``'s: whole on every rank."""
+    h = rmsnorm(_top(params["final_norm"], lay), h, cfg.rmsnorm_eps)
+    logits = (h @ params["embed"].T if lay is None
+              else lay.logits(params["embed"], h))
     cap = cfg.final_logit_softcap
     if cap > 0.0:
         logits = logits.float()
@@ -183,37 +206,43 @@ def _cos_sin(cfg: ModelConfig, pos: torch.Tensor, pos3=None):
 
 
 def _encode(params, cfg: ModelConfig, enc_features: torch.Tensor, *,
-            remat: bool = True) -> torch.Tensor:
+            remat: bool = True, lay=None) -> torch.Tensor:
     """The whisper-style encoder over stub frame embeddings (b, enc_seq,
     d): ``frontend_proj``, the sinusoid table, the non-causal stack, the
     final norm.  Frames in another dtype than the weights (float32 stubs,
     bf16 model) run the whole encoder in the promoted dtype, as JAX's
     promotion does: the weights are upcast, exactly."""
     enc = params["encoder"]
-    h = promoted_matmul(enc_features, enc["frontend_proj"])
+    proj = _top(enc["frontend_proj"], lay)
+    h = promoted_matmul(enc_features, proj)
     h = h + sinusoidal_positions(h.shape[1], cfg.d_model, device=h.device,
                                  dtype=h.dtype)[None]
     seg = enc["segments"][0]
-    if h.dtype != enc["frontend_proj"].dtype:
+    if h.dtype != proj.dtype:
         seg = tree_map(lambda t: t.to(torch.promote_types(t.dtype, h.dtype)),
                        seg)
     h, _, _ = tf.segment_full(seg, None, cfg, ("attn",),
                               cfg.num_encoder_layers, h, None, None,
-                              causal=False, remat=remat, want_cache=False)
-    return rmsnorm(enc["final_norm"], h, cfg.rmsnorm_eps)
+                              causal=False, remat=remat, want_cache=False,
+                              lay=lay)
+    return rmsnorm(_top(enc["final_norm"], lay), h, cfg.rmsnorm_eps)
 
 
 def _forward_full(params, cfg: ModelConfig, batch: Dict, *,
-                  want_cache: bool, remat: bool = True):
+                  want_cache: bool, remat: bool = True, lay=None):
     """(logits, aux, caches) of the full sequence: ``aux`` the summed MoE
     load-balance losses (0 without MoE), ``caches`` () without
-    ``want_cache``."""
+    ``want_cache``.  ``lay`` (a ``collectives.Layout``) runs sharded
+    params; None takes the params' own (rows not split)."""
+    if lay is None:
+        lay = coll.layout(params, cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
-    h = _embed(params, cfg, tokens, batch)
+    h = _embed(params, cfg, tokens, batch, lay)
     cos, sin = _cos_sin(cfg, torch.arange(s, device=tokens.device)
                         .expand(b, s), batch.get("positions_3d"))
-    enc_out = (_encode(params, cfg, batch["enc_features"], remat=remat)
+    enc_out = (_encode(params, cfg, batch["enc_features"], remat=remat,
+                       lay=lay)
                if cfg.is_encoder_decoder else None)
     caches = []
     aux = h.new_zeros((), dtype=torch.float32)
@@ -222,10 +251,10 @@ def _forward_full(params, cfg: ModelConfig, batch: Dict, *,
         h, a, cache = tf.segment_full(seg, params.get("shared_attn"), cfg,
                                       unit, count, h, cos, sin,
                                       enc_out=enc_out, remat=remat,
-                                      want_cache=want_cache)
+                                      want_cache=want_cache, lay=lay)
         aux = aux + a
         caches.append(cache)
-    return (_logits(params, cfg, h), aux,
+    return (_logits(params, cfg, h, lay), aux,
             tuple(caches) if want_cache else ())
 
 
@@ -252,8 +281,23 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict, *, remat: bool = True):
     plus ``router_aux_coef`` times the MoE load-balance loss: (loss, {"ce",
     "aux", "acc"}).  ``batch["labels"]`` (b, s), -100 = ignore;
     without labels, position t predicts token t + 1 and the last position
-    is ignored."""
-    logits, aux = forward_train(params, cfg, batch, remat=remat)
+    is ignored.
+
+    On sharded params a rank computes its ``collectives.train_rows`` of
+    the batch (all of them for a MoE backbone), each rank's share of the
+    cross-entropy is divided by the count of labelled tokens over the
+    whole batch, and the shares are summed over ``data`` (backward: each
+    rank differentiates its own): the loss and metrics are the whole
+    batch's on every rank."""
+    lay = coll.layout(params, cfg)
+    if lay is not None:
+        rows = coll.train_rows(lay.mesh, cfg, batch["tokens"].shape[0])
+        if rows is not None:
+            batch = {k: v[:, rows] if k == "positions_3d" else v[rows]
+                     for k, v in batch.items()}
+            lay = coll.layout(params, cfg, rows_split=True)
+    logits, aux, _ = _forward_full(params, cfg, batch, want_cache=False,
+                                   remat=remat, lay=lay)
     tokens = batch["tokens"]
     labels = batch.get("labels")
     if labels is None:
@@ -264,9 +308,12 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict, *, remat: bool = True):
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     maskf = mask.float()
-    denom = torch.clamp(mask.sum(), min=1).float()
+    count = mask.sum() if lay is None else lay.summed(mask.sum())
+    denom = torch.clamp(count, min=1).float()
     ce = torch.sum(nll * maskf) / denom
     acc = torch.sum((torch.argmax(logits, -1) == safe).float() * maskf) / denom
+    if lay is not None:
+        ce, acc = lay.total(ce), lay.summed(acc)
     return ce + cfg.router_aux_coef * aux, {"ce": ce, "aux": aux, "acc": acc}
 
 
@@ -294,15 +341,16 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches,
     and returned as the same objects (JAX returns new arrays)."""
     b = token.shape[0]
     pos = pos.reshape(-1).expand(b)
-    h = _lookup(params, cfg, token)
+    lay = coll.layout(params, cfg)
+    h = _lookup(params, cfg, token, lay)
     if _sinusoid_positions(cfg):
         h = h + sinusoid_at(pos, cfg.d_model).to(h.dtype)[:, None]
     cos, sin = _cos_sin(cfg, pos[:, None])
     for seg, cache, (unit, count) in zip(params["segments"], caches,
                                          tf.build_plan(cfg), strict=True):
         h = tf.segment_decode(seg, params.get("shared_attn"), cfg, unit,
-                              count, h, cos, sin, cache, pos, paged)
-    return _logits(params, cfg, h), caches
+                              count, h, cos, sin, cache, pos, paged, lay=lay)
+    return _logits(params, cfg, h, lay), caches
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,

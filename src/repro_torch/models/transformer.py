@@ -5,10 +5,10 @@
 As in the JAX package, layers are grouped into segments of a repeated unit
 whose parameters are stacked on a leading layer axis (gemma2: one unit
 ``("attn_local", "attn")`` repeated); where JAX scans the unit body, the
-port runs a Python loop over the stack.  The full-sequence pass unbinds
-each stacked leaf once (layer ``i`` reads the ``i``-th view), so under
-autograd the gradient of a stack is stacked once, not summed from a
-zero-filled stack per layer; decode reads the views ``leaf[i]``.  An
+port runs a Python loop over the stack.  Each pass unbinds each stacked
+leaf once (layer ``i`` reads the ``i``-th view), so under autograd the
+gradient of a stack is stacked once, not summed from a zero-filled stack
+per layer; decode reads its caches' views ``leaf[i]``.  An
 attention layer caches {"k", "v"}, a ``mamba`` layer {"conv", "ssm"},
 each leaf stacked per segment.  Under ``sandwich_norm`` (gemma2) an
 attention block also normalizes the attention and MLP outputs before each
@@ -25,6 +25,14 @@ An encoder-decoder's decoder blocks (``init_block(..., cross=True)``) hold
 attends the encoder output (``enc_out``, projected once into ``ck`` /
 ``cv``, which join the layer's cache) and adds the result before the MLP.
 The encoder runs the same stack non-causally (``causal=False``).
+
+On params sharded over a device mesh (``distributed.collectives``) the
+stacked leaves are DTensors: a rank unbinds its local block of each, and a
+layer's pieces are gathered (``Layout.block``) just before the layer runs,
+inside its checkpoint under ``remat``, so the backward gathers again and no
+layer stays whole after it ran.  A block that splits over ``model`` runs
+its attention on its own heads (a config of the local head counts) and its
+MLP on its own columns, and sums their outputs over ``model``.
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as coll
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
@@ -161,13 +170,13 @@ def stack_trees(trees: List[Dict]) -> Dict:
 
 
 def unbind_tree(tree: Dict) -> List[Dict]:
-    """A stacked dict as per-layer dicts of views, each leaf unbound
-    once."""
+    """A stacked dict as per-layer dicts of views, each leaf unbound once
+    (a sharded leaf's local block, as ``collectives.Block``s)."""
     if isinstance(tree, dict):
         per_key = {k: unbind_tree(v) for k, v in tree.items()}
         return [dict(zip(per_key, layer, strict=True)) for layer in
                 zip(*per_key.values(), strict=True)]
-    return list(torch.unbind(tree, 0))
+    return coll.unstack(tree)
 
 
 def layer_view(tree: Dict, i: int) -> Dict:
@@ -177,32 +186,59 @@ def layer_view(tree: Dict, i: int) -> Dict:
     return tree[i]
 
 
+def _blocks(tree):
+    """An unstacked dict with its sharded leaves as ``Block``s."""
+    if isinstance(tree, dict):
+        return {k: _blocks(v) for k, v in tree.items()}
+    return coll.as_block(tree)
+
+
+def _whole(p: Dict, cfg: ModelConfig, kind: str, lay):
+    """A layer's pieces as plain tensors and its split over ``model``."""
+    return (p, None) if lay is None else lay.block(p, cfg, kind)
+
+
+def _attn_cfg(cfg: ModelConfig, tp) -> ModelConfig:
+    return cfg if tp is None or tp.attn_cfg is None else tp.attn_cfg
+
+
 def block_full(p: Dict, cfg: ModelConfig, kind: str, h: torch.Tensor, cos,
-               sin, enc_out=None, causal: bool = True
+               sin, enc_out=None, causal: bool = True, *, lay=None
                ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
-    """(h, the layer's cache, its MoE load-balance loss: 0 without MoE)."""
+    """(h, the layer's cache, its MoE load-balance loss: 0 without MoE).
+    ``lay`` (a ``collectives.Layout``) gathers a sharded layer's pieces;
+    under a split over ``model`` the cache holds the local K/V heads."""
+    p, tp = _whole(p, cfg, kind, lay)
     if kind == "mamba":
         y, cache = ssm_mod.mamba_full(p["mamba"], cfg,
                                       rmsnorm(p["norm"], h, cfg.rmsnorm_eps))
         return h + y, cache, h.new_zeros((), dtype=torch.float32)
     x = rmsnorm(p["attn_norm"], h, cfg.rmsnorm_eps)
     attend = attn_mod.mla_full if is_mla(kind) else attn_mod.gqa_full
-    y, cache = attend(p["attn"], cfg, x, cos, sin, kind=kind, causal=causal)
+    acfg = _attn_cfg(cfg, tp)
+    if acfg is not cfg:
+        y, cache = attend(p["attn"], acfg, coll.enter(x, tp.group), cos, sin,
+                          kind=kind, causal=causal, partial=True)
+        y = coll.leave(y, tp.group).to(x.dtype)
+    else:
+        y, cache = attend(p["attn"], cfg, x, cos, sin, kind=kind,
+                          causal=causal)
     ckv = None
     if "cross" in p and enc_out is not None:
         ckv = attn_mod.cross_kv(p["cross"], cfg, enc_out)
         cache.update(ckv)
-    h, aux = _attn_block_tail(p, cfg, kind, h, y, ckv)
+    h, aux = _attn_block_tail(p, cfg, kind, h, y, ckv, tp)
     return h, cache, aux
 
 
 def _attn_block_tail(p: Dict, cfg: ModelConfig, kind: str, h: torch.Tensor,
-                     y: torch.Tensor, ckv=None
+                     y: torch.Tensor, ckv=None, tp=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The residual adds and the MLP (or MoE) after an attention output
     ``y``, with gemma2's post-norms under ``sandwich_norm`` and, given the
     encoder's ``ckv``, the cross-attention between the two.  Returns (h,
-    aux)."""
+    aux).  Under ``tp`` with ``tp.mlp`` the MLP computes its own columns
+    and sums its output over ``model``."""
     if cfg.sandwich_norm:
         y = rmsnorm(p["post_attn_norm"], y, cfg.rmsnorm_eps)
     h = h + y
@@ -213,6 +249,11 @@ def _attn_block_tail(p: Dict, cfg: ModelConfig, kind: str, h: torch.Tensor,
     x2 = rmsnorm(p["mlp_norm"], h, cfg.rmsnorm_eps)
     if is_moe(kind):
         y2, aux = moe_mod.moe_forward(p["moe"], cfg, x2)
+    elif tp is not None and tp.mlp:
+        y2 = coll.leave(mlp_mod.mlp_forward(
+            p["mlp"], cfg, coll.enter(x2, tp.group), partial=True),
+            tp.group).to(x2.dtype)
+        aux = h.new_zeros((), dtype=torch.float32)
     else:
         y2 = mlp_mod.mlp_forward(p["mlp"], cfg, x2)
         aux = h.new_zeros((), dtype=torch.float32)
@@ -223,45 +264,52 @@ def _attn_block_tail(p: Dict, cfg: ModelConfig, kind: str, h: torch.Tensor,
 
 def block_decode(p: Dict, cfg: ModelConfig, kind: str, h: torch.Tensor,
                  cos, sin, cache: Dict, pos: torch.Tensor,
-                 paged=None) -> torch.Tensor:
+                 paged=None, *, lay=None) -> torch.Tensor:
     """Writes the new K/V (or conv window and SSM state) into ``cache`` in
     place (an MLA layer its latent); a cross-attention block reads ``ck``
     / ``cv`` from it.  ``paged`` = (spec, table) routes K/V through the
     block-paged layout; ``kv_pool.check_paged_support`` keeps SSM and MLA
     layers and encoder-decoders off it.  A MoE block's load-balance loss
-    is dropped, as in the reference's decode."""
+    is dropped, as in the reference's decode.  ``lay`` as ``block_full``'s:
+    under a split over ``model`` the cache holds the local K/V heads."""
+    p, tp = _whole(p, cfg, kind, lay)
     if kind == "mamba":
         return h + ssm_mod.mamba_decode(
             p["mamba"], cfg, rmsnorm(p["norm"], h, cfg.rmsnorm_eps), cache)
     x = rmsnorm(p["attn_norm"], h, cfg.rmsnorm_eps)
+    acfg = _attn_cfg(cfg, tp)
+    split = acfg is not cfg
     if paged is not None:
         if is_mla(kind):
             raise ValueError("paged decode does not support MLA layers")
         spec, table = paged
-        y = attn_mod.gqa_decode_paged(p["attn"], cfg, x, cos, sin, cache,
-                                      pos, table, spec)
+        y = attn_mod.gqa_decode_paged(p["attn"], acfg, x, cos, sin, cache,
+                                      pos, table, spec, partial=split)
     elif is_mla(kind):
         y = attn_mod.mla_decode(p["attn"], cfg, x, cos, sin, cache, pos,
                                 kind=kind)
     else:
-        y = attn_mod.gqa_decode(p["attn"], cfg, x, cos, sin, cache, pos,
-                                kind=kind)
+        y = attn_mod.gqa_decode(p["attn"], acfg, x, cos, sin, cache, pos,
+                                kind=kind, partial=split)
+    if split:
+        y = coll.leave(y, tp.group).to(x.dtype)
     ckv = ({"ck": cache["ck"], "cv": cache["cv"]} if "cross" in p
            else None)
-    return _attn_block_tail(p, cfg, kind, h, y, ckv)[0]
+    return _attn_block_tail(p, cfg, kind, h, y, ckv, tp)[0]
 
 
 def _block_h(p: Dict, cfg: ModelConfig, kind: str, h: torch.Tensor, cos,
-             sin, enc_out, causal: bool
+             sin, enc_out, causal: bool, *, lay=None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    h, _, aux = block_full(p, cfg, kind, h, cos, sin, enc_out, causal)
+    h, _, aux = block_full(p, cfg, kind, h, cos, sin, enc_out, causal,
+                           lay=lay)
     return h, aux
 
 
 def segment_full(seg: Dict, shared, cfg: ModelConfig, unit: Tuple[str, ...],
                  count: int, h: torch.Tensor, cos, sin, *,
                  enc_out=None, causal: bool = True,
-                 remat: bool = True, want_cache: bool = True):
+                 remat: bool = True, want_cache: bool = True, lay=None):
     """Run ``count`` stacked units; ``shared`` is the model-level
     ``shared_attn`` block (None without one).  Returns (h, aux, {"<j>":
     cache}), as the reference's: ``aux`` the sum of the MoE blocks'
@@ -277,9 +325,13 @@ def segment_full(seg: Dict, shared, cfg: ModelConfig, unit: Tuple[str, ...],
     With ``remat`` and autograd recording, each block is one
     ``torch.utils.checkpoint`` (non-reentrant): the backward recomputes the
     block from its input instead of keeping its internals, as the
-    reference's ``jax.checkpoint`` of the layer body."""
+    reference's ``jax.checkpoint`` of the layer body.  ``lay`` (a
+    ``collectives.Layout``) runs sharded stacks: each layer gathered inside
+    its checkpoint."""
     layers = {str(j): unbind_tree(seg[str(j)])
               for j, kind in enumerate(unit) if kind != "shared_attn"}
+    if shared is not None:
+        shared = _blocks(shared)
     per_layer = {str(j): [] for j in range(len(unit))}
     checkpoint = remat and torch.is_grad_enabled()
     aux = h.new_zeros((), dtype=torch.float32)
@@ -289,14 +341,15 @@ def segment_full(seg: Dict, shared, cfg: ModelConfig, unit: Tuple[str, ...],
                      else (layers[str(j)][i], kind))
             if want_cache:
                 h, cache, a = block_full(p, cfg, kk, h, cos, sin, enc_out,
-                                         causal)
+                                         causal, lay=lay)
                 per_layer[str(j)].append(cache)
             elif checkpoint:
                 h, a = torch.utils.checkpoint.checkpoint(
                     _block_h, p, cfg, kk, h, cos, sin, enc_out, causal,
-                    use_reentrant=False)
+                    lay=lay, use_reentrant=False)
             else:
-                h, a = _block_h(p, cfg, kk, h, cos, sin, enc_out, causal)
+                h, a = _block_h(p, cfg, kk, h, cos, sin, enc_out, causal,
+                                lay=lay)
             aux = aux + a
     if not want_cache:
         return h, aux, {}
@@ -306,13 +359,19 @@ def segment_full(seg: Dict, shared, cfg: ModelConfig, unit: Tuple[str, ...],
 def segment_decode(seg: Dict, shared, cfg: ModelConfig,
                    unit: Tuple[str, ...], count: int, h: torch.Tensor, cos,
                    sin, caches: Dict, pos: torch.Tensor,
-                   paged=None) -> torch.Tensor:
+                   paged=None, *, lay=None) -> torch.Tensor:
     """One decode step through ``count`` stacked units, each layer's cache
-    (the shared block's too: one per occurrence) written in place."""
+    (the shared block's too: one per occurrence) written in place; ``lay``
+    as ``segment_full``'s."""
+    if shared is not None:
+        shared = _blocks(shared)
+    layers = {str(j): unbind_tree(seg[str(j)])
+              for j, kind in enumerate(unit) if kind != "shared_attn"}
     for i in range(count):
         for j, kind in enumerate(unit):
             p, kk = ((shared, "attn") if kind == "shared_attn"
-                     else (layer_view(seg[str(j)], i), kind))
+                     else (layers[str(j)][i], kind))
             h = block_decode(p, cfg, kk, h, cos, sin,
-                             layer_view(caches[str(j)], i), pos, paged)
+                             layer_view(caches[str(j)], i), pos, paged,
+                             lay=lay)
     return h

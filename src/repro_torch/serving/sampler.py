@@ -53,6 +53,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.tokenizer import EOS, NO, PAD, YES
+from repro_torch.distributed import collectives as coll
 from repro_torch.models import model as M
 from repro_torch.serving.kv_pool import (KVPool, PagedKV, _ceil_div,
                                          check_kv_kernel, check_paged_support)
@@ -70,8 +71,9 @@ DECISION_TOKENS = (YES, NO)
 CACHE_SEQ_AXIS = {"k": 3, "v": 3, "c_kv": 2, "k_rope": 2}
 
 
-def _params_device(params) -> torch.device:
-    return params["embed"].device
+def params_device(params) -> torch.device:
+    """The device of this rank's params (sharded ones' local blocks)."""
+    return coll.local(params["embed"]).device
 
 
 def _gather_last(logits: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
@@ -257,7 +259,7 @@ def prefill_state(params, cfg: ModelConfig, prompts, *, max_new_tokens: int,
     ``rows`` prefills only those rows of the batch (see ``DecodeState``);
     the arguments stay whole.
     """
-    dev = _params_device(params)
+    dev = params_device(params)
     prompts = np.asarray(prompts, np.int32)
     b, lp = prompts.shape
     part = slice(None) if rows is None else rows
@@ -397,11 +399,12 @@ def decode_segment(params, cfg: ModelConfig, state: DecodeState, steps: int,
             ids = pg.prompt_page_ids(mask, _ceil_div(width, pg.page_size))
         used = max(used, int(mlens.max()))
         # this rank's rows; a rank none of whose rows refill skips the
-        # prefill
+        # prefill, unless its params are sharded: the prefill's gathers are
+        # collectives every rank joins
         mask, prompts, lens = mask[part], prompts[part], lens[part]
         if pg is not None:
             ids = ids[part]
-        if not mask.any():
+        if not mask.any() and coll.mesh_of(params) is None:
             refill = None
     paged = None
     if pg is not None:

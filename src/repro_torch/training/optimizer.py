@@ -12,6 +12,13 @@ state's ``mu``/``nu`` IN PLACE, leaf by leaf (the reference returns new
 trees): at full width, old and new moments side by side and a float32 copy
 of every gradient would not fit the card.  It returns the same ``params``
 object and a state holding the same moment trees.
+
+Params sharded over a device mesh (DTensors) train as they are: the
+gradients come back in the params' placement, ``mu`` / ``nu`` are DTensors
+of the same placement, and each rank updates its own blocks with the same
+float32 expressions.  ``global_norm`` sums each leaf's local squares, sums
+them over the mesh, counting a leaf once where it is replicated, and adds
+the leaves in the reference's order.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ from typing import Any, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.distributed import collectives as coll
 from repro_torch.io import flatten, tree_map, unflatten
 
 Tree = Any      # a dict of tensors, or nested dicts / tuples of them
@@ -61,16 +69,29 @@ def lr_at(cfg: AdamWConfig, step) -> torch.Tensor:
 
 def global_norm(tree: Tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, summed leaf by leaf in the
-    reference's leaf order."""
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.float()))
-                          for leaf in flatten(tree).values()))
+    reference's leaf order.  A sharded tree's per-leaf sums are its local
+    blocks' summed over the mesh, each replicated block counted by one
+    rank only."""
+    leaves = list(flatten(tree).values())
+    mesh = coll.mesh_of_leaves(leaves)
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(torch.square(leaf.float()))
+                              for leaf in leaves))
+    parts = torch.stack([
+        torch.sum(torch.square(coll.local(leaf).float()))
+        if coll.owns_replica(leaf, mesh)
+        else coll.local(leaf).new_zeros((), dtype=torch.float32)
+        for leaf in leaves])
+    parts = coll.all_reduce_(parts, mesh)
+    return torch.sqrt(sum(parts.unbind()))
 
 
 def value_and_grad(loss, params):
     """``loss(leaves) -> (value, aux)`` differentiated at ``params``: leaves
     that require grad are made for this call only, so the params stay plain
     tensors (the sampler writes caches in place beside them).  Returns
-    (value, aux, grads) with grads in the params' structure and dtypes."""
+    (value, aux, grads) with grads in the params' structure, dtypes and,
+    for sharded params, placement."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
     value, aux = loss(leaves)
     flat = flatten(leaves)
@@ -109,8 +130,10 @@ def adamw_update(cfg: AdamWConfig, grads: Tree, state: AdamWState,
         raise ValueError("grads, params and the AdamW state differ in "
                          "structure")
     for key, p in p_leaves.items():
-        g = g_leaves[key].float() * scale.to(p.device)
-        m, v = mu_leaves[key], nu_leaves[key]
+        # a sharded leaf: this rank's blocks, written in place
+        p, m, v = (coll.local(p), coll.local(mu_leaves[key]),
+                   coll.local(nu_leaves[key]))
+        g = coll.local(g_leaves[key]).float() * scale.to(p.device)
         # m = b1 m + (1 - b1) g ; v = b2 v + (1 - b2) g g, the reference's
         # float32 expressions evaluated in its order
         m.mul_(cfg.b1).add_(g * (1 - cfg.b1))

@@ -7,6 +7,12 @@ next-token prediction on the generated suffix only.  Gradients come from
 autograd through ``models.model.loss_fn`` (on the card: the flash forward
 and backward kernels, one checkpoint a layer); the update is
 ``training.optimizer.adamw_update``, in place.
+
+Params sharded over a device mesh (``ReasoningEstimator.shard``) train as
+they are: every rank takes the whole batch, ``loss_fn`` computes the
+rank's own rows, the gradients are reduce-scattered to the params' blocks
+and each rank updates its blocks of params, ``mu`` and ``nu``.  Every rank
+of the mesh must make the same calls.
 """
 from __future__ import annotations
 
@@ -21,7 +27,7 @@ from repro_torch.core.fingerprint import FingerprintLibrary
 from repro_torch.core.retrieval import AnchorRetriever
 from repro_torch.data.datasets import ScopeData
 from repro_torch.data.pipeline import batches, make_lm_batch, with_stubs
-from repro_torch.distributed.sharding import refuse_sharded
+from repro_torch.distributed import collectives as coll
 from repro_torch.models import model as M
 from repro_torch.training.optimizer import (
     AdamWConfig, AdamWState, adamw_init, adamw_update, value_and_grad)
@@ -81,11 +87,11 @@ def train_sft(params, cfg: ModelConfig, dataset: Dict[str, np.ndarray], *,
     in place on their own device.  A multimodal config's step i gets its
     stub inputs from ``pipeline.with_stubs(..., seed=seed + i)`` (the
     reference's trainer feeds text alone, which whisper's loss cannot
-    take).  Returns (params, losses)."""
+    take).  Sharded params train on every rank of their mesh, each batch
+    whole on every rank (``sft_step``).  Returns (params, losses)."""
     opt_cfg = opt_cfg or AdamWConfig(lr=1e-3, warmup_steps=20,
                                      total_steps=steps)
-    refuse_sharded(params, "train_sft")
-    dev = params["embed"].device
+    dev = coll.local(params["embed"]).device
     opt_state = adamw_init(params)
     losses = []
     done = 0

@@ -79,9 +79,7 @@ def serve_cases(params_path, mesh=None):
     from repro_torch.models import model as M
     from repro_torch.serving import sampler
     from repro_torch.serving.scheduler import BucketConfig, MicrobatchScheduler
-    from repro_torch.training import checkpoint
     from repro_torch.training.grpo import GRPOTrainer
-    from repro_torch.training.sft import train_sft
     from repro_torch.training.tier0 import distill_tier0
 
     params = io.load_checkpoint(str(params_path), TINY, device="cpu")
@@ -152,13 +150,11 @@ def serve_cases(params_path, mesh=None):
     if mesh is not None:
         sharded = estimator().params
         out["refused"] = []
-        for call in (lambda: checkpoint.save("unwritten.npz", sharded),
-                     lambda: train_sft(sharded, TINY, {}, steps=1),
-                     lambda: GRPOTrainer(TINY, sharded, data, library(),
-                                         retr)):
-            with pytest.raises(ValueError) as err:
-                call()
-            out["refused"].append(str(err.value))
+        # checkpoint.save and train_sft take sharded params since
+        # test_torch_distributed_training.py; GRPOTrainer still refuses
+        with pytest.raises(ValueError) as err:
+            GRPOTrainer(TINY, sharded, data, library(), retr)
+        out["refused"].append(str(err.value))
 
     cfg = get_config("qwen3-moe-235b-a22b").reduced()
     est = ReasoningEstimator(cfg, M.init_params(cfg, seed=0, device="cpu"),
@@ -409,11 +405,10 @@ def test_tier0_distills_from_a_sharded_estimator(runs, ranks):
 @pytest.mark.parametrize("ranks", [2, 4])
 def test_sharded_params_are_refused_where_plain_ones_are_needed(runs,
                                                                 ranks):
-    """checkpoint.save, train_sft and GRPOTrainer refuse DTensor params
-    and name themselves."""
+    """GRPOTrainer refuses DTensor params and names itself (checkpoint.save
+    and train_sft take them: test_torch_distributed_training.py)."""
     for got in runs[ranks]:
-        for what, msg in zip(("checkpoint.save", "train_sft", "GRPOTrainer"),
-                             got["refused"], strict=True):
+        for what, msg in zip(("GRPOTrainer",), got["refused"], strict=True):
             assert msg.startswith(what) and "gather_tree" in msg
 
 
