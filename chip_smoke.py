@@ -401,6 +401,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -5253,6 +5254,20 @@ MESH_TRAIN_STEPS = 3
 # card (FAMILY_TRAIN's gemma2-9b; phase 20's zamba2-7b, 12 mamba layers),
 # then at full depth (42 layers; 81 mamba layers)
 FSDP_TRAIN = (("gemma2-9b", 16, 3.9e9), ("zamba2-7b", 12, 1.2e9))
+# the MoE run at world n (``moe_grpo_rank``): deepseek-v2-lite-16b at its
+# one-card depth (FAMILY_TRAIN's), against rank 0's card alone, then at
+# full depth (27 layers, 15.5 B params), its batch split over data
+MOE_FSDP = ("deepseek-v2-lite-16b", 7)
+# qwen3-moe-235b-a22b over FSDP (n, 1) at more layers than one card trains
+# (1 of 94): 2, at 21.44 GiB a card on four H100s
+MOE_OVER_CARDS = 2
+# GRPO over a mesh on world 1's rollouts, from the same fresh weights: the
+# largest and the median |difference| of a generated token's log-prob
+# from world 1's (nats), and of a gradient leaf over its largest |value|.
+# On four H100s TP's lie within 0.063 (median 1.7e-4) and 0.021, FSDP's
+# within 0 and 0.019; compared after unequal steps, they lay 18.6 (median
+# 1.86) and 0.757 apart
+GRPO_LP_TOL, GRPO_GRAD_TOL = (0.25, 0.05), 0.25
 # scope-qwen3-4b's attention heads (q, kv)
 QWEN_HEADS = (32, 8)
 
@@ -5301,8 +5316,9 @@ def sft_dataset():
 def mesh_sft(torch, cfg, params, ds, batch_size: int = SFT_BATCH):
     """``MESH_TRAIN_STEPS`` SFT steps of ``params`` (plain or sharded),
     ``train_sft``'s batches and stub seeds, one ``sft_step`` at a time:
-    losses, each step's wall, the launches, peak GiB, the final params
-    and the AdamW state (each rank's blocks)."""
+    losses, the MoE load-balance ``aux``, each step's wall, the launches,
+    peak GiB, the final params and the AdamW state (each rank's
+    blocks)."""
     import numpy as np
     from repro_torch import kernels
     from repro_torch.data.pipeline import batches, with_stubs
@@ -5317,20 +5333,89 @@ def mesh_sft(torch, cfg, params, ds, batch_size: int = SFT_BATCH):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    losses, walls = [], []
+    losses, aux, walls = [], [], []
     for i in range(MESH_TRAIN_STEPS):
         batch = with_stubs(next(it), cfg, seed=i)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        params, state, loss, _ = sft_step(params, cfg, state, batch, opt_cfg)
+        params, state, loss, metrics = sft_step(params, cfg, state, batch,
+                                                opt_cfg)
         losses.append(float(loss))
+        aux.append(float(metrics["aux"]))
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     check(all(np.isfinite(losses)), f"{cfg.name}: non-finite loss {losses}")
-    return dict(losses=losses, walls_s=walls,
+    return dict(losses=losses, aux=aux, walls_s=walls,
                 launches=kernels.launch_counts(),
                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                 params=params, state=state)
+
+
+class StandInParse:
+    """While installed: ``tokenizer.parse_prediction`` reads every rollout
+    as well formed, its first token's parity the verdict and its second
+    token's the length bucket.  Random weights emit no parsable rollout, so
+    every reward and advantage would be 0 and a GRPO step's gradient
+    nothing but the KL term's; with this stand-in the sampled rollouts of a
+    group score differently and the step's policy gradient is not 0."""
+
+    def __enter__(self):
+        from repro_torch.data import tokenizer as tok
+        self._saved = tok.parse_prediction
+
+        def parse(tokens):
+            t = [int(x) for x in tokens]
+            return {"y_hat": t[0] % 2,
+                    "len_hat": tok.len_from_bucket(t[1] % tok.NUM_LEN_BUCKETS),
+                    "well_formed": True}
+
+        tok.parse_prediction = parse
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.data import tokenizer as tok
+        tok.parse_prediction = self._saved
+        return False
+
+
+def mesh_grpo(torch, cfg, params, device="cuda", after=None,
+              temperatures=(0.0, 1.0)):
+    """GRPO rollout steps of ``params`` (plain or sharded) on one trainer,
+    ``full_train``'s 16 tasks x 4 rollouts of ``NEW_TOKENS`` scored under
+    ``StandInParse``: a greedy step and then a sampled one
+    (``temperatures``).  Each step's batch (on the host), loss, pg, kl,
+    reward, wall, launches and peak GiB, and ``after(i, params, step)`` of
+    the params after step i (every rank of a mesh calls it)."""
+    import dataclasses
+    from repro_torch import kernels
+    trainer = grpo_trainer(torch, cfg, params, device, tasks=16, group=4,
+                           temperature=0.0)
+    steps = []
+    for i, temperature in enumerate(temperatures):
+        trainer.gcfg = dataclasses.replace(trainer.gcfg,
+                                           temperature=temperature)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with StepProbe() as probe, StandInParse():
+            info = trainer.rollout_step()
+        torch.cuda.synchronize()
+        step, = probe.steps
+        rec = {"temperature": temperature,
+               "wall_s": time.perf_counter() - t0,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "launches": kernels.launch_counts(),
+               "batch": step["batch"], "loss": step["loss"],
+               **step["metrics"], "reward": info["reward"],
+               "format_rate": info["format_rate"]}
+        check(all(map(math.isfinite, (rec["loss"], rec["pg"], rec["kl"]))),
+              f"{cfg.name} grpo: non-finite {rec}")
+        if after is not None:
+            rec["after"] = after(i, trainer.params, rec)
+        steps.append(rec)
+    del trainer
+    return steps
 
 
 def same_bits(torch, a, b) -> bool:
@@ -5393,8 +5478,9 @@ def mesh_train_phase(torch, world, data, anchors, lib, qids, L: int, ds,
                      smi):
     """Training over a world-1 NCCL mesh: scope-qwen3-4b at full width
     sharded by ``ReasoningEstimator.shard(make_host_mesh())``, three SFT
-    steps and a batch serve, held bit for bit to the unsharded runs on the
-    same weights and batches (losses, every param leaf, launches,
+    steps, a greedy and a sampled GRPO step (``mesh_grpo_world1``) and a
+    batch serve, held bit for bit to the unsharded runs on the same
+    weights and batches (losses, every param leaf, launches, rollouts,
     decisions and parsed fields); walls and peaks beside the unsharded.
     On a machine with more cards, world min(cards, 4) after it
     (``mesh_train_world``), against the world-1 runs made here."""
@@ -5444,6 +5530,8 @@ def mesh_train_phase(torch, world, data, anchors, lib, qids, L: int, ds,
               f"{[round(w, 4) for w in sh['walls_s']]} s; peak "
               f"{one['peak_gib']:.2f} / {sh['peak_gib']:.2f} GiB ({smi})")
 
+        out["grpo"] = mesh_grpo_world1(torch, mesh)
+
         served = {}
         for sharded in (False, True):
             params, _ = full_params(torch, CONFIG, 3.9e9)
@@ -5487,9 +5575,9 @@ def mesh_train_phase(torch, world, data, anchors, lib, qids, L: int, ds,
                 cfg = dataclasses.replace(get_config(name),
                                           num_layers=layers)
                 params, _ = full_params(torch, cfg, least)
-                refs["fsdp"][name] = mesh_sft(torch, cfg, params,
-                                              ds)["losses"]
-                del params
+                res = mesh_sft(torch, cfg, params, ds)
+                refs["fsdp"][name] = {k: res[k] for k in ("losses", "aux")}
+                del params, res
                 release(torch)
     finally:
         dist.destroy_process_group()
@@ -5502,28 +5590,100 @@ def mesh_train_phase(torch, world, data, anchors, lib, qids, L: int, ds,
     return out
 
 
+def mesh_grpo_world1(torch, mesh):
+    """scope-qwen3-4b's greedy and sampled GRPO steps (``mesh_grpo``)
+    unsharded and sharded on the world-1 ``mesh``, each from fresh seeded
+    weights: the sharded run's rollout tokens, loss, pg, kl, reward,
+    launches and every param leaf after each step bit for bit the
+    unsharded's.  Returns both runs' figures."""
+    from repro_torch.configs.scope_estimator import CONFIG
+    from repro_torch.core.estimator import ReasoningEstimator
+    runs = {}
+    for sharded in (False, True):
+        params, _ = full_params(torch, CONFIG, 3.9e9)
+        if sharded:
+            params = ReasoningEstimator(CONFIG, params).shard(mesh).params
+            want = runs[False]
+
+            def after(i, p, step):
+                return same_bits(torch, p, want[i]["after"])
+        else:
+            def after(i, p, step):
+                return _to(p, "cpu")
+        runs[sharded] = mesh_grpo(torch, CONFIG, params, after=after)
+        del params
+        release(torch)
+    one, sh = runs[False], runs[True]
+    for a, b in zip(one, sh, strict=True):
+        what = "greedy" if a["temperature"] == 0 else "sampled"
+        check(all(torch.equal(a["batch"][k], b["batch"][k])
+                  for k in a["batch"]),
+              f"mesh grpo {what}: the sharded rollouts, advantages or "
+              "log-probs differ")
+        check(all(a[k] == b[k] for k in ("loss", "pg", "kl", "reward",
+                                         "launches")),
+              f"mesh grpo {what}: {b} vs {a}")
+        check(b["after"] is True,
+              f"mesh grpo {what}: a param leaf differs from the unsharded")
+        # full_train's count: the rollouts' prefill and decode steps, the
+        # old and reference log-probs, the loss and its recompute
+        L = CONFIG.num_layers
+        got = b["launches"]
+        check(got["flash_attention"] == 5 * L
+              and got["flash_attention_bwd"] == L
+              and got["decode_attention"] == L * NEW_TOKENS
+              and got["topk_retrieval"] >= 1,
+              f"mesh grpo {what}: launches {got}")
+        print(f"   GRPO {what} step, {tuple(a['batch']['tokens'].shape)} "
+              f"rollouts: tokens, advantages (|adv| max "
+              f"{float(a['batch']['adv'].abs().max()):.3g}), log-probs, "
+              f"loss {a['loss']:.6g}, pg {a['pg']:.6g}, kl "
+              f"{a['kl']:.3g}, reward {a['reward']:.4f}, launches "
+              f"{a['launches']} and every param leaf bit for bit; wall "
+              f"unsharded {a['wall_s']:.3f} s, sharded {b['wall_s']:.3f} s; "
+              f"peak {a['peak_gib']:.2f} / {b['peak_gib']:.2f} GiB")
+
+    def figures(steps):
+        return [{k: v for k, v in st.items() if k not in ("batch", "after")}
+                for st in steps]
+    return {"unsharded": figures(one), "sharded": figures(sh)}
+
+
 def mesh_train_world(n, refs):
-    """World ``n`` over NCCL, one process a card (``chip_smoke.py
-    --mesh-train-rank``), held to the world-1 runs ``refs``: TP over a
-    (1, n) mesh, FSDP over an (n, 1) mesh."""
+    """World ``n`` over NCCL, one process a card, in two jobs: ``chip_smoke.py
+    --mesh-train-rank`` held to the world-1 runs ``refs`` (TP over a (1, n)
+    mesh, FSDP over an (n, 1) mesh), then ``--mesh-moe-grpo-rank`` (the MoE
+    families' rows over data, GRPO against world 1 on rank 0's card)."""
     refs_path = OUT_DIR / "mesh_train_refs.json"
-    path = OUT_DIR / "mesh_train_world.json"
     refs_path.write_text(json.dumps(refs, default=list))
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    t0 = time.perf_counter()
-    res = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
-         str(n), "--master-port", str(free_port()),
-         str(Path(__file__).resolve()), "--mesh-train-rank", str(refs_path),
-         str(path)], env=env, capture_output=True, text=True, timeout=1500)
-    print(res.stdout[-6000:])
-    check(res.returncode == 0, f"world {n} training exit {res.returncode}: "
-          f"{res.stderr[-3000:]}")
-    got = json.loads(path.read_text())
-    got["wall_s"] = time.perf_counter() - t0
-    print(f"   world {n}: TP and FSDP held to world 1, "
-          f"{got['wall_s']:.1f} s")
-    return got
+    got = {}
+    for job, args in (("train", ["--mesh-train-rank", str(refs_path)]),
+                      ("moe_grpo", ["--mesh-moe-grpo-rank"])):
+        path = OUT_DIR / f"mesh_{job}_world.json"
+        # the ranks print to this process's output as they go (rank 0's
+        # lines carry their time since the job started); their errors go
+        # to a file
+        err = OUT_DIR / f"mesh_{job}_world.err"
+        t0 = time.perf_counter()
+        sys.stdout.flush()
+        with open(err, "w") as f:
+            res = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run",
+                 "--nproc-per-node", str(n), "--master-port",
+                 str(free_port()), str(Path(__file__).resolve()), *args,
+                 str(path)], env=env, stderr=f, timeout=1500)
+        check(res.returncode == 0, f"world {n} {job} exit {res.returncode}: "
+              f"{err.read_text()[-3000:]}")
+        got[job] = json.loads(path.read_text())
+        got[job]["wall_s"] = time.perf_counter() - t0
+    out = dict(got["train"], **{k: v for k, v in got["moe_grpo"].items()
+                                if k in ("moe_world1", "grpo", "moe_over_cards")})
+    out["fsdp"].update(got["moe_grpo"]["fsdp"])
+    out["wall_s"] = {job: r["wall_s"] for job, r in got.items()}
+    print(f"   world {n}: TP, FSDP, the MoE rows and GRPO held to world 1, "
+          f"{out['wall_s']} s")
+    return out
 
 
 def tp_kernel_rows(torch, n: int, L: int, s_train: int):
@@ -5589,15 +5749,357 @@ def tp_kernel_rows(torch, n: int, L: int, s_train: int):
     return rows
 
 
-def mesh_train_rank(refs_path: str, path: str) -> int:
-    """One rank of ``mesh_train_world``: (a) TP over (1, n): scope-qwen3-4b
-    served (batch, dense and paged refill streams) and three SFT steps,
-    the attention kernels' head counts, the rank's param bytes; (b) FSDP
-    over (n, 1): gemma2-9b and zamba2-7b at their one-card depths and at
-    full depth, three SFT steps each, per-card peaks, step walls and the
-    bytes of params and AdamW state.  Rank 0 writes what it found."""
-    import dataclasses
+def fsdp_sft(torch, cfg, mesh, dev, ds):
+    """``mesh_sft`` of ``cfg`` from seeded weights sharded over the FSDP
+    ``mesh``: the bytes of params and AdamW state a rank (held to
+    ``local_bytes``), the rows a rank computes (a MoE batch split where
+    its routing groups divide over ``data``), the peak of every rank."""
+    import torch.distributed as dist
+    from repro_torch.core.estimator import ReasoningEstimator
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.models.model import init_params
+    from repro_torch.models.moe import routing_groups
+    est = ReasoningEstimator(cfg, init_params(cfg, seed=0, device=dev))
+    params = est.shard(mesh).params
+    del est
+    release(torch)
+    n = mesh.size()
+    s = ds["tokens"].shape[1]
+    rows = coll.train_rows(mesh, cfg, SFT_BATCH, s)
+    whole = cfg.has_moe() and routing_groups(SFT_BATCH, s) % n
+    check((rows is None) if whole else (
+        rows is not None and rows.stop - rows.start == SFT_BATCH // n),
+        f"{cfg.name} FSDP rows {rows} at world {n}")
+    res = mesh_sft(torch, cfg, params, ds)
+    sbytes = rank_bytes(res["state"].mu) + rank_bytes(res["state"].nu)
+    pbytes = rank_bytes(res["params"])
+    want = (spec_bytes(mesh, cfg), 2 * spec_bytes(mesh, cfg, torch.float32))
+    check((pbytes, sbytes) == want, f"{cfg.name} FSDP bytes "
+          f"{(pbytes, sbytes)} vs local_bytes {want}")
+    del params, res["params"], res["state"]
+    release(torch)
+    gathered = [torch.zeros((), device=dev) for _ in range(n)]
+    dist.all_gather(gathered, torch.zeros((), device=dev) + res["peak_gib"])
+    res["peak_gib_by_rank"] = [float(x) for x in gathered]
+    res.update(param_bytes=pbytes, adamw_bytes=sbytes,
+               num_layers=cfg.num_layers,
+               rows=SFT_BATCH if rows is None else rows.stop - rows.start)
+    return res
+
+
+def leaf_errs(torch, params, want, dev, rank, scaled=False):
+    """The largest |difference| of each leaf of sharded ``params`` (each
+    gathered whole, a collective of every rank) from rank 0's host copy
+    ``want`` (over the leaf's largest |value| where ``scaled``); None on
+    the other ranks."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.io import flatten
+    errs = {}
+    want = flatten(want) if rank == 0 else None
+    for key, t in flatten(params).items():
+        whole = t.full_tensor() if coll.is_sharded(t) else t
+        if rank == 0:
+            w = want[key].to(dev).float()
+            err = (whole.float() - w).abs().max().item()
+            errs[key] = err / max(w.abs().max().item(), 1e-30) if scaled \
+                else err
+            del w
+        del whole
+    return errs if rank == 0 else None
+
+
+def held_to_world1(key, res, ref):
+    """``res``'s losses and MoE ``aux`` (where not 0) against world 1's
+    ``ref``, each within 3e-2 relative: the largest errors go in
+    ``res["rel_err"]``."""
+    res["rel_err"] = {k: max(abs(a - b) / abs(b) for a, b in zip(
+        res[k], ref[k], strict=True) if b)
+        for k in ("losses", "aux") if any(ref[k])}
+    check(all(e <= BF16_TOL for e in res["rel_err"].values()),
+          f"{key} FSDP losses {res['losses']} / aux {res['aux']} vs world "
+          f"1 {ref}")
+
+
+def fsdp_line(n, key, res) -> str:
+    return (f"FSDP ({n}, 1) {key}: losses {res['losses']}, aux "
+            f"{res['aux']}" + (f" (rel err to world 1 {res['rel_err']})"
+                               if "rel_err" in res else "")
+            + f", rows a rank {res['rows']}, step walls "
+            f"{[round(w, 3) for w in res['walls_s']]} s, peak by rank "
+            f"{res['peak_gib_by_rank']} GiB, bytes a rank: params "
+            f"{res['param_bytes']}, AdamW {res['adamw_bytes']}")
+
+
+def fixed_grpo_batch(torch, batch):
+    """A GRPO batch whose policy gradient is not 0: a greedy step's
+    rollouts and mask with an advantage a rollout drawn from
+    ``default_rng(31)``.  A group's greedy rollouts are equal, so
+    advantages normalized within it (the step's own) give the group no
+    gradient at all."""
     import numpy as np
+    adv = np.random.default_rng(31).standard_normal(
+        batch["adv"].shape[0]).astype(np.float32)
+    return {"tokens": batch["tokens"], "gen_mask": batch["gen_mask"],
+            "adv": torch.from_numpy(adv)}
+
+
+def grpo_grads(torch, cfg, params, batch, dev):
+    """On a host ``fixed_grpo_batch``: its log-probs under ``params``
+    (whole rows on every rank, no gradient) as both the old and the
+    reference log-probs, then ``grpo_loss`` there, where the ratio is 1 and
+    the KL 0: (loss, pg, kl, the gradient, the log-probs on the host)."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import model as M
+    from repro_torch.training.grpo import grpo_loss, sequence_logprobs
+    from repro_torch.training.optimizer import value_and_grad
+    b = {k: v.to(dev) for k, v in batch.items()}
+    B = b["tokens"].shape[0]
+    with torch.no_grad():
+        local, lay = M.local_batch(params, cfg, b)
+        lp, _ = sequence_logprobs(params, cfg, local["tokens"],
+                                  local["gen_mask"], lay=lay)
+        if lp.shape[0] < B:
+            lp = shd.gather_rows(coll.mesh_of(params), B, lp)
+    b.update(old_logp=lp, ref_logp=lp)
+    loss, metrics, grads = value_and_grad(
+        lambda p: grpo_loss(p, cfg, b, 0.2, 0.02), params)
+    return (float(loss), float(metrics["pg"]), float(metrics["kl"]), grads,
+            lp.cpu())
+
+
+def grpo_rounds(torch, dev, n, rank, say):
+    """scope-qwen3-4b's greedy GRPO step (``mesh_grpo``) from seeded
+    weights, in two rounds of: world 1 on rank 0's card (the others wait),
+    TP over (1, n), FSDP over (n, 1).  The first round holds each mesh to
+    world 1.  Before its step, on world 1's rollouts with drawn advantages
+    (``fixed_grpo_batch``, ``grpo_grads``) and the same fresh weights: the
+    log-prob of every generated token within ``GRPO_LP_TOL`` (largest,
+    median) and every gradient leaf within ``GRPO_GRAD_TOL`` of its largest
+    |value| of world 1's.  After it: the rollouts equal on every rank, the
+    loss and every param leaf within 3e-2.  A mesh's own rollouts may
+    differ from world 1's, and under TP a group's greedy rollouts from one
+    prompt from each other (its all-reduce sums a row's columns in an order
+    that depends on the row), so its advantages and update need not be
+    world 1's; the run records how many differ.  Walls and per-card peaks
+    of both rounds."""
+    import torch.distributed as dist
+    from repro_torch.configs.scope_estimator import CONFIG
+    from repro_torch.core.estimator import ReasoningEstimator
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.models.model import init_params
+    meshes = {"tp": (1, n), "fsdp": (n, 1)}
+    out = {"world1": [], **{k: [] for k in meshes}}
+    host, fixed = None, None
+    for round_ in range(2):
+        if rank == 0:
+            def keep(i, p, step):
+                if round_:
+                    return None
+                return {"params": _to(p, "cpu"),
+                        "batch": fixed_grpo_batch(torch, step["batch"]),
+                        "tokens": step["batch"]["tokens"]}
+            w1, = mesh_grpo(torch, CONFIG, init_params(CONFIG, seed=0,
+                                                       device=dev),
+                            dev, after=keep, temperatures=(0.0,))
+            release(torch)
+            if round_ == 0:
+                host = w1["after"]
+                loss, pg, kl, grads, lp = grpo_grads(
+                    torch, CONFIG, init_params(CONFIG, seed=0, device=dev),
+                    host["batch"], dev)
+                host.update(fixed=(loss, pg, kl), lp=lp,
+                            grads=_to(grads, "cpu"))
+                del grads
+                release(torch)
+            out["world1"].append({k: v for k, v in w1.items()
+                                  if k not in ("batch", "after")})
+            say(f"GRPO world 1 (rank 0's card), round {round_ + 1}: loss "
+                f"{w1['loss']:.6g}"
+                + (f", on its rollouts with drawn advantages loss / pg / "
+                   f"kl {host['fixed']}" if round_ == 0 else "")
+                + f", wall {w1['wall_s']:.3f} s, peak {w1['peak_gib']:.2f} "
+                f"GiB")
+        if round_ == 0:
+            got = [host["batch"] if rank == 0 else None]
+            dist.broadcast_object_list(got, src=0)
+            fixed = got[0]
+        dist.barrier()
+        for name, (nd, nm) in meshes.items():
+            mesh = make_serve_mesh(n_data=nd, n_model=nm)
+            params = ReasoningEstimator(CONFIG, init_params(
+                CONFIG, seed=0, device=dev)).shard(mesh).params
+            release(torch)
+            before = None
+            if round_ == 0:
+                loss, pg, kl, grads, lp = grpo_grads(torch, CONFIG, params,
+                                                     fixed, dev)
+                want = host or {}
+                before = {"fixed": (loss, pg, kl), "lp": lp,
+                          "grad_errs": leaf_errs(torch, grads,
+                                                 want.get("grads"), dev,
+                                                 rank, scaled=True)}
+                del grads
+                release(torch)
+
+            def compare(i, p, step):
+                if round_:
+                    return None
+                return leaf_errs(torch, p, (host or {}).get("params"), dev,
+                                 rank)
+            st, = mesh_grpo(torch, CONFIG, params, dev, after=compare,
+                            temperatures=(0.0,))
+            del params
+            release(torch)
+            toks = st.pop("batch")["tokens"].to(dev)
+            every = [torch.empty_like(toks) for _ in range(n)]
+            dist.all_gather(every, toks)
+            check(all(torch.equal(t, toks) for t in every),
+                  f"GRPO {name} ({nd}, {nm}): the ranks scored different "
+                  "rollouts")
+            peaks = [torch.zeros((), device=dev) for _ in range(n)]
+            dist.all_gather(peaks, torch.zeros((), device=dev)
+                            + st["peak_gib"])
+            st["peak_gib_by_rank"] = [float(x) for x in peaks]
+            param_errs = st.pop("after")
+            # groups (one prompt's rollouts, rows in order) whose greedy
+            # rollouts are not all equal
+            groups = toks.cpu().reshape(-1, 4, toks.shape[1])
+            st["groups_unequal"] = int(
+                (groups != groups[:, :1]).flatten(1).any(1).sum())
+            if rank == 0 and round_ == 0:
+                w1 = out["world1"][0]
+                st["rows_unlike_world1"] = int(
+                    (toks.cpu() != host["tokens"]).any(dim=1).sum())
+                st["loss_err"] = abs(st["loss"] - w1["loss"])
+                st["param_err"] = max(param_errs.values())
+                st["param_err_at"] = max(param_errs, key=param_errs.get)
+                st["fixed"] = before["fixed"]
+                st["fixed_err"] = max(abs(a - b) for a, b in zip(
+                    before["fixed"], host["fixed"], strict=True))
+                # |difference| of each generated token's log-prob from
+                # world 1's: its largest, median, 99th percentile, how
+                # many exceed 1, and where the largest is
+                diff = (before["lp"] - host["lp"]).abs()
+                vals = diff[fixed["gen_mask"][:, 1:] > 0]
+                st["lp_err"] = float(vals.max())
+                st["lp_err_median_p99"] = [float(vals.median()),
+                                           float(vals.quantile(0.99))]
+                st["lp_err_over_1"] = [int((vals > 1).sum()),
+                                       int(vals.numel())]
+                st["lp_err_at"] = list(divmod(int(diff.argmax()),
+                                              diff.shape[1]))
+                errs = before["grad_errs"]
+                st["grad_err"] = max(errs.values())
+                st["grad_err_at"] = max(errs, key=errs.get)
+                check(max(st["loss_err"], st["fixed_err"], st["param_err"])
+                      <= BF16_TOL and st["lp_err"] <= GRPO_LP_TOL[0]
+                      and st["lp_err_median_p99"][0] <= GRPO_LP_TOL[1]
+                      and st["grad_err"] <= GRPO_GRAD_TOL,
+                      f"GRPO {name} ({nd}, {nm}) against world 1: {st}")
+            out[name].append(st)
+            say(f"GRPO {name} ({nd}, {nm}), round {round_ + 1}: loss "
+                f"{st['loss']:.6g}"
+                + (f" ({st['loss_err']:.2e} from world 1; every param leaf "
+                   f"within {st['param_err']:.2e}, largest at "
+                   f"{st['param_err_at']}; {st['rows_unlike_world1']} of "
+                   f"{toks.shape[0]} rollouts unlike world 1's; before the "
+                   f"step, on world 1's rollouts with drawn advantages loss "
+                   f"/ pg / kl {st['fixed']} within {st['fixed_err']:.2e}, "
+                   f"their log-probs within {st['lp_err']:.3g} of world "
+                   f"1's (median, 99th percentile "
+                   f"{st['lp_err_median_p99']}; over 1: "
+                   f"{st['lp_err_over_1']}; the largest at (row, position) "
+                   f"{st['lp_err_at']}), every gradient leaf within "
+                   f"{st['grad_err']:.3g} of its largest, worst at "
+                   f"{st['grad_err_at']})" if "loss_err" in st else "")
+                + f", {st['groups_unequal']} of {groups.shape[0]} groups' "
+                f"rollouts unequal, rollouts equal on every rank, wall "
+                f"{st['wall_s']:.3f} s, peak by rank {st['peak_gib_by_rank']}"
+                f" GiB")
+    del host, fixed
+    return out
+
+
+def moe_over_cards(torch, mesh, dev, ds, n, say):
+    """qwen3-moe-235b-a22b under FSDP (n, 1) (``fsdp_sft``) at
+    ``MOE_OVER_CARDS`` layers: three steps, the per-card peaks and walls."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(MOE_Q[1:]),
+                              num_layers=MOE_OVER_CARDS)
+    res = fsdp_sft(torch, cfg, mesh, dev, ds)
+    say(fsdp_line(n, f"{cfg.name}@{MOE_OVER_CARDS}", res))
+    return res
+
+
+def moe_grpo_rank(path: str) -> int:
+    """One rank of ``mesh_train_world``'s second job, which needs nothing
+    from the parent: (a) deepseek-v2-lite-16b at ``MOE_FSDP``'s depth on
+    rank 0's card alone, then over FSDP (n, 1), its MoE rows split over
+    data, losses and aux within 3e-2 of the one card's, then at full
+    depth; (b) qwen3-moe-235b-a22b at more layers than one card trains
+    (``moe_over_cards``); (c) scope-qwen3-4b's greedy GRPO step at world 1,
+    TP and FSDP (``grpo_rounds``).  Rank 0 writes what it found."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+    from repro_torch.models.model import init_params
+    dev = init_distributed()
+    n, rank = dist.get_world_size(), dist.get_rank()
+    out = {"world": n, "smi": nvidia_smi()}
+    t0 = time.perf_counter()
+
+    def say(msg):
+        if rank == 0:
+            print(f"   [world {n}, {time.perf_counter() - t0:.0f} s] {msg}",
+                  flush=True)
+
+    try:
+        ds = sft_dataset()
+        name, layers = MOE_FSDP
+        full = get_config(name)
+        cut = dataclasses.replace(full, num_layers=layers)
+        if rank == 0:
+            one = mesh_sft(torch, cut, init_params(cut, seed=0, device=dev),
+                           ds)
+            one.pop("params"), one.pop("state")
+            release(torch)
+            out["moe_world1"] = one
+            say(f"{name}@{layers} on rank 0's card: losses {one['losses']},"
+                f" aux {one['aux']}, step walls {one['walls_s']} s, peak "
+                f"{one['peak_gib']:.2f} GiB")
+        dist.barrier()
+        mesh = make_host_mesh()
+        out["fsdp"] = {}
+        for cfg in (cut, full):
+            res = fsdp_sft(torch, cfg, mesh, dev, ds)
+            key = f"{name}@{cfg.num_layers}"
+            if rank == 0 and cfg is cut:
+                held_to_world1(key, res, out["moe_world1"])
+            out["fsdp"][key] = res
+            say(fsdp_line(n, key, res))
+        out["moe_over_cards"] = moe_over_cards(torch, mesh, dev, ds, n, say)
+        out["grpo"] = grpo_rounds(torch, dev, n, rank, say)
+        if rank == 0:
+            Path(path).write_text(json.dumps(out, default=str))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_train_rank(refs_path: str, path: str) -> int:
+    """One rank of ``mesh_train_world``'s first job: (a) TP over (1, n):
+    scope-qwen3-4b served (batch, dense and paged refill streams) and three
+    SFT steps, the attention kernels' head counts, the rank's param bytes;
+    (b) FSDP over (n, 1): gemma2-9b and zamba2-7b at their one-card depths
+    and at full depth, three SFT steps each, per-card peaks, step walls and
+    the bytes of params and AdamW state (``fsdp_sft``).  Rank 0 writes what
+    it found."""
+    import dataclasses
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(ROOT / "src"))
@@ -5612,10 +6114,12 @@ def mesh_train_rank(refs_path: str, path: str) -> int:
     refs = json.loads(Path(refs_path).read_text())
     n, rank = dist.get_world_size(), dist.get_rank()
     out = {"world": n, "smi": nvidia_smi()}
+    t0 = time.perf_counter()
 
     def say(msg):
         if rank == 0:
-            print(f"   [world {n}] {msg}", flush=True)
+            print(f"   [world {n}, {time.perf_counter() - t0:.0f} s] {msg}",
+                  flush=True)
 
     try:
         world, data, anchors, lib = build_world()
@@ -5699,42 +6203,12 @@ def mesh_train_rank(refs_path: str, path: str) -> int:
                 full = get_config(name)
                 cfg = full if depth is None else dataclasses.replace(
                     full, num_layers=depth)
-                est = ReasoningEstimator(cfg, init_params(cfg, seed=0,
-                                                          device=dev))
-                params = est.shard(mesh).params
-                del est
-                release(torch)
-                res = mesh_sft(torch, cfg, params, ds)
-                sbytes = rank_bytes(res["state"].mu) + rank_bytes(
-                    res["state"].nu)
-                pbytes = rank_bytes(res["params"])
-                want = (spec_bytes(mesh, cfg),
-                        2 * spec_bytes(mesh, cfg, torch.float32))
-                check((pbytes, sbytes) == want, f"{name} FSDP bytes "
-                      f"{(pbytes, sbytes)} vs local_bytes {want}")
-                del params, res["params"], res["state"]
-                release(torch)
+                res = fsdp_sft(torch, cfg, mesh, dev, ds)
                 key = f"{name}@{cfg.num_layers}"
-                res.update(param_bytes=pbytes, adamw_bytes=sbytes,
-                           num_layers=cfg.num_layers)
                 if depth is not None:
-                    ref = refs["fsdp"][name]
-                    res["rel_err"] = max(abs(a - b) / abs(b) for a, b in
-                                         zip(res["losses"], ref,
-                                             strict=True))
-                    check(res["rel_err"] <= BF16_TOL, f"{key} FSDP losses "
-                          f"{res['losses']} vs world 1 {ref}")
-                peaks = [torch.zeros((), device=dev) + res["peak_gib"]]
-                gathered = [torch.zeros((), device=dev) for _ in range(n)]
-                dist.all_gather(gathered, peaks[0])
-                res["peak_gib_by_rank"] = [float(x) for x in gathered]
+                    held_to_world1(key, res, refs["fsdp"][name])
                 out["fsdp"][key] = res
-                say(f"FSDP ({n}, 1) {key}: losses {res['losses']}"
-                    + (f" (world 1 {refs['fsdp'][name]}, "
-                       f"{res['rel_err']:.2e} rel)" if depth else "")
-                    + f", step walls {[round(w, 3) for w in res['walls_s']]}"
-                    f" s, peak by rank {res['peak_gib_by_rank']} GiB, "
-                    f"bytes a rank: params {pbytes}, AdamW {sbytes}")
+                say(fsdp_line(n, key, res))
         if rank == 0:
             Path(path).write_text(json.dumps(out, default=str))
     finally:
@@ -6097,9 +6571,9 @@ def main(mesh_only: bool = False) -> int:
     report["mesh"]["seconds"] = time.perf_counter() - t
     done(t)
 
-    t = phase("mesh training: scope-qwen3-4b SFT steps and a batch serve "
-              "sharded over a world-1 NCCL mesh, bit for bit; TP and FSDP "
-              "on more cards")
+    t = phase("mesh training: scope-qwen3-4b SFT steps, GRPO steps and a "
+              "batch serve sharded over a world-1 NCCL mesh, bit for bit; "
+              "TP, FSDP, MoE rows and GRPO on more cards")
     release(torch)
     report["mesh_train"] = mesh_train_phase(torch, world, data, anchors, lib,
                                             qids, L, sft_ds, smi)
@@ -6229,4 +6703,6 @@ if __name__ == "__main__":
         sys.exit(mesh_rank(sys.argv[2]))
     if sys.argv[1:2] == ["--mesh-train-rank"]:
         sys.exit(mesh_train_rank(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--mesh-moe-grpo-rank"]:
+        sys.exit(moe_grpo_rank(sys.argv[2]))
     sys.exit(main(mesh_only=sys.argv[1:] == ["--mesh-phase"]))

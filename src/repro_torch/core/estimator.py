@@ -547,8 +547,9 @@ class SlotRun:
         self._pending = None
         # every rank decides the next boundary on the whole batch's tokens
         # and done-mask
-        self._inflight = self.est.gather_rows(self.rows, self.batch, g, d,
-                                              self.state.done)
+        self._inflight = sampler.gather_rows(self.est.mesh, self.rows,
+                                             self.batch, g, d,
+                                             self.state.done)
         self.steps_run += self.segment_len
         self.slot_steps_total += self.batch * self.segment_len
 
@@ -655,38 +656,19 @@ class ReasoningEstimator:
         TP axes on ``model`` where divisible), taken from the mesh's first
         rank, and every later call splits its batch's rows over ``data``
         per ``batch_specs``.  The sharded params also train as they are
-        (``training.sft.train_sft``).  Every rank of the mesh must make the
-        same calls.  Returns self."""
+        (``training.sft.train_sft``, ``training.grpo.GRPOTrainer``).  Every
+        rank of the mesh must make the same calls.  Returns self."""
         self.params = shd.distribute_tree(
             mesh, self.params, shd.param_specs(mesh, self.params))
         self.mesh = mesh
         return self
 
     def local_rows(self, b: int) -> Optional[slice]:
-        """The rows of a b-row batch this rank computes: None unsharded,
-        all of them where b does not divide over ``data`` or the backbone
-        routes tokens over the batch (MoE)."""
-        if self.mesh is None:
-            return None
-        if self.cfg.has_moe():
-            return slice(0, b)
-        return shd.local_rows(self.mesh, b)
-
-    def gather_rows(self, rows: Optional[slice], b: int, gen: torch.Tensor,
-                    dec: torch.Tensor, done: Optional[torch.Tensor] = None):
-        """(gen (b, T), dec (b, T, 2)[, done (b,)]) on every rank from each
-        rank's ``rows`` of them: one all-gather of the three packed as
-        float32 (the token ids as their bit patterns)."""
-        if rows is None or (rows.start, rows.stop) == (0, b):
-            return (gen, dec) if done is None else (gen, dec, done)
-        n, T = gen.shape
-        cols = [gen.view(torch.float32), dec.reshape(n, 2 * T)]
-        if done is not None:
-            cols.append(done.float()[:, None])
-        full = shd.gather_rows(self.mesh, b, torch.cat(cols, dim=1))
-        out = (full[:, :T].contiguous().view(torch.int32),
-               full[:, T: 3 * T].reshape(b, T, 2))
-        return out if done is None else out + (full[:, 3 * T] != 0,)
+        """The rows of a b-row batch this rank computes
+        (``sampler.mesh_rows``): None unsharded, all of them where b does
+        not divide over ``data`` or the backbone routes tokens over the
+        batch (MoE)."""
+        return sampler.mesh_rows(self.mesh, self.cfg, b)
 
     def dispatch_batch(self, prompts, *, prompt_lens=None,
                        temperature: float = 0.0,
@@ -716,7 +698,8 @@ class ReasoningEstimator:
                 params, self.cfg, sub, max_new_tokens=self.max_new_tokens,
                 temperature=temperature, generator=rng, prompt_lens=pl,
                 rows=rows)
-            chunks.append(self.gather_rows(rows, len(sub), gen, dec))
+            chunks.append(sampler.gather_rows(self.mesh, rows, len(sub), gen,
+                                              dec))
         if self.mesh is not None and self.mesh.size() > 1:
             # ready at once on every rank: a rank's own event would let the
             # ranks' stream loops parse at different points

@@ -11,9 +11,9 @@ them after it.
     dim.  Where the ranks along ``data`` compute different rows of the
     batch (``rows_split``), the backward is a reduce-scatter (summed), and
     a leaf replicated over ``data`` has its gradient all-reduced (summed).
-    Where every rank computes every row (a MoE batch, or rows that do not
-    divide), each rank's gradient is already whole: the backward keeps the
-    rank's own slice and sums nothing.
+    Where every rank computes every row (rows, or a MoE batch's routing
+    groups, that do not divide), each rank's gradient is already whole:
+    the backward keeps the rank's own slice and sums nothing.
   * ``model`` (tensor parallelism, Megatron's pairs): a block that
     ``model_split`` reports split computes its own heads (attention) or
     columns (MLP).  Its column-parallel input passes ``enter`` (identity
@@ -42,6 +42,7 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import axis_sizes, local_rows, row_spec
+from repro_torch.models.moe import routing_groups
 
 _AXES = ("data", "model")
 # leaves of an attention block that compute split over ``model`` and those
@@ -363,7 +364,13 @@ class Layout:
         """``x`` summed over ``data`` where rows split (no gradient)."""
         if not self.rows_split or self.n_data == 1:
             return x
-        return _all_reduce(x, self.data)
+        return _all_reduce(x.detach(), self.data)
+
+    @property
+    def row_ranks(self) -> int:
+        """How many ranks share the batch's rows: ``n_data`` where rows
+        split, else 1 (each rank computes all of them)."""
+        return self.n_data if self.rows_split else 1
 
 
 def layout(params, cfg: ModelConfig, *, rows_split: bool = False
@@ -377,11 +384,19 @@ def layout(params, cfg: ModelConfig, *, rows_split: bool = False
                   _size(data), _size(model))
 
 
-def train_rows(mesh, cfg: ModelConfig, b: int) -> Optional[slice]:
-    """The rows of a b-row training batch this rank computes: None where
-    every rank computes all of them — a MoE backbone, whose routing groups
-    span the batch, or rows that do not divide over ``data``."""
-    if cfg.has_moe() or row_spec(mesh, b) is None:
+def train_rows(mesh, cfg: ModelConfig, b: int, s: int) -> Optional[slice]:
+    """The rows of a (b, s) training batch this rank computes: None where
+    every rank computes all of them — rows that do not divide over
+    ``data``, or a MoE backbone whose routing groups do not.  A MoE batch
+    is routed in G = ``moe.routing_groups(b, s)`` groups of b * s / G
+    tokens, rows in order; where G divides over ``data`` each rank's rows
+    are whole groups, and its own b * s / n_data tokens regroup to the same
+    group size (every divisor of the local total divides the global one),
+    as the reference's groups are cut over the batch axes."""
+    if row_spec(mesh, b) is None:
+        return None
+    if cfg.has_moe() and routing_groups(b, s) % axis_sizes(mesh).get(
+            "data", 1):
         return None
     return local_rows(mesh, b)
 

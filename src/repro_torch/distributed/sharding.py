@@ -290,17 +290,6 @@ def gather_tree(tree):
                       if isinstance(leaf, DTensor) else leaf, tree)
 
 
-def refuse_sharded(tree, what: str) -> None:
-    """Raise if ``tree`` holds DTensors: ``what`` takes plain tensors."""
-    from torch.distributed.tensor import DTensor
-    if any(isinstance(leaf, DTensor)
-           for leaf in _keyed_leaves(tree).values()):
-        raise ValueError(
-            f"{what} takes plain tensors, and these params are sharded over "
-            "a device mesh (ReasoningEstimator.shard): gather them first "
-            "with distributed.sharding.gather_tree")
-
-
 # ---------------------------------------------------------------------------
 # Rows of a batch over the serve mesh
 # ---------------------------------------------------------------------------

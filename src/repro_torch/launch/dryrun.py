@@ -129,20 +129,31 @@ def plan(arch: str, shape_name: str, *, reduced: bool = False,
 _PORT_KERNEL = re.compile(r"\brepro(_ssd\w*)?::")
 
 
-def _device_ms(fn, attempts: int = 3):
+# idle seconds the profiler runs before and after the call, by attempt: a
+# retry widens the window, whose idle time holds no device event
+_PROFILE_PADS_S = (0.0, 0.5, 2.0)
+
+
+def _device_ms(fn, pads=_PROFILE_PADS_S):
     """(result, device ms summed over every kernel the profiler saw, or
     None when it saw no device activity).  A profile holding fewer than
     95 % of the events of the port's kernels that the call launched has
-    lost events (on the H100 a profile has missed one in 48, and once
-    four in five): the call is profiled again, and after ``attempts``
+    lost events (on the H100 a profile has missed one in 48, once four in
+    five, and late in a long run one of two, three times running).  The
+    profiler keeps a device event only where its time, converted to the
+    host's clock, falls inside the profile's window, so the call is
+    profiled again inside a wider window: ``pads`` seconds of idle before
+    and after it, which add no event to the sum.  After ``len(pads)``
     such profiles this raises."""
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(attempts):
+    for pad in pads:
         before = sum(kernels.launch_counts().values())
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
             out = fn()
             torch.cuda.synchronize()
+            time.sleep(pad)
         launched = sum(kernels.launch_counts().values()) - before
         events = prof.key_averages()
         seen = sum(e.count for e in events if _PORT_KERNEL.search(e.key))
@@ -150,7 +161,7 @@ def _device_ms(fn, attempts: int = 3):
             us = sum(e.self_device_time_total for e in events)
             return out, (us / 1e3 if us > 0 else None)
         del out
-    raise RuntimeError(f"{attempts} profiles saw {seen} events of the "
+    raise RuntimeError(f"{len(pads)} profiles saw {seen} events of the "
                        f"port's kernels for {launched} launches: events lost")
 
 

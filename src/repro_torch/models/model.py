@@ -50,8 +50,8 @@ Every entry point also takes params sharded over a device mesh
 where ``collectives.model_split`` splits them; the vocabulary splits too,
 and the logits come back whole on every rank (the local slice all-gathered
 along the last dim: (b, s, V) a rank, as one process holds).  ``loss_fn``
-computes this rank's rows of the batch (``collectives.train_rows``) and
-returns the whole batch's loss on every rank.
+(and GRPO's loss) computes this rank's rows of the batch (``local_batch``)
+and returns the whole batch's loss on every rank.
 """
 from __future__ import annotations
 
@@ -259,7 +259,7 @@ def _forward_full(params, cfg: ModelConfig, batch: Dict, *,
 
 
 def forward_train(params, cfg: ModelConfig, batch: Dict, *,
-                  remat: bool = True):
+                  remat: bool = True, lay=None):
     """The full forward over ``batch`` (the keys above) with no caches:
     (logits (b, s, V) in the model dtype, or float32 under a final softcap,
     aux).  Each layer is one checkpoint when ``remat`` (the reference's
@@ -270,10 +270,29 @@ def forward_train(params, cfg: ModelConfig, batch: Dict, *,
     runs the scan kernel forward and ``csrc/ssd_scan_bwd.cu`` backward
     (``kernels.ssd_scan.SSDScan``).  MLA's flash call (q, k of nope + rope,
     v of ``v_head_dim``, its scale passed explicitly) takes the backward
-    kernel at those head dims too."""
+    kernel at those head dims too.  ``lay`` as ``_forward_full``'s
+    (``local_batch`` gives it with this rank's rows)."""
     logits, aux, _ = _forward_full(params, cfg, batch, want_cache=False,
-                                   remat=remat)
+                                   remat=remat, lay=lay)
     return logits, aux
+
+
+def local_batch(params, cfg: ModelConfig, batch: Dict):
+    """(batch, lay) for a per-token loss on ``params``: on sharded params
+    this rank's ``collectives.train_rows`` of every (b, ...) column of
+    ``batch`` (``positions_3d`` (3, b, s) by its second dim) and a layout
+    with the rows split, or the whole batch and the params' own layout
+    where every rank computes every row; (batch, None) on plain params."""
+    lay = coll.layout(params, cfg)
+    if lay is None:
+        return batch, None
+    b, s = batch["tokens"].shape
+    rows = coll.train_rows(lay.mesh, cfg, b, s)
+    if rows is None:
+        return batch, lay
+    return ({k: v[:, rows] if k == "positions_3d" else v[rows]
+             for k, v in batch.items()},
+            coll.layout(params, cfg, rows_split=True))
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict, *, remat: bool = True):
@@ -284,18 +303,13 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict, *, remat: bool = True):
     is ignored.
 
     On sharded params a rank computes its ``collectives.train_rows`` of
-    the batch (all of them for a MoE backbone), each rank's share of the
-    cross-entropy is divided by the count of labelled tokens over the
-    whole batch, and the shares are summed over ``data`` (backward: each
-    rank differentiates its own): the loss and metrics are the whole
-    batch's on every rank."""
-    lay = coll.layout(params, cfg)
-    if lay is not None:
-        rows = coll.train_rows(lay.mesh, cfg, batch["tokens"].shape[0])
-        if rows is not None:
-            batch = {k: v[:, rows] if k == "positions_3d" else v[rows]
-                     for k, v in batch.items()}
-            lay = coll.layout(params, cfg, rows_split=True)
+    the batch (``local_batch``), each rank's share of the cross-entropy is
+    divided by the count of labelled tokens over the whole batch, and the
+    shares are summed over ``data`` (backward: each rank differentiates
+    its own); a MoE's load-balance loss is the whole batch's
+    (``moe.moe_forward``): the loss and metrics are the whole batch's on
+    every rank."""
+    batch, lay = local_batch(params, cfg, batch)
     logits, aux, _ = _forward_full(params, cfg, batch, want_cache=False,
                                    remat=remat, lay=lay)
     tokens = batch["tokens"]

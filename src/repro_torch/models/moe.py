@@ -73,6 +73,12 @@ def _group_size(total: int) -> int:
     return g
 
 
+def routing_groups(b: int, s: int) -> int:
+    """How many routing groups ``moe_forward`` cuts a (b, s) batch's
+    tokens into, rows in order."""
+    return b * s // _group_size(b * s)
+
+
 def capacity(cfg: ModelConfig, group: int) -> int:
     """Slots per expert in a routing group of ``group`` tokens."""
     return max(int(math.ceil(group * cfg.num_experts_per_tok
@@ -105,9 +111,13 @@ def route(p: Dict, cfg: ModelConfig, xg: torch.Tensor):
     return probs, top_p, top_i, pos, counts
 
 
-def moe_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor
+def moe_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor, *, lay=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (b, s, d) -> (y (b, s, d), aux load-balance loss f32)."""
+    """x: (b, s, d) -> (y (b, s, d), aux load-balance loss f32).  Where
+    ``lay`` (a ``collectives.Layout``) splits the batch's rows over
+    ``data``, x is this rank's whole routing groups and the loss is the
+    whole batch's: the counts and the mean router probabilities are summed
+    over ``data`` (the probabilities' backward each rank's own)."""
     b, s, d = x.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     total = b * s
@@ -141,8 +151,14 @@ def moe_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor
     if cfg.num_shared_experts > 0:
         y = y + mlp_forward(p["shared"], cfg, x)
 
-    frac = counts.sum(0).float() / (G * T * k)
-    aux = E * torch.sum(frac * probs.mean(dim=(0, 1)))
+    counts, mean_p = counts.sum(0), probs.mean(dim=(0, 1))
+    n = 1
+    if lay is not None:
+        # every rank holds G groups: the batch's mean is the ranks' mean
+        n = lay.row_ranks
+        counts, mean_p = lay.summed(counts), lay.total(mean_p) / n
+    frac = counts.float() / (G * n * T * k)
+    aux = E * torch.sum(frac * mean_p)
     if records is not None:
         top = torch.sort(probs, dim=-1, descending=True).values
         # scopelint-torch: allow[device-body-side-effect] -- a diagnostic hook, None on the serve path; a captured step would record once

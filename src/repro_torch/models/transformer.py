@@ -227,18 +227,19 @@ def block_full(p: Dict, cfg: ModelConfig, kind: str, h: torch.Tensor, cos,
     if "cross" in p and enc_out is not None:
         ckv = attn_mod.cross_kv(p["cross"], cfg, enc_out)
         cache.update(ckv)
-    h, aux = _attn_block_tail(p, cfg, kind, h, y, ckv, tp)
+    h, aux = _attn_block_tail(p, cfg, kind, h, y, ckv, tp, lay=lay)
     return h, cache, aux
 
 
 def _attn_block_tail(p: Dict, cfg: ModelConfig, kind: str, h: torch.Tensor,
-                     y: torch.Tensor, ckv=None, tp=None
+                     y: torch.Tensor, ckv=None, tp=None, *, lay=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The residual adds and the MLP (or MoE) after an attention output
     ``y``, with gemma2's post-norms under ``sandwich_norm`` and, given the
     encoder's ``ckv``, the cross-attention between the two.  Returns (h,
     aux).  Under ``tp`` with ``tp.mlp`` the MLP computes its own columns
-    and sums its output over ``model``."""
+    and sums its output over ``model``; ``lay`` makes a MoE's loss the
+    whole batch's where rows split over ``data``."""
     if cfg.sandwich_norm:
         y = rmsnorm(p["post_attn_norm"], y, cfg.rmsnorm_eps)
     h = h + y
@@ -248,7 +249,7 @@ def _attn_block_tail(p: Dict, cfg: ModelConfig, kind: str, h: torch.Tensor,
             ckv)
     x2 = rmsnorm(p["mlp_norm"], h, cfg.rmsnorm_eps)
     if is_moe(kind):
-        y2, aux = moe_mod.moe_forward(p["moe"], cfg, x2)
+        y2, aux = moe_mod.moe_forward(p["moe"], cfg, x2, lay=lay)
     elif tp is not None and tp.mlp:
         y2 = coll.leave(mlp_mod.mlp_forward(
             p["mlp"], cfg, coll.enter(x2, tp.group), partial=True),

@@ -31,7 +31,8 @@ Under a serve mesh each rank's device state holds only its own rows of the
 batch (``rows``, a slice of the batch): the host arguments — prompts, true
 lengths, refill masks — and the page bookkeeping stay whole and equal on
 every rank, and each rank prefills, merges and decodes its own rows.  The
-caller (``core.estimator``) gathers the rows' tokens and logits.
+caller (``core.estimator``, GRPO's rollouts) picks the rows (``mesh_rows``)
+and gathers their tokens and logits (``gather_rows``).
 
 Positions are per row: right-padded prompts with true lengths
 ``prompt_lens`` decode from their own length, the new K/V overwriting the
@@ -54,6 +55,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.tokenizer import EOS, NO, PAD, YES
 from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import model as M
 from repro_torch.serving.kv_pool import (KVPool, PagedKV, _ceil_div,
                                          check_kv_kernel, check_paged_support)
@@ -554,6 +556,35 @@ def to_host(gen: torch.Tensor, dec: torch.Tensor,
     if done is None:
         return out
     return out + (host[:, 3 * T] != 0,)
+
+
+def mesh_rows(mesh, cfg: ModelConfig, b: int) -> Optional[slice]:
+    """The rows of a b-row generation this rank computes on ``mesh``: None
+    without a mesh, all of them where b does not divide over ``data`` or
+    the backbone routes tokens over the batch (MoE: a decode step's
+    routing group is the whole batch)."""
+    if mesh is None:
+        return None
+    if cfg.has_moe():
+        return slice(0, b)
+    return shd.local_rows(mesh, b)
+
+
+def gather_rows(mesh, rows: Optional[slice], b: int, gen: torch.Tensor,
+                dec: torch.Tensor, done: Optional[torch.Tensor] = None):
+    """(gen (b, T), dec (b, T, 2)[, done (b,)]) on every rank from each
+    rank's ``rows`` of them: one all-gather of the three packed as float32
+    (the token ids as their bit patterns)."""
+    if rows is None or (rows.start, rows.stop) == (0, b):
+        return (gen, dec) if done is None else (gen, dec, done)
+    n, T = gen.shape
+    cols = [gen.view(torch.float32), dec.reshape(n, 2 * T)]
+    if done is not None:
+        cols.append(done.float()[:, None])
+    full = shd.gather_rows(mesh, b, torch.cat(cols, dim=1))
+    out = (full[:, :T].contiguous().view(torch.int32),
+           full[:, T: 3 * T].reshape(b, T, 2))
+    return out if done is None else out + (full[:, 3 * T] != 0,)
 
 
 def generate_async(params, cfg: ModelConfig, prompts, *,

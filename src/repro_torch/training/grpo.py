@@ -6,9 +6,17 @@ composite reward (format gate x (R_corr + R_token with adaptive
 tolerance)), normalize advantages within the group, and apply a
 token-level PPO-clip policy gradient with a k3 KL penalty toward the SFT
 reference policy.  Tasks come from ``np.random.default_rng(seed)`` as in
-the reference; rollouts from ``serving.sampler.generate`` with an explicit
+the reference; rollouts from ``serving.sampler`` with an explicit
 ``torch.Generator`` (greedy rollouts need none).  The params are trained
 in place; the reference policy is a copy made when the trainer starts.
+
+Params sharded over a device mesh (``ReasoningEstimator.shard``) train as
+they are, and the reference policy is a copy of the rank's blocks.  Each
+rank generates its serve rows of the rollouts (``sampler.mesh_rows``),
+which are gathered, so every rank scores the same tokens; the log-probs
+and the loss take the rank's training rows (``model.local_batch``), and
+the loss and its metrics are the whole batch's on every rank.  Every rank
+of the mesh must make the same calls.
 """
 from __future__ import annotations
 
@@ -26,7 +34,8 @@ from repro_torch.core.retrieval import AnchorRetriever
 from repro_torch.data import tokenizer as tok
 from repro_torch.data.datasets import ScopeData
 from repro_torch.data.pipeline import to_tensors
-from repro_torch.distributed.sharding import refuse_sharded
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import sharding as shd
 from repro_torch.io import tree_map
 from repro_torch.models import model as M
 from repro_torch.serving import sampler
@@ -49,11 +58,12 @@ class GRPOConfig:
 # Token-level log-probs of a generated suffix
 # ---------------------------------------------------------------------------
 def sequence_logprobs(params, cfg: ModelConfig, tokens: torch.Tensor,
-                      gen_mask: torch.Tensor):
+                      gen_mask: torch.Tensor, *, lay=None):
     """tokens: (B, L) prompt+generation; gen_mask marks generated positions.
     Returns per-position logp of tokens[t] for masked t (shifted), and the
-    shifted mask."""
-    logits, _ = M.forward_train(params, cfg, {"tokens": tokens})
+    shifted mask.  ``lay`` as ``model.forward_train``'s: with
+    ``model.local_batch``'s, the rows are this rank's."""
+    logits, _ = M.forward_train(params, cfg, {"tokens": tokens}, lay=lay)
     logp = torch.log_softmax(logits.float(), dim=-1)
     # position t-1 predicts token t
     tgt = tokens[:, 1:]
@@ -64,8 +74,14 @@ def sequence_logprobs(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def grpo_loss(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
               clip_eps: float, kl_coef: float):
+    """The PPO-clip loss with the k3 KL penalty over ``batch``'s generated
+    tokens.  On sharded params a rank computes its own rows
+    (``model.local_batch``): the token count is the whole batch's, the
+    rank's share of the loss is summed over ``data`` as ``loss_fn``'s
+    cross-entropy is, and ``pg`` / ``kl`` are the whole batch's."""
+    batch, lay = M.local_batch(params, cfg, batch)
     lp, mask = sequence_logprobs(params, cfg, batch["tokens"],
-                                 batch["gen_mask"])
+                                 batch["gen_mask"], lay=lay)
     old_lp = batch["old_logp"]
     ref_lp = batch["ref_logp"]
     adv = batch["adv"][:, None]
@@ -79,17 +95,24 @@ def grpo_loss(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     delta = ref_lp - lp
     kl = torch.exp(delta) - delta - 1.0
 
-    denom = torch.clamp(torch.sum(mask), min=1.0)
+    count = torch.sum(mask)
+    denom = torch.clamp(count if lay is None else lay.summed(count),
+                        min=1.0)
     loss = torch.sum((pg + kl_coef * kl) * mask) / denom
-    return loss, {"pg": torch.sum(pg * mask) / denom,
-                  "kl": torch.sum(kl * mask) / denom}
+    pg_m = torch.sum(pg * mask) / denom
+    kl_m = torch.sum(kl * mask) / denom
+    if lay is not None:
+        loss, pg_m, kl_m = (lay.total(loss), lay.summed(pg_m),
+                            lay.summed(kl_m))
+    return loss, {"pg": pg_m, "kl": kl_m}
 
 
 def grpo_step(params, cfg: ModelConfig, opt_state: AdamWState,
               batch: Dict[str, torch.Tensor], opt_cfg: AdamWConfig,
               clip_eps: float, kl_coef: float):
-    """One AdamW step on the GRPO loss, params and state in place.  Returns
-    them, the loss before the step and its metrics (``pg``, ``kl``)."""
+    """One AdamW step on the GRPO loss, params and state in place (each
+    rank's blocks, for sharded params).  Returns them, the loss before the
+    step and its metrics (``pg``, ``kl``)."""
     loss, metrics, grads = value_and_grad(
         lambda p: grpo_loss(p, cfg, batch, clip_eps, kl_coef), params)
     params, opt_state = adamw_update(opt_cfg, grads, opt_state, params)
@@ -109,7 +132,6 @@ class GRPOTrainer:
                  opt_cfg: Optional[AdamWConfig] = None,
                  k: int = 5, cot: bool = True, seed: int = 0,
                  generator: Optional[torch.Generator] = None):
-        refuse_sharded(params, "GRPOTrainer")
         self.cfg = cfg
         self.params = params
         self.ref_params = tree_map(torch.clone, params)
@@ -155,14 +177,20 @@ class GRPOTrainer:
         prompts, gts = self._build_prompts(tasks)
         lp_len = len(prompts[0])
 
-        # tile each prompt G times → one batched generation pass
+        # tile each prompt G times → one batched generation pass, this
+        # rank's rows of it, gathered
         tiled = np.repeat(np.asarray(prompts, np.int32), g, axis=0)
-        gen, _ = sampler.generate(
+        B = len(tiled)
+        mesh = coll.mesh_of(self.params)
+        rows = sampler.mesh_rows(mesh, self.cfg, B)
+        gen, dec = sampler.generate_async(
             self.params, self.cfg, tiled,
             max_new_tokens=self.gcfg.max_new_tokens,
-            temperature=self.gcfg.temperature, generator=self.generator)
+            temperature=self.gcfg.temperature, generator=self.generator,
+            rows=rows)
+        gen, _ = sampler.to_host(*sampler.gather_rows(mesh, rows, B, gen,
+                                                      dec))
 
-        B = len(tiled)
         L = lp_len + self.gcfg.max_new_tokens
         tokens = np.concatenate([tiled, gen], axis=1)
         gen_mask = np.zeros((B, L), np.float32)
@@ -184,12 +212,16 @@ class GRPOTrainer:
         adv = adv.reshape(-1)
 
         batch = to_tensors({"tokens": tokens, "gen_mask": gen_mask,
-                            "adv": adv}, self.params["embed"].device)
+                            "adv": adv}, sampler.params_device(self.params))
+        # the old and reference log-probs of this rank's rows, gathered
+        local, lay = M.local_batch(self.params, self.cfg, batch)
+        split = local["tokens"].shape[0] < B
         with torch.no_grad():
-            batch["old_logp"], _ = sequence_logprobs(
-                self.params, self.cfg, batch["tokens"], batch["gen_mask"])
-            batch["ref_logp"], _ = sequence_logprobs(
-                self.ref_params, self.cfg, batch["tokens"], batch["gen_mask"])
+            for key, params in (("old_logp", self.params),
+                                ("ref_logp", self.ref_params)):
+                lp, _ = sequence_logprobs(params, self.cfg, local["tokens"],
+                                          local["gen_mask"], lay=lay)
+                batch[key] = shd.gather_rows(mesh, B, lp) if split else lp
 
         for _ in range(self.gcfg.inner_epochs):
             self.params, self.opt_state, loss, metrics = grpo_step(

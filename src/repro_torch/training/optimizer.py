@@ -8,10 +8,11 @@ params); leaves go in the reference's order (``io.flatten``).
 
 ``value_and_grad`` differentiates a loss at a tree of plain tensors.
 ``adamw_update`` runs under ``torch.no_grad`` and updates ``params`` and the
-state's ``mu``/``nu`` IN PLACE, leaf by leaf (the reference returns new
-trees): at full width, old and new moments side by side and a float32 copy
-of every gradient would not fit the card.  It returns the same ``params``
-object and a state holding the same moment trees.
+state's ``mu``/``nu`` IN PLACE, leaf by leaf and a large leaf in pieces
+(the reference returns new trees): at full width, old and new moments side
+by side and a float32 copy of every gradient would not fit the card.  It
+returns the same ``params`` object and a state holding the same moment
+trees.
 
 Params sharded over a device mesh (DTensors) train as they are: the
 gradients come back in the params' placement, ``mu`` / ``nu`` are DTensors
@@ -131,15 +132,37 @@ def adamw_update(cfg: AdamWConfig, grads: Tree, state: AdamWState,
                          "structure")
     for key, p in p_leaves.items():
         # a sharded leaf: this rank's blocks, written in place
-        p, m, v = (coll.local(p), coll.local(mu_leaves[key]),
-                   coll.local(nu_leaves[key]))
-        g = coll.local(g_leaves[key]).float() * scale.to(p.device)
-        # m = b1 m + (1 - b1) g ; v = b2 v + (1 - b2) g g, the reference's
-        # float32 expressions evaluated in its order
-        m.mul_(cfg.b1).add_(g * (1 - cfg.b1))
-        v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
-        del g
-        delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) \
-            + cfg.weight_decay * p.float()
-        p.copy_(p.float() - lr * delta)
+        leaf = [coll.local(t) for t in (p, mu_leaves[key], nu_leaves[key],
+                                        g_leaves[key])]
+        dev_scale = scale.to(leaf[0].device)
+        for p, m, v, g in _pieces(*leaf):
+            g = g.float() * dev_scale
+            # m = b1 m + (1 - b1) g ; v = b2 v + (1 - b2) g g, the
+            # reference's float32 expressions evaluated in its order
+            m.mul_(cfg.b1).add_(g * (1 - cfg.b1))
+            v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
+            del g
+            delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) \
+                + cfg.weight_decay * p.float()
+            p.copy_(p.float() - lr * delta)
     return params, AdamWState(step=step, mu=state.mu, nu=state.nu)
+
+
+# the update's float32 temporaries come to several times the size of what
+# it updates at once: a leaf goes in pieces of at most this many elements,
+# so a stacked expert leaf needs a few hundred MB of scratch, not several
+# times its own size
+UPDATE_PIECE = 1 << 26
+
+
+def _pieces(*leaf: torch.Tensor):
+    """(p, m, v, g) views that cover a leaf's four tensors once, each at
+    most ``UPDATE_PIECE`` elements: pieces of their flat views where all
+    four are contiguous, else the tensors whole.  The update is element by
+    element, so the pieces compute what the whole leaf does, bit for
+    bit."""
+    if leaf[0].numel() <= UPDATE_PIECE or not all(
+            t.is_contiguous() for t in leaf):
+        return [leaf]
+    return list(zip(*(t.view(-1).split(UPDATE_PIECE) for t in leaf),
+                    strict=True))

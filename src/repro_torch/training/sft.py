@@ -88,7 +88,14 @@ def train_sft(params, cfg: ModelConfig, dataset: Dict[str, np.ndarray], *,
     stub inputs from ``pipeline.with_stubs(..., seed=seed + i)`` (the
     reference's trainer feeds text alone, which whisper's loss cannot
     take).  Sharded params train on every rank of their mesh, each batch
-    whole on every rank (``sft_step``).  Returns (params, losses)."""
+    whole on every rank (``sft_step``).  A dataset of fewer rows than
+    ``batch_size`` raises ``ValueError``.  Returns (params, losses)."""
+    rows = len(dataset["tokens"])
+    if rows < batch_size:
+        # batches(..., drop_last=True) yields nothing then, and the loop
+        # below would never end
+        raise ValueError(f"train_sft: {rows} examples make no batch of "
+                         f"{batch_size}")
     opt_cfg = opt_cfg or AdamWConfig(lr=1e-3, warmup_steps=20,
                                      total_steps=steps)
     dev = coll.local(params["embed"]).device

@@ -79,7 +79,8 @@ def serve_cases(params_path, mesh=None):
     from repro_torch.models import model as M
     from repro_torch.serving import sampler
     from repro_torch.serving.scheduler import BucketConfig, MicrobatchScheduler
-    from repro_torch.training.grpo import GRPOTrainer
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.training.grpo import GRPOConfig, GRPOTrainer
     from repro_torch.training.tier0 import distill_tier0
 
     params = io.load_checkpoint(str(params_path), TINY, device="cpu")
@@ -147,14 +148,15 @@ def serve_cases(params_path, mesh=None):
     out["tier0"] = {"temperature": head.temperature,
                     "sums": {k: float(v.double().sum())
                              for k, v in sorted(head.params.items())}}
-    if mesh is not None:
-        sharded = estimator().params
-        out["refused"] = []
-        # checkpoint.save and train_sft take sharded params since
-        # test_torch_distributed_training.py; GRPOTrainer still refuses
-        with pytest.raises(ValueError) as err:
-            GRPOTrainer(TINY, sharded, data, library(), retr)
-        out["refused"].append(str(err.value))
+    # a greedy GRPO step of the estimator's params (sharded on a mesh)
+    trainer = GRPOTrainer(TINY, estimator().params, data, library(), retr,
+                          gcfg=GRPOConfig(group_size=2, tasks_per_step=2,
+                                          max_new_tokens=4, temperature=0.0))
+    info = trainer.rollout_step()
+    out["grpo"] = {"loss": info["loss"], "reward": info["reward"],
+                   "kl": info["kl"], "step": trainer.opt_state.step,
+                   "sharded": sorted({coll.is_sharded(t) for t in
+                                      io.flatten(trainer.params).values()})}
 
     cfg = get_config("qwen3-moe-235b-a22b").reduced()
     est = ReasoningEstimator(cfg, M.init_params(cfg, seed=0, device="cpu"),
@@ -403,13 +405,18 @@ def test_tier0_distills_from_a_sharded_estimator(runs, ranks):
 
 
 @pytest.mark.parametrize("ranks", [2, 4])
-def test_sharded_params_are_refused_where_plain_ones_are_needed(runs,
-                                                                ranks):
-    """GRPOTrainer refuses DTensor params and names itself (checkpoint.save
-    and train_sft take them: test_torch_distributed_training.py)."""
+def test_grpo_trainer_takes_sharded_params_and_steps(runs, ranks):
+    """GRPOTrainer takes the sharded estimator's DTensor params and steps on
+    them (4 greedy rollouts split over the ranks): its params stay sharded,
+    and its loss, kl and reward are one process's
+    (test_torch_distributed_training.py holds the step leaf by leaf)."""
+    one = runs[1][0]["grpo"]
+    assert one["sharded"] == [False] and one["step"] == 1
     for got in runs[ranks]:
-        for what, msg in zip(("GRPOTrainer",), got["refused"], strict=True):
-            assert msg.startswith(what) and "gather_tree" in msg
+        assert got["grpo"]["sharded"] == [True] and got["grpo"]["step"] == 1
+        assert got["grpo"]["reward"] == one["reward"]
+        for k in ("loss", "kl"):
+            assert abs(got["grpo"][k] - one[k]) <= F32_TOL, k
 
 
 @pytest.mark.parametrize("ranks", [2, 4])

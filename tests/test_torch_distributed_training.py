@@ -7,27 +7,35 @@ Every rank runs ``mesh_cases`` on each of its world's meshes — world 2 over
 (2, 1) and (1, 2), world 4 over (2, 2) and (1, 4) — and rank 0 writes the
 results.  The cases:
 
-  * the loss and every gradient leaf (gathered whole) of one batch whose
-    rows hold different counts of labelled tokens, on the SFT-trained
-    scope-tiny (4 heads on 2, d_ff 384, vocab 512), on the config of the
-    reference's own mesh test (``internlm2-1.8b`` ``.reduced(d_model=256,
-    num_heads=4)``) and on the small MoE config (qwen3-moe ``.reduced()``,
-    whose rows every rank computes whole), each rank's param bytes, and
-    every parameter all-gather the step made (a recorder on
-    ``collectives._all_gather``);
+  * the loss, its metrics (the MoE load-balance ``aux`` too) and every
+    gradient leaf (gathered whole) of one batch whose rows hold different
+    counts of labelled tokens, on the SFT-trained scope-tiny (4 heads on 2,
+    d_ff 384, vocab 512), on the config of the reference's own mesh test
+    (``internlm2-1.8b`` ``.reduced(d_model=256, num_heads=4)``) and on the
+    small MoE config (qwen3-moe ``.reduced()``) at two batches: 8 x 20
+    tokens (``moe``: one routing group, so every rank computes every row)
+    and 8 x 64 (``moe_split``: two groups of 256, split over ``data`` = 2);
+    each rank's param bytes, and every parameter all-gather the step made
+    (a recorder on ``collectives._all_gather``);
   * one ``sft_step`` and ten ``train_sft`` steps of scope-tiny, and each
     rank's blocks of params, ``mu`` and ``nu`` after the step;
   * ``global_norm`` of the sharded gradients;
   * ``make_train_step`` over two microbatches;
   * ``checkpoint.save`` of the sharded tree;
+  * GRPO on scope-tiny: a greedy ``rollout_step`` (8 rollouts: the tokens
+    each rank scored, the loss, ``pg``, ``kl`` and the params after it), a
+    sampled one (the tokens each rank scored), and on the reference
+    trainer's own batch (``test_torch_grpo.py``'s ``reference_batch``,
+    saved beside the weights) ``grpo_loss``'s gradient and one
+    ``grpo_step``;
   * on (1, 2) and (2, 2): a batch predict and a dense and a paged refill
     stream of scope-tiny, and the kv-heads a rank's decode cache holds.
 
-Tolerances, all float32: the loss within 2e-5; each gradient leaf within
-1e-4 of that leaf's largest magnitude; one step's loss and params within
-2e-5; ten steps' losses within 1e-4 (``test_torch_training.py``'s); serves
-equal in tokens, parsed fields, decisions and cache counts, ``p_hat``
-within 2e-5.
+Tolerances, all float32: the loss (and ``aux``, ``pg``, ``kl``) within
+2e-5; each gradient leaf within 1e-4 of that leaf's largest magnitude; one
+step's loss and params within 2e-5; ten steps' losses within 1e-4
+(``test_torch_training.py``'s); greedy rollouts and serves equal in tokens,
+parsed fields, decisions and cache counts, ``p_hat`` within 2e-5.
 
 Run as a script, this file is one rank's worker:
 
@@ -48,14 +56,22 @@ ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
 MESHES = {2: ((2, 1), (1, 2)), 4: ((2, 2), (1, 4))}
 SERVE_MESHES = ((1, 2), (2, 2))
-CONFIGS = ("tiny", "internlm2", "moe")
+CONFIGS = ("tiny", "internlm2", "moe", "moe_split")
+# the batch's length by config (20 tokens unless named): moe_split's 8 x 64
+# tokens route in two groups of 256
+SEQ = {"moe_split": 64}
 F32_TOL, GRAD_TOL, STEP10_TOL = 2e-5, 1e-4, 1e-4
+# GRPO on scope-tiny: 4 tasks x 2 rollouts of 8 new tokens (test_torch_grpo's)
+GRPO_CFG = dict(group_size=2, tasks_per_step=4, max_new_tokens=8)
+GRPO_OPT = dict(lr=2e-4, warmup_steps=10, total_steps=1000)
 
 
 def port_config(name):
+    """``name``'s config; "grpo" is scope-tiny's (the reference batch's
+    weights)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.scope_estimator import TINY
-    if name == "tiny":
+    if name in ("tiny", "grpo"):
         return TINY
     if name == "internlm2":
         return get_config("internlm2-1.8b").reduced(d_model=256, num_heads=4)
@@ -72,24 +88,29 @@ def reference_config(name):
     return get_config("qwen3-moe-235b-a22b").reduced()
 
 
-def lm_batch(vocab: int):
-    """8 rows of 20 tokens; row i has 19 - 2 i labelled tokens, so ranks
-    hold different counts."""
+def lm_batch(vocab: int, seq: int = 20):
+    """8 rows of ``seq`` tokens; row i has seq - 1 - 2 i labelled tokens, so
+    ranks hold different counts."""
     r = np.random.default_rng(5)
-    tokens = r.integers(3, vocab, size=(8, 20)).astype(np.int32)
-    labels = r.integers(3, vocab, size=(8, 20)).astype(np.int32)
+    tokens = r.integers(3, vocab, size=(8, seq)).astype(np.int32)
+    labels = r.integers(3, vocab, size=(8, seq)).astype(np.int32)
     for i in range(8):
         labels[i, : 1 + 2 * i] = -100
     return {"tokens": tokens, "labels": labels}
 
 
-def sft_dataset():
+def config_batch(name, vocab: int):
+    return lm_batch(vocab, SEQ.get(name, 20))
+
+
+def scope_world():
+    """(data, library, retriever) of the seeded world (built afresh:
+    ``World.embed`` draws from the world's generator)."""
     from repro_torch.core.fingerprint import (FingerprintLibrary,
                                               build_anchor_set)
     from repro_torch.core.retrieval import AnchorRetriever
     from repro_torch.data.datasets import build_scope_data, stratified_anchors
     from repro_torch.data.worldsim import World
-    from repro_torch.training.sft import build_sft_dataset
     world = World(seed=0)
     data = build_scope_data(world, n_queries=200, seed=0)
     anchors = build_anchor_set(world, stratified_anchors(world, n=80, seed=7))
@@ -97,8 +118,13 @@ def sft_dataset():
     for m in world.pool:
         if m.seen:
             lib.onboard(world, m.name, seed=3)
-    return build_sft_dataset(data, lib, AnchorRetriever(anchors, device="cpu"),
-                             max_examples=96, seed=0)
+    return data, lib, AnchorRetriever(anchors, device="cpu")
+
+
+def sft_dataset():
+    from repro_torch.training.sft import build_sft_dataset
+    data, lib, retr = scope_world()
+    return build_sft_dataset(data, lib, retr, max_examples=96, seed=0)
 
 
 # ---------------------------------------------------------------------------
@@ -163,7 +189,8 @@ def mesh_cases(params_dir, mesh=None, out_dir=None):
         cfg = port_config(name)
         plain = load(name)
         params = placed(name)
-        batch = to_tensors(lm_batch(cfg.vocab_size), "cpu")
+        batch = to_tensors(config_batch(name, cfg.vocab_size), "cpu")
+        seq = batch["tokens"].shape[1]
         seen.clear()
         coll._all_gather = record
         try:
@@ -175,15 +202,16 @@ def mesh_cases(params_dir, mesh=None, out_dir=None):
         arrays[f"{name}/loss"] = loss.numpy()
         arrays[f"{name}/ce"] = metrics["ce"].numpy()
         arrays[f"{name}/acc"] = metrics["acc"].numpy()
+        arrays[f"{name}/aux"] = metrics["aux"].numpy()
         for key, g in flatten(grads).items():
             arrays[f"{name}/grad/{key}"] = _whole(g)
         arrays[f"{name}/norm"] = global_norm(grads).numpy()
         # and the logits: each rank's rows, the vocabulary gathered
         allowed = _allowed_gathers(plain, n_model) | {
-            (r, 20, cfg.vocab_size) for r in (2, 4, 8)}
+            (r, seq, cfg.vocab_size) for r in (2, 4, 8)}
         rows = None
         if mesh is not None:
-            rows = coll.train_rows(mesh, cfg, 8)
+            rows = coll.train_rows(mesh, cfg, 8, seq)
         res[name] = {
             "split": (None if mesh is None
                       else list(coll.model_split(cfg, mesh))),
@@ -241,9 +269,77 @@ def mesh_cases(params_dir, mesh=None, out_dir=None):
     if out_dir is not None:
         checkpoint.save(str(Path(out_dir) / "tiny_saved.npz"), placed("tiny"))
 
+    res["grpo"] = grpo_cases(params_dir, placed, arrays)
     if mesh is None or tuple(mesh.shape) in SERVE_MESHES:
         res["serve"] = serve_cases(load("tiny"), mesh)
     return res, arrays
+
+
+def grpo_cases(params_dir, placed, arrays):
+    """GRPO on scope-tiny placed by ``placed``: a greedy and a sampled
+    ``rollout_step`` (each rank's scored tokens in the result; the greedy
+    step's loss, metrics and params in ``arrays``), and on the reference
+    trainer's batch ``grpo_loss``'s gradient and one ``grpo_step``."""
+    import torch
+
+    from repro_torch.configs.scope_estimator import TINY
+    from repro_torch.data.pipeline import to_tensors
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.io import flatten
+    from repro_torch.training import grpo as G
+    from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
+                                                value_and_grad)
+    out = {}
+    step = G.grpo_step
+    for mode, temperature in (("greedy", 0.0), ("sampled", 1.0)):
+        data, lib, retr = scope_world()
+        trainer = G.GRPOTrainer(
+            TINY, placed("tiny"), data, lib, retr,
+            gcfg=G.GRPOConfig(temperature=temperature, **GRPO_CFG), seed=0,
+            generator=torch.Generator().manual_seed(0))
+        seen = []
+
+        def record(params, cfg, opt_state, batch, *args):
+            got = step(params, cfg, opt_state, batch, *args)
+            seen.append((batch, got))
+            return got
+
+        G.grpo_step = record
+        try:
+            info = trainer.rollout_step()
+        finally:
+            G.grpo_step = step
+        (batch, (_, _, loss, metrics)), = seen
+        out[mode] = {"tokens": batch["tokens"].tolist(),
+                     "reward": info["reward"]}
+        if mode == "greedy":
+            for k in ("adv", "old_logp", "ref_logp"):
+                arrays[f"grpo/{k}"] = batch[k].numpy()
+            arrays["grpo/loss"] = loss.numpy()
+            for k, v in metrics.items():
+                arrays[f"grpo/{k}"] = v.numpy()
+            for key, t in flatten(trainer.params).items():
+                arrays[f"grpo/params/{key}"] = _whole(t)
+            out["sharded"] = [coll.is_sharded(t) for t in
+                              flatten(trainer.params).values()]
+
+    # the reference trainer's batch (test_torch_grpo's reference_batch)
+    with np.load(Path(params_dir) / "grpo_batch.npz") as z:
+        batch = to_tensors(dict(z), "cpu")
+    params = placed("grpo")
+    loss, metrics, grads = value_and_grad(
+        lambda p: G.grpo_loss(p, TINY, batch, 0.2, 0.02), params)
+    arrays["grpo_ref/loss"] = loss.numpy()
+    for k, v in metrics.items():
+        arrays[f"grpo_ref/{k}"] = v.numpy()
+    for key, g in flatten(grads).items():
+        arrays[f"grpo_ref/grad/{key}"] = _whole(g)
+    params, _, loss, _ = G.grpo_step(params, TINY, adamw_init(params), batch,
+                                     AdamWConfig(**GRPO_OPT), 0.2, 0.02)
+    arrays["grpo_ref/step_loss"] = loss.numpy()
+    for key, t in flatten(params).items():
+        arrays[f"grpo_ref/params/{key}"] = _whole(t)
+    return out
 
 
 def serve_cases(params, mesh):
@@ -342,18 +438,64 @@ def reference_params(tiny_trained):
 
 
 @pytest.fixture(scope="module")
-def params_dir(reference_params, tmp_path_factory):
-    """The three configs' weights, bridged and saved as the port's
-    checkpoints."""
+def grpo_reference(reference_params):
+    """The reference trainer's second sampled rollout on the SFT-trained
+    tiny (``test_torch_grpo.py``'s ``reference_batch``): the params it was
+    taken at and its batch, and on them the reference's one-device
+    ``grpo_loss`` (value, ``pg``, ``kl``, gradient in the port's layout)
+    and ``grpo_step`` (loss, params)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    import test_torch_grpo as tgrpo
+    from repro.training import grpo as JG
+    from repro.training import optimizer as JOpt
+    from repro_torch.io import flatten
+    trained = reference_params["tiny"]
+    jt, _ = tgrpo._trainers(trained, tgrpo._bridge(trained), temperature=1.0,
+                            generator=torch.Generator().manual_seed(0))
+    mp = pytest.MonkeyPatch()
+    try:
+        cap = tgrpo._Capture(mp, JG)
+        jt.rollout_step()
+        jt.rollout_step()
+    finally:
+        mp.undo()
+    call = cap.calls[1]
+    params = call["params"]
+    batch = {k: np.asarray(v) for k, v in call["batch"].items()}
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    (loss, metrics), grads = jax.value_and_grad(
+        lambda p: JG.grpo_loss(p, reference_config("tiny"), jb, 0.2, 0.02),
+        has_aux=True)(params)
+    stepped, _, step_loss, _ = JG.grpo_step(
+        params, reference_config("tiny"), JOpt.adamw_init(params), jb,
+        JOpt.AdamWConfig(**GRPO_OPT), 0.2, 0.02)
+
+    def port(tree):
+        return flatten(_port_tree(jax.tree.map(np.asarray, tree), "tiny"))
+    return {"params": jax.tree.map(np.asarray, params), "batch": batch,
+            "loss": float(loss), "pg": float(metrics["pg"]),
+            "kl": float(metrics["kl"]), "grads": port(grads),
+            "step_loss": float(step_loss), "stepped": port(stepped)}
+
+
+@pytest.fixture(scope="module")
+def params_dir(reference_params, grpo_reference, tmp_path_factory):
+    """The configs' weights, bridged and saved as the port's checkpoints,
+    and the reference GRPO batch with its weights (``grpo``)."""
     import jax
 
     from repro_torch import io
     from repro_torch.training import checkpoint
     out = tmp_path_factory.mktemp("train_params")
-    for name, params in reference_params.items():
+    for name, params in (*reference_params.items(),
+                         ("grpo", grpo_reference["params"])):
         checkpoint.save(str(out / f"{name}.npz"), io.params_from_numpy(
             jax.tree.map(np.asarray, params), port_config(name),
             device="cpu"))
+    np.savez(out / "grpo_batch.npz", **grpo_reference["batch"])
     return out
 
 
@@ -397,8 +539,8 @@ def runs(params_dir, tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def reference_grads(reference_params):
-    """{name: (loss, ce, {key: gradient})} of the reference's one-device
-    ``jax.value_and_grad(M.loss_fn)`` on ``lm_batch``."""
+    """{name: (loss, ce, {key: gradient}, aux)} of the reference's
+    one-device ``jax.value_and_grad(M.loss_fn)`` on ``config_batch``."""
     import jax
     import jax.numpy as jnp
 
@@ -407,14 +549,16 @@ def reference_grads(reference_params):
     out = {}
     for name, params in reference_params.items():
         cfg = reference_config(name)
-        batch = {k: jnp.asarray(v) for k, v in lm_batch(cfg.vocab_size).items()}
+        batch = {k: jnp.asarray(v)
+                 for k, v in config_batch(name, cfg.vocab_size).items()}
         (loss, metrics), grads = jax.value_and_grad(
             lambda p, cfg=cfg, batch=batch: JM.loss_fn(p, cfg, batch),
             has_aux=True)(params)
         out[name] = (float(loss), float(metrics["ce"]),
                      {k: np.asarray(v, np.float32) for k, v in flatten(
                          _port_tree(jax.tree.map(np.asarray, grads),
-                                    name)).items()})
+                                    name)).items()},
+                     float(metrics["aux"]))
     return out
 
 
@@ -493,7 +637,7 @@ def _close_grads(got, want):
 def test_loss_and_gradients_equal_one_process(runs, mesh, name):
     _, arrays, _ = runs[mesh]
     _, one, _ = runs[(1, 1)]
-    for k in ("loss", "ce", "acc"):
+    for k in ("loss", "ce", "acc", "aux"):
         assert abs(float(arrays[f"{name}/{k}"]) - float(one[f"{name}/{k}"])
                    ) <= F32_TOL, k
     _close_grads(_grad_keys(arrays, name), _grad_keys(one, name))
@@ -504,9 +648,10 @@ def test_loss_and_gradients_equal_one_process(runs, mesh, name):
 def test_loss_and_gradients_equal_reference_one_device(runs, reference_grads,
                                                        mesh, name):
     _, arrays, _ = runs[mesh]
-    loss, ce, grads = reference_grads[name]
+    loss, ce, grads, aux = reference_grads[name]
     assert abs(float(arrays[f"{name}/loss"]) - loss) <= F32_TOL
     assert abs(float(arrays[f"{name}/ce"]) - ce) <= F32_TOL
+    assert abs(float(arrays[f"{name}/aux"]) - aux) <= F32_TOL
     _close_grads(_grad_keys(arrays, name), grads)
 
 
@@ -514,7 +659,7 @@ def test_one_process_matches_reference_one_device(runs, reference_grads):
     """The yardstick itself: one process of the port on the same batch."""
     _, one, _ = runs[(1, 1)]
     for name in CONFIGS:
-        loss, _, grads = reference_grads[name]
+        loss, _, grads, _ = reference_grads[name]
         assert abs(float(one[f"{name}/loss"]) - loss) <= F32_TOL
         _close_grads(_grad_keys(one, name), grads)
 
@@ -552,13 +697,78 @@ def test_global_norm_of_sharded_gradients(runs, mesh):
 
 @pytest.mark.parametrize("mesh", ALL_MESHES, ids=MESH_IDS)
 def test_moe_rows_whole_on_every_rank(runs, mesh):
-    """The MoE batch is not split (its routing groups span it), the dense
-    ones are wherever 8 rows divide over ``data``."""
+    """A MoE batch whose routing groups do not divide over ``data`` is not
+    split (8 x 20 tokens: one group of 160): every rank computes all its
+    rows (on (1, n) the one block of ``data`` = 1 is all of them); the
+    dense ones split wherever 8 rows divide over ``data``."""
     results, _, _ = runs[mesh]
     for r in results:
-        assert r["moe"]["rows"] is None
         if mesh[0] > 1:
+            assert r["moe"]["rows"] is None
             assert r["tiny"]["rows"] is not None
+        else:
+            assert r["moe"]["rows"] == r["tiny"]["rows"] == [0, 8]
+
+
+@pytest.mark.parametrize("mesh", ALL_MESHES, ids=MESH_IDS)
+def test_moe_rows_split_where_groups_divide(runs, mesh):
+    """8 x 64 tokens route in two groups of 256: over ``data`` = 2 rank r
+    computes rows 4 r to 4 r + 4 (ranks along ``model`` the same), over
+    ``data`` = 1 every row."""
+    nd, _ = mesh
+    for r in runs[mesh][0]:
+        c = r["coord"][0]
+        assert r["moe_split"]["rows"] == [8 // nd * c, 8 // nd * (c + 1)]
+
+
+def test_train_rows_splits_a_moe_batch_by_whole_routing_groups():
+    """``train_rows`` on meshes with no devices behind them: a MoE batch
+    splits where its routing groups divide over ``data``, and each rank's
+    rows regroup to the whole batch's group size; a dense batch splits
+    wherever its rows divide."""
+    import dataclasses
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.collectives import train_rows
+    from repro_torch.distributed.sharding import MeshSpec
+    from repro_torch.models.moe import _group_size
+
+    @dataclasses.dataclass(frozen=True)
+    class Rank(MeshSpec):
+        coord: tuple = (0, 0)
+
+        def get_coordinate(self):
+            return list(self.coord)
+
+    moe = get_config("qwen3-moe-235b-a22b")
+    dense = get_config("internlm2-1.8b")
+    cases = [  # (b, s, n_data, groups, split)
+        (8, 20, 2, 1, False),       # 160 tokens: one group
+        (8, 64, 2, 2, True),        # 512: two groups of 256
+        (8, 64, 4, 2, False),
+        (64, 57, 2, 16, True),      # the card's SFT batch: 16 groups of 228
+        (64, 57, 4, 16, True),
+        (6, 50, 2, 2, True),        # 300: two groups of 150
+        (6, 50, 3, 2, False)]
+    for b, s, nd, groups, split in cases:
+        total = b * s
+        assert total // _group_size(total) == groups, (b, s)
+        for c in range(nd):
+            mesh = Rank(("data", "model"), (nd, 1), (c, 0))
+            rows = train_rows(mesh, moe, b, s)
+            assert train_rows(mesh, dense, b, s) == slice(
+                b // nd * c, b // nd * (c + 1))
+            if not split:
+                assert rows is None, (b, s, nd)
+                continue
+            assert rows == slice(b // nd * c, b // nd * (c + 1)), (b, s, nd)
+            local = (rows.stop - rows.start) * s
+            assert _group_size(local) == _group_size(total)
+    # rows that do not divide stay whole for every backbone
+    mesh = Rank(("data", "model"), (4, 1), (1, 0))
+    assert train_rows(mesh, dense, 6, 20) is None
+    assert train_rows(mesh, moe, 6, 20) is None
 
 
 # ---------------------------------------------------------------------------
@@ -624,6 +834,68 @@ def test_no_gather_returns_more_than_one_layer(runs, mesh, name):
         assert r[name]["bad_gathers"] == []
         if mesh[0] > 1:
             assert r[name]["gathers"] > 0
+
+
+# ---------------------------------------------------------------------------
+# GRPO
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("mesh", ALL_MESHES, ids=MESH_IDS)
+def test_grpo_greedy_step_equals_one_process(runs, mesh):
+    """A greedy ``rollout_step`` on sharded params: every rank scored one
+    process's rollouts, the advantages and log-probs agree, the loss,
+    ``pg`` and ``kl`` within 2e-5 and the params after the step within
+    2e-5; the params stay sharded."""
+    results, arrays, _ = runs[mesh]
+    one_res, one, _ = runs[(1, 1)]
+    for r in results:
+        assert r["grpo"]["greedy"]["tokens"] == \
+            one_res[0]["grpo"]["greedy"]["tokens"]
+        assert r["grpo"]["greedy"]["reward"] == \
+            one_res[0]["grpo"]["greedy"]["reward"]
+        assert all(r["grpo"]["sharded"])
+    assert not any(one_res[0]["grpo"]["sharded"])
+    np.testing.assert_array_equal(arrays["grpo/adv"], one["grpo/adv"])
+    for k in ("old_logp", "ref_logp"):
+        np.testing.assert_allclose(arrays[f"grpo/{k}"], one[f"grpo/{k}"],
+                                   rtol=0, atol=F32_TOL, err_msg=k)
+    for k in ("loss", "pg", "kl"):
+        assert abs(float(arrays[f"grpo/{k}"]) - float(one[f"grpo/{k}"])) \
+            <= F32_TOL, k
+    keys = [k for k in one if k.startswith("grpo/params/")]
+    assert keys
+    for k in keys:
+        np.testing.assert_allclose(arrays[k], one[k], rtol=0, atol=F32_TOL,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("mesh", ALL_MESHES, ids=MESH_IDS)
+def test_grpo_equals_reference_one_device(runs, grpo_reference, mesh):
+    """On the reference trainer's batch: ``grpo_loss`` and its metrics
+    within 2e-5 of the reference's one-device values, every gradient leaf
+    within 1e-4 of its largest magnitude, and one ``grpo_step``'s loss and
+    params within 2e-5 of the reference's step."""
+    _, arrays, _ = runs[mesh]
+    for k in ("loss", "pg", "kl", "step_loss"):
+        assert abs(float(arrays[f"grpo_ref/{k}"]) - grpo_reference[k]) \
+            <= F32_TOL, k
+    pre = "grpo_ref/grad/"
+    _close_grads({k[len(pre):]: v for k, v in arrays.items()
+                  if k.startswith(pre)}, grpo_reference["grads"])
+    for key, want in grpo_reference["stepped"].items():
+        np.testing.assert_allclose(arrays[f"grpo_ref/params/{key}"], want,
+                                   rtol=0, atol=F32_TOL, err_msg=key)
+
+
+@pytest.mark.parametrize("mesh", ALL_MESHES, ids=MESH_IDS)
+def test_grpo_sampled_rollouts_equal_on_every_rank(runs, mesh):
+    """At temperature 1 each rank samples its own rows and every rank
+    scores the same gathered rollouts."""
+    results, _, _ = runs[mesh]
+    first = results[0]["grpo"]["sampled"]
+    assert len(first["tokens"]) == GRPO_CFG["group_size"] * \
+        GRPO_CFG["tasks_per_step"]
+    for r in results[1:]:
+        assert r["grpo"]["sampled"] == first
 
 
 # ---------------------------------------------------------------------------

@@ -304,6 +304,32 @@ def test_adamw_on_the_model_tree_matches_reference_in_place(bridged):
                                    atol=F32_TOL)
 
 
+def test_adamw_in_pieces_equals_whole_leaves_bit_for_bit(bridged,
+                                                        monkeypatch):
+    """Leaves updated in pieces of 1000 elements (the embedding and every
+    stacked leaf of scope-tiny span several, the last one short) give the
+    whole-leaf update's params and moments bit for bit, over two steps."""
+    params, _ = bridged
+    cfg = TOpt.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    r = np.random.default_rng(6)
+    grads = [io.tree_map(lambda t: torch.from_numpy(
+        r.standard_normal(tuple(t.shape)).astype(np.float32) * 0.05),
+        _bridge(params)) for _ in range(2)]
+    runs = []
+    for piece in (TOpt.UPDATE_PIECE, 1000):
+        monkeypatch.setattr(TOpt, "UPDATE_PIECE", piece)
+        tparams = _bridge(params)
+        state = TOpt.adamw_init(tparams)
+        for g in grads:
+            tparams, state = TOpt.adamw_update(cfg, g, state, tparams)
+        runs.append([*io.flatten(tparams).values(),
+                     *io.flatten(state.mu).values(),
+                     *io.flatten(state.nu).values()])
+    assert max(t.numel() for t in runs[0]) > 3 * 1000
+    for a, b in zip(*runs, strict=True):
+        assert torch.equal(a, b)
+
+
 def test_sft_step_matches_reference(bridged):
     params, _ = bridged
     tparams = _bridge(params)
@@ -337,6 +363,22 @@ def test_train_sft_ten_steps_match_reference(bridged):
     assert len(tlosses) == len(jlosses) == 10
     assert tlosses[0] == pytest.approx(jlosses[0], abs=F32_TOL)
     np.testing.assert_allclose(tlosses, jlosses, rtol=0, atol=STEP10_TOL)
+
+
+def test_train_sft_refuses_a_dataset_smaller_than_one_batch():
+    """40 examples at batch 64 make no batch: ``train_sft`` raises before
+    its first step, naming both numbers (the reference's loop never ends,
+    ``src/repro/training/sft.py:80``, so it is not run here)."""
+    params = TM.init_params(TINY, seed=0, device="cpu")
+    ds = _lm_batch(7, b=40, s=16)
+    before = {k: v.clone() for k, v in io.flatten(params).items()}
+    with pytest.raises(ValueError, match="40 examples.*batch of 64"):
+        TSFT.train_sft(params, TINY, ds, steps=3, batch_size=64)
+    assert all(torch.equal(t, before[k])
+               for k, t in io.flatten(params).items())
+    _, losses = TSFT.train_sft(params, TINY, _lm_batch(7, b=40, s=16),
+                               steps=1, batch_size=40)
+    assert len(losses) == 1
 
 
 # ---------------------------------------------------------------------------
