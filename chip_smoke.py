@@ -392,9 +392,10 @@ It prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.  ``python3 chip_smoke.py
 --mesh-phase`` runs phases 1, 2, the world, 23 and 24 alone and ends with
 the mesh report (on a machine with several cards, phases 23 and 24 also
-run over min(cards, 4) of them).  Details go to
-``build/chip_smoke.json``.  Needs one CUDA card; without one it exits with
-code 1.
+run over min(cards, 4) of them); ``--mesh-phase ssm`` runs of those phase
+24 alone, the SSM backbones (on several cards their TP job too).  Details
+go to ``build/chip_smoke.json``.  Needs one CUDA card; without one it exits
+with code 1.
 """
 from __future__ import annotations
 
@@ -1832,88 +1833,17 @@ def kernel_timings(torch, L: int, retriever, query_embs, s_train: int):
     print(f"   launch floor (one-element add_): {floor_ms:.5f} ms; decode "
           f"{out['decode_attention']['ms']:.5f} ms, paged decode "
           f"{out['paged_decode_attention']['ms']:.5f} ms")
-    # SSD scan: mamba2-1.3b's prefill of the request's 56 prompts (one
-    # chunk of L tokens a (row, head), x strided as mamba_full passes it);
-    # no single PyTorch call computes it
-    from repro_torch.kernels import ref
-    from repro_torch.kernels import ssd_scan as SS
-    from repro_torch.models.ssm import _largest_chunk
-    b, h, p, n = 56, 64, 64, 128
-    chunk = _largest_chunk(L, 128)
-    x, dtv, A, B, C = ssd_inputs(torch, gen, b, L, h, p, n, 1.0, bf,
-                                 conv_layout=True)
-    out["ssd_scan"] = dict(
-        times(torch, lambda: SS.ssd_scan_cuda(x, dtv, A, B, C, chunk=chunk),
-              lambda: ref.ssd(x, dtv, A, B, C, chunk=chunk), None, 50),
-        shape=f"x ({b},{L},{h},{p}) bf16 conv-output slice dt ({b},{L},{h}) A ({h},) bf16 B, C "
-              f"({b},{L},{n}) f32 chunk {chunk}",
-        library_call="none: no single PyTorch call computes the SSD scan")
-    out["ssd_scan"]["bound_ms"], out["ssd_scan"]["bound_by"] = \
-        bound(*ssd_work(b, L, h, p, n, chunk, x.element_size(),
-                        A.element_size()), "float32")
-    # SSD decode step: mamba2-1.3b's decode of the 56 rows, one layer's f32
-    # state (a layer view of a stacked cache) updated in place, x, dt, B, C
-    # in f32 and A in bf16 as mamba_decode passes them; no single PyTorch
-    # call computes it
-    from repro_torch.kernels import ssd_decode_step as SD
-    cache = torch.randn(2, b, h, p, n, generator=gen, device=dev) * 0.1
-    st = cache[1]
-    row = torch.randn(h * p + 2 * n, b, generator=gen, device=dev).t() * 0.5
-    xs, Bs, Cs = (row[:, :h * p].reshape(b, h, p), row[:, h * p:h * p + n],
-                  row[:, h * p + n:])       # conv-output slices, batch fastest
-    dts = F.softplus(torch.randn(b, h, generator=gen, device=dev))
-    out["ssd_decode_step"] = dict(
-        times(torch, lambda: SD.ssd_decode_step_cuda(st, xs, dts, A, Bs, Cs),
-              lambda: ref.ssd_decode_step(st, xs, dts, A, Bs, Cs), None, 200),
-        shape=f"state ({b},{h},{p},{n}) f32 layer view, x ({b},{h},{p}) dt "
-              f"({b},{h}) B, C ({b},{n}) f32 conv-output slices, A ({h},) "
-              "bf16, in place",
-        library_call="none: no single PyTorch call computes the SSD step")
-    out["ssd_decode_step"]["bound_ms"], out["ssd_decode_step"]["bound_by"] = \
-        bound(*step_work(b, h, p, n, A.element_size()), "float32")
-    del cache
-
-    # zamba2-7b's serve: the SSD scan and step at its 112 heads of 64,
-    # state 64 (its attention rows are in attention_timings' table)
-    b, h, p, n = 56, 112, 64, 64
-    x, dtv, A, B, C = ssd_inputs(torch, gen, b, L, h, p, n, 1.0, bf,
-                                 conv_layout=True)
-    row = "ssd_scan" + HYBRID
-    out[row] = dict(
-        times(torch, lambda: SS.ssd_scan_cuda(x, dtv, A, B, C, chunk=chunk),
-              lambda: ref.ssd(x, dtv, A, B, C, chunk=chunk), None, 50),
-        shape=f"x ({b},{L},{h},{p}) bf16 conv-output slice dt ({b},{L},{h}) "
-              f"A ({h},) bf16 B, C ({b},{L},{n}) f32 chunk {chunk}",
-        library_call="none: no single PyTorch call computes the SSD scan")
-    out[row]["bound_ms"], out[row]["bound_by"] = bound(
-        *ssd_work(b, L, h, p, n, chunk, x.element_size(), A.element_size()),
-        "float32")
-    cache = torch.randn(2, b, h, p, n, generator=gen, device=dev) * 0.1
-    st = cache[1]
-    conv = torch.randn(h * p + 2 * n, b, generator=gen, device=dev).t() * 0.5
-    xs, Bs, Cs = (conv[:, :h * p].reshape(b, h, p), conv[:, h * p:h * p + n],
-                  conv[:, h * p + n:])
-    dts = F.softplus(torch.randn(b, h, generator=gen, device=dev))
-    row = "ssd_decode_step" + HYBRID
-    out[row] = dict(
-        times(torch, lambda: SD.ssd_decode_step_cuda(st, xs, dts, A, Bs, Cs),
-              lambda: ref.ssd_decode_step(st, xs, dts, A, Bs, Cs), None, 200),
-        shape=f"state ({b},{h},{p},{n}) f32 layer view, x ({b},{h},{p}) dt "
-              f"({b},{h}) B, C ({b},{n}) f32 conv-output slices, A ({h},) "
-              "bf16, in place",
-        library_call="none: no single PyTorch call computes the SSD step")
-    out[row]["bound_ms"], out[row]["bound_by"] = bound(
-        *step_work(b, h, p, n, A.element_size()), "float32")
-    del cache, x, dtv, B, C
+    # the SSD kernels at mamba2-1.3b's serve and SFT (64 heads of 64, state
+    # 128) and at zamba2-7b's (112 heads, state 64; its attention rows are
+    # in attention_timings' table)
+    out.update(ssd_rows(torch, gen, 56, 64, 128, L, s_train))
+    out.update(ssd_rows(torch, gen, 56, 112, 64, L, s_train, HYBRID))
     out["flash_attention_bwd"] = bwd_timing(torch, gen, s_train)
     # zamba2-7b's SFT: the flash backward at its tied block's 32 heads of
-    # 112, group 1, and the SSD scan backward at both SFT shapes
+    # 112, group 1
     row = "flash_attention_bwd" + HYBRID
     out[row] = bwd_timing(torch, gen, s_train, hq=32, hkv=32, d=112,
                           label=row)
-    out["ssd_scan_bwd"] = ssd_bwd_timing(torch, gen, s_train, h=64, n=128)
-    out["ssd_scan_bwd" + HYBRID] = ssd_bwd_timing(torch, gen, s_train,
-                                                  h=112, n=64)
     # the training families' flash backward at their SFT shapes, on a
     # generator of its own: deepseek-v2-lite-16b's MLA (16 heads at g 1,
     # q / k 192, v 128, its scale), gemma2-9b's heads of 256 with softcap
@@ -2363,6 +2293,129 @@ def softcap_bwd_library(torch, cap: float, q, k, v, dout, want, label):
                        + ("" if options is None else f", {options}"))
         del y, got
     return best
+
+
+L2_BYTES = 50 * 2 ** 20         # the H100's L2
+
+
+def ssd_rows(torch, gen, b: int, h: int, n: int, L: int, s_train: int,
+             tag: str = "", check64: bool = False):
+    """The SSD kernels at ``h`` heads of 64 and state ``n``, as rows
+    ``<kernel>{tag}``: the scan at a batch serve's prefill (``b`` x ``L``,
+    x the strided slice of a conv output: the heads' channels, then B, C),
+    the decode step in place on an f32 state (x, B, C slices of a
+    conv-output row, batch dim fastest), the scan backward at an SFT step's
+    shape (``ssd_bwd_timing``).  Each is timed beside its plain version
+    (``times``) with its bound (``ssd_work``, ``step_work``,
+    ``ssd_bwd_work``); no single PyTorch call computes any of them.  The
+    step walks the layers of a stacked state of more than twice the L2,
+    one layer a call, so each call reads its state from HBM, as a decode
+    step over a model's layers does.  With ``check64`` each kernel is
+    first held to its plain version run in float64 on the same values, as
+    ``kernel_checks`` holds them (scan y 3e-2 and state 2e-5 x max(1,
+    |witness|); the step's y and state 2e-5 that way; the backward's bf16
+    parts 3e-2 and float32 parts ``SPLIT_TOL`` x max(1, max |witness|)),
+    its largest |difference| the row's ``max_abs_err``."""
+    import itertools
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_decode_step as SD
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.models.ssm import _largest_chunk
+    bf, p, dev, rows = torch.bfloat16, 64, "cuda", {}
+
+    def held(what, got, want, tol, scale):
+        diff = (got.double() - want).abs()
+        den = (want.abs().clamp(min=1.0) if scale == "each"
+               else max(1.0, want.abs().max().item()))
+        bad = (diff / den).max().item()
+        check(bad <= tol, f"{what}: {bad:.3e} from its plain version in "
+              f"float64 (tol {tol})")
+        return diff.max().item()
+
+    chunk = _largest_chunk(L, 128)
+    x, dtv, A, B, C = ssd_inputs(torch, gen, b, L, h, p, n, 1.0, bf,
+                                 conv_layout=True)
+    row = rows["ssd_scan" + tag] = {}
+    if check64:
+        y, st = SS.ssd_scan_cuda(x, dtv, A, B, C, chunk=chunk)
+        yw, sw = ref.ssd(*(t.double() for t in (x, dtv, A, B, C)),
+                         chunk=chunk)
+        row["max_abs_err"] = max(
+            held(f"ssd_scan{tag} y", y, yw, BF16_TOL, "each"),
+            held(f"ssd_scan{tag} state", st, sw, F32_TOL, "each"))
+        del y, st, yw, sw
+    row.update(
+        times(torch, lambda: SS.ssd_scan_cuda(x, dtv, A, B, C, chunk=chunk),
+              lambda: ref.ssd(x, dtv, A, B, C, chunk=chunk), None, 50),
+        shape=f"x ({b},{L},{h},{p}) bf16 conv-output slice dt ({b},{L},{h}) "
+              f"A ({h},) bf16 B, C ({b},{L},{n}) f32 chunk {chunk}",
+        library_call="none: no single PyTorch call computes the SSD scan")
+    row["bound_ms"], row["bound_by"] = bound(
+        *ssd_work(b, L, h, p, n, chunk, x.element_size(), A.element_size()),
+        "float32")
+    del x, dtv, B, C
+
+    layers = max(2, -(-2 * L2_BYTES // (4 * b * h * p * n)))
+    cache = torch.randn(layers, b, h, p, n, generator=gen, device=dev) * 0.1
+    conv = torch.randn(h * p + 2 * n, b, generator=gen, device=dev).t() * 0.5
+    xs, Bs, Cs = (conv[:, :h * p].reshape(b, h, p), conv[:, h * p:h * p + n],
+                  conv[:, h * p + n:])
+    dts = torch.nn.functional.softplus(torch.randn(b, h, generator=gen,
+                                                   device=dev))
+    row = rows["ssd_decode_step" + tag] = {}
+    if check64:
+        wit = cache[0].double()
+        ys, _ = SD.ssd_decode_step_cuda(cache[0], xs, dts, A, Bs, Cs)
+        yw, wit = ref.ssd_decode_step(wit, *(t.double() for t in (
+            xs, dts, A, Bs, Cs)))
+        row["max_abs_err"] = max(
+            held(f"ssd_decode_step{tag} y", ys, yw, F32_TOL, "each"),
+            held(f"ssd_decode_step{tag} state", cache[0], wit, F32_TOL,
+                 "each"))
+        del ys, yw, wit
+    ring, plain_ring = itertools.cycle(cache), itertools.cycle(cache)
+    row.update(
+        times(torch, lambda: SD.ssd_decode_step_cuda(next(ring), xs, dts, A,
+                                                     Bs, Cs),
+              lambda: ref.ssd_decode_step(next(plain_ring), xs, dts, A, Bs,
+                                          Cs), None, 200),
+        shape=f"state {layers} layers of ({b},{h},{p},{n}) f32, one a call, "
+              f"x ({b},{h},{p}) dt ({b},{h}) B, C ({b},{n}) f32 conv-output "
+              f"slices, A ({h},) bf16, in place",
+        library_call="none: no single PyTorch call computes the SSD step")
+    row["bound_ms"], row["bound_by"] = bound(
+        *step_work(b, h, p, n, A.element_size()), "float32")
+    del cache, conv, ring, plain_ring
+
+    row = rows["ssd_scan_bwd" + tag] = {}
+    if check64:
+        bchunk = _largest_chunk(s_train, 128)
+        x, dtv, A, B, C = ssd_inputs(torch, gen, SFT_BATCH, s_train, h, p,
+                                     n, 1.0, bf, conv_layout=True)
+        dy = torch.randn(SFT_BATCH, s_train, h, p, generator=gen,
+                         device=dev).to(bf)
+        with torch.no_grad():
+            _, _, states = SS.ssd_scan_cuda(x, dtv, A, B, C, chunk=bchunk,
+                                            save_states=True)
+            got = SS.ssd_scan_bwd_cuda(x, dtv, A, B, C, dy, None, states,
+                                       chunk=bchunk)
+        wit = SS.ssd_scan_bwd_plain(
+            *(t.double() for t in (x, dtv, A, B, C, dy)), None,
+            chunk=bchunk)
+        row["max_abs_err"] = max(
+            held(f"ssd_scan_bwd{tag} {part}", g, w,
+                 SPLIT_TOL if g.dtype == torch.float32 else BF16_TOL, "max")
+            for part, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, wit,
+                                  strict=True))
+        del x, dtv, A, B, C, dy, got, wit, states
+    row.update(ssd_bwd_timing(torch, gen, s_train, h=h, n=n))
+    for k in ("ssd_scan", "ssd_decode_step", "ssd_scan_bwd"):
+        r = rows[k + tag]
+        print(f"   {k}{tag}: max |err| {r.get('max_abs_err', 'not held')}, "
+              f"{r['ms']:.5f} ms (plain {r['plain_ms']:.4f}, bound "
+              f"{r['bound_ms']:.5f} by {r['bound_by']})")
+    release(torch)
+    return rows
 
 
 def ssd_bwd_timing(torch, gen, s: int, h: int, n: int, p: int = 64):
@@ -5273,11 +5326,15 @@ QWEN_HEADS = (32, 8)
 
 
 class HeadProbe:
-    """While installed: the (q-heads, kv-heads) of every flash, dense and
-    paged decode call the model makes, by kernel (``kernels.ops`` wraps
-    each kernel; the model calls through it)."""
+    """While installed: the heads of every call the model makes through
+    ``kernels.ops`` (which wraps each kernel), by kernel: (q-heads,
+    kv-heads) of every flash, dense and paged decode call, the heads of
+    every SSD scan (x (b, l, h, p)) and decode step (x (b, h, p))."""
 
-    NAMES = ("flash_attention", "decode_attention", "paged_decode_attention")
+    NAMES = ("flash_attention", "decode_attention", "paged_decode_attention",
+             "ssd", "ssd_decode_step")
+    HEADS = {"ssd": lambda a: (a[0].shape[2],),
+             "ssd_decode_step": lambda a: (a[1].shape[1],)}
 
     def __enter__(self):
         from collections import Counter
@@ -5285,9 +5342,11 @@ class HeadProbe:
         self.heads = {n: Counter() for n in self.NAMES}
         self._saved = {n: getattr(ops, n) for n in self.NAMES}
         for n, fn in self._saved.items():
-            def wrapped(q, k, *a, _fn=fn, _n=n, **kw):
-                self.heads[_n][(q.shape[1], k.shape[1])] += 1
-                return _fn(q, k, *a, **kw)
+            key = self.HEADS.get(n, lambda a: (a[0].shape[1], a[1].shape[1]))
+
+            def wrapped(*a, _fn=fn, _n=n, _key=key, **kw):
+                self.heads[_n][_key(a)] += 1
+                return _fn(*a, **kw)
             setattr(ops, n, wrapped)
         return self
 
@@ -5298,7 +5357,7 @@ class HeadProbe:
         return False
 
     def seen(self):
-        return {n: {f"{h}/{g}": c for (h, g), c in sorted(cnt.items())}
+        return {n: {"/".join(map(str, h)): c for h, c in sorted(cnt.items())}
                 for n, cnt in self.heads.items() if cnt}
 
 
@@ -5479,24 +5538,20 @@ def mesh_train_phase(torch, world, data, anchors, lib, qids, L: int, ds,
     """Training over a world-1 NCCL mesh: scope-qwen3-4b at full width
     sharded by ``ReasoningEstimator.shard(make_host_mesh())``, three SFT
     steps, a greedy and a sampled GRPO step (``mesh_grpo_world1``) and a
-    batch serve, held bit for bit to the unsharded runs on the same
-    weights and batches (losses, every param leaf, launches, rollouts,
+    batch serve, then mamba2-1.3b and zamba2-7b served and trained
+    (``mesh_ssm_world1``), held bit for bit to the unsharded runs on the
+    same weights and batches (losses, every param leaf, launches, rollouts,
     decisions and parsed fields); walls and peaks beside the unsharded.
     On a machine with more cards, world min(cards, 4) after it
     (``mesh_train_world``), against the world-1 runs made here."""
     from repro_torch.configs import get_config
     from repro_torch.configs.scope_estimator import CONFIG
     from repro_torch.core.estimator import ReasoningEstimator
-    from repro_torch.launch.mesh import init_distributed, make_host_mesh
-    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
 
-    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
-               RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
-    os.environ.update(env)
-    init_distributed()
     n = min(torch.cuda.device_count(), 4)
     out, refs = {"smi": smi}, {}
-    try:
+    with world1_group():
         mesh = make_host_mesh()
         check(tuple(mesh.shape) == (1, 1), f"host mesh {tuple(mesh.shape)}")
         runs = {}
@@ -5565,6 +5620,9 @@ def mesh_train_phase(torch, world, data, anchors, lib, qids, L: int, ds,
         print(f"   batch serve: decisions, parsed fields and launches {c1} "
               f"bit for bit; wall {w0:.4f} / {w1:.4f} s, peak {p0:.2f} / "
               f"{p1:.2f} GiB")
+        out["ssm"] = mesh_ssm_world1(
+            torch, mesh, world, data, anchors, lib, qids, L, ds,
+            OUT_DIR / SSM_REFS if n > 1 else None)
         if n > 1:
             refs["prompt_len"] = L
             refs["serve"] = {"decisions": d0, "fields": f0}
@@ -5579,14 +5637,43 @@ def mesh_train_phase(torch, world, data, anchors, lib, qids, L: int, ds,
                 refs["fsdp"][name] = {k: res[k] for k in ("losses", "aux")}
                 del params, res
                 release(torch)
-    finally:
-        dist.destroy_process_group()
-        for var in env:
-            os.environ.pop(var, None)
     if n > 1:
         out["world"] = mesh_train_world(n, refs)
     else:
         print("   one card: the sharded training ran at world 1 only")
+    return out
+
+
+@contextlib.contextmanager
+def world1_group():
+    """This process as a world-1 NCCL group, torn down after."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+               RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    os.environ.update(env)
+    init_distributed()
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        for var in env:
+            os.environ.pop(var, None)
+
+
+def mesh_ssm_phase(torch, world, data, anchors, lib, qids, L: int, ds, smi):
+    """Phase 24 alone (``--mesh-phase ssm``): the SSM backbones over a
+    world-1 NCCL mesh (``mesh_ssm_world1``), then on a machine with more
+    cards ``mesh_train_world``'s SSM job over min(cards, 4) of them."""
+    from repro_torch.launch.mesh import make_host_mesh
+    n = min(torch.cuda.device_count(), 4)
+    with world1_group():
+        out = {"smi": smi, "ssm": mesh_ssm_world1(
+            torch, make_host_mesh(), world, data, anchors, lib, qids, L, ds,
+            OUT_DIR / SSM_REFS if n > 1 else None)}
+    if n > 1:
+        out["world"] = {"ssm": world_job(n, "ssm", [
+            "--mesh-ssm-rank", str(OUT_DIR / SSM_REFS)])}
     return out
 
 
@@ -5649,41 +5736,525 @@ def mesh_grpo_world1(torch, mesh):
     return {"unsharded": figures(one), "sharded": figures(sh)}
 
 
+# ---------------------------------------------------------------------------
+# phase 24, the SSM backbones: Mamba's SSD heads split over ``model``
+# ---------------------------------------------------------------------------
+# (config, the depth its SFT steps run at (None: full depth), the fewest
+# params of its full-depth and of its SFT weights, a shallow depth):
+# mamba2-1.3b trains at full depth on one card, zamba2-7b at phase 20's 12
+# mamba layers; both serve at full depth.  The shallow cut (2 layers;
+# zamba2's first unit: 6 mamba layers and the tied block) is where TP's
+# gradients can be held tightly: with random weights each layer amplifies a
+# difference, and at full depth world 1's own bf16 logits and gradients lie
+# 0.3-0.8 of their largest from the same weights' float32 run
+SSM_MESH = (("mamba2-1.3b", None, 1.3e9, 1.3e9, 2),
+            ("zamba2-7b", 12, 6.5e9, 1.2e9, 6))
+# TP (1, n) against world 1 from the same seeded weights, at both depths,
+# each measured against world 1's own distance from the same weights'
+# float32 run (the bf16 model's distance from exact arithmetic):
+#  * one batch's prefill logits: their root mean square |difference| from
+#    float32's, over float32's root mean square, at most SSM_F32_RATIO
+#    times world 1's;
+#  * each leaf of the first SFT step's gradient: its largest |difference|
+#    from world 1's over world 1's largest |value|, at most
+#    (1 + SSM_F32_RATIO) times world 1's distance from float32 for that
+#    leaf, plus SSM_GRAD_FLOOR (by the triangle inequality, what is left if
+#    TP lies no further than SSM_F32_RATIO times world 1's from float32).
+# A leaf whose limit is SSM_BLIND or more could hold a quarter of its sum
+# or none (a reduce-scatter missing on four cards) and pass: at the shallow
+# cut no leaf may be so, at full depth such leaves are listed as blind.
+# Readings on four H100s (deterministic, equal in two runs) of TP's and
+# world 1's logits from float32 (root mean square): mamba2-1.3b 0.2744 /
+# 0.2644, at its shallow cut 0.01321 / 0.01319; zamba2-7b 0.3819 / 0.3488,
+# 0.04093 / 0.03716.  Gradient leaves' largest distance from world 1's,
+# beside world 1's own from float32 for that leaf: mamba2-1.3b 0.758 /
+# 0.764, shallow 0.0118 (world 1's largest 0.064); zamba2-7b 0.387 / 0.191,
+# shallow 0.269 / 0.229
+SSM_F32_RATIO = 1.5
+SSM_GRAD_FLOOR = 0.05
+SSM_BLIND = 0.75
+SSM_REFS = "mesh_ssm_refs.pt"
+
+
+def ssm_cfg(name, layers=None):
+    """``name``'s config, cut to ``layers`` layers where given."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    full = get_config(name)
+    return full if layers is None else dataclasses.replace(
+        full, num_layers=layers)
+
+
+def ssm_logit_tokens(torch, cfg, L: int, dev):
+    """The batch whose prefill logits TP is held to: 8 rows of L tokens of
+    ``default_rng(33)``."""
+    import numpy as np
+    toks = np.random.default_rng(33).integers(3, cfg.vocab_size, (8, L))
+    return torch.as_tensor(toks, dtype=torch.int64, device=dev)
+
+
+def ssm_logits(torch, cfg, params, L: int):
+    """(the prefill logits of ``ssm_logit_tokens`` under ``params``, and
+    under the same weights in float32 computing in float32: the bf16
+    model's own distance from exact arithmetic, the yardstick of TP's),
+    on the host."""
+    import dataclasses
+    from repro_torch.io import tree_map
+    from repro_torch.models import model as M
+    tokens = ssm_logit_tokens(torch, cfg, L, "cuda")
+    with torch.no_grad():
+        logits = M.prefill(params, cfg, {"tokens": tokens})[0].cpu()
+        p32 = tree_map(lambda t: t.float(), params)
+        logits32 = M.prefill(p32, dataclasses.replace(cfg, dtype="float32"),
+                             {"tokens": tokens})[0].cpu()
+    del p32
+    release(torch)
+    return logits, logits32
+
+
+def logit_dist(a, b) -> dict:
+    """How far logits ``a`` lie from ``b``: the largest and the root mean
+    square |difference| over ``b``'s largest |value| and its root mean
+    square, and the share of positions whose argmax agrees."""
+    a, b = a.float(), b.float()
+    d = a - b
+    return {"max_rel": (d.abs().max() / b.abs().max()).item(),
+            "rms_rel": (d.square().mean().sqrt()
+                        / b.square().mean().sqrt()).item(),
+            "argmax_agree": (a.argmax(-1) == b.argmax(-1)).float().mean()
+            .item()}
+
+
+def ssm_grads(torch, cfg, params, ds):
+    """(``first_grads``' gradient tree at ``params`` on the host, and each
+    leaf's largest |difference| from the gradient under the same weights
+    in float32 computing in float32, over that leaf's largest |value|: the
+    bf16 model's own distance from exact arithmetic, the yardstick of
+    TP's)."""
+    import dataclasses
+    from repro_torch.io import flatten, tree_map
+    _, grads = first_grads(torch, cfg, params, ds)
+    host = _to(grads, "cpu")
+    p32 = tree_map(lambda t: t.float(), params)
+    _, g32 = first_grads(torch, dataclasses.replace(cfg, dtype="float32"),
+                         p32, ds)
+    del p32
+    errs = {}
+    for (key, g), w in zip(flatten(grads).items(), flatten(g32).values(),
+                           strict=True):
+        errs[key] = ((g.float() - w).abs().max()
+                     / w.abs().max().clamp(min=1e-30)).item()
+    del grads, g32
+    release(torch)
+    return host, errs
+
+
+def first_grads(torch, cfg, params, ds):
+    """The gradient of the loss on ``mesh_sft``'s first batch (its stubs
+    too) at ``params``, plain or sharded: (loss, the gradient tree)."""
+    from repro_torch.data.pipeline import batches, with_stubs
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.models.model import loss_fn
+    from repro_torch.training.optimizer import value_and_grad
+    batch = with_stubs(next(batches(
+        ds, SFT_BATCH, seed=0, device=coll.local(params["embed"]).device)),
+        cfg, seed=0)
+    loss, _, grads = value_and_grad(lambda p: loss_fn(p, cfg, batch), params)
+    return float(loss), grads
+
+
+def mesh_ssm_world1(torch, mesh, world, data, anchors, lib, qids, L, ds,
+                    refs_path=None):
+    """mamba2-1.3b and zamba2-7b over the world-1 ``mesh``: a batch serve at
+    full depth and ``MESH_TRAIN_STEPS`` SFT steps (``SSM_MESH``'s depths),
+    each sharded and unsharded from the same seeded weights, bit for bit
+    (decisions, parsed fields and launches; losses, every param leaf and
+    launches).  With ``refs_path`` (more cards run after) world 1's figures
+    that the TP job holds its own to are saved there (``torch.save``): the
+    serve's decisions, fields and launches, one batch's prefill logits
+    (``ssm_logit_tokens``), the SFT losses and the first step's gradient
+    leaves."""
+    from repro_torch.core.estimator import ReasoningEstimator
+    out, refs = {}, {}
+    for name, layers, least, cut_least, shallow in SSM_MESH:
+        full = ssm_cfg(name)
+        ref = refs[name] = {}
+        if refs_path is not None:
+            cut = ssm_cfg(name, shallow)
+            params, _ = full_params(torch, cut, 0.0)
+            logits, logits32 = ssm_logits(torch, cut, params, L)
+            grads, grads_vs_f32 = ssm_grads(torch, cut, params, ds)
+            ref["shallow"] = {"logits": logits, "logits_f32": logits32,
+                              "grads": grads, "grads_vs_f32": grads_vs_f32}
+            del params
+            release(torch)
+        served = {}
+        for sharded in (False, True):
+            params, _ = full_params(torch, full, least)
+            if refs_path is not None and not sharded:
+                ref["logits"], ref["logits_f32"] = ssm_logits(
+                    torch, full, params, L)
+            engine = make_engine(full, params, anchors, lib, world, data,
+                                 "cuda")
+            if sharded:
+                engine.estimator.shard(mesh)
+            del params
+            served[sharded] = mesh_serve(torch, engine, data, qids)
+            del engine
+            release(torch)
+        (d0, f0, c0, w0, p0), (d1, f1, c1, w1, p1) = served[False], \
+            served[True]
+        check(d1 == d0 and f1 == f0 and c1 == c0,
+              f"{name} world 1: the sharded batch serve differs")
+        ref["serve"] = {"decisions": d0, "fields": f0, "launches": c0}
+        print(f"   {name} batch serve at world 1: decisions, parsed fields "
+              f"and launches {c1} bit for bit; wall {w0:.4f} / {w1:.4f} s, "
+              f"peak {p0:.2f} / {p1:.2f} GiB")
+        cfg = ssm_cfg(name, layers)
+        runs = {}
+        for sharded in (False, True):
+            params, _ = full_params(torch, cfg, cut_least)
+            if sharded:
+                params = ReasoningEstimator(cfg, params).shard(mesh).params
+            elif refs_path is not None:
+                ref["grads"], ref["grads_vs_f32"] = ssm_grads(torch, cfg,
+                                                              params, ds)
+            res = mesh_sft(torch, cfg, params, ds)
+            del params
+            res["params"] = (res["params"] if sharded
+                             else _to(res["params"], "cpu"))
+            res.pop("state")
+            runs[sharded] = res
+            release(torch)
+        one, sh = runs[False], runs[True]
+        check(sh["losses"] == one["losses"]
+              and same_bits(torch, sh["params"], one["params"])
+              and sh["launches"] == one["launches"]
+              and sh["launches"]["ssd_scan_bwd"] > 0,
+              f"{name} world 1: the sharded SFT steps differ: losses "
+              f"{sh['losses']} vs {one['losses']}, launches "
+              f"{sh['launches']} vs {one['launches']}")
+        for r in runs.values():
+            r.pop("params")
+        release(torch)
+        ref["sft"] = one["losses"]
+        print(f"   {name}@{cfg.num_layers} {MESH_TRAIN_STEPS} SFT steps at "
+              f"world 1: losses {sh['losses']} and every param leaf bit for "
+              f"bit; launches {sh['launches']}; step walls unsharded "
+              f"{[round(w, 4) for w in one['walls_s']]} s, sharded "
+              f"{[round(w, 4) for w in sh['walls_s']]} s; peak "
+              f"{one['peak_gib']:.2f} / {sh['peak_gib']:.2f} GiB")
+        out[name] = {"serve": {"walls_s": [w0, w1], "peak_gib": [p0, p1],
+                               "launches": c1},
+                     "sft": {"unsharded": one, "sharded": sh}}
+    if refs_path is not None:
+        refs["prompt_len"] = L
+        torch.save(refs, refs_path)
+    return out
+
+
+def ssm_tp_kernel_rows(torch, n: int, L: int, s_train: int):
+    """The SSD kernels at the heads a rank of a (1, n) mesh computes
+    (``ssd_rows``, each held to its plain version in float64):
+    mamba2-1.3b's 64 / n heads of 64 at state 128 and zamba2-7b's 112 / n
+    at state 64."""
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    rows = {}
+    for config, heads, state in (("mamba2-1.3b", 64, 128),
+                                 ("zamba2-7b", 112, 64)):
+        rows.update(ssd_rows(torch, gen, 56, heads // n, state, L, s_train,
+                             f"@tp{n}/{config}", check64=True))
+    return rows
+
+
+def grad_dist(errs, f32) -> dict:
+    """The largest and the median of per-leaf gradient errors ``errs``
+    (rank 0's ``leaf_errs``), the leaf of the largest, and world 1's own
+    per-leaf distances from float32 ``f32`` (``ssm_grads``) beside."""
+    import numpy as np
+    worst = max(errs, key=errs.get)
+    return {"max": errs[worst], "leaf": worst,
+            "median": float(np.median(list(errs.values()))),
+            "world1_vs_float32": {
+                "max": max(f32.values()), "leaf": max(f32, key=f32.get),
+                "median": float(np.median(list(f32.values()))),
+                "at_worst": f32[worst]}}
+
+
+def logit_gate(logits, ref, what: str) -> dict:
+    """TP's prefill ``logits`` beside world 1's ``ref`` (``ssm_logits``):
+    each from the other and from float32's; TP's root mean square distance
+    from float32's checked against ``SSM_F32_RATIO`` times world 1's."""
+    out = {"tp_vs_world1": logit_dist(logits, ref["logits"]),
+           "tp_vs_float32": logit_dist(logits, ref["logits_f32"]),
+           "world1_vs_float32": logit_dist(ref["logits"], ref["logits_f32"])}
+    out["limit"] = SSM_F32_RATIO * out["world1_vs_float32"]["rms_rel"]
+    check(out["tp_vs_float32"]["rms_rel"] <= out["limit"],
+          f"{what}: TP prefill logits {out}")
+    return out
+
+
+def grad_gate(errs, f32, what: str, shallow: bool) -> dict:
+    """Rank 0's per-leaf gradient distances from world 1 ``errs``
+    (``leaf_errs``), each checked against (1 + ``SSM_F32_RATIO``) times
+    world 1's own distance from float32 for the leaf ``f32``
+    (``ssm_grads``) plus ``SSM_GRAD_FLOOR``; ``grad_dist``'s summary, the
+    largest share of its limit a leaf takes, and the leaves whose limit is
+    ``SSM_BLIND`` or more (none allowed where ``shallow``)."""
+    limit = {k: (1 + SSM_F32_RATIO) * f32[k] + SSM_GRAD_FLOOR for k in errs}
+    out = dict(grad_dist(errs, f32), leaves=len(errs),
+               share=max(errs[k] / limit[k] for k in errs),
+               blind=sorted(k for k in errs if limit[k] >= SSM_BLIND))
+    over = {k: (errs[k], limit[k]) for k in errs if errs[k] > limit[k]}
+    check(not over, f"{what}: gradient leaves beyond their limits "
+          f"(distance, limit) {over}")
+    check(not (shallow and out["blind"]), f"{what}: the gate cannot see "
+          f"leaves {out['blind']}")
+    return out
+
+
+def ssm_shallow_tp(torch, name, depth, mesh, ref, L, ds, dev, rank):
+    """``name`` at the shallow ``depth`` from seeded weights over TP
+    ``mesh``: one batch's prefill logits and the first SFT step's gradient
+    leaves against world 1's ``ref`` (``mesh_ssm_world1``), gated by
+    ``logit_gate`` and ``grad_gate``.  The gradient is checked on rank 0,
+    the logits on every rank."""
+    from repro_torch.core.estimator import ReasoningEstimator
+    from repro_torch.models import model as M
+    from repro_torch.models.model import init_params
+    cfg = ssm_cfg(name, depth)
+    params = ReasoningEstimator(cfg, init_params(cfg, seed=0, device=dev)) \
+        .shard(mesh).params
+    with torch.no_grad():
+        logits = M.prefill(params, cfg, {"tokens": ssm_logit_tokens(
+            torch, cfg, L, dev)})[0].cpu()
+    out = {"logits": logit_gate(logits, ref, f"{name}@{depth}")}
+    del logits
+    _, grads = first_grads(torch, cfg, params, ds)
+    errs = leaf_errs(torch, grads, ref["grads"] if rank == 0 else None, dev,
+                     rank, scaled=True)
+    del grads, params
+    release(torch)
+    if rank == 0:
+        out["grads"] = grad_gate(errs, ref["grads_vs_f32"], f"{name}@{depth}",
+                                 shallow=True)
+    return out
+
+
+def mesh_ssm_rank(refs_path: str, path: str) -> int:
+    """One rank of ``mesh_train_world``'s third job: mamba2-1.3b and
+    zamba2-7b over TP (1, n), each Mamba layer on h / n SSD heads, held to
+    world 1's figures ``refs_path`` (``mesh_ssm_world1``) from the same
+    seeded weights: the batch serve at full depth (decisions and parsed
+    fields within 3e-2, launches equal), one batch's prefill logits, the
+    heads of every SSD scan, decode step and attention call, the decode
+    caches' local shapes, the rank's param bytes against ``local_bytes``;
+    the logits and first-step gradient leaves at the shallow cut
+    (``ssm_shallow_tp``); then at ``SSM_MESH``'s SFT depth the first
+    step's gradient leaves and ``MESH_TRAIN_STEPS`` SFT steps (losses
+    within 3e-2 relative), with every card's peak.  Logits and gradients
+    are gated by ``logit_gate`` and ``grad_gate``.  Rank 0 adds the SSD kernels' rows at a
+    rank's heads (``ssm_tp_kernel_rows``) and writes what it found."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.estimator import ReasoningEstimator
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.launch.mesh import init_distributed, make_serve_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.model import init_params
+    dev = init_distributed()
+    n, rank = dist.get_world_size(), dist.get_rank()
+    refs = torch.load(refs_path, map_location="cpu", mmap=True,
+                      weights_only=False)
+    out = {"world": n, "smi": nvidia_smi(), "mesh": [1, n]}
+    t0 = time.perf_counter()
+
+    def say(msg):
+        if rank == 0:
+            print(f"   [world {n} ssm, {time.perf_counter() - t0:.0f} s] "
+                  f"{msg}", flush=True)
+
+    def by_rank(x: float):
+        got = [torch.zeros((), device=dev) for _ in range(n)]
+        dist.all_gather(got, torch.zeros((), device=dev) + x)
+        return [float(v) for v in got]
+
+    try:
+        world, data, anchors, lib = build_world()
+        qids = [int(q) for q in data.test_qids[:N_QUERIES]]
+        ds = sft_dataset()
+        L = int(refs["prompt_len"])
+        mesh = make_serve_mesh(n_data=1, n_model=n)
+        for name, layers, _, _, shallow in SSM_MESH:
+            full = ssm_cfg(name)
+            ref = refs[name]
+            res = out[name] = {}
+            split = coll.model_split(full, mesh)
+            check(split.ssm, f"{name}: Mamba computes whole on (1, {n}): "
+                  f"{split}")
+            h, din, state = (full.resolved_ssm_heads, full.d_inner,
+                             full.ssm_state)
+            plain = init_params(full, seed=0, device=dev)
+            with HeadProbe() as probe:
+                eng = make_engine(full, plain, anchors, lib, world, data, dev)
+                eng.estimator.shard(mesh)
+                del plain
+                pbytes = rank_bytes(eng.estimator.params)
+                want_bytes = spec_bytes(mesh, full)
+                check(pbytes == want_bytes, f"{name} TP param bytes "
+                      f"{pbytes} vs local_bytes {want_bytes}")
+                dec, fields, counts, wall, peak = mesh_serve(torch, eng,
+                                                             data, qids)
+                with torch.no_grad():
+                    logits = M.prefill(eng.estimator.params, full, {
+                        "tokens": ssm_logit_tokens(torch, full, L, dev)})[0]
+                run = eng.estimator.open_slots(np.full((4, L), 5, np.int32))
+                caches = {f"{j}/{k}": list(t.shape) for seg in
+                          run.state.caches for j, unit in seg.items()
+                          for k, t in unit.items()}
+                del run, eng
+            check(close_decisions(dec, ref["serve"]["decisions"], BF16_TOL)
+                  and close_fields(fields, ref["serve"]["fields"], BF16_TOL),
+                  f"{name} TP world {n}: the batch serve differs from world "
+                  "1")
+            check(counts == ref["serve"]["launches"],
+                  f"{name} TP launches {counts} vs world 1 "
+                  f"{ref['serve']['launches']}")
+            gate = logit_gate(logits.cpu(), ref, name)
+            del logits
+            seen = probe.seen()
+            check(list(seen["ssd"]) == [str(h // n)]
+                  and list(seen["ssd_decode_step"]) == [str(h // n)],
+                  f"{name} TP SSD heads {seen}, want {h // n}")
+            if full.shared_attn_every:      # zamba2's tied block
+                attn = f"{full.num_heads // n}/{full.num_kv_heads // n}"
+                check(all(list(seen.get(k, {})) == [attn] for k in
+                          ("flash_attention", "decode_attention")),
+                      f"{name} TP attention heads {seen}, want {attn}")
+            ssm = [v for k, v in caches.items() if k.endswith("/ssm")]
+            conv = [v for k, v in caches.items() if k.endswith("/conv")]
+            check(ssm and conv and all(
+                v[2:] == [h // n, full.ssm_head_dim, state] for v in ssm)
+                and all(v[2:] == [full.ssm_conv_width - 1,
+                                  din // n + 2 * state] for v in conv),
+                f"{name} TP decode caches {caches}")
+            res.update(serve_launches=counts, serve_wall_s=wall,
+                       serve_peak_gib=by_rank(peak), heads=seen,
+                       caches=caches, param_bytes=pbytes, logits=gate)
+            say(f"{name} TP (1, {n}): batch serve equal to world 1 (p_hat "
+                f"within {BF16_TOL}), launches {counts}; prefill logits "
+                f"{gate}; SSD at {h // n} "
+                f"heads: {seen}; caches "
+                f"{sorted(set(map(tuple, ssm + conv)))}; param bytes "
+                f"{pbytes}; serve wall {wall:.4f} s, peaks "
+                f"{res['serve_peak_gib']} GiB")
+            release(torch)
+
+            res["shallow"] = ssm_shallow_tp(torch, name, shallow, mesh, ref[
+                "shallow"], L, ds, dev, rank)
+            say(f"{name}@{shallow} TP (1, {n}): {res['shallow']}")
+
+            cfg = ssm_cfg(name, layers)
+            plain = init_params(cfg, seed=0, device=dev)
+            params = ReasoningEstimator(cfg, plain).shard(mesh).params
+            del plain
+            release(torch)
+            with HeadProbe() as probe:
+                loss, grads = first_grads(torch, cfg, params, ds)
+                errs = leaf_errs(torch, grads, ref["grads"] if rank == 0
+                                 else None, dev, rank, scaled=True)
+                del grads
+                release(torch)
+                sft = mesh_sft(torch, cfg, params, ds)
+            sbytes = rank_bytes(sft["state"].mu) + rank_bytes(sft["state"].nu)
+            del params, sft["params"], sft["state"]
+            release(torch)
+            rel = max(abs(a - b) / abs(b) for a, b in zip(
+                sft["losses"], ref["sft"], strict=True))
+            check(rel <= BF16_TOL, f"{name} TP SFT losses {sft['losses']} "
+                  f"vs world 1 {ref['sft']}")
+            if rank == 0:
+                res["grad_errs"] = grad_gate(errs, ref["grads_vs_f32"],
+                                             f"{name}@{cfg.num_layers}",
+                                             shallow=False)
+            sft_heads = probe.seen()
+            check(list(sft_heads["ssd"]) == [str(h // n)],
+                  f"{name} TP SFT SSD heads {sft_heads}")
+            sft["peak_gib_by_rank"] = by_rank(sft["peak_gib"])
+            res.update(sft=sft, sft_rel_err=rel, sft_heads=sft_heads,
+                       sft_layers=cfg.num_layers, adamw_bytes=sbytes,
+                       first_loss=loss)
+            say(f"{name}@{cfg.num_layers} TP SFT: losses {sft['losses']} "
+                f"(world 1 {ref['sft']}, {rel:.2e} rel); first-step "
+                f"gradient leaves {res.get('grad_errs')} of their largest "
+                f"from world 1's; step walls "
+                f"{[round(w, 3) for w in sft['walls_s']]} s, peak by rank "
+                f"{sft['peak_gib_by_rank']} GiB, launches {sft['launches']}")
+        if rank == 0:
+            t1 = time.perf_counter()
+            out["kernels"] = ssm_tp_kernel_rows(torch, n, L,
+                                                ds["tokens"].shape[1])
+            say(f"SSD kernel rows at a rank's heads: "
+                f"{time.perf_counter() - t1:.1f} s")
+        dist.barrier()
+        out["job_s"] = time.perf_counter() - t0
+        say(f"the job: {out['job_s']:.1f} s")
+        if rank == 0:
+            Path(path).write_text(json.dumps(out, default=str))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def mesh_train_world(n, refs):
-    """World ``n`` over NCCL, one process a card, in two jobs: ``chip_smoke.py
-    --mesh-train-rank`` held to the world-1 runs ``refs`` (TP over a (1, n)
-    mesh, FSDP over an (n, 1) mesh), then ``--mesh-moe-grpo-rank`` (the MoE
-    families' rows over data, GRPO against world 1 on rank 0's card)."""
+    """World ``n`` over NCCL, one process a card, in three jobs
+    (``world_job``): ``chip_smoke.py --mesh-train-rank`` held to the
+    world-1 runs ``refs`` (TP over a (1, n) mesh, FSDP over an (n, 1)
+    mesh), then ``--mesh-moe-grpo-rank`` (the MoE families' rows over data,
+    GRPO against world 1 on rank 0's card), then ``--mesh-ssm-rank``
+    (mamba2-1.3b and zamba2-7b over TP, held to ``mesh_ssm_world1``'s saved
+    figures)."""
     refs_path = OUT_DIR / "mesh_train_refs.json"
     refs_path.write_text(json.dumps(refs, default=list))
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    got = {}
-    for job, args in (("train", ["--mesh-train-rank", str(refs_path)]),
-                      ("moe_grpo", ["--mesh-moe-grpo-rank"])):
-        path = OUT_DIR / f"mesh_{job}_world.json"
-        # the ranks print to this process's output as they go (rank 0's
-        # lines carry their time since the job started); their errors go
-        # to a file
-        err = OUT_DIR / f"mesh_{job}_world.err"
-        t0 = time.perf_counter()
-        sys.stdout.flush()
-        with open(err, "w") as f:
-            res = subprocess.run(
-                [sys.executable, "-m", "torch.distributed.run",
-                 "--nproc-per-node", str(n), "--master-port",
-                 str(free_port()), str(Path(__file__).resolve()), *args,
-                 str(path)], env=env, stderr=f, timeout=1500)
-        check(res.returncode == 0, f"world {n} {job} exit {res.returncode}: "
-              f"{err.read_text()[-3000:]}")
-        got[job] = json.loads(path.read_text())
-        got[job]["wall_s"] = time.perf_counter() - t0
+    got = {job: world_job(n, job, args) for job, args in (
+        ("train", ["--mesh-train-rank", str(refs_path)]),
+        ("moe_grpo", ["--mesh-moe-grpo-rank"]),
+        ("ssm", ["--mesh-ssm-rank", str(OUT_DIR / SSM_REFS)]))}
     out = dict(got["train"], **{k: v for k, v in got["moe_grpo"].items()
                                 if k in ("moe_world1", "grpo", "moe_over_cards")})
     out["fsdp"].update(got["moe_grpo"]["fsdp"])
+    out["ssm"] = got["ssm"]
     out["wall_s"] = {job: r["wall_s"] for job, r in got.items()}
-    print(f"   world {n}: TP, FSDP, the MoE rows and GRPO held to world 1, "
-          f"{out['wall_s']} s")
+    print(f"   world {n}: TP, FSDP, the MoE rows, GRPO and the SSM backbones "
+          f"held to world 1, {out['wall_s']} s")
     return out
+
+
+def world_job(n, job: str, args) -> dict:
+    """``chip_smoke.py <args> <out>`` over ``n`` cards under
+    torch.distributed.run, one process a card: what rank 0 wrote to
+    ``out``, with the job's wall (printed)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    path = OUT_DIR / f"mesh_{job}_world.json"
+    # the ranks print to this process's output as they go (rank 0's lines
+    # carry their time since the job started); their errors go to a file
+    err = OUT_DIR / f"mesh_{job}_world.err"
+    t0 = time.perf_counter()
+    sys.stdout.flush()
+    with open(err, "w") as f:
+        res = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run",
+             "--nproc-per-node", str(n), "--master-port", str(free_port()),
+             str(Path(__file__).resolve()), *args, str(path)], env=env,
+            stderr=f, timeout=1500)
+    check(res.returncode == 0, f"world {n} {job} exit {res.returncode}: "
+          f"{err.read_text()[-3000:]}")
+    got = json.loads(path.read_text())
+    got["wall_s"] = time.perf_counter() - t0
+    print(f"   world {n} {job} job: {got['wall_s']:.1f} s", flush=True)
+    return got
 
 
 def tp_kernel_rows(torch, n: int, L: int, s_train: int):
@@ -6130,7 +6701,8 @@ def mesh_train_rank(refs_path: str, path: str) -> int:
         # (a) TP over (1, n)
         mesh = make_serve_mesh(n_data=1, n_model=n)
         split = coll.model_split(CONFIG, mesh)
-        check(split == (True, True, True), f"TP split {split}")
+        # attention, MLP and vocabulary split; no Mamba layer to split
+        check(split == (True, True, True, False), f"TP split {split}")
         plain = init_params(CONFIG, seed=0, device=dev)
 
         def engine(**kw):
@@ -6227,9 +6799,10 @@ def _leaves(tree):
     return flatten(tree).values()
 
 
-def main(mesh_only: bool = False) -> int:
-    """Every phase, or with ``mesh_only`` (``--mesh-phase``) the device,
-    build, world and mesh phases alone, ending with the mesh report."""
+def main(mesh_only: str = "") -> int:
+    """Every phase, or with ``mesh_only`` (``--mesh-phase``: "all") the
+    device, build, world and mesh phases alone, ending with the mesh report
+    ("ssm", ``--mesh-phase ssm``: of the mesh phases phase 24 alone)."""
     # torch.compile (the softcapped rows' yardstick) keeps its caches in
     # the checkout's build directory and compiles in this process
     for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
@@ -6301,7 +6874,12 @@ def main(mesh_only: bool = False) -> int:
     print(f"   SFT examples {sft_ds['tokens'].shape}")
     done(t)
 
-    if mesh_only:
+    if mesh_only == "ssm":
+        t = phase("mesh training: the SSM backbones")
+        report = {"mesh_ssm": mesh_ssm_phase(torch, world, data, anchors, lib,
+                                             qids, L, sft_ds, smi)}
+        report["mesh_ssm"]["seconds"] = time.perf_counter() - t
+    elif mesh_only:
         t = phase("mesh")
         report = {"mesh": mesh_phase(torch, world, data, anchors, lib, qids,
                                      smi)}
@@ -6310,6 +6888,7 @@ def main(mesh_only: bool = False) -> int:
         report["mesh_train"] = mesh_train_phase(torch, world, data, anchors,
                                                 lib, qids, L, sft_ds, smi)
         report["mesh_train"]["seconds"] = time.perf_counter() - t
+    if mesh_only:
         done(t)
         OUT_DIR.mkdir(exist_ok=True)
         (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1,
@@ -6685,6 +7264,28 @@ def main(mesh_only: bool = False) -> int:
                 "ms": tm["ms"], "plain_ms": tm["plain_ms"],
                 "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
                 "library_ms": tm["library_ms"]})
+    # and the SSD kernels at the heads one rank of the (1, n) mesh computes,
+    # each with the launches of rank 0's TP run of its config
+    ssm = report["mesh_train"].get("world", {}).get("ssm")
+    if ssm:
+        n = ssm["mesh"][1]
+        for config in ("mamba2-1.3b", "zamba2-7b"):
+            run = ssm[config]
+            for name, count in (
+                    ("ssd_scan", run["serve_launches"]["ssd_scan"]),
+                    ("ssd_decode_step", run["serve_launches"][
+                        "ssd_decode_step"]),
+                    ("ssd_scan_bwd", run["sft"]["launches"][
+                        "ssd_scan_bwd"])):
+                row = f"{name}@tp{n}/{config}"
+                tm = ssm["kernels"][row]
+                kernel_rows.append({
+                    "name": row, "route": "cuda", "source": SOURCES[name],
+                    "replaces": TPU_KERNELS[name], "launches": count,
+                    "max_abs_err": tm["max_abs_err"], "ms": tm["ms"],
+                    "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
+                    "bound_by": tm["bound_by"],
+                    "library_ms": tm["library_ms"]})
     report["kernels"] = kernel_rows
     report["timing"] = timing
     OUT_DIR.mkdir(exist_ok=True)
@@ -6705,4 +7306,8 @@ if __name__ == "__main__":
         sys.exit(mesh_train_rank(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--mesh-moe-grpo-rank"]:
         sys.exit(moe_grpo_rank(sys.argv[2]))
-    sys.exit(main(mesh_only=sys.argv[1:] == ["--mesh-phase"]))
+    if sys.argv[1:2] == ["--mesh-ssm-rank"]:
+        sys.exit(mesh_ssm_rank(sys.argv[2], sys.argv[3]))
+    sys.exit(main(mesh_only={("--mesh-phase",): "all",
+                             ("--mesh-phase", "ssm"): "ssm"}.get(
+                                 tuple(sys.argv[1:]), "")))

@@ -15,14 +15,19 @@ them after it.
     groups, that do not divide), each rank's gradient is already whole:
     the backward keeps the rank's own slice and sums nothing.
   * ``model`` (tensor parallelism, Megatron's pairs): a block that
-    ``model_split`` reports split computes its own heads (attention) or
-    columns (MLP).  Its column-parallel input passes ``enter`` (identity
-    forward, all-reduce backward) and its row-parallel output ``leave``
-    (all-reduce forward, identity backward); ``q_norm`` / ``k_norm`` see
-    only the local heads, so their gradients are summed over ``model``.
-    Every other leaf cut over ``model`` is all-gathered there and its block
-    computes redundantly; the loss is the same on every rank along
-    ``model``, so that backward keeps the rank's slice.
+    ``model_split`` reports split computes its own heads (attention,
+    Mamba's SSD) or columns (MLP).  Its column-parallel input passes
+    ``enter`` (identity forward, all-reduce backward) and its row-parallel
+    output ``leave`` (all-reduce forward, identity backward); ``q_norm`` /
+    ``k_norm`` see only the local heads, so their gradients are summed over
+    ``model``.  A Mamba layer gathers ``in_proj`` and ``conv_w`` whole and
+    uses the rank's heads' columns of them and the whole ``B`` / ``C``, so
+    their gradients are summed over ``model`` (a reduce-scatter), as are
+    those of its replicated per-head leaves; its gated norm runs over all
+    of ``d_inner``, its sum of squares summed over ``model`` both ways
+    (``shared_sum``).  Every other leaf cut over ``model`` is all-gathered
+    there and its block computes redundantly; the loss is the same on every
+    rank along ``model``, so that backward keeps the rank's slice.
   * the vocabulary: ``embed`` cut over ``model`` is looked up by its local
     rows (the others zero, then ``leave``), and the logits are the local
     vocabulary slice all-gathered along the last dim.
@@ -46,10 +51,14 @@ from repro_torch.models.moe import routing_groups
 
 _AXES = ("data", "model")
 # leaves of an attention block that compute split over ``model`` and those
-# whose gradients are partial there (a norm over each local head)
+# whose gradients are partial there (a norm over each local head); the
+# layer kinds whose GQA attention splits
 _TP_ATTN = ("wq", "wk", "wv", "wo")
 _TP_ATTN_PARTIAL = ("q_norm", "k_norm")
 _GQA_KINDS = ("attn", "attn_local", "moe")
+# the leaf of a Mamba layer that keeps its block over ``model`` (its rows
+# are the rank's heads); the layer gathers its other leaves whole
+_TP_SSM_ROWS = "out_proj"
 
 
 # ---------------------------------------------------------------------------
@@ -137,6 +146,20 @@ class _Leave(torch.autograd.Function):
         return g, None
 
 
+class _SharedSum(torch.autograd.Function):
+    """All-reduce (sum) forward and backward: a total that every rank then
+    uses on its own share, so each rank's gradient of it is partial."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
 def gather(x: torch.Tensor, dim: int, group, *, summed: bool
            ) -> torch.Tensor:
     """``x`` all-gathered along ``dim`` over ``group`` (differentiable)."""
@@ -151,6 +174,13 @@ def enter(x: torch.Tensor, group) -> torch.Tensor:
 def leave(x: torch.Tensor, group) -> torch.Tensor:
     """Megatron's g: the partial output of a split block, summed."""
     return x if _size(group) == 1 else _Leave.apply(x, group)
+
+
+def shared_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' ``x`` summed, where each rank goes on with the total on
+    its own share of a row (a norm over heads split over ``model``): its
+    gradient summed too."""
+    return x if _size(group) == 1 else _SharedSum.apply(x, group)
 
 
 # ---------------------------------------------------------------------------
@@ -213,33 +243,41 @@ def unstack(t):
 # which blocks compute split over ``model``
 # ---------------------------------------------------------------------------
 class Split(NamedTuple):
-    """Whether attention, the MLP and the vocabulary compute split over
-    ``model``: each rank then holds whole heads, columns or rows."""
+    """Whether attention, the MLP, the vocabulary and Mamba's SSD heads
+    compute split over ``model``: each rank then holds whole heads, columns
+    or rows."""
     attn: bool
     mlp: bool
     vocab: bool
+    ssm: bool
 
 
 def model_split(cfg: ModelConfig, mesh) -> Split:
     """For ``cfg`` on ``mesh``: GQA attention splits where ``num_heads`` and
     ``num_kv_heads`` divide the ``model`` size, the MLP where ``d_ff`` does,
-    the vocabulary where ``vocab_size`` does; none at ``model`` = 1.  Other
-    blocks (MLA, MoE experts, Mamba, cross-attention) never split: their
-    leaves are gathered over ``model`` and computed on every rank, as is
-    attention whose heads do not divide (``sharding._fit`` may still cut
-    such a leaf mid-head)."""
+    the vocabulary where ``vocab_size`` does, a Mamba layer where its SSD
+    heads do (as the reference's ``_fit`` keeps the heads rule of ``xh``);
+    none at ``model`` = 1.  Other blocks (MLA, MoE experts,
+    cross-attention) never split: their leaves are gathered over ``model``
+    and computed on every rank, as is attention whose heads do not divide
+    (``sharding._fit`` may still cut such a leaf mid-head)."""
     n = axis_sizes(mesh).get("model", 1)
     if n == 1:
-        return Split(False, False, False)
+        return Split(False, False, False, False)
     attn = (cfg.num_heads > 0 and cfg.num_heads % n == 0
             and cfg.num_kv_heads % n == 0)
-    return Split(attn, cfg.d_ff % n == 0, cfg.vocab_size % n == 0)
+    ssm = cfg.has_ssm() and cfg.resolved_ssm_heads % n == 0
+    return Split(attn, cfg.d_ff % n == 0, cfg.vocab_size % n == 0, ssm)
 
 
 class TP(NamedTuple):
-    """A block's split over ``model``: the group, the attention's local
-    config (None: attention computes whole) and whether the MLP splits."""
+    """A block's split over ``model``: the group, this rank's place in it
+    and its size (a Mamba layer's heads are the rank's share), the
+    attention's local config (None: attention computes whole) and whether
+    the MLP splits."""
     group: Any
+    rank: int
+    n: int
     attn_cfg: Optional[ModelConfig]
     mlp: bool
 
@@ -251,7 +289,8 @@ class TP(NamedTuple):
 class Layout:
     """How one call computes on params placed on ``mesh``: ``rows_split``
     when the ranks along ``data`` hold different rows of the batch.  The
-    axes' groups and sizes are read once (``layout``)."""
+    axes' groups and sizes, and this rank's place along ``model``, are read
+    once (``layout``)."""
     mesh: Any
     split: Split
     rows_split: bool
@@ -259,12 +298,15 @@ class Layout:
     model: Any
     n_data: int
     n_model: int
+    model_rank: int
 
     def gather(self, x, *, keep_model: bool = False,
                model_partial: bool = False) -> torch.Tensor:
         """A plain tensor of ``x`` (a ``Block``; a plain tensor passes):
         gathered over ``data``, and over ``model`` unless ``keep_model``;
-        ``model_partial`` sums its gradient over ``model``."""
+        ``model_partial`` sums its gradient over ``model`` (a leaf the
+        rank uses only in part: where it is cut there, the gather's
+        backward is a reduce-scatter)."""
         if not isinstance(x, Block):
             return x
         if self.n_data == self.n_model == 1:
@@ -279,7 +321,7 @@ class Layout:
             raise ValueError(f"a leaf of cuts {x.cuts} computes split over "
                              "model, and its spec does not cut it there")
         if "model" in cuts and not keep_model:
-            t = gather(t, cuts["model"], self.model, summed=False)
+            t = gather(t, cuts["model"], self.model, summed=model_partial)
         elif "model" not in cuts and model_partial:
             t = enter(t, self.model)
         return t
@@ -296,9 +338,11 @@ class Layout:
         """A layer's pieces as plain tensors and its split (None where it
         computes whole): attention keeps its local heads where the split
         allows and the block has no cross-attention, the MLP its local
-        columns."""
+        columns, a Mamba layer its rows of ``out_proj``, every other leaf
+        of it whole with its gradient summed over ``model``."""
         attn = self.split.attn and kind in _GQA_KINDS and "cross" not in p
         mlp = self.split.mlp and "mlp" in p
+        ssm = self.split.ssm and kind == "mamba"
         out = {}
         for name, sub in p.items():
             if name == "attn" and attn:
@@ -308,16 +352,21 @@ class Layout:
                     for k, v in sub.items()}
             elif name == "mlp" and mlp:
                 out[name] = self.tree(sub, keep_model=True)
+            elif name == "mamba" and ssm:
+                out[name] = {k: self.tree(
+                    v, keep_model=k == _TP_SSM_ROWS,
+                    model_partial=k != _TP_SSM_ROWS)
+                    for k, v in sub.items()}
             else:
                 out[name] = self.tree(sub)
-        if not (attn or mlp):
+        if not (attn or mlp or ssm):
             return out, None
         n = self.n_model
         acfg = dataclasses.replace(
             cfg, num_heads=cfg.num_heads // n,
             num_kv_heads=cfg.num_kv_heads // n,
             head_dim=cfg.resolved_head_dim) if attn else None
-        return out, TP(self.model, acfg, mlp)
+        return out, TP(self.model, self.model_rank, n, acfg, mlp)
 
     # -- the vocabulary ----------------------------------------------------
     def vocab(self, embed) -> Tuple[torch.Tensor, Optional[int]]:
@@ -330,7 +379,7 @@ class Layout:
         t = self.gather(b, keep_model=split)
         if not split:
             return t, None
-        return t, dist.get_rank(self.model) * t.shape[0]
+        return t, self.model_rank * t.shape[0]
 
     def lookup(self, embed, tokens: torch.Tensor) -> torch.Tensor:
         """Embedding rows of ``tokens``: a vocabulary-parallel lookup (rows
@@ -381,7 +430,7 @@ def layout(params, cfg: ModelConfig, *, rows_split: bool = False
         return None
     data, model = mesh.get_group("data"), mesh.get_group("model")
     return Layout(mesh, model_split(cfg, mesh), rows_split, data, model,
-                  _size(data), _size(model))
+                  _size(data), _size(model), dist.get_rank(model))
 
 
 def train_rows(mesh, cfg: ModelConfig, b: int, s: int) -> Optional[slice]:

@@ -31,8 +31,9 @@ stacked leaves are DTensors: a rank unbinds its local block of each, and a
 layer's pieces are gathered (``Layout.block``) just before the layer runs,
 inside its checkpoint under ``remat``, so the backward gathers again and no
 layer stays whole after it ran.  A block that splits over ``model`` runs
-its attention on its own heads (a config of the local head counts) and its
-MLP on its own columns, and sums their outputs over ``model``.
+its attention on its own heads (a config of the local head counts), its
+MLP on its own columns and a Mamba layer on its own SSD heads, and sums
+their outputs over ``model``.
 """
 from __future__ import annotations
 
@@ -207,11 +208,13 @@ def block_full(p: Dict, cfg: ModelConfig, kind: str, h: torch.Tensor, cos,
                ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
     """(h, the layer's cache, its MoE load-balance loss: 0 without MoE).
     ``lay`` (a ``collectives.Layout``) gathers a sharded layer's pieces;
-    under a split over ``model`` the cache holds the local K/V heads."""
+    under a split over ``model`` the cache holds the local K/V heads (a
+    Mamba layer's: its conv channels and SSD heads)."""
     p, tp = _whole(p, cfg, kind, lay)
     if kind == "mamba":
         y, cache = ssm_mod.mamba_full(p["mamba"], cfg,
-                                      rmsnorm(p["norm"], h, cfg.rmsnorm_eps))
+                                      rmsnorm(p["norm"], h, cfg.rmsnorm_eps),
+                                      tp=tp)
         return h + y, cache, h.new_zeros((), dtype=torch.float32)
     x = rmsnorm(p["attn_norm"], h, cfg.rmsnorm_eps)
     attend = attn_mod.mla_full if is_mla(kind) else attn_mod.gqa_full
@@ -272,11 +275,13 @@ def block_decode(p: Dict, cfg: ModelConfig, kind: str, h: torch.Tensor,
     block-paged layout; ``kv_pool.check_paged_support`` keeps SSM and MLA
     layers and encoder-decoders off it.  A MoE block's load-balance loss
     is dropped, as in the reference's decode.  ``lay`` as ``block_full``'s:
-    under a split over ``model`` the cache holds the local K/V heads."""
+    under a split over ``model`` the cache holds the local K/V heads (a
+    Mamba layer's: its conv channels and SSD heads)."""
     p, tp = _whole(p, cfg, kind, lay)
     if kind == "mamba":
         return h + ssm_mod.mamba_decode(
-            p["mamba"], cfg, rmsnorm(p["norm"], h, cfg.rmsnorm_eps), cache)
+            p["mamba"], cfg, rmsnorm(p["norm"], h, cfg.rmsnorm_eps), cache,
+            tp=tp)
     x = rmsnorm(p["attn_norm"], h, cfg.rmsnorm_eps)
     acfg = _attn_cfg(cfg, tp)
     split = acfg is not cfg

@@ -905,10 +905,11 @@ def test_model_split_on_scope_tiny(runs):
     """(1, 2): attention (4 heads on 2) and the MLP (d_ff 384) split, as
     does the vocabulary; (1, 4): 2 kv heads do not divide, so attention
     computes whole on every rank while the MLP still splits."""
-    assert runs[(1, 2)][0][0]["tiny"]["split"] == [True, True, True]
-    assert runs[(2, 2)][0][0]["tiny"]["split"] == [True, True, True]
-    assert runs[(1, 4)][0][0]["tiny"]["split"] == [False, True, True]
-    assert runs[(2, 1)][0][0]["tiny"]["split"] == [False, False, False]
+    assert runs[(1, 2)][0][0]["tiny"]["split"] == [True, True, True, False]
+    assert runs[(2, 2)][0][0]["tiny"]["split"] == [True, True, True, False]
+    assert runs[(1, 4)][0][0]["tiny"]["split"] == [False, True, True, False]
+    assert runs[(2, 1)][0][0]["tiny"]["split"] == [False, False, False,
+                                                    False]
 
 
 def test_model_split_rules():
@@ -924,9 +925,27 @@ def test_model_split_rules():
     from repro_torch.configs.scope_estimator import CONFIG as qwen
     for n in (2, 4):
         assert model_split(qwen, MeshSpec(("data", "model"), (1, n))) == (
-            True, True, True)
+            True, True, True, False)
     assert model_split(qwen, MeshSpec(("data", "model"), (4, 1))) == (
-        False, False, False)
+        False, False, False, False)
+    # Mamba's SSD heads: mamba2-1.3b's 64 at model 2 and 4 (no attention),
+    # zamba2-7b's 112 at 4 and 8 (its shared block's 32 on 32 heads and
+    # d_ff 14336 split too); 112 heads on 32 do not divide, so the layer
+    # computes whole, as does every layer at model 1
+    mamba = get_config("mamba2-1.3b")
+    zamba = get_config("zamba2-7b")
+    assert mamba.resolved_ssm_heads == 64
+    assert zamba.resolved_ssm_heads == 112
+    for n in (2, 4):
+        split = model_split(mamba, MeshSpec(("data", "model"), (1, n)))
+        assert split.ssm is True and split.attn is False
+    for n in (4, 8):
+        assert model_split(zamba, MeshSpec(("data", "model"), (2, n))) == (
+            True, True, True, True)
+    assert model_split(zamba, MeshSpec(("data", "model"), (1, 32))).ssm \
+        is False
+    assert model_split(mamba, MeshSpec(("data", "model"), (4, 1))).ssm \
+        is False
 
 
 # ---------------------------------------------------------------------------
