@@ -98,7 +98,10 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    window), at groups 16, 12 and 7 (qwen2-vl's 256 stub
                    patches and 57 tokens), at whisper-medium's encoder (64
                    x 1500 frames, non-causal) and cross-attention (f32
-                   too), and at the small configs' f32 shapes
+                   too), and at the small configs' f32 shapes; flash at
+                   the MLA pair on the 4 of 16 heads a rank of a (1, 4)
+                   mesh computes (a generator of its own, two launches
+                   bitwise equal)
   4. timing      — each kernel, its plain version and one PyTorch library
                    call computing the same function (device time: CUDA
                    graph replays between CUDA events), beside the least time
@@ -386,14 +389,21 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    over an (n, 1) mesh (gemma2-9b at 16 layers and zamba2-7b
                    at 12 mamba layers within 3e-2 of world 1, then both at
                    full depth: finite losses, step walls, per-card peaks,
-                   the bytes of params and AdamW state a rank holds)
+                   the bytes of params and AdamW state a rank holds); then
+                   the MoE and GRPO job, the SSM backbones' TP job and
+                   deepseek-v2-lite-16b's MLA over TP (1, n)
+                   (``--mesh-mla-rank``: every flash call at 16/n heads,
+                   the latent caches whole, held to world 1 on rank 0's
+                   card: serve at 27 layers, logits and gradient leaves
+                   at 2 and 7 layers, three SFT steps)
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.  ``python3 chip_smoke.py
 --mesh-phase`` runs phases 1, 2, the world, 23 and 24 alone and ends with
 the mesh report (on a machine with several cards, phases 23 and 24 also
 run over min(cards, 4) of them); ``--mesh-phase ssm`` runs of those phase
-24 alone, the SSM backbones (on several cards their TP job too).  Details
+24 alone, the SSM backbones (on several cards their TP job too);
+``--mesh-phase mla`` the MLA job alone (several cards).  Details
 go to ``build/chip_smoke.json``.  Needs one CUDA card; without one it exits
 with code 1.
 """
@@ -1339,6 +1349,12 @@ def kernel_checks(torch, L: int, s_train: int):
     # 12 and g 7, whisper's 64 over 32 frames)
     gen = torch.Generator(device=dev).manual_seed(29)
     family_bwd_checks(torch, rnd, compare, s_train)
+    # deepseek-v2-lite-16b's MLA prefill at the heads one rank of a (1, 4)
+    # mesh computes (4 of 16, q / k 192, v 128, its scale), on a generator
+    # of its own; two launches bitwise equal
+    gen = torch.Generator(device=dev).manual_seed(34)
+    run_flash([("flash mla 192/128 tp4 heads", (56, 4, 4, L, L, 192, 128),
+                mla, bf, None, "model")], rnd, bitwise=True)
     return errs
 
 
@@ -1887,9 +1903,8 @@ ENC_FRAMES = 1500                           # whisper-medium's encoder_seq_len
 # frames, the cross-attention over them at the prompts and at sq = 1, all
 # non-causal), qwen3-moe-235b-a22b's group 16 and deepseek-v2-lite-16b's
 # MLA prefill (head dims (d, dv) = (192, 128), the scale d ** -0.5 passed
-# explicitly).  Each has its dense decode timed too, but for the configs of
-# NO_DENSE_DECODE (MLA decodes in plain PyTorch, no kernel).
-NO_DENSE_DECODE = (MLA,)
+# explicitly).  Each has its dense decode timed too, but for
+# MLA's (dv != d: it decodes in plain PyTorch, no kernel).
 ATTENTION_SHAPES = (
     ("", 32, 8, 128, 0.0, SERVE_FLASH),
     (HYBRID, 32, 32, 112, 0.0, SERVE_FLASH),
@@ -2046,7 +2061,7 @@ def attention_timings(torch, L: int, floor_ms: float,
                       f"{out[row]['dense_decode_ms']:.5f} ms")
                 del qd, kc, vc
             del q, k, v
-        if config in NO_DENSE_DECODE:
+        if dv != d:                 # MLA: no decode kernel
             continue
         qd = randn(b, hq, 1, d)
         kc, vc = randn(b, hkv, S, d), randn(b, hkv, S, d)
@@ -2524,6 +2539,20 @@ def build_world():
         if m.seen:
             lib.onboard(world, m.name, seed=3)
     return world, data, anchors, lib
+
+
+def prompt_len(world, data, anchors, lib, qids) -> int:
+    """The length of the serve's prompts of ``qids`` (every one has it),
+    read from a scope-tiny engine's ``_prepare`` on the host."""
+    from repro_torch.api import RouteRequest
+    from repro_torch.configs.scope_estimator import TINY
+    from repro_torch.models.model import init_params
+    probe = make_engine(TINY, init_params(TINY, seed=0, device="cpu"),
+                        anchors, lib, world, data, "cpu")
+    st = probe._prepare(RouteRequest([data.queries[q] for q in qids]), False)
+    L = len(st.prompts[0])
+    check(all(len(p) == L for p in st.prompts), "prompts are not constant")
+    return L
 
 
 def make_engine(cfg, params, anchors, lib, world, data, device, **kw):
@@ -5677,6 +5706,20 @@ def mesh_ssm_phase(torch, world, data, anchors, lib, qids, L: int, ds, smi):
     return out
 
 
+def mesh_mla_phase(smi):
+    """Phase 24's MLA job alone (``--mesh-phase mla``): on a machine with
+    more cards ``mesh_train_world``'s ``--mesh-mla-rank`` over min(cards,
+    4) of them, which computes its own world 1 on rank 0's card."""
+    import torch
+    n = min(torch.cuda.device_count(), 4)
+    out = {"smi": smi}
+    if n > 1:
+        out["world"] = {"mla": world_job(n, "mla", ["--mesh-mla-rank"])}
+    else:
+        print("   one card: MLA over TP needs more cards")
+    return out
+
+
 def mesh_grpo_world1(torch, mesh):
     """scope-qwen3-4b's greedy and sampled GRPO steps (``mesh_grpo``)
     unsharded and sharded on the world-1 ``mesh``, each from fresh seeded
@@ -6013,12 +6056,12 @@ def grad_gate(errs, f32, what: str, shallow: bool) -> dict:
     return out
 
 
-def ssm_shallow_tp(torch, name, depth, mesh, ref, L, ds, dev, rank):
+def shallow_tp(torch, name, depth, mesh, ref, L, ds, dev, rank):
     """``name`` at the shallow ``depth`` from seeded weights over TP
     ``mesh``: one batch's prefill logits and the first SFT step's gradient
-    leaves against world 1's ``ref`` (``mesh_ssm_world1``), gated by
-    ``logit_gate`` and ``grad_gate``.  The gradient is checked on rank 0,
-    the logits on every rank."""
+    leaves against world 1's ``ref`` (``mesh_ssm_world1``, ``mla_world1``),
+    gated by ``logit_gate`` and ``grad_gate``.  The gradient is checked on
+    rank 0, the logits on every rank that holds ``ref`` (None elsewhere)."""
     from repro_torch.core.estimator import ReasoningEstimator
     from repro_torch.models import model as M
     from repro_torch.models.model import init_params
@@ -6028,7 +6071,8 @@ def ssm_shallow_tp(torch, name, depth, mesh, ref, L, ds, dev, rank):
     with torch.no_grad():
         logits = M.prefill(params, cfg, {"tokens": ssm_logit_tokens(
             torch, cfg, L, dev)})[0].cpu()
-    out = {"logits": logit_gate(logits, ref, f"{name}@{depth}")}
+    out = {} if ref is None else {
+        "logits": logit_gate(logits, ref, f"{name}@{depth}")}
     del logits
     _, grads = first_grads(torch, cfg, params, ds)
     errs = leaf_errs(torch, grads, ref["grads"] if rank == 0 else None, dev,
@@ -6050,7 +6094,7 @@ def mesh_ssm_rank(refs_path: str, path: str) -> int:
     heads of every SSD scan, decode step and attention call, the decode
     caches' local shapes, the rank's param bytes against ``local_bytes``;
     the logits and first-step gradient leaves at the shallow cut
-    (``ssm_shallow_tp``); then at ``SSM_MESH``'s SFT depth the first
+    (``shallow_tp``); then at ``SSM_MESH``'s SFT depth the first
     step's gradient leaves and ``MESH_TRAIN_STEPS`` SFT steps (losses
     within 3e-2 relative), with every card's peak.  Logits and gradients
     are gated by ``logit_gate`` and ``grad_gate``.  Rank 0 adds the SSD kernels' rows at a
@@ -6152,7 +6196,7 @@ def mesh_ssm_rank(refs_path: str, path: str) -> int:
                 f"{res['serve_peak_gib']} GiB")
             release(torch)
 
-            res["shallow"] = ssm_shallow_tp(torch, name, shallow, mesh, ref[
+            res["shallow"] = shallow_tp(torch, name, shallow, mesh, ref[
                 "shallow"], L, ds, dev, rank)
             say(f"{name}@{shallow} TP (1, {n}): {res['shallow']}")
 
@@ -6208,6 +6252,263 @@ def mesh_ssm_rank(refs_path: str, path: str) -> int:
     return 0
 
 
+# deepseek-v2-lite-16b over TP (1, n) (``mesh_mla_rank``): each MLA layer
+# on 16 / n heads, its latent whole on every rank.  Held to world 1 on
+# rank 0's card from the same seeded weights: the batch serve at full depth
+# (27 layers), one batch's prefill logits and the first SFT step's
+# gradient leaves at MLA_SHALLOW layers (the dense MLA layer and one MLA +
+# MoE layer), the gradient leaves and MESH_TRAIN_STEPS SFT steps at
+# MOE_FSDP's depth; logits and gradients gated as the SSM job's
+# (``logit_gate``, ``grad_gate``)
+MLA_SHALLOW = 2
+
+
+def mla_world1(torch, world, data, anchors, lib, qids, L: int, ds) -> dict:
+    """deepseek-v2-lite-16b on this card alone (rank 0 of ``mesh_mla_rank``
+    while the others wait), from seeded weights: at ``MLA_SHALLOW`` layers
+    the prefill logits and the first step's gradient leaves, each beside the
+    same weights' in float32 (``ssm_logits``, ``ssm_grads``); the batch
+    serve at full depth (decisions, parsed fields, launches, wall, peak);
+    at ``MOE_FSDP``'s depth the first step's gradient leaves (and float32's)
+    and ``mesh_sft``'s steps."""
+    name, layers = MOE_FSDP
+    cut = ssm_cfg(name, MLA_SHALLOW)
+    params, _ = full_params(torch, cut, 0.0)
+    logits, logits32 = ssm_logits(torch, cut, params, L)
+    grads, grads_vs_f32 = ssm_grads(torch, cut, params, ds)
+    ref = {"shallow": {"logits": logits, "logits_f32": logits32,
+                       "grads": grads, "grads_vs_f32": grads_vs_f32}}
+    del params
+    release(torch)
+    full = ssm_cfg(name)
+    params, _ = full_params(torch, full, 15e9)
+    engine = make_engine(full, params, anchors, lib, world, data, "cuda")
+    del params
+    dec, fields, counts, wall, peak = mesh_serve(torch, engine, data, qids)
+    del engine
+    release(torch)
+    ref["serve"] = {"decisions": dec, "fields": fields, "launches": counts,
+                    "wall_s": wall, "peak_gib": peak}
+    cfg = ssm_cfg(name, layers)
+    params, _ = full_params(torch, cfg, 3e9)
+    ref["grads"], ref["grads_vs_f32"] = ssm_grads(torch, cfg, params, ds)
+    sft = mesh_sft(torch, cfg, params, ds)
+    del params, sft["params"], sft["state"]
+    release(torch)
+    ref["sft"] = sft
+    return ref
+
+
+def mla_tp_kernel_rows(torch, n: int, L: int, s_train: int):
+    """The flash forward and backward at the heads a rank of a (1, n) mesh
+    computes for deepseek-v2-lite-16b's MLA (16 / n heads at g 1, q / k
+    192, v 128, the scale 192 ** -0.5 as ``mla_full`` passes it), as rows
+    2d and 7d at 16 heads: each against its plain version on the card (max
+    |err|), its time, bound and yardstick."""
+    from repro_torch.kernels import flash_attention as FA
+    h, tag = 16 // n, f"@tp{n}/deepseek-v2-lite-16b"
+    kw = dict(scale=192 ** -0.5)
+    rows = attention_timings(torch, L, 0.0, shapes=(
+        (tag, h, h, (192, 128), 0.0, SERVE_FLASH),))
+    gen = torch.Generator(device="cuda").manual_seed(36)
+    bwd = "flash_attention_bwd" + tag
+    rows[bwd] = bwd_timing(torch, gen, s_train, hq=h, hkv=h, d=192, dv=128,
+                           label=bwd, **kw)
+
+    def view(b, s, w):
+        return torch.randn(b, s, h, w, generator=gen, device="cuda").to(
+            torch.bfloat16).transpose(1, 2)
+
+    def err(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    q, k, v = view(56, L, 192), view(56, L, 192), view(56, L, 128)
+    errs = {"flash_attention": err(FA.flash_attention_cuda(q, k, v, **kw),
+                                   FA.flash_attention_plain(q, k, v, **kw))}
+    q, k, v = (view(SFT_BATCH, s_train, w).requires_grad_(True)
+               for w in (192, 192, 128))
+    dout = view(SFT_BATCH, s_train, 128).contiguous()
+    with torch.no_grad():
+        out, lse = FA.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    got = FA.flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
+    want = torch.autograd.grad(FA.flash_attention_plain(q, k, v, **kw),
+                               (q, k, v), dout)
+    errs["flash_attention_bwd"] = max(err(a, b) for a, b in zip(
+        got, want, strict=True))
+    # gradients reach ~10, where one bf16 step is 0.06 (bwd_checks' scale)
+    scale = {"flash_attention_bwd": max(1.0, max(
+        w.float().abs().max().item() for w in want))}
+    for name, e in errs.items():
+        check(e <= BF16_TOL * scale.get(name, 1.0),
+              f"{name}{tag}: {e:.3e} from its plain version")
+        rows[name + tag]["max_abs_err"] = e
+    release(torch)
+    return rows
+
+
+def mesh_mla_rank(path: str) -> int:
+    """One rank of ``mesh_train_world``'s fourth job, which needs nothing
+    from the parent: deepseek-v2-lite-16b with each MLA layer on 16 / n
+    heads over TP (1, n), held to world 1 on rank 0's card from the same
+    seeded weights (``mla_world1``; the other ranks wait): the batch serve
+    at full depth (decisions and parsed fields within 3e-2, launches
+    equal), the heads of every flash call, the latent decode caches whole,
+    the rank's param bytes against ``local_bytes``; the logits and
+    first-step gradient leaves at ``MLA_SHALLOW`` layers (``shallow_tp``);
+    at ``MOE_FSDP``'s depth the first step's gradient leaves and
+    ``MESH_TRAIN_STEPS`` SFT steps (losses within 3e-2 relative), with
+    every card's peak.  Rank 0 adds the flash kernels' rows at a rank's
+    heads (``mla_tp_kernel_rows``) and writes what it found."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.estimator import ReasoningEstimator
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.launch.mesh import init_distributed, make_serve_mesh
+    from repro_torch.models.model import init_params
+    dev = init_distributed()
+    n, rank = dist.get_world_size(), dist.get_rank()
+    out = {"world": n, "smi": nvidia_smi(), "mesh": [1, n]}
+    t0 = time.perf_counter()
+
+    def say(msg):
+        if rank == 0:
+            print(f"   [world {n} mla, {time.perf_counter() - t0:.0f} s] "
+                  f"{msg}", flush=True)
+
+    def by_rank(x: float):
+        got = [torch.zeros((), device=dev) for _ in range(n)]
+        dist.all_gather(got, torch.zeros((), device=dev) + x)
+        return [float(v) for v in got]
+
+    try:
+        world, data, anchors, lib = build_world()
+        qids = [int(q) for q in data.test_qids[:N_QUERIES]]
+        L = prompt_len(world, data, anchors, lib, qids)
+        ds = sft_dataset()
+        name, layers = MOE_FSDP
+        ref = None
+        if rank == 0:
+            ref = mla_world1(torch, world, data, anchors, lib, qids, L, ds)
+            one = ref["serve"]
+            out["world1"] = {"serve": {k: one[k] for k in (
+                "launches", "wall_s", "peak_gib")}, "sft": ref["sft"]}
+            say(f"{name} world 1 on rank 0's card: batch serve launches "
+                f"{one['launches']}, wall {one['wall_s']:.4f} s, peak "
+                f"{one['peak_gib']:.2f} GiB; {name}@{layers} SFT losses "
+                f"{ref['sft']['losses']}, step walls "
+                f"{[round(w, 3) for w in ref['sft']['walls_s']]} s, peak "
+                f"{ref['sft']['peak_gib']:.2f} GiB")
+        # world 1's serve and losses on every rank
+        small = [None if ref is None else {"serve": ref["serve"],
+                                           "sft": ref["sft"]["losses"]}]
+        dist.broadcast_object_list(small, src=0)
+        small = small[0]
+        mesh = make_serve_mesh(n_data=1, n_model=n)
+        full = ssm_cfg(name)
+        split = coll.model_split(full, mesh)
+        check(split.attn, f"{name}: MLA computes whole on (1, {n}): {split}")
+        h = full.num_heads // n
+        heads = f"{h}/{h}"
+        plain = init_params(full, seed=0, device=dev)
+        with HeadProbe() as probe:
+            eng = make_engine(full, plain, anchors, lib, world, data, dev)
+            eng.estimator.shard(mesh)
+            del plain
+            pbytes = rank_bytes(eng.estimator.params)
+            want_bytes = spec_bytes(mesh, full)
+            check(pbytes == want_bytes, f"{name} TP param bytes {pbytes} vs "
+                  f"local_bytes {want_bytes}")
+            dec, fields, counts, wall, peak = mesh_serve(torch, eng, data,
+                                                         qids)
+            run = eng.estimator.open_slots(np.full((4, L), 5, np.int32))
+            caches = {f"{i}/{j}/{k}": list(t.shape) for i, seg in
+                      enumerate(run.state.caches) for j, unit in seg.items()
+                      for k, t in unit.items()}
+            del run, eng
+        release(torch)
+        check(close_decisions(dec, small["serve"]["decisions"], BF16_TOL)
+              and close_fields(fields, small["serve"]["fields"], BF16_TOL),
+              f"{name} TP world {n}: the batch serve differs from world 1")
+        check(counts == small["serve"]["launches"],
+              f"{name} TP launches {counts} vs world 1 "
+              f"{small['serve']['launches']}")
+        seen = probe.seen()
+        check(list(seen) == ["flash_attention"]
+              and list(seen["flash_attention"]) == [heads],
+              f"{name} TP attention heads {seen}, want flash at {heads}")
+        width = {"c_kv": full.kv_lora_rank, "k_rope": full.qk_rope_head_dim}
+        check(caches and all(
+            k.split("/")[-1] in width and v[1] == 4
+            and v[-1] == width[k.split("/")[-1]] for k, v in caches.items()),
+            f"{name} TP decode caches {caches}: want the latents whole")
+        out["serve"] = dict(launches=counts, wall_s=wall,
+                            peak_gib=by_rank(peak), heads=seen,
+                            caches=caches, param_bytes=pbytes)
+        say(f"{name} TP (1, {n}): batch serve equal to world 1 (p_hat within "
+            f"{BF16_TOL}), launches {counts}; flash at {heads} heads: "
+            f"{seen}; caches {sorted(set(map(tuple, caches.values())))}; "
+            f"param bytes {pbytes}; serve wall {wall:.4f} s, peaks "
+            f"{out['serve']['peak_gib']} GiB")
+
+        out["shallow"] = shallow_tp(
+            torch, name, MLA_SHALLOW, mesh,
+            None if ref is None else ref["shallow"], L, ds, dev, rank)
+        say(f"{name}@{MLA_SHALLOW} TP (1, {n}): {out['shallow']}")
+
+        cfg = ssm_cfg(name, layers)
+        plain = init_params(cfg, seed=0, device=dev)
+        params = ReasoningEstimator(cfg, plain).shard(mesh).params
+        del plain
+        release(torch)
+        with HeadProbe() as probe:
+            loss, grads = first_grads(torch, cfg, params, ds)
+            errs = leaf_errs(torch, grads, None if ref is None
+                             else ref["grads"], dev, rank, scaled=True)
+            del grads
+            release(torch)
+            sft = mesh_sft(torch, cfg, params, ds)
+        sbytes = rank_bytes(sft["state"].mu) + rank_bytes(sft["state"].nu)
+        del params, sft["params"], sft["state"]
+        release(torch)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(
+            sft["losses"], small["sft"], strict=True))
+        check(rel <= BF16_TOL, f"{name} TP SFT losses {sft['losses']} vs "
+              f"world 1 {small['sft']}")
+        if rank == 0:
+            out["grad_errs"] = grad_gate(errs, ref["grads_vs_f32"],
+                                         f"{name}@{layers}", shallow=False)
+        sft_heads = probe.seen()
+        check(list(sft_heads) == ["flash_attention"]
+              and list(sft_heads["flash_attention"]) == [heads],
+              f"{name} TP SFT attention heads {sft_heads}")
+        sft["peak_gib_by_rank"] = by_rank(sft["peak_gib"])
+        out.update(sft=sft, sft_rel_err=rel, sft_heads=sft_heads,
+                   sft_layers=layers, adamw_bytes=sbytes, first_loss=loss)
+        say(f"{name}@{layers} TP SFT: losses {sft['losses']} (world 1 "
+            f"{small['sft']}, {rel:.2e} rel); first-step gradient leaves "
+            f"{out.get('grad_errs')} of their largest from world 1's; step "
+            f"walls {[round(w, 3) for w in sft['walls_s']]} s, peak by rank "
+            f"{sft['peak_gib_by_rank']} GiB, launches {sft['launches']}")
+        del ref
+        release(torch)
+        if rank == 0:
+            t1 = time.perf_counter()
+            out["kernels"] = mla_tp_kernel_rows(torch, n, L,
+                                                ds["tokens"].shape[1])
+            say(f"flash kernel rows at a rank's MLA heads: "
+                f"{time.perf_counter() - t1:.1f} s")
+        dist.barrier()
+        out["job_s"] = time.perf_counter() - t0
+        say(f"the job: {out['job_s']:.1f} s")
+        if rank == 0:
+            Path(path).write_text(json.dumps(out, default=str))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def mesh_train_world(n, refs):
     """World ``n`` over NCCL, one process a card, in three jobs
     (``world_job``): ``chip_smoke.py --mesh-train-rank`` held to the
@@ -6215,20 +6516,23 @@ def mesh_train_world(n, refs):
     mesh), then ``--mesh-moe-grpo-rank`` (the MoE families' rows over data,
     GRPO against world 1 on rank 0's card), then ``--mesh-ssm-rank``
     (mamba2-1.3b and zamba2-7b over TP, held to ``mesh_ssm_world1``'s saved
-    figures)."""
+    figures), then ``--mesh-mla-rank`` (deepseek-v2-lite-16b's MLA heads
+    over TP, against world 1 on rank 0's card)."""
     refs_path = OUT_DIR / "mesh_train_refs.json"
     refs_path.write_text(json.dumps(refs, default=list))
     got = {job: world_job(n, job, args) for job, args in (
         ("train", ["--mesh-train-rank", str(refs_path)]),
         ("moe_grpo", ["--mesh-moe-grpo-rank"]),
-        ("ssm", ["--mesh-ssm-rank", str(OUT_DIR / SSM_REFS)]))}
+        ("ssm", ["--mesh-ssm-rank", str(OUT_DIR / SSM_REFS)]),
+        ("mla", ["--mesh-mla-rank"]))}
     out = dict(got["train"], **{k: v for k, v in got["moe_grpo"].items()
                                 if k in ("moe_world1", "grpo", "moe_over_cards")})
     out["fsdp"].update(got["moe_grpo"]["fsdp"])
     out["ssm"] = got["ssm"]
+    out["mla"] = got["mla"]
     out["wall_s"] = {job: r["wall_s"] for job, r in got.items()}
-    print(f"   world {n}: TP, FSDP, the MoE rows, GRPO and the SSM backbones "
-          f"held to world 1, {out['wall_s']} s")
+    print(f"   world {n}: TP, FSDP, the MoE rows, GRPO, the SSM backbones and "
+          f"MLA held to world 1, {out['wall_s']} s")
     return out
 
 
@@ -6802,7 +7106,8 @@ def _leaves(tree):
 def main(mesh_only: str = "") -> int:
     """Every phase, or with ``mesh_only`` (``--mesh-phase``: "all") the
     device, build, world and mesh phases alone, ending with the mesh report
-    ("ssm", ``--mesh-phase ssm``: of the mesh phases phase 24 alone)."""
+    ("ssm", ``--mesh-phase ssm``: of the mesh phases phase 24's SSM
+    backbones alone; "mla", ``--mesh-phase mla``: its MLA job alone)."""
     # torch.compile (the softcapped rows' yardstick) keeps its caches in
     # the checkout's build directory and compiles in this process
     for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
@@ -6857,14 +7162,8 @@ def main(mesh_only: str = "") -> int:
     qids = [int(q) for q in data.test_qids[:N_QUERIES]]
     from repro_torch.core.retrieval import AnchorRetriever
     import numpy as np
-    from repro_torch.api import RouteRequest
     from repro_torch.configs.scope_estimator import TINY
-    from repro_torch.models.model import init_params
-    probe = make_engine(TINY, init_params(TINY, seed=0, device="cpu"),
-                        anchors, lib, world, data, "cpu")
-    st = probe._prepare(RouteRequest([data.queries[q] for q in qids]), False)
-    L = len(st.prompts[0])
-    check(all(len(p) == L for p in st.prompts), "prompts are not constant")
+    L = prompt_len(world, data, anchors, lib, qids)
     print(f"   {len(qids)} queries x {len(data.models)} models, "
           f"{N_ANCHORS} anchors, prompt length {L}")
     # the SFT examples of the training phases, from a world of their own
@@ -6879,6 +7178,10 @@ def main(mesh_only: str = "") -> int:
         report = {"mesh_ssm": mesh_ssm_phase(torch, world, data, anchors, lib,
                                              qids, L, sft_ds, smi)}
         report["mesh_ssm"]["seconds"] = time.perf_counter() - t
+    elif mesh_only == "mla":
+        t = phase("mesh training: MLA over TP")
+        report = {"mesh_mla": mesh_mla_phase(smi)}
+        report["mesh_mla"]["seconds"] = time.perf_counter() - t
     elif mesh_only:
         t = phase("mesh")
         report = {"mesh": mesh_phase(torch, world, data, anchors, lib, qids,
@@ -7286,6 +7589,24 @@ def main(mesh_only: str = "") -> int:
                     "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
                     "bound_by": tm["bound_by"],
                     "library_ms": tm["library_ms"]})
+    # and the flash kernels at the MLA heads one rank of the (1, n) mesh
+    # computes, with the launches of rank 0's TP serve and SFT
+    mla = report["mesh_train"].get("world", {}).get("mla")
+    if mla:
+        n = mla["mesh"][1]
+        for name, count in (
+                ("flash_attention", mla["serve"]["launches"][
+                    "flash_attention"]),
+                ("flash_attention_bwd", mla["sft"]["launches"][
+                    "flash_attention_bwd"])):
+            row = f"{name}@tp{n}/deepseek-v2-lite-16b"
+            tm = mla["kernels"][row]
+            kernel_rows.append({
+                "name": row, "route": "cuda", "source": SOURCES[name],
+                "replaces": TPU_KERNELS[name], "launches": count,
+                "max_abs_err": tm["max_abs_err"], "ms": tm["ms"],
+                "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
+                "bound_by": tm["bound_by"], "library_ms": tm["library_ms"]})
     report["kernels"] = kernel_rows
     report["timing"] = timing
     OUT_DIR.mkdir(exist_ok=True)
@@ -7308,6 +7629,9 @@ if __name__ == "__main__":
         sys.exit(moe_grpo_rank(sys.argv[2]))
     if sys.argv[1:2] == ["--mesh-ssm-rank"]:
         sys.exit(mesh_ssm_rank(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--mesh-mla-rank"]:
+        sys.exit(mesh_mla_rank(sys.argv[2]))
     sys.exit(main(mesh_only={("--mesh-phase",): "all",
-                             ("--mesh-phase", "ssm"): "ssm"}.get(
+                             ("--mesh-phase", "ssm"): "ssm",
+                             ("--mesh-phase", "mla"): "mla"}.get(
                                  tuple(sys.argv[1:]), "")))

@@ -15,12 +15,16 @@ them after it.
     groups, that do not divide), each rank's gradient is already whole:
     the backward keeps the rank's own slice and sums nothing.
   * ``model`` (tensor parallelism, Megatron's pairs): a block that
-    ``model_split`` reports split computes its own heads (attention,
-    Mamba's SSD) or columns (MLP).  Its column-parallel input passes
-    ``enter`` (identity forward, all-reduce backward) and its row-parallel
-    output ``leave`` (all-reduce forward, identity backward); ``q_norm`` /
-    ``k_norm`` see only the local heads, so their gradients are summed over
-    ``model``.  A Mamba layer gathers ``in_proj`` and ``conv_w`` whole and
+    ``model_split`` reports split computes its own heads (GQA and MLA
+    attention, Mamba's SSD) or columns (MLP).  Its column-parallel input
+    passes ``enter`` (identity forward, all-reduce backward) and its
+    row-parallel output ``leave`` (all-reduce forward, identity backward);
+    ``q_norm`` / ``k_norm`` see only the local heads, so their gradients are
+    summed over ``model``.  An MLA layer keeps its blocks of ``wq``,
+    ``w_uk``, ``w_uv`` (columns) and ``wo`` (rows), and gathers ``w_dkv``
+    and ``kv_norm`` whole: every rank computes the whole latent and uses it
+    for its own heads only, so their gradients are summed over ``model``.
+    A Mamba layer gathers ``in_proj`` and ``conv_w`` whole and
     uses the rank's heads' columns of them and the whole ``B`` / ``C``, so
     their gradients are summed over ``model`` (a reduce-scatter), as are
     those of its replicated per-head leaves; its gated norm runs over all
@@ -56,6 +60,11 @@ _AXES = ("data", "model")
 _TP_ATTN = ("wq", "wk", "wv", "wo")
 _TP_ATTN_PARTIAL = ("q_norm", "k_norm")
 _GQA_KINDS = ("attn", "attn_local", "moe")
+# the same for an MLA layer: its latent down-projection and norm are whole
+# on every rank, each using it for its own heads
+_TP_MLA = ("wq", "w_uk", "w_uv", "wo")
+_TP_MLA_PARTIAL = ("w_dkv", "kv_norm")
+_MLA_KINDS = ("mla", "mla_moe")
 # the leaf of a Mamba layer that keeps its block over ``model`` (its rows
 # are the rank's heads); the layer gathers its other leaves whole
 _TP_SSM_ROWS = "out_proj"
@@ -243,9 +252,9 @@ def unstack(t):
 # which blocks compute split over ``model``
 # ---------------------------------------------------------------------------
 class Split(NamedTuple):
-    """Whether attention, the MLP, the vocabulary and Mamba's SSD heads
-    compute split over ``model``: each rank then holds whole heads, columns
-    or rows."""
+    """Whether attention (GQA or MLA), the MLP, the vocabulary and Mamba's
+    SSD heads compute split over ``model``: each rank then holds whole
+    heads, columns or rows."""
     attn: bool
     mlp: bool
     vocab: bool
@@ -254,18 +263,21 @@ class Split(NamedTuple):
 
 def model_split(cfg: ModelConfig, mesh) -> Split:
     """For ``cfg`` on ``mesh``: GQA attention splits where ``num_heads`` and
-    ``num_kv_heads`` divide the ``model`` size, the MLP where ``d_ff`` does,
-    the vocabulary where ``vocab_size`` does, a Mamba layer where its SSD
-    heads do (as the reference's ``_fit`` keeps the heads rule of ``xh``);
-    none at ``model`` = 1.  Other blocks (MLA, MoE experts,
+    ``num_kv_heads`` divide the ``model`` size, MLA (a config whose
+    attention is all MLA) where ``num_heads`` does — it has no K/V heads of
+    its own, its latent being whole on every rank — the MLP where ``d_ff``
+    does, the vocabulary where ``vocab_size`` does, a Mamba layer where its
+    SSD heads do (as the reference's ``_fit`` keeps the heads rule of
+    ``xh``); none at ``model`` = 1.  Other blocks (MoE experts,
     cross-attention) never split: their leaves are gathered over ``model``
     and computed on every rank, as is attention whose heads do not divide
     (``sharding._fit`` may still cut such a leaf mid-head)."""
     n = axis_sizes(mesh).get("model", 1)
     if n == 1:
         return Split(False, False, False, False)
+    all_mla = all(k in _MLA_KINDS for k in cfg.layer_kinds())
     attn = (cfg.num_heads > 0 and cfg.num_heads % n == 0
-            and cfg.num_kv_heads % n == 0)
+            and (all_mla or cfg.num_kv_heads % n == 0))
     ssm = cfg.has_ssm() and cfg.resolved_ssm_heads % n == 0
     return Split(attn, cfg.d_ff % n == 0, cfg.vocab_size % n == 0, ssm)
 
@@ -273,8 +285,8 @@ def model_split(cfg: ModelConfig, mesh) -> Split:
 class TP(NamedTuple):
     """A block's split over ``model``: the group, this rank's place in it
     and its size (a Mamba layer's heads are the rank's share), the
-    attention's local config (None: attention computes whole) and whether
-    the MLP splits."""
+    attention's local config (its heads the rank's share; None: attention
+    computes whole) and whether the MLP splits."""
     group: Any
     rank: int
     n: int
@@ -337,19 +349,24 @@ class Layout:
               ) -> Tuple[Dict, Optional[TP]]:
         """A layer's pieces as plain tensors and its split (None where it
         computes whole): attention keeps its local heads where the split
-        allows and the block has no cross-attention, the MLP its local
-        columns, a Mamba layer its rows of ``out_proj``, every other leaf
-        of it whole with its gradient summed over ``model``."""
-        attn = self.split.attn and kind in _GQA_KINDS and "cross" not in p
+        allows and the block has no cross-attention (an MLA layer its
+        blocks of ``wq``, ``w_uk``, ``w_uv`` and ``wo``, its latent's
+        leaves whole with their gradients summed over ``model``), the MLP
+        its local columns, a Mamba layer its rows of ``out_proj``, every
+        other leaf of it whole with its gradient summed over ``model``."""
+        mla = kind in _MLA_KINDS
+        attn = (self.split.attn and (mla or kind in _GQA_KINDS)
+                and "cross" not in p)
         mlp = self.split.mlp and "mlp" in p
         ssm = self.split.ssm and kind == "mamba"
+        keep, partial = ((_TP_MLA, _TP_MLA_PARTIAL) if mla
+                         else (_TP_ATTN, _TP_ATTN_PARTIAL))
         out = {}
         for name, sub in p.items():
             if name == "attn" and attn:
-                out[name] = {k: self.tree(
-                    v, keep_model=k in _TP_ATTN,
-                    model_partial=k in _TP_ATTN_PARTIAL)
-                    for k, v in sub.items()}
+                out[name] = {k: self.tree(v, keep_model=k in keep,
+                                          model_partial=k in partial)
+                             for k, v in sub.items()}
             elif name == "mlp" and mlp:
                 out[name] = self.tree(sub, keep_model=True)
             elif name == "mamba" and ssm:
@@ -362,10 +379,11 @@ class Layout:
         if not (attn or mlp or ssm):
             return out, None
         n = self.n_model
+        # MLA reads no K/V heads: its rank's config changes the heads alone
+        kv = {} if mla else {"num_kv_heads": cfg.num_kv_heads // n}
         acfg = dataclasses.replace(
             cfg, num_heads=cfg.num_heads // n,
-            num_kv_heads=cfg.num_kv_heads // n,
-            head_dim=cfg.resolved_head_dim) if attn else None
+            head_dim=cfg.resolved_head_dim, **kv) if attn else None
         return out, TP(self.model, self.model_rank, n, acfg, mlp)
 
     # -- the vocabulary ----------------------------------------------------

@@ -29,7 +29,12 @@ deepseek-v2-lite's width, 48 / 32 on ``reduced()``), scaled by (nope +
 rope) ** -0.5.  The decode step attends in the latent space (the absorbed
 form): ``w_uk`` folds into the query and ``w_uv`` into the output, in
 float32 einsums, as the reference's plain XLA decode; it runs as plain
-PyTorch on the card too, as there is no Pallas kernel behind it.
+PyTorch on the card too, as there is no Pallas kernel behind it.  Split
+over ``model`` (``partial``), a rank holds its heads' columns of ``wq``,
+``w_uk`` and ``w_uv`` and rows of ``wo``, and the whole ``w_dkv``: it
+computes the whole latent (the caches stay whole on every rank, each
+writing the same latent) and attends with its own heads only, the flash
+call at h / n heads.
 """
 from __future__ import annotations
 
@@ -227,10 +232,14 @@ def _mla_compress(p, cfg: ModelConfig, x, cos, sin):
 
 
 def mla_full(p, cfg: ModelConfig, x, cos, sin, *, kind: str = "mla",
-             causal: bool = True) -> Tuple[torch.Tensor, Dict]:
+             causal: bool = True, partial: bool = False
+             ) -> Tuple[torch.Tensor, Dict]:
     """Full-sequence MLA in the up-projected form (train and prefill):
     q and k of head dim nope + rope, v of ``v_head_dim``, one flash call.
-    Returns (y, {"c_kv", "k_rope"}), the latent cache of the sequence."""
+    Returns (y, {"c_kv", "k_rope"}), the latent cache of the sequence.
+    ``partial``: the heads are one rank's share of a split over ``model``
+    (the latent whole), and y is their float32 share of the output
+    projection (``common.out_proj``)."""
     b, s, _ = x.shape
     h = cfg.num_heads
     nope, rdim, vdim = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
@@ -247,17 +256,20 @@ def mla_full(p, cfg: ModelConfig, x, cos, sin, *, kind: str = "mla",
                               window=resolve_window(cfg, kind),
                               softcap=cfg.logit_softcap)
     y = out.transpose(1, 2).reshape(b, s, h * vdim)
-    return y @ p["wo"], {"c_kv": c_kv, "k_rope": k_rope}
+    return out_proj(y, p["wo"], partial), {"c_kv": c_kv, "k_rope": k_rope}
 
 
 def mla_decode(p, cfg: ModelConfig, x, cos, sin, cache: Dict,
-               pos: torch.Tensor, *, kind: str = "mla") -> torch.Tensor:
+               pos: torch.Tensor, *, kind: str = "mla",
+               partial: bool = False) -> torch.Tensor:
     """Absorbed-form MLA decode: attention runs in the latent space.
 
     cache: {"c_kv": (b, S, lora), "k_rope": (b, S, rope)}; pos: (b,) — row
     i's new latent lands at slot ``pos[i]`` (written IN PLACE, as
     ``gqa_decode``) and it attends slots 0..pos[i].  ``w_uk`` is folded
-    into the query and ``w_uv`` into the output, all in float32."""
+    into the query and ``w_uv`` into the output, all in float32; the
+    heads' context is cast to the model dtype before ``wo``.  ``partial``
+    as ``mla_full``'s: the rank's heads attend the whole latent cache."""
     b = x.shape[0]
     h = cfg.num_heads
     nope, rdim, vdim = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
@@ -287,7 +299,8 @@ def mla_decode(p, cfg: ModelConfig, x, cos, sin, cache: Dict,
     ctx = torch.einsum("bhs,bsl->bhl", probs, ckv32)
     w_uv = p["w_uv"].reshape(lora, h, vdim).float()
     v_ctx = torch.einsum("bhl,lhv->bhv", ctx, w_uv)
-    return v_ctx.reshape(b, 1, h * vdim).to(x.dtype) @ p["wo"]
+    return out_proj(v_ctx.reshape(b, 1, h * vdim).to(x.dtype), p["wo"],
+                    partial)
 
 
 def cross_attend(p, cfg: ModelConfig, x: torch.Tensor, kv: Dict

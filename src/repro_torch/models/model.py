@@ -46,9 +46,11 @@ hq, enc_seq, hd), which decode reads and never grows.  A VLM's params add
 Every entry point also takes params sharded over a device mesh
 (``ReasoningEstimator.shard``: DTensors placed per
 ``distributed.sharding.param_specs``).  A rank then gathers each layer over
-``data`` just before it runs and computes its own heads (attention and
-Mamba's SSD) and MLP columns where ``collectives.model_split`` splits them
-(a split Mamba layer's caches hold its channels and heads); the vocabulary
+``data`` just before it runs and computes its own heads (GQA and MLA
+attention, Mamba's SSD) and MLP columns where ``collectives.model_split``
+splits them (a split Mamba layer's caches hold its channels and heads, a
+split MLA layer's the whole latent, written alike on every rank along
+``model``); MoE experts are gathered whole over ``model``; the vocabulary
 splits too, and the logits come back whole on every rank (the local slice all-gathered
 along the last dim: (b, s, V) a rank, as one process holds).  ``loss_fn``
 (and GRPO's loss) computes this rank's rows of the batch (``local_batch``)

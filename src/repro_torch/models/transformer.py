@@ -33,7 +33,8 @@ inside its checkpoint under ``remat``, so the backward gathers again and no
 layer stays whole after it ran.  A block that splits over ``model`` runs
 its attention on its own heads (a config of the local head counts), its
 MLP on its own columns and a Mamba layer on its own SSD heads, and sums
-their outputs over ``model``.
+their outputs over ``model``; a split MLA layer attends with its own heads
+and keeps the whole latent caches, the same on every rank along ``model``.
 """
 from __future__ import annotations
 
@@ -209,7 +210,8 @@ def block_full(p: Dict, cfg: ModelConfig, kind: str, h: torch.Tensor, cos,
     """(h, the layer's cache, its MoE load-balance loss: 0 without MoE).
     ``lay`` (a ``collectives.Layout``) gathers a sharded layer's pieces;
     under a split over ``model`` the cache holds the local K/V heads (a
-    Mamba layer's: its conv channels and SSD heads)."""
+    Mamba layer's: its conv channels and SSD heads; an MLA layer's: the
+    whole latent)."""
     p, tp = _whole(p, cfg, kind, lay)
     if kind == "mamba":
         y, cache = ssm_mod.mamba_full(p["mamba"], cfg,
@@ -276,7 +278,8 @@ def block_decode(p: Dict, cfg: ModelConfig, kind: str, h: torch.Tensor,
     layers and encoder-decoders off it.  A MoE block's load-balance loss
     is dropped, as in the reference's decode.  ``lay`` as ``block_full``'s:
     under a split over ``model`` the cache holds the local K/V heads (a
-    Mamba layer's: its conv channels and SSD heads)."""
+    Mamba layer's: its conv channels and SSD heads; an MLA layer's: the
+    whole latent)."""
     p, tp = _whole(p, cfg, kind, lay)
     if kind == "mamba":
         return h + ssm_mod.mamba_decode(
@@ -292,8 +295,8 @@ def block_decode(p: Dict, cfg: ModelConfig, kind: str, h: torch.Tensor,
         y = attn_mod.gqa_decode_paged(p["attn"], acfg, x, cos, sin, cache,
                                       pos, table, spec, partial=split)
     elif is_mla(kind):
-        y = attn_mod.mla_decode(p["attn"], cfg, x, cos, sin, cache, pos,
-                                kind=kind)
+        y = attn_mod.mla_decode(p["attn"], acfg, x, cos, sin, cache, pos,
+                                kind=kind, partial=split)
     else:
         y = attn_mod.gqa_decode(p["attn"], acfg, x, cos, sin, cache, pos,
                                 kind=kind, partial=split)

@@ -305,20 +305,24 @@ def serve_cases(name, params, mesh):
 # ---------------------------------------------------------------------------
 # the worker
 # ---------------------------------------------------------------------------
-def worker(out_dir: str, params_dir: str) -> None:
+def worker(out_dir: str, params_dir: str, cases=None) -> None:
+    """One rank: ``cases`` (this file's ``mesh_cases`` by default) on each
+    of its world's meshes, its results and rank 0's arrays written under
+    ``out_dir``."""
     import torch
     torch.set_num_threads(1)
     sys.path.insert(0, str(SRC))
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import init_distributed, make_serve_mesh
+    cases = cases or mesh_cases
     init_distributed("cpu")
     try:
         for nd, nm in MESHES[dist.get_world_size()]:
             mesh = make_serve_mesh(n_data=nd, n_model=nm)
             sub = Path(out_dir) / f"{nd}x{nm}"
             sub.mkdir(exist_ok=True)
-            res, arrays = mesh_cases(params_dir, mesh)
+            res, arrays = cases(params_dir, mesh)
             res["coord"] = list(mesh.get_coordinate())
             (sub / f"rank{dist.get_rank()}.json").write_text(json.dumps(res))
             if dist.get_rank() == 0:
@@ -354,21 +358,20 @@ def params_dir(reference_params, tmp_path_factory):
     return out
 
 
-@pytest.fixture(scope="module")
-def runs(params_dir, tmp_path_factory):
-    """{(nd, nm): (rank results, rank 0's arrays)} and the one-process
-    results under (1, 1); both worlds start at once and the one-process
-    cases run meanwhile."""
-    dirs = {w: tmp_path_factory.mktemp(f"ssm_world{w}") for w in MESHES}
+def spawn_runs(script, cases, params_dir, tmp_path_factory, tag: str):
+    """{(nd, nm): (rank results, rank 0's arrays)} of ``script``'s worker
+    over worlds 2 and 4, and ``cases``' one-process results under (1, 1);
+    both worlds start at once and the one-process cases run meanwhile."""
+    dirs = {w: tmp_path_factory.mktemp(f"{tag}_world{w}") for w in MESHES}
     started = {}
     for w in MESHES:
         env = tdist.rank_env(w)
         started[w] = [subprocess.Popen(
-            [sys.executable, __file__, str(dirs[w]), str(params_dir)],
+            [sys.executable, str(script), str(dirs[w]), str(params_dir)],
             env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
             for r in range(w)]
-    res, arrays = mesh_cases(params_dir, None)
+    res, arrays = cases(params_dir, None)
     out = {(1, 1): ([json.loads(json.dumps(res))], arrays)}
     for w, procs in started.items():
         errs = []
@@ -389,6 +392,12 @@ def runs(params_dir, tmp_path_factory):
             out[(nd, nm)] = ([json.loads((sub / f"rank{r}.json").read_text())
                               for r in range(w)], arrays)
     return out
+
+
+@pytest.fixture(scope="module")
+def runs(params_dir, tmp_path_factory):
+    return spawn_runs(__file__, mesh_cases, params_dir, tmp_path_factory,
+                      "ssm")
 
 
 @pytest.fixture(scope="module")
