@@ -101,7 +101,13 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    too), and at the small configs' f32 shapes; flash at
                    the MLA pair on the 4 of 16 heads a rank of a (1, 4)
                    mesh computes (a generator of its own, two launches
-                   bitwise equal)
+                   bitwise equal); whisper-medium's attention on the 4 of
+                   16 heads of 64 a rank of a (1, 4) mesh computes (a
+                   generator of its own, every case two launches bitwise
+                   equal): flash over the encoder's 1500 frames, the
+                   decoder's causal self-attention, the cross-attention
+                   at 49 tokens and at sq = 1, the dense decode, the flash
+                   backward over the encoder and the cross-attention
   4. timing      — each kernel, its plain version and one PyTorch library
                    call computing the same function (device time: CUDA
                    graph replays between CUDA events), beside the least time
@@ -395,7 +401,14 @@ Phases, each of which must pass (any failure exits non-zero with no result):
                    (``--mesh-mla-rank``: every flash call at 16/n heads,
                    the latent caches whole, held to world 1 on rank 0's
                    card: serve at 27 layers, logits and gradient leaves
-                   at 2 and 7 layers, three SFT steps)
+                   at 2 and 7 layers, three SFT steps), and
+                   whisper-medium over TP (1, n) (``--mesh-cross-rank``:
+                   the encoder's and the decoder's self- and
+                   cross-attention at 16/n heads, a rank's ``ck`` / ``cv``
+                   its own heads', held to world 1 on rank 0's card: the
+                   audio serve at 24 + 24 layers fed world 1's tokens,
+                   logits and gradient leaves at 2 + 2 layers, three SFT
+                   steps at full depth)
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.  ``python3 chip_smoke.py
@@ -403,7 +416,8 @@ its last line ``{"ok": true, "device": {...}}``.  ``python3 chip_smoke.py
 the mesh report (on a machine with several cards, phases 23 and 24 also
 run over min(cards, 4) of them); ``--mesh-phase ssm`` runs of those phase
 24 alone, the SSM backbones (on several cards their TP job too);
-``--mesh-phase mla`` the MLA job alone (several cards).  Details
+``--mesh-phase mla`` the MLA job alone and ``--mesh-phase cross`` the
+whisper job alone (several cards).  Details
 go to ``build/chip_smoke.json``.  Needs one CUDA card; without one it exits
 with code 1.
 """
@@ -1355,6 +1369,35 @@ def kernel_checks(torch, L: int, s_train: int):
     gen = torch.Generator(device=dev).manual_seed(34)
     run_flash([("flash mla 192/128 tp4 heads", (56, 4, 4, L, L, 192, 128),
                 mla, bf, None, "model")], rnd, bitwise=True)
+    # whisper-medium's attention at the heads one rank of a (1, 4) mesh
+    # computes (4 of 16 heads of 64, g 1): the encoder over its 1500
+    # frames, the decoder's causal self-attention, the cross-attention at
+    # the prompts and at sq = 1 (non-causal), the dense decode, the flash
+    # backward over the encoder (its SFT batch) and the cross-attention;
+    # on a generator of its own, every case's two launches bitwise equal
+    gen = torch.Generator(device=dev).manual_seed(37)
+    enc = dict(causal=False)
+    run_flash([
+        ("flash whisper encoder tp4 heads", (56, 4, 4, ENC_FRAMES,
+                                             ENC_FRAMES, 64, 64), enc, bf,
+         None, "model"),
+        ("flash whisper self tp4 heads", (56, 4, 4, L, L, 64, 64), {}, bf,
+         None, "model"),
+        ("flash whisper cross tp4 heads", (56, 4, 4, L, ENC_FRAMES, 64, 64),
+         enc, bf, None, "model"),
+        ("flash whisper cross sq=1 tp4 heads", (56, 4, 4, 1, ENC_FRAMES, 64,
+                                                64), enc, bf, None, "model"),
+    ], rnd, bitwise=True)
+    run_decode([("decode whisper tp4 heads", (56, 4, 4, S, 64, 64), None,
+                 {}, bf, None)], rnd, gen, bitwise=True)
+    bwd_checks(torch, rnd, compare, s_train, [
+        ("bwd whisper encoder tp4 heads", (FAMILY_TRAIN[AUDIO[1:]][2], 4, 4,
+                                           ENC_FRAMES, ENC_FRAMES, 64, 64),
+         enc, bf, None),
+        ("bwd whisper cross tp4 heads", (FAMILY_TRAIN[AUDIO[1:]][2], 4, 4,
+                                         s_train, ENC_FRAMES, 64, 64), enc,
+         bf, None),
+    ])
     return errs
 
 
@@ -2679,7 +2722,7 @@ def stub_batch(torch, cfg, b: int, s: int, seed: int, device):
 
 
 def stub_generate(torch, params, cfg, batch, steps: int, forced=None,
-                  walls=None, parts=None):
+                  walls=None, parts=None, shapes=None):
     """The model-level serve of a stub batch, as the reference can serve
     it: ``prefill`` with the stubs, the caches grown by ``steps`` slots,
     then ``steps`` ``decode_step`` calls, each fed the argmax of the
@@ -2690,7 +2733,8 @@ def stub_generate(torch, params, cfg, batch, steps: int, forced=None,
     ``parts``, the launch counts of each, every count set to 0 just
     before it and read just after, under "prefill" and "decode"
     (``launch_counts()`` and the flash launches by (sq, sk, causal) under
-    "flash_by_shape")."""
+    "flash_by_shape"); given a dict ``shapes``, the prefill caches' shapes
+    under "<segment>/<unit position>/<leaf>"."""
     from repro_torch import kernels
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.models import model as M
@@ -2710,6 +2754,10 @@ def stub_generate(torch, params, cfg, batch, steps: int, forced=None,
     if parts is not None:
         kernels.reset_launch_counts()
     logits, caches = M.prefill(params, cfg, batch)
+    if shapes is not None:
+        shapes.update({f"{i}/{j}/{k}": list(t.shape) for i, seg in
+                       enumerate(caches) for j, unit in seg.items()
+                       for k, t in unit.items()})
     caches = _pad_caches(caches, s + steps, s)
     tally("prefill")
     if walls is not None:
@@ -5720,6 +5768,22 @@ def mesh_mla_phase(smi):
     return out
 
 
+def mesh_cross_phase(smi):
+    """Phase 24's whisper job alone (``--mesh-phase cross``): on a machine
+    with more cards ``mesh_train_world``'s ``--mesh-cross-rank`` over
+    min(cards, 4) of them, which computes its own world 1 on rank 0's
+    card."""
+    import torch
+    n = min(torch.cuda.device_count(), 4)
+    out = {"smi": smi}
+    if n > 1:
+        out["world"] = {"cross": world_job(n, "cross",
+                                           ["--mesh-cross-rank"])}
+    else:
+        print("   one card: whisper over TP needs more cards")
+    return out
+
+
 def mesh_grpo_world1(torch, mesh):
     """scope-qwen3-4b's greedy and sampled GRPO steps (``mesh_grpo``)
     unsharded and sharded on the world-1 ``mesh``, each from fresh seeded
@@ -5820,36 +5884,48 @@ SSM_REFS = "mesh_ssm_refs.pt"
 
 
 def ssm_cfg(name, layers=None):
-    """``name``'s config, cut to ``layers`` layers where given."""
+    """``name``'s config, cut to ``layers`` layers where given (an
+    encoder-decoder's encoder to as many)."""
     import dataclasses
     from repro_torch.configs import get_config
     full = get_config(name)
-    return full if layers is None else dataclasses.replace(
-        full, num_layers=layers)
+    if layers is None:
+        return full
+    enc = {"num_encoder_layers": layers} if full.is_encoder_decoder else {}
+    return dataclasses.replace(full, num_layers=layers, **enc)
 
 
-def ssm_logit_tokens(torch, cfg, L: int, dev):
+def logit_batch(torch, cfg, L: int, dev):
     """The batch whose prefill logits TP is held to: 8 rows of L tokens of
-    ``default_rng(33)``."""
+    ``default_rng(33)``, with the stubs ``cfg`` reads (``with_stubs``,
+    seed 33: an encoder-decoder's frames)."""
     import numpy as np
+    from repro_torch.data.pipeline import with_stubs
     toks = np.random.default_rng(33).integers(3, cfg.vocab_size, (8, L))
-    return torch.as_tensor(toks, dtype=torch.int64, device=dev)
+    return with_stubs({"tokens": torch.as_tensor(toks, dtype=torch.int64,
+                                                 device=dev)}, cfg, seed=33)
+
+
+def as_float32(batch):
+    """``batch`` with its floating columns (the stubs) in float32."""
+    return {k: v.float() if v.is_floating_point() else v
+            for k, v in batch.items()}
 
 
 def ssm_logits(torch, cfg, params, L: int):
-    """(the prefill logits of ``ssm_logit_tokens`` under ``params``, and
+    """(the prefill logits of ``logit_batch`` under ``params``, and
     under the same weights in float32 computing in float32: the bf16
     model's own distance from exact arithmetic, the yardstick of TP's),
     on the host."""
     import dataclasses
     from repro_torch.io import tree_map
     from repro_torch.models import model as M
-    tokens = ssm_logit_tokens(torch, cfg, L, "cuda")
+    batch = logit_batch(torch, cfg, L, "cuda")
     with torch.no_grad():
-        logits = M.prefill(params, cfg, {"tokens": tokens})[0].cpu()
+        logits = M.prefill(params, cfg, batch)[0].cpu()
         p32 = tree_map(lambda t: t.float(), params)
         logits32 = M.prefill(p32, dataclasses.replace(cfg, dtype="float32"),
-                             {"tokens": tokens})[0].cpu()
+                             as_float32(batch))[0].cpu()
     del p32
     release(torch)
     return logits, logits32
@@ -5915,7 +5991,7 @@ def mesh_ssm_world1(torch, mesh, world, data, anchors, lib, qids, L, ds,
     launches).  With ``refs_path`` (more cards run after) world 1's figures
     that the TP job holds its own to are saved there (``torch.save``): the
     serve's decisions, fields and launches, one batch's prefill logits
-    (``ssm_logit_tokens``), the SFT losses and the first step's gradient
+    (``logit_batch``), the SFT losses and the first step's gradient
     leaves."""
     from repro_torch.core.estimator import ReasoningEstimator
     out, refs = {}, {}
@@ -6069,8 +6145,8 @@ def shallow_tp(torch, name, depth, mesh, ref, L, ds, dev, rank):
     params = ReasoningEstimator(cfg, init_params(cfg, seed=0, device=dev)) \
         .shard(mesh).params
     with torch.no_grad():
-        logits = M.prefill(params, cfg, {"tokens": ssm_logit_tokens(
-            torch, cfg, L, dev)})[0].cpu()
+        logits = M.prefill(params, cfg, logit_batch(
+            torch, cfg, L, dev))[0].cpu()
     out = {} if ref is None else {
         "logits": logit_gate(logits, ref, f"{name}@{depth}")}
     del logits
@@ -6152,8 +6228,9 @@ def mesh_ssm_rank(refs_path: str, path: str) -> int:
                 dec, fields, counts, wall, peak = mesh_serve(torch, eng,
                                                              data, qids)
                 with torch.no_grad():
-                    logits = M.prefill(eng.estimator.params, full, {
-                        "tokens": ssm_logit_tokens(torch, full, L, dev)})[0]
+                    logits = M.prefill(eng.estimator.params, full,
+                                       logit_batch(torch, full, L,
+                                                   dev))[0]
                 run = eng.estimator.open_slots(np.full((4, L), 5, np.int32))
                 caches = {f"{j}/{k}": list(t.shape) for seg in
                           run.state.caches for j, unit in seg.items()
@@ -6509,6 +6586,334 @@ def mesh_mla_rank(path: str) -> int:
     return 0
 
 
+# whisper-medium over TP (1, n) (``mesh_cross_rank``): the encoder's and
+# the decoder's self-attention and the decoder's cross-attention each on
+# 16 / n heads, a rank's ``ck`` / ``cv`` its own heads'.  Held to world 1 on
+# rank 0's card from the same seeded weights: the audio serve at full depth
+# (24 + 24 layers, 56 rows x 49 tokens + 1500 frames, ``NEW_TOKENS`` steps)
+# teacher-forced with world 1's tokens, its logits gated by ``logit_gate``
+# on the first CROSS_F32_ROWS rows (world 1's float32 serve of those rows,
+# forced alike, the yardstick) and beside world 1's on every row; one
+# batch's prefill logits and the first SFT step's gradient leaves at
+# CROSS_SHALLOW encoder and decoder layers; MESH_TRAIN_STEPS SFT steps at
+# full depth (FAMILY_TRAIN's 64 x 57 tokens)
+CROSS_SHALLOW = 2
+CROSS_F32_ROWS = 8
+AUDIO_SEED = 8              # the audio serve's stubs (phase 12e's too)
+
+
+def audio_serve(torch, cfg, params, L: int, forced=None) -> dict:
+    """whisper's model-level serve of 56 rows x ``L`` tokens and their
+    frames (``stub_generate``, seed ``AUDIO_SEED``; given ``forced``, its
+    tokens fed): a warm-up, then a run with its walls, the prefill's and
+    the decode's launches (flash by shape), the prefill caches' shapes and
+    the peak: the tokens and float32 logits on the host."""
+    batch = stub_batch(torch, cfg, 56, L, seed=AUDIO_SEED, device="cuda")
+    stub_generate(torch, params, cfg, batch, 2)             # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, parts, shapes = {}, {}, {}
+    toks, logits = stub_generate(torch, params, cfg, batch, NEW_TOKENS,
+                                 forced=forced, walls=walls, parts=parts,
+                                 shapes=shapes)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(bool(torch.isfinite(logits).all()), f"{cfg.name}: non-finite "
+          "serve logits")
+    del batch
+    return {"tokens": toks.cpu(), "logits": logits.cpu(), "walls": walls,
+            "parts": {part: {**c, "flash_by_shape": {
+                str(key): k for key, k in c["flash_by_shape"].items()}}
+                for part, c in parts.items()},
+            "caches": shapes, "peak_gib": peak}
+
+
+def cross_world1(torch, L: int, ds) -> dict:
+    """whisper-medium on this card alone (rank 0 of ``mesh_cross_rank``
+    while the others wait), from seeded weights: at ``CROSS_SHALLOW``
+    encoder and decoder layers the prefill logits and the first step's
+    gradient leaves, each beside the same weights' in float32
+    (``ssm_logits``, ``ssm_grads``); at full depth the audio serve
+    (``audio_serve``), its first ``CROSS_F32_ROWS`` rows again in float32
+    fed the serve's tokens, and ``mesh_sft``'s steps with the flash
+    backward's launches by shape."""
+    import dataclasses
+    from repro_torch.io import tree_map
+    from repro_torch.kernels import flash_attention as FA
+    name = AUDIO[1:]
+    cut = ssm_cfg(name, CROSS_SHALLOW)
+    params, _ = full_params(torch, cut, 0.0)
+    logits, logits32 = ssm_logits(torch, cut, params, L)
+    grads, grads_vs_f32 = ssm_grads(torch, cut, params, ds)
+    ref = {"shallow": {"logits": logits, "logits_f32": logits32,
+                       "grads": grads, "grads_vs_f32": grads_vs_f32}}
+    del params
+    release(torch)
+    full = ssm_cfg(name)
+    params, _ = full_params(torch, full, FAMILY_TRAIN[name][0])
+    ref["serve"] = serve = audio_serve(torch, full, params, L)
+    rows = slice(0, CROSS_F32_ROWS)
+    batch = stub_batch(torch, full, 56, L, seed=AUDIO_SEED, device="cuda")
+    p32 = tree_map(lambda t: t.float(), params)
+    _, logits32 = stub_generate(
+        torch, p32, dataclasses.replace(full, dtype="float32"),
+        as_float32({k: v[rows] for k, v in batch.items()}), NEW_TOKENS,
+        forced=serve["tokens"][rows].to(batch["tokens"].device))
+    serve["logits_f32"] = logits32.cpu()
+    del p32, batch, logits32
+    release(torch)
+    sft = mesh_sft(torch, full, params, ds)
+    sft["bwd_by_shape"] = {str(k): v for k, v in
+                           FA.bwd_shape_launches.items()}
+    del params, sft["params"], sft["state"]
+    release(torch)
+    ref["sft"] = sft
+    return ref
+
+
+def cross_tp_kernel_rows(torch, n: int, L: int):
+    """The attention kernels at the heads a rank of a (1, n) mesh computes
+    for whisper-medium (16 / n heads of 64, g 1), as rows 2w-enc,
+    2w-cross, 2w-cross-sq1, 3w and 7w at 16 heads: the flash forward over
+    the encoder's 56 x 1500 frames, the cross-attention at 56 x L and at
+    sq = 1 over them, the dense decode at L + 12 keys, the flash backward
+    over the encoder at the SFT batch; each against its plain version on
+    the card (max |err|), its time, bound and yardstick."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    h, tag = 16 // n, f"@tp{n}/{AUDIO[1:]}"
+    calls = (("/encoder", 56, ENC_FRAMES, ENC_FRAMES, False, 10),
+             ("/cross", 56, None, ENC_FRAMES, False, 50),
+             ("/cross-sq1", 56, 1, ENC_FRAMES, False, 200))
+    rows = attention_timings(torch, L, 0.0, shapes=(
+        (tag, h, h, 64, 0.0, calls),))
+    gen = torch.Generator(device="cuda").manual_seed(38)
+    bwd = "flash_attention_bwd" + tag + "/encoder"
+    rows[bwd] = bwd_timing(torch, gen, ENC_FRAMES, hq=h, hkv=h, d=64,
+                           label=bwd, b=FAMILY_TRAIN[AUDIO[1:]][2],
+                           sk=ENC_FRAMES, causal=False)
+
+    def view(b, s):
+        return torch.randn(b, s, h, 64, generator=gen, device="cuda").to(
+            torch.bfloat16).transpose(1, 2)
+
+    def err(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    errs, scale = {}, {}
+    for suffix, b, sq, sk, _, _ in calls:
+        q, k, v = view(b, sq or L), view(b, sk), view(b, sk)
+        row = "flash_attention" + tag + suffix
+        want = FA.flash_attention_plain(q, k, v, causal=False)
+        errs[row] = err(FA.flash_attention_cuda(q, k, v, causal=False), want)
+        # over 1500 keys an output is ~0.05: held relative to max|want|
+        scale[row] = min(1.0, want.float().abs().max().item())
+        del q, k, v, want
+    S = L + NEW_TOKENS
+    qd = view(56, 1).contiguous()
+    kc, vc = view(56, S).contiguous(), view(56, S).contiguous()
+    lens = torch.full((56,), S, dtype=torch.int32, device="cuda")
+    errs["decode_attention" + tag] = err(
+        DA.decode_attention_cuda(qd, kc, vc, lens),
+        DA.decode_attention_plain(qd, kc, vc, lens))
+    del qd, kc, vc
+    b = FAMILY_TRAIN[AUDIO[1:]][2]
+    q, k, v = (view(b, ENC_FRAMES).requires_grad_(True) for _ in range(3))
+    dout = view(b, ENC_FRAMES).contiguous()
+    with torch.no_grad():
+        out, lse = FA.flash_attention_cuda(q, k, v, causal=False,
+                                           return_lse=True)
+    got = FA.flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal=False)
+    want = torch.autograd.grad(FA.flash_attention_plain(q, k, v,
+                                                        causal=False),
+                               (q, k, v), dout)
+    errs[bwd] = max(err(a, c) for a, c in zip(got, want, strict=True))
+    # gradients reach ~10, where one bf16 step is 0.06 (bwd_checks' scale)
+    scale[bwd] = max(1.0, max(w.float().abs().max().item() for w in want))
+    del q, k, v, dout, out, lse, got, want
+    for row, e in errs.items():
+        check(e <= BF16_TOL * scale.get(row, 1.0),
+              f"{row}: {e:.3e} from its plain version")
+        rows[row]["max_abs_err"] = e
+    release(torch)
+    return rows
+
+
+def mesh_cross_rank(path: str) -> int:
+    """One rank of ``mesh_train_world``'s fifth job, which needs nothing
+    from the parent: whisper-medium with its encoder's and decoder's
+    attention and its decoder's cross-attention on 16 / n heads over TP (1,
+    n), held to world 1 on rank 0's card from the same seeded weights
+    (``cross_world1``; the other ranks wait): the audio serve at full depth
+    fed world 1's tokens (logits through ``logit_gate``, the prefill's and
+    the decode's launches equal, flash by shape too), the heads of every
+    flash and dense decode call, a rank's ``k`` / ``v`` / ``ck`` / ``cv``
+    at 16 / n heads, the rank's param bytes against ``local_bytes``; the
+    logits and first-step gradient leaves at ``CROSS_SHALLOW`` layers
+    (``shallow_tp``); ``MESH_TRAIN_STEPS`` SFT steps at full depth (losses
+    within 3e-2 relative, launches equal), with every card's peaks.  Rank 0
+    adds the kernels' rows at a rank's heads (``cross_tp_kernel_rows``),
+    their launches from its own TP run, and writes what it found."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.estimator import ReasoningEstimator
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.mesh import init_distributed, make_serve_mesh
+    from repro_torch.models.model import init_params
+    dev = init_distributed()
+    n, rank = dist.get_world_size(), dist.get_rank()
+    out = {"world": n, "smi": nvidia_smi(), "mesh": [1, n]}
+    t0 = time.perf_counter()
+    name = AUDIO[1:]
+
+    def say(msg):
+        if rank == 0:
+            print(f"   [world {n} cross, {time.perf_counter() - t0:.0f} s] "
+                  f"{msg}", flush=True)
+
+    def by_rank(x: float):
+        got = [torch.zeros((), device=dev) for _ in range(n)]
+        dist.all_gather(got, torch.zeros((), device=dev) + x)
+        return [float(v) for v in got]
+
+    try:
+        world, data, anchors, lib = build_world()
+        qids = [int(q) for q in data.test_qids[:N_QUERIES]]
+        L = prompt_len(world, data, anchors, lib, qids)
+        ds = sft_dataset()
+        ref = None
+        if rank == 0:
+            ref = cross_world1(torch, L, ds)
+            one, sft1 = ref["serve"], ref["sft"]
+            out["world1"] = {"serve": {k: one[k] for k in (
+                "walls", "parts", "caches", "peak_gib")}, "sft": sft1}
+            say(f"{name} world 1 on rank 0's card: audio serve walls "
+                f"{one['walls']}, peak {one['peak_gib']:.2f} GiB; SFT "
+                f"losses {sft1['losses']}, step walls "
+                f"{[round(w, 3) for w in sft1['walls_s']]} s, peak "
+                f"{sft1['peak_gib']:.2f} GiB")
+        # world 1's tokens, launches and losses on every rank
+        small = [None if ref is None else {
+            "tokens": ref["serve"]["tokens"].tolist(),
+            "parts": ref["serve"]["parts"],
+            "sft": {k: ref["sft"][k] for k in ("losses", "launches",
+                                               "bwd_by_shape")}}]
+        dist.broadcast_object_list(small, src=0)
+        small = small[0]
+        mesh = make_serve_mesh(n_data=1, n_model=n)
+        full = ssm_cfg(name)
+        split = coll.model_split(full, mesh)
+        check(split.attn, f"{name}: attention computes whole on (1, {n}): "
+              f"{split}")
+        h = full.num_heads // n
+        heads = f"{h}/{h}"
+        plain = init_params(full, seed=0, device=dev)
+        params = ReasoningEstimator(full, plain).shard(mesh).params
+        del plain
+        release(torch)
+        pbytes = rank_bytes(params)
+        want_bytes = spec_bytes(mesh, full)
+        check(pbytes == want_bytes, f"{name} TP param bytes {pbytes} vs "
+              f"local_bytes {want_bytes}")
+        forced = torch.tensor(small["tokens"], dtype=torch.int32, device=dev)
+        with HeadProbe() as probe:
+            serve = audio_serve(torch, full, params, L, forced=forced)
+        check(serve["parts"] == small["parts"],
+              f"{name} TP serve launches {serve['parts']} vs world 1 "
+              f"{small['parts']}")
+        seen = probe.seen()
+        check(sorted(seen) == ["decode_attention", "flash_attention"]
+              and all(list(c) == [heads] for c in seen.values()),
+              f"{name} TP attention heads {seen}, want {heads}")
+        frames = full.encoder_seq_len
+        want = {"k": L, "v": L, "ck": frames, "cv": frames}
+        check(serve["caches"] == {
+            f"0/0/{k}": [full.num_layers, 56, h, s, full.resolved_head_dim]
+            for k, s in want.items()},
+            f"{name} TP prefill caches {serve['caches']}: want the rank's "
+            f"{h} heads")
+        out["serve"] = {"walls": serve["walls"], "parts": serve["parts"],
+                        "peak_gib": by_rank(serve["peak_gib"]),
+                        "heads": seen, "caches": serve["caches"],
+                        "param_bytes": pbytes}
+        if rank == 0:
+            rows = slice(0, CROSS_F32_ROWS)
+            one = ref["serve"]
+            out["serve"]["logits"] = dict(logit_gate(
+                serve["logits"][rows], {"logits": one["logits"][rows],
+                                        "logits_f32": one["logits_f32"]},
+                f"{name} TP serve"),
+                every_row_tp_vs_world1=logit_dist(serve["logits"],
+                                                  one["logits"]))
+        del serve
+        release(torch)
+        say(f"{name} TP (1, {n}): audio serve fed world 1's tokens, "
+            f"launches equal ({out['serve']['parts']['decode']}); heads "
+            f"{seen}; caches {out['serve']['caches']}; param bytes "
+            f"{pbytes}; walls {out['serve']['walls']}, peaks "
+            f"{out['serve']['peak_gib']} GiB; logits {out['serve'].get('logits')}")
+
+        out["shallow"] = shallow_tp(
+            torch, name, CROSS_SHALLOW, mesh,
+            None if ref is None else ref["shallow"], L, ds, dev, rank)
+        say(f"{name}@{CROSS_SHALLOW}+{CROSS_SHALLOW} TP (1, {n}): "
+            f"{out['shallow']}")
+
+        with HeadProbe() as probe:
+            sft = mesh_sft(torch, full, params, ds)
+        sft["bwd_by_shape"] = {str(k): v for k, v in
+                               FA.bwd_shape_launches.items()}
+        sbytes = rank_bytes(sft["state"].mu) + rank_bytes(sft["state"].nu)
+        del params, sft["params"], sft["state"]
+        release(torch)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(
+            sft["losses"], small["sft"]["losses"], strict=True))
+        check(rel <= BF16_TOL, f"{name} TP SFT losses {sft['losses']} vs "
+              f"world 1 {small['sft']['losses']}")
+        check(sft["launches"] == small["sft"]["launches"]
+              and sft["bwd_by_shape"] == small["sft"]["bwd_by_shape"],
+              f"{name} TP SFT launches {sft['launches']} "
+              f"{sft['bwd_by_shape']} vs world 1 {small['sft']}")
+        sft_heads = probe.seen()
+        check(list(sft_heads) == ["flash_attention"]
+              and list(sft_heads["flash_attention"]) == [heads],
+              f"{name} TP SFT attention heads {sft_heads}")
+        sft["peak_gib_by_rank"] = by_rank(sft["peak_gib"])
+        out.update(sft=sft, sft_rel_err=rel, sft_heads=sft_heads,
+                   adamw_bytes=sbytes)
+        say(f"{name} TP SFT: losses {sft['losses']} (world 1 "
+            f"{small['sft']['losses']}, {rel:.2e} rel); step walls "
+            f"{[round(w, 3) for w in sft['walls_s']]} s, peak by rank "
+            f"{sft['peak_gib_by_rank']} GiB, launches {sft['launches']}")
+        del ref
+        release(torch)
+        if rank == 0:
+            t1 = time.perf_counter()
+            out["kernels"] = cross_tp_kernel_rows(torch, n, L)
+            tag, pre, dec = (f"@tp{n}/{name}", out["serve"]["parts"][
+                "prefill"], out["serve"]["parts"]["decode"])
+            enc = str((frames, frames, False))
+            out["row_launches"] = {
+                f"flash_attention{tag}/encoder": pre["flash_by_shape"][enc],
+                f"flash_attention{tag}/cross": pre["flash_by_shape"][
+                    str((L, frames, False))],
+                f"flash_attention{tag}/cross-sq1": dec["flash_by_shape"][
+                    str((1, frames, False))],
+                f"decode_attention{tag}": dec["decode_attention"],
+                f"flash_attention_bwd{tag}/encoder": sft["bwd_by_shape"][enc]}
+            say(f"kernel rows at a rank's whisper heads, launches "
+                f"{out['row_launches']}: {time.perf_counter() - t1:.1f} s")
+        dist.barrier()
+        out["job_s"] = time.perf_counter() - t0
+        say(f"the job: {out['job_s']:.1f} s")
+        if rank == 0:
+            Path(path).write_text(json.dumps(out, default=str))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def mesh_train_world(n, refs):
     """World ``n`` over NCCL, one process a card, in three jobs
     (``world_job``): ``chip_smoke.py --mesh-train-rank`` held to the
@@ -6517,22 +6922,27 @@ def mesh_train_world(n, refs):
     GRPO against world 1 on rank 0's card), then ``--mesh-ssm-rank``
     (mamba2-1.3b and zamba2-7b over TP, held to ``mesh_ssm_world1``'s saved
     figures), then ``--mesh-mla-rank`` (deepseek-v2-lite-16b's MLA heads
-    over TP, against world 1 on rank 0's card)."""
+    over TP, against world 1 on rank 0's card), then ``--mesh-cross-rank``
+    (whisper-medium's attention and cross-attention heads over TP, against
+    world 1 on rank 0's card)."""
     refs_path = OUT_DIR / "mesh_train_refs.json"
     refs_path.write_text(json.dumps(refs, default=list))
     got = {job: world_job(n, job, args) for job, args in (
         ("train", ["--mesh-train-rank", str(refs_path)]),
         ("moe_grpo", ["--mesh-moe-grpo-rank"]),
         ("ssm", ["--mesh-ssm-rank", str(OUT_DIR / SSM_REFS)]),
-        ("mla", ["--mesh-mla-rank"]))}
+        ("mla", ["--mesh-mla-rank"]),
+        ("cross", ["--mesh-cross-rank"]))}
     out = dict(got["train"], **{k: v for k, v in got["moe_grpo"].items()
                                 if k in ("moe_world1", "grpo", "moe_over_cards")})
     out["fsdp"].update(got["moe_grpo"]["fsdp"])
     out["ssm"] = got["ssm"]
     out["mla"] = got["mla"]
+    out["cross"] = got["cross"]
     out["wall_s"] = {job: r["wall_s"] for job, r in got.items()}
-    print(f"   world {n}: TP, FSDP, the MoE rows, GRPO, the SSM backbones and "
-          f"MLA held to world 1, {out['wall_s']} s")
+    print(f"   world {n}: TP, FSDP, the MoE rows, GRPO, the SSM backbones, "
+          f"MLA and whisper's cross-attention held to world 1, "
+          f"{out['wall_s']} s")
     return out
 
 
@@ -7107,7 +7517,8 @@ def main(mesh_only: str = "") -> int:
     """Every phase, or with ``mesh_only`` (``--mesh-phase``: "all") the
     device, build, world and mesh phases alone, ending with the mesh report
     ("ssm", ``--mesh-phase ssm``: of the mesh phases phase 24's SSM
-    backbones alone; "mla", ``--mesh-phase mla``: its MLA job alone)."""
+    backbones alone; "mla", ``--mesh-phase mla``: its MLA job alone;
+    "cross", ``--mesh-phase cross``: its whisper job alone)."""
     # torch.compile (the softcapped rows' yardstick) keeps its caches in
     # the checkout's build directory and compiles in this process
     for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
@@ -7182,6 +7593,11 @@ def main(mesh_only: str = "") -> int:
         t = phase("mesh training: MLA over TP")
         report = {"mesh_mla": mesh_mla_phase(smi)}
         report["mesh_mla"]["seconds"] = time.perf_counter() - t
+    elif mesh_only == "cross":
+        t = phase("mesh training: whisper's attention and cross-attention "
+                  "over TP")
+        report = {"mesh_cross": mesh_cross_phase(smi)}
+        report["mesh_cross"]["seconds"] = time.perf_counter() - t
     elif mesh_only:
         t = phase("mesh")
         report = {"mesh": mesh_phase(torch, world, data, anchors, lib, qids,
@@ -7317,7 +7733,8 @@ def main(mesh_only: str = "") -> int:
     audio_cfg = get_config("whisper-medium")
     params, n_params = full_params(torch, audio_cfg, 0.7e9)
     report["audio"] = dict(full_stub_serve(torch, audio_cfg, params, stub_batch(
-        torch, audio_cfg, 56, L, seed=8, device="cuda")), params=n_params)
+        torch, audio_cfg, 56, L, seed=AUDIO_SEED, device="cuda")),
+        params=n_params)
     del params
     release(torch)
     done(t)
@@ -7607,6 +8024,19 @@ def main(mesh_only: str = "") -> int:
                 "max_abs_err": tm["max_abs_err"], "ms": tm["ms"],
                 "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
                 "bound_by": tm["bound_by"], "library_ms": tm["library_ms"]})
+    # and the attention kernels at the whisper heads one rank of the (1, n)
+    # mesh computes, with the launches of rank 0's TP serve and SFT
+    cross = report["mesh_train"].get("world", {}).get("cross")
+    if cross:
+        for row, count in cross["row_launches"].items():
+            name = row.split("@")[0]
+            tm = cross["kernels"][row]
+            kernel_rows.append({
+                "name": row, "route": "cuda", "source": SOURCES[name],
+                "replaces": TPU_KERNELS[name], "launches": count,
+                "max_abs_err": tm["max_abs_err"], "ms": tm["ms"],
+                "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
+                "bound_by": tm["bound_by"], "library_ms": tm["library_ms"]})
     report["kernels"] = kernel_rows
     report["timing"] = timing
     OUT_DIR.mkdir(exist_ok=True)
@@ -7631,7 +8061,10 @@ if __name__ == "__main__":
         sys.exit(mesh_ssm_rank(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--mesh-mla-rank"]:
         sys.exit(mesh_mla_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--mesh-cross-rank"]:
+        sys.exit(mesh_cross_rank(sys.argv[2]))
     sys.exit(main(mesh_only={("--mesh-phase",): "all",
                              ("--mesh-phase", "ssm"): "ssm",
-                             ("--mesh-phase", "mla"): "mla"}.get(
+                             ("--mesh-phase", "mla"): "mla",
+                             ("--mesh-phase", "cross"): "cross"}.get(
                                  tuple(sys.argv[1:]), "")))

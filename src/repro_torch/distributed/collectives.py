@@ -20,7 +20,12 @@ them after it.
     passes ``enter`` (identity forward, all-reduce backward) and its
     row-parallel output ``leave`` (all-reduce forward, identity backward);
     ``q_norm`` / ``k_norm`` see only the local heads, so their gradients are
-    summed over ``model``.  An MLA layer keeps its blocks of ``wq``,
+    summed over ``model``.  An encoder-decoder's cross-attention splits
+    with its self-attention: its ``wq``, ``wk``, ``wv`` keep their column
+    blocks and ``wo`` its row block, each rank projecting the encoder
+    output through its own heads' columns, so that output's gradient is
+    summed over ``model`` once, where the decoder stack takes it in
+    (``models.model``).  An MLA layer keeps its blocks of ``wq``,
     ``w_uk``, ``w_uv`` (columns) and ``wo`` (rows), and gathers ``w_dkv``
     and ``kv_norm`` whole: every rank computes the whole latent and uses it
     for its own heads only, so their gradients are summed over ``model``.
@@ -268,10 +273,12 @@ def model_split(cfg: ModelConfig, mesh) -> Split:
     its own, its latent being whole on every rank — the MLP where ``d_ff``
     does, the vocabulary where ``vocab_size`` does, a Mamba layer where its
     SSD heads do (as the reference's ``_fit`` keeps the heads rule of
-    ``xh``); none at ``model`` = 1.  Other blocks (MoE experts,
-    cross-attention) never split: their leaves are gathered over ``model``
-    and computed on every rank, as is attention whose heads do not divide
-    (``sharding._fit`` may still cut such a leaf mid-head)."""
+    ``xh``); none at ``model`` = 1.  An encoder-decoder's
+    cross-attention has ``num_heads`` K/V heads, so it splits wherever its
+    block's self-attention does.  MoE experts never split: their leaves
+    are gathered over ``model`` and computed on every rank, as is
+    attention whose heads do not divide (``sharding._fit`` may still cut
+    such a leaf mid-head)."""
     n = axis_sizes(mesh).get("model", 1)
     if n == 1:
         return Split(False, False, False, False)
@@ -349,21 +356,23 @@ class Layout:
               ) -> Tuple[Dict, Optional[TP]]:
         """A layer's pieces as plain tensors and its split (None where it
         computes whole): attention keeps its local heads where the split
-        allows and the block has no cross-attention (an MLA layer its
-        blocks of ``wq``, ``w_uk``, ``w_uv`` and ``wo``, its latent's
-        leaves whole with their gradients summed over ``model``), the MLP
+        allows (an MLA layer its blocks of ``wq``, ``w_uk``, ``w_uv`` and
+        ``wo``, its latent's leaves whole with their gradients summed over
+        ``model``; a decoder block's cross-attention too its blocks of
+        ``wq``, ``wk``, ``wv`` and ``wo``, ``cross_norm`` whole), the MLP
         its local columns, a Mamba layer its rows of ``out_proj``, every
         other leaf of it whole with its gradient summed over ``model``."""
         mla = kind in _MLA_KINDS
-        attn = (self.split.attn and (mla or kind in _GQA_KINDS)
-                and "cross" not in p)
+        attn = self.split.attn and (mla or kind in _GQA_KINDS)
         mlp = self.split.mlp and "mlp" in p
         ssm = self.split.ssm and kind == "mamba"
         keep, partial = ((_TP_MLA, _TP_MLA_PARTIAL) if mla
                          else (_TP_ATTN, _TP_ATTN_PARTIAL))
         out = {}
         for name, sub in p.items():
-            if name == "attn" and attn:
+            # a decoder block's cross-attention has GQA's leaves (its
+            # ``hq`` K/V heads split with the queries'; no norms)
+            if name in ("attn", "cross") and attn:
                 out[name] = {k: self.tree(v, keep_model=k in keep,
                                           model_partial=k in partial)
                              for k, v in sub.items()}

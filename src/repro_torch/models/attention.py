@@ -16,7 +16,10 @@ Cross-attention (the encoder-decoder's decoder blocks) has ``num_heads``
 K/V heads, projected once from the encoder output (``cross_kv``) and kept
 in the cache as ``ck`` / ``cv`` (b, hq, enc_seq, hd); every query, of a
 prefill and of each decode step (sq = 1), attends all of them through the
-flash kernel with no causal mask, as the reference does.
+flash kernel with no causal mask, as the reference does.  Split over
+``model``, a rank projects and caches its own heads' K/V (``ck`` / ``cv``
+(b, hq / n, enc_seq, hd)) and attends with its own query heads, giving the
+float32 share of ``wo`` (``partial``), as self-attention does.
 
 Multi-head latent attention (DeepSeek-V2's ``mla`` kinds) caches one
 latent a token instead of per-head K/V: ``c_kv`` (b, S, kv_lora_rank),
@@ -187,8 +190,10 @@ def init_cross(generator: torch.Generator, cfg: ModelConfig, *, device,
 def cross_kv(p, cfg: ModelConfig, enc_out: torch.Tensor) -> Dict:
     """Project the encoder output once: {"ck", "cv"} as (b, hq, enc_seq,
     hd) views of the (b, enc_seq, hq * hd) projections, cached for the whole
-    decode.  An encoder output in another dtype than the weights (float32
-    stubs in a bf16 model) projects in the promoted dtype, as in JAX."""
+    decode (hq ``cfg``'s heads: a rank's share under a split over
+    ``model``).  An encoder output in another dtype than the weights
+    (float32 stubs in a bf16 model) projects in the promoted dtype, as in
+    JAX."""
     b, se, _ = enc_out.shape
     hq, hd = cfg.num_heads, cfg.resolved_head_dim
     k = promoted_matmul(enc_out, p["wk"]).reshape(b, se, hq, hd)
@@ -303,12 +308,14 @@ def mla_decode(p, cfg: ModelConfig, x, cos, sin, cache: Dict,
                     partial)
 
 
-def cross_attend(p, cfg: ModelConfig, x: torch.Tensor, kv: Dict
-                 ) -> torch.Tensor:
+def cross_attend(p, cfg: ModelConfig, x: torch.Tensor, kv: Dict, *,
+                 partial: bool = False) -> torch.Tensor:
     """x: (b, s, d) attends every cached encoder position (no mask) ->
-    (b, s, d); s = 1 in decode."""
+    (b, s, d); s = 1 in decode.  ``partial`` as ``gqa_full``'s: ``cfg``'s
+    heads are one rank's share, and ``kv`` holds them."""
     b, s, _ = x.shape
     hq, hd = cfg.num_heads, cfg.resolved_head_dim
     q = (x @ p["wq"]).reshape(b, s, hq, hd).transpose(1, 2)
     out = ops.flash_attention(q, kv["ck"], kv["cv"], causal=False)
-    return out.transpose(1, 2).reshape(b, s, hq * hd) @ p["wo"]
+    return out_proj(out.transpose(1, 2).reshape(b, s, hq * hd), p["wo"],
+                    partial)

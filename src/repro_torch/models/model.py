@@ -50,9 +50,11 @@ Every entry point also takes params sharded over a device mesh
 attention, Mamba's SSD) and MLP columns where ``collectives.model_split``
 splits them (a split Mamba layer's caches hold its channels and heads, a
 split MLA layer's the whole latent, written alike on every rank along
-``model``); MoE experts are gathered whole over ``model``; the vocabulary
-splits too, and the logits come back whole on every rank (the local slice all-gathered
-along the last dim: (b, s, V) a rank, as one process holds).  ``loss_fn``
+``model``, a split decoder block's its own heads' ``ck`` / ``cv``: (L,
+b, hq / n, enc_seq, hd)); MoE experts are gathered whole over ``model``;
+the vocabulary splits too, and the logits come back whole on every rank
+(the local slice all-gathered along the last dim: (b, s, V) a rank, as
+one process holds).  ``loss_fn``
 (and GRPO's loss) computes this rank's rows of the batch (``local_batch``)
 and returns the whole batch's loss on every rank.
 """
@@ -247,6 +249,11 @@ def _forward_full(params, cfg: ModelConfig, batch: Dict, *,
     enc_out = (_encode(params, cfg, batch["enc_features"], remat=remat,
                        lay=lay)
                if cfg.is_encoder_decoder else None)
+    if enc_out is not None and lay is not None and lay.split.attn:
+        # the same on every rank along ``model``, each projecting it
+        # through its own heads' columns of the cross blocks' wk / wv: its
+        # gradient summed over ``model`` here, once for every layer
+        enc_out = coll.enter(enc_out, lay.model)
     caches = []
     aux = h.new_zeros((), dtype=torch.float32)
     for seg, (unit, count) in zip(params["segments"], tf.build_plan(cfg),
@@ -377,7 +384,9 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
     exactly ``window`` slots its decode is the ring buffer), and an
     encoder-decoder's attention layers add zero ``ck`` / ``cv`` (L, b, hq,
     enc_seq, hd).  An MLA layer's latent caches hold ``max_len`` slots,
-    never a ring."""
+    never a ring.  The shapes are the global ones, as one process holds
+    them: on params split over ``model`` a rank's caches come from
+    ``prefill``, at its own heads."""
     dev = resolve_device(device)
     dt = dtype_of(cfg.dtype)
 

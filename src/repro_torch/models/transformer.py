@@ -34,7 +34,9 @@ layer stays whole after it ran.  A block that splits over ``model`` runs
 its attention on its own heads (a config of the local head counts), its
 MLP on its own columns and a Mamba layer on its own SSD heads, and sums
 their outputs over ``model``; a split MLA layer attends with its own heads
-and keeps the whole latent caches, the same on every rank along ``model``.
+and keeps the whole latent caches, the same on every rank along ``model``;
+a split decoder block's cross-attention projects and caches its own heads'
+``ck`` / ``cv`` and attends with them, its output summed over ``model``.
 """
 from __future__ import annotations
 
@@ -210,8 +212,11 @@ def block_full(p: Dict, cfg: ModelConfig, kind: str, h: torch.Tensor, cos,
     """(h, the layer's cache, its MoE load-balance loss: 0 without MoE).
     ``lay`` (a ``collectives.Layout``) gathers a sharded layer's pieces;
     under a split over ``model`` the cache holds the local K/V heads (a
-    Mamba layer's: its conv channels and SSD heads; an MLA layer's: the
-    whole latent)."""
+    cross block's ``ck`` / ``cv`` too, (b, hq / n, enc_seq, hd); a Mamba
+    layer's: its conv channels and SSD heads; an MLA layer's: the whole
+    latent).  ``enc_out`` there has its gradient summed over ``model``
+    already (``models.model``), as each rank reads it through its own
+    heads' columns only."""
     p, tp = _whole(p, cfg, kind, lay)
     if kind == "mamba":
         y, cache = ssm_mod.mamba_full(p["mamba"], cfg,
@@ -230,7 +235,7 @@ def block_full(p: Dict, cfg: ModelConfig, kind: str, h: torch.Tensor, cos,
                           causal=causal)
     ckv = None
     if "cross" in p and enc_out is not None:
-        ckv = attn_mod.cross_kv(p["cross"], cfg, enc_out)
+        ckv = attn_mod.cross_kv(p["cross"], acfg, enc_out)
         cache.update(ckv)
     h, aux = _attn_block_tail(p, cfg, kind, h, y, ckv, tp, lay=lay)
     return h, cache, aux
@@ -242,16 +247,23 @@ def _attn_block_tail(p: Dict, cfg: ModelConfig, kind: str, h: torch.Tensor,
     """The residual adds and the MLP (or MoE) after an attention output
     ``y``, with gemma2's post-norms under ``sandwich_norm`` and, given the
     encoder's ``ckv``, the cross-attention between the two.  Returns (h,
-    aux).  Under ``tp`` with ``tp.mlp`` the MLP computes its own columns
-    and sums its output over ``model``; ``lay`` makes a MoE's loss the
-    whole batch's where rows split over ``data``."""
+    aux).  Under ``tp`` with ``tp.attn_cfg`` the cross-attention computes
+    its own heads (``ckv`` holds them), with ``tp.mlp`` the MLP its own
+    columns, each summing its output over ``model``; ``lay`` makes a
+    MoE's loss the whole batch's where rows split over ``data``."""
     if cfg.sandwich_norm:
         y = rmsnorm(p["post_attn_norm"], y, cfg.rmsnorm_eps)
     h = h + y
     if ckv is not None:
-        h = h + attn_mod.cross_attend(
-            p["cross"], cfg, rmsnorm(p["cross_norm"], h, cfg.rmsnorm_eps),
-            ckv)
+        xc = rmsnorm(p["cross_norm"], h, cfg.rmsnorm_eps)
+        acfg = _attn_cfg(cfg, tp)
+        if acfg is not cfg:
+            yc = coll.leave(attn_mod.cross_attend(
+                p["cross"], acfg, coll.enter(xc, tp.group), ckv,
+                partial=True), tp.group).to(xc.dtype)
+        else:
+            yc = attn_mod.cross_attend(p["cross"], cfg, xc, ckv)
+        h = h + yc
     x2 = rmsnorm(p["mlp_norm"], h, cfg.rmsnorm_eps)
     if is_moe(kind):
         y2, aux = moe_mod.moe_forward(p["moe"], cfg, x2, lay=lay)
@@ -278,8 +290,8 @@ def block_decode(p: Dict, cfg: ModelConfig, kind: str, h: torch.Tensor,
     layers and encoder-decoders off it.  A MoE block's load-balance loss
     is dropped, as in the reference's decode.  ``lay`` as ``block_full``'s:
     under a split over ``model`` the cache holds the local K/V heads (a
-    Mamba layer's: its conv channels and SSD heads; an MLA layer's: the
-    whole latent)."""
+    cross block's ``ck`` / ``cv`` too; a Mamba layer's: its conv channels
+    and SSD heads; an MLA layer's: the whole latent)."""
     p, tp = _whole(p, cfg, kind, lay)
     if kind == "mamba":
         return h + ssm_mod.mamba_decode(
@@ -326,7 +338,8 @@ def segment_full(seg: Dict, shared, cfg: ModelConfig, unit: Tuple[str, ...],
     leading count axis: k/v (count, b, hkv, s, hd), c_kv (count, b, s,
     lora), k_rope (count, b, s, rope), conv (count, b, width - 1,
     conv_dim), ssm (count, b, heads, p, n), and a cross-attention block's
-    ck / cv (count, b, hq, enc_seq, hd); the dict is empty when
+    ck / cv (count, b, hq, enc_seq, hd); under a split over ``model`` each
+    holds a rank's share, as ``block_full`` says.  The dict is empty when
     ``want_cache`` is False.
     ``enc_out`` is the encoder output the cross blocks attend; ``causal``
     False runs the self-attention unmasked (the encoder).

@@ -386,11 +386,11 @@ def _fake_layout(n_model: int, split, monkeypatch):
     return coll.Layout(None, split, False, None, None, 1, n_model, 0)
 
 
-def _mla_layer_blocks(cfg, n_model: int, cut: bool = True):
-    """Layer 0 of ``cfg``'s first segment (the dense MLA layer) as rank 0's
-    ``Block``s under the reference's specs on (1, ``n_model``); ``cut``
-    False leaves every leaf uncut (a spec that does not cut over
-    ``model``)."""
+def layer_blocks(cfg, n_model: int, cut: bool = True):
+    """Layer 0 of ``cfg``'s first segment (deepseek's dense MLA layer,
+    whisper's first decoder block) as rank 0's ``Block``s under the
+    reference's specs on (1, ``n_model``); ``cut`` False leaves every leaf
+    uncut (a spec that does not cut over ``model``)."""
     from repro_torch.distributed import collectives as coll
     from repro_torch.distributed import sharding as shd
     from repro_torch.distributed.sharding import MeshSpec
@@ -431,7 +431,7 @@ def test_layout_block_splits_mla_where_heads_divide(monkeypatch):
     for n in (2, 4):
         split = coll.model_split(cfg, MeshSpec(("data", "model"), (1, n)))
         assert split.attn is True
-        blocks, whole = _mla_layer_blocks(cfg, n)
+        blocks, whole = layer_blocks(cfg, n)
         out, tp = _fake_layout(n, split, monkeypatch).block(blocks, cfg, "mla")
         a, w = out["attn"], whole["attn"]
         for k, dim in (("wq", 1), ("w_uk", 1), ("w_uv", 1), ("wo", 0)):
@@ -458,7 +458,7 @@ def test_mla_computes_whole_where_heads_do_not_divide(monkeypatch):
     cfg = get_config("deepseek-v2-lite-16b").reduced(num_heads=3)
     split = coll.model_split(cfg, MeshSpec(("data", "model"), (1, 2)))
     assert split.attn is False
-    blocks, whole = _mla_layer_blocks(cfg, 2)
+    blocks, whole = layer_blocks(cfg, 2)
     out, tp = _fake_layout(2, split, monkeypatch).block(blocks, cfg, "mla")
     assert tp is None or tp.attn_cfg is None
     assert blocks["attn"]["wq"].cuts == (("model", 1),)
@@ -479,7 +479,7 @@ def test_split_mla_refuses_a_leaf_its_spec_does_not_cut(monkeypatch):
     from repro_torch.distributed.sharding import MeshSpec
     cfg = port_config()
     split = coll.model_split(cfg, MeshSpec(("data", "model"), (1, 2)))
-    blocks, _ = _mla_layer_blocks(cfg, 2, cut=False)
+    blocks, _ = layer_blocks(cfg, 2, cut=False)
     with pytest.raises(ValueError, match="computes split over model"):
         _fake_layout(2, split, monkeypatch).block(blocks, cfg, "mla")
 
